@@ -1,0 +1,60 @@
+"""Carry the JAX package's prepared state into the port.
+
+This system has no weights: its state is the prepared scene and emitter
+packs. Both functions take a dict of NumPy arrays keyed by the field names
+of ``raystrack_tpu.prepared.ScenePack`` / ``EmitterPack`` (scalars as
+ints; e.g. ``{f.name: np.asarray(getattr(pack, f.name)) ...}``) and return
+the port's packs on ``device``, so one prepared state drives both packages.
+
+The JAX scene pack's AABB-gate fields (``tri_tile``, ``tile_lo``,
+``tile_hi``) only gate work the port's sweep does anyway, so they are
+dropped; slim packs (``tri_pack``) are not taken yet.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .prepared import EmitterPack, ScenePack
+
+_SCENE_IGNORED = ("tri_tile", "tile_lo", "tile_hi")
+_EMITTER_IGNORED = ("plane_host",)
+
+
+def _convert(cls, d: Dict[str, Any], device: torch.device, ignored):
+    kwargs = {}
+    for f in fields(cls):
+        if f.name not in d:
+            raise KeyError(f"{cls.__name__} field {f.name!r} missing")
+        value = d[f.name]
+        if f.type == "int":
+            kwargs[f.name] = int(value)
+        else:
+            # np.array copies: the caller's arrays may be read-only views
+            kwargs[f.name] = torch.from_numpy(np.array(value)).to(device)
+    extra = set(d) - {f.name for f in fields(cls)} - set(ignored)
+    if extra:
+        raise KeyError(f"{cls.__name__} has no fields {sorted(extra)}")
+    return cls(**kwargs)
+
+
+def scene_pack_from_arrays(d: Dict[str, Any], device: torch.device) -> ScenePack:
+    """The port's ScenePack from a JAX ScenePack's fields as NumPy arrays."""
+    if d.get("tri_pack") is not None:
+        raise NotImplementedError(
+            "slim (pack-resident) scene packs are not ported yet (ROADMAP: "
+            "the slim pack-resident mode)"
+        )
+    d = {k: v for k, v in d.items() if k != "tri_pack"}
+    return _convert(ScenePack, d, torch.device(device), _SCENE_IGNORED)
+
+
+def emitter_pack_from_arrays(d: Dict[str, Any], device: torch.device) -> EmitterPack:
+    """The port's EmitterPack from a JAX EmitterPack's fields as NumPy arrays."""
+    return _convert(EmitterPack, d, torch.device(device), _EMITTER_IGNORED)
+
+
+__all__ = ["scene_pack_from_arrays", "emitter_pack_from_arrays"]
