@@ -5,23 +5,35 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel from ``raystrack_tpu_torch/csrc`` (nvcc, at first
-use), checks it bitwise against its plain PyTorch version at the benchmark
-soup shape (98,304 triangles x 262,144 rays, all 6 output/mask variants),
-then drives ``view_factor_matrix`` on the card through four scenes and
-checks each against its analytic or plain reference:
+It builds the CUDA kernels from ``raystrack_tpu_torch/csrc`` (nvcc, at first
+use), checks each bitwise against its plain PyTorch version at the shapes
+the main path gives it, then drives ``view_factor_matrix`` on the card
+through five scenes and checks each against its analytic or plain
+reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      nvcc build time and register/spill report
-3. kernel     kernel vs plain version on the soup; times (CUDA events, best of 3)
-4. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4)
-5. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4)
-6. district   97 emitters: >= 90 non-empty rows, warm solve wall time
-7. soup       the soup through view_factor_matrix; equals phase 3's counts
-8. launches   every chunk of phases 4-7 launched the kernel on card tensors
+3. kernel #1  single-emitter sweep vs its plain version on the soup (98,304
+              triangles x 262,144 rays), 6 output/mask variants
+4. kernel #2  multi-emitter sweep vs its plain version on the soup8 round
+              (98,432 triangles x 262,144 rays of 8 emitters), 3 variants,
+              and vs kernel #1 per emitter on the same rays; then the count
+              kernel vs its plain version on the codes of phases 3 and 4
+5. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4), scheduled
+6. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4),
+              scheduled
+7. district   97 emitters: >= 90 non-empty rows; scheduled dict == the
+              per-emitter route's; rounds and warm solve times of both
+8. soup       one emitter (per-emitter route); equals phase 3's counts
+9. soup8      8 emitters: scheduled dict == per-emitter dict == phase 4's counts
+10. launches  kernel #1 once per per-emitter chunk, kernel #2 once per
+              scheduled round, the count kernel once per chunk or round, all
+              on card tensors, during phases 5-9
 
-The last two lines are the kernels' JSON summary and the result line. Any
-failed check exits non-zero before them. Imports nothing of JAX.
+Kernel times are CUDA events: the kernel's best of 3, the plain version's
+one comparison run. The last three lines are the kernels' JSON summary, the
+card line and the result line. Any failed check exits non-zero before them.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ PLATES_EXACT = 0.1998249
 PLATES_TPU = 0.1998818169
 SOUP_TRIS = 98304
 SOUP_CHUNK = 4
+SOUP8_RAYS = 8 * 4 * 8192  # emitters x iterations x rays per iteration
 
 
 def check(ok: bool, msg: str) -> None:
@@ -71,6 +84,20 @@ def soup_meshes():
     ).reshape(-1, 3).astype(np.float32)
     Fc = np.arange(n_cloud * 3, dtype=np.int32).reshape(-1, 3)
     return [("emitter", V, F), ("cloud", Vc, Fc)]
+
+
+def soup8_meshes():
+    """The soup's cloud above eight 4 x 8 two-triangle plates that tile its
+    16 x 16 ground at z = 0. Coplanar plates cull each other, so the cloud
+    is every plate's only receiver."""
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    plates = []
+    for i, x0 in enumerate((-8.0, -4.0, 0.0, 4.0)):
+        for j, y0 in enumerate((-8.0, 0.0)):
+            V = np.array([[x0, y0, 0], [x0 + 4, y0, 0], [x0 + 4, y0 + 8, 0],
+                          [x0, y0 + 8, 0]], np.float32)
+            plates.append((f"plate_{i}{j}", V, F.copy()))
+    return plates + [soup_meshes()[1]]
 
 
 def district_meshes(n_buildings: int = 96, extent: float = 60.0, seed: int = 3):
@@ -104,7 +131,7 @@ def square(name: str, z: float, flip: bool):
 
 
 def solve_cases():
-    """The solves of phases 4-7 (also timed by chip_profile.py): name ->
+    """The solves of phases 5-9 (also timed by chip_profile.py): name ->
     (meshes, MatrixParams), all on the card."""
     from raystrack_tpu_torch import MatrixParams
     from examples.ex00_street_canyon_geometry import build_street_canyon
@@ -124,6 +151,10 @@ def solve_cases():
         "soup": (soup_meshes(), MatrixParams(
             bvh="off", samples=1, rays=256, min_iters=SOUP_CHUNK,
             max_iters=SOUP_CHUNK, reciprocity=True, device="gpu")),
+        # 8 emitters x 4 iterations x 8,192 rays: one scheduled round
+        "soup8": (soup8_meshes(), MatrixParams(
+            bvh="off", samples=2, rays=128, min_iters=SOUP_CHUNK,
+            max_iters=SOUP_CHUNK, reciprocity=True, device="gpu")),
     }
 
 
@@ -140,18 +171,19 @@ def base_matrix(vf):
     return out
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Best-of-``reps`` time of ``fn()`` in ms, by CUDA events."""
+def cuda_ms(fn, reps: int = 3):
+    """Best-of-``reps`` time of ``fn()`` in ms, by CUDA events, and the
+    last call's result."""
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end))
-    return best
+    return best, out
 
 
 def wall_times(fn, reps: int) -> list:
@@ -174,21 +206,29 @@ def spread(times: list) -> str:
 
 
 def ptxas_lines(log: str) -> list:
-    """ptxas -v lines naming each kernel instantiation as <matrix,any,baked>
-    beside its registers, shared memory and spills."""
+    """ptxas -v lines naming each kernel instantiation, sweep_kernel as
+    <matrix,any,baked>, sweep_sched_kernel as <matrix,any> and
+    count_codes_kernel, beside its registers, shared memory and spills."""
     out, name = [], "?"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?sweep_kernel"
-                      r"ILb(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"Compiling entry function '.*?"
+                      r"(sweep_(?:sched_)?kernel|count_codes_kernel)((?:ILb\d)?(?:ELb\d)*)E",
+                      line)
         if m:
-            name = "<{},{},{}>".format(*m.groups())
+            flags = re.findall(r"b(\d)", m.group(2))
+            name = m.group(1) + (f"<{','.join(flags)}>" if flags else "")
         elif "registers" in line or "spill" in line:
-            out.append(f"sweep_kernel{name} {line.strip()}")
+            out.append(f"{name} {line.strip()}")
     return out
 
 
+def timed_once(fn):
+    """One call of ``fn()``: (ms by CUDA events, result)."""
+    return cuda_ms(fn, reps=1)
+
+
 def phase_kernel(dev, soup_ps, seed: int):
-    """Kernel vs plain version at the soup shape in all 6 variants."""
+    """Kernel #1 vs its plain version at the soup shape in all 6 variants."""
     from raystrack_tpu_torch.ops.trace import compute_masks, generate_rays, ray_pack
     from raystrack_tpu_torch.ops.trace_cuda import (
         build_tri_pack, sweep_rays, sweep_rays_reference, sweep_tile_width,
@@ -212,10 +252,11 @@ def phase_kernel(dev, soup_ps, seed: int):
     n, tpad = rays.shape[1], sp.n_tri_pad
     check(n == SOUP_CHUNK * 65536 and tpad == SOUP_TRIS, f"soup shape {n} x {tpad}")
     tile = sweep_tile_width(tpad, PALLAS_TRI_TILE)
-    print(f"[kernel] soup: {tpad} triangles x {n} rays = {n * tpad:.4g} pair tests, "
+    print(f"[kernel1] soup: {tpad} triangles x {n} rays = {n * tpad:.4g} pair tests, "
           f"tile {tile}")
     max_err = 0
     rows = {}
+    valid = torch.full((SOUP_CHUNK,), em.n_rays_once, dtype=torch.int32, device=dev)
     for baked in (True, False):
         for wm, wa in ((True, False), (False, True), (True, True)):
             prim = m_any if wa else m_mat
@@ -226,27 +267,113 @@ def phase_kernel(dev, soup_ps, seed: int):
             plain = lambda: sweep_rays_reference(rays, pack, tiles_on, tile,  # noqa: E731
                                                  want_matrix=wm, want_any=wa,
                                                  masks_baked=baked)
-            c, a = kern()
-            cr, ar = plain()
-            torch.cuda.synchronize()
+            ms, (c, a) = cuda_ms(kern)
+            plain_ms, (cr, ar) = timed_once(plain)
             same = torch.equal(c, cr) and torch.equal(a, ar)
             err = max(int((c - cr).abs().max()), int((a - ar).abs().max()))
             max_err = max(max_err, err)
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
             name = f"{'matrix+any' if wm and wa else 'matrix' if wm else 'any'}," \
                    f"{'baked' if baked else 'rows'}"
             rows[(wm, wa, baked)] = (ms, plain_ms)
-            print(f"[kernel] {name:17s} equal={same} hits={int((c >= 0).sum())} "
+            print(f"[kernel1] {name:17s} equal={same} hits={int((c >= 0).sum())} "
                   f"blocked={int(a.sum())} kernel {ms:.3f} ms "
                   f"({n * tpad / ms * 1e3:.4g} tests/s) plain {plain_ms:.3f} ms "
                   f"({n * tpad / plain_ms * 1e3:.4g} tests/s)")
-            check(same, f"kernel != plain version in variant {name}")
+            check(same, f"kernel #1 != plain version in variant {name}")
     codes = sweep_rays(rays, build_tri_pack(scene, m_any, m_mat, bake=m_mat), m_mat,
                        tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
                        masks_baked=True)[0]
     front = int((codes == 3).sum())
     ms, plain_ms = rows[(True, False, True)]  # the solve's own variant
-    return max_err, ms, plain_ms, front / n
+    return max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 2)
+
+
+def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
+    """Kernel #2 vs its plain version on one scheduled round, as the driver
+    dispatched it, in all 3 variants; then vs kernel #1 per emitter."""
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        RAY_SUBBLOCK, build_tri_pack, scheduled_tiles_on, sweep_rays,
+        sweep_rays_scheduled, sweep_rays_scheduled_reference, sweep_tile_width,
+    )
+
+    (scene, tri_pack, tables, geom, cp, surf, emit, mins, once, plane,
+     schedule, sel) = round_args
+    sb, tri_tile = round_kwargs["sched_block"], T.PALLAS_TRI_TILE
+    masks = T.combined_masks(scene, surf, emit, mins, plane)
+    o, d, valid = T.scheduled_rays(tables, geom, cp, once, schedule, sel, sched_block=sb)
+    rays = T.ray_pack(o, d)
+    emap = schedule[:, 0].repeat_interleave(sb // RAY_SUBBLOCK)
+    n, tpad, n_emit = rays.shape[1], tri_pack.shape[1], masks.shape[0]
+    check(n == SOUP8_RAYS and n_emit == 8, f"soup8 round: {n} rays, {n_emit} emitters")
+    tile = sweep_tile_width(tpad, tri_tile)
+    print(f"[kernel2] soup8 round: {tpad} triangles x {n} rays of {n_emit} emitters "
+          f"= {n * tpad:.4g} pair tests, tile {tile}, {schedule.shape[0]} schedule rows")
+    max_err = 0
+    times = {}
+    outs = {}
+    for wm, wa in ((True, False), (False, True), (True, True)):
+        tiles_on = scheduled_tiles_on(masks, tile, want_matrix=wm, want_any=wa)
+        kern = lambda: sweep_rays_scheduled(rays, tri_pack, masks, emap,  # noqa: E731
+                                            tri_tile=tri_tile, want_matrix=wm,
+                                            want_any=wa)
+        plain = lambda: sweep_rays_scheduled_reference(  # noqa: E731
+            rays, tri_pack, masks, emap, tiles_on, tile, want_matrix=wm, want_any=wa)
+        ms, (c, a) = cuda_ms(kern)
+        plain_ms, (cr, ar) = timed_once(plain)
+        same = torch.equal(c, cr) and torch.equal(a, ar)
+        max_err = max(max_err, int((c - cr).abs().max()), int((a - ar).abs().max()))
+        name = "matrix+any" if wm and wa else "matrix" if wm else "any"
+        times[(wm, wa)] = (ms, plain_ms)
+        outs[(wm, wa)] = (c, a)
+        print(f"[kernel2] {name:10s} equal={same} hits={int((c >= 0).sum())} "
+              f"blocked={int(a.sum())} kernel {ms:.3f} ms "
+              f"({n * tpad / ms * 1e3:.4g} tests/s; kernel #1 at the soup shape "
+              f"{SOUP_CHUNK * 65536 * SOUP_TRIS / kernel1_ms * 1e3:.4g}) "
+              f"plain {plain_ms:.3f} ms ({n * tpad / plain_ms * 1e3:.4g} tests/s)")
+        check(same, f"kernel #2 != plain version in variant {name}")
+
+    # the same rays through kernel #1, emitter by emitter, with row masks
+    codes, any_hit = outs[(True, True)]
+    ray_row = emap.repeat_interleave(RAY_SUBBLOCK)
+    for e in range(n_emit):
+        idx = torch.nonzero(ray_row == e).squeeze(1)
+        m_any, m_mat = masks[e] > 0, masks[e] > 1
+        c1, a1 = sweep_rays(rays.index_select(1, idx).contiguous(),
+                            build_tri_pack(scene, m_any, m_mat), m_any,
+                            tri_tile=tri_tile, want_matrix=True, want_any=True)
+        check(torch.equal(codes[idx], c1) and torch.equal(any_hit[idx], a1),
+              f"kernel #2 != kernel #1 for emitter row {e}")
+    print(f"[kernel2] equal to kernel #1 (row masks) for each of the {n_emit} emitters")
+    # the round's per-emitter front counts, for phase 9
+    ray_ok = torch.arange(sb, device=valid.device)[None, :] < valid[:, None]
+    c = torch.where(ray_ok.reshape(-1), outs[(True, False)][0], -1)
+    fronts = {int(sel[e]): int((c[ray_row == e] == 2 * 8 + 1).sum()) for e in range(n_emit)}
+    ms, plain_ms = times[(True, False)]  # the solve's own variant
+    codes_rows = outs[(True, False)][0].view(schedule.shape[0], sb)
+    return max_err, ms, plain_ms, fronts, (codes_rows, valid, surf.shape[1] - 1)
+
+
+def phase_count(cases):
+    """The count kernel vs its plain version on the codes the main path
+    gives it: name -> (codes (rows, L), n_valid (rows,), n_surf)."""
+    from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
+
+    max_err, times = 0, {}
+    for name, (codes, n_valid, n_surf) in cases.items():
+        args = (codes, n_valid, n_surf)
+        ms, (cf, cb) = cuda_ms(lambda: count_codes(*args))  # noqa: B023
+        plain_ms, counts = timed_once(lambda: count_codes_reference(*args))  # noqa: B023
+        counts = counts.view(codes.shape[0], n_surf, 2)
+        same = torch.equal(cf, counts[:, :, 1]) and torch.equal(cb, counts[:, :, 0])
+        max_err = max(max_err, int((cf - counts[:, :, 1]).abs().max()),
+                      int((cb - counts[:, :, 0]).abs().max()))
+        times[name] = (ms, plain_ms)
+        print(f"[count] {name}: {codes.shape[0]} rows x {codes.shape[1]} codes, "
+              f"{n_surf} surfaces: equal={same} hits={int(cf.sum() + cb.sum())} "
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        check(same, f"count kernel != plain version on {name}")
+    return max_err, times
 
 
 def main() -> int:
@@ -257,9 +384,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "validation"))
     import raystrack_tpu_torch.solver as solver_mod
-    from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
+    from raystrack_tpu_torch import PreparedSolver, config, view_factor_matrix
     from raystrack_tpu_torch.ops import build
-    from raystrack_tpu_torch.ops.trace_cuda import sweep_rays
+    from raystrack_tpu_torch.ops import trace as trace_mod
+    from raystrack_tpu_torch.ops.count_cuda import count_codes
+    from raystrack_tpu_torch.ops.trace_cuda import sweep_rays, sweep_rays_scheduled
+    from raystrack_tpu_torch.prepared import EmitterPack
     from analytic import canyon_ground_truth
 
     # 1. card
@@ -277,45 +407,94 @@ def main() -> int:
     for line in ptxas_lines(b.log):
         print(f"[build] {line}")
 
-    # 3. kernel vs plain
+    # 3. kernel #1 vs plain
     cases = solve_cases()
     soup, soup_params = cases["soup"]
     soup_ps = PreparedSolver(soup)
-    max_err, ms, plain_ms, soup_front = phase_kernel(dev, soup_ps, soup_params.seed)
+    max_err, ms, plain_ms, soup_front, soup_codes = phase_kernel(
+        dev, soup_ps, soup_params.seed)
 
-    # phases 4-7 run the main path; count its chunks and kernel launches
-    dispatches = []
+    # 4. kernel #2 vs plain, on the round the soup8 solve dispatches
+    soup8, soup8_params = cases["soup8"]
+    soup8_ps = PreparedSolver(soup8)
+    real_round = trace_mod.scheduled_trace
+    captured = []
+
+    def capture(*args, **kwargs):
+        captured.append((args, kwargs))
+        return real_round(*args, **kwargs)
+
+    trace_mod.scheduled_trace = capture
+    view_factor_matrix(soup8, soup8_params, prepared=soup8_ps)
+    trace_mod.scheduled_trace = real_round
+    check(len(captured) == 1, f"soup8 took {len(captured)} scheduled rounds, not 1")
+    max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes = phase_sched_kernel(
+        *captured[0], ms)
+    del captured
+    max_err3, count_times = phase_count({"soup chunk": soup_codes, "soup8 round": soup8_codes})
+    del soup_codes, soup8_codes
+    ms3, plain_ms3 = count_times["soup8 round"]
+
+    # phases 5-9 run the main path: count its chunks, rounds and launches
+    def on_card(x) -> bool:
+        if isinstance(x, torch.Tensor):
+            return x.is_cuda
+        if isinstance(x, (tuple, list)):
+            return all(on_card(v) for v in x)
+        return True
+
+    dispatches, rounds = [], []
     dispatch = solver_mod._EmitterRun.dispatch_chunk
 
     def counted(self, chunk):
-        tensors = [self.tri_pack, self.sweep_mask] + [
-            getattr(p, f.name) for p in (self.scene_pack, self.em_pack)
-            for f in dataclasses.fields(p)
-        ]
-        dispatches.append(all(t.is_cuda for t in tensors if isinstance(t, torch.Tensor)))
-        return dispatch(self, chunk)
+        harvest = dispatch(self, chunk)
+        dispatches.append(on_card(
+            [self.tri_pack, self.sweep_mask]
+            + [getattr(self.scene_pack, f.name) for f in dataclasses.fields(self.scene_pack)]
+            + [getattr(self.em_pack, f.name) for f in dataclasses.fields(EmitterPack)]))
+        return harvest
+
+    def counted_round(*args, **kwargs):
+        rounds.append(on_card(args))
+        return real_round(*args, **kwargs)
 
     solver_mod._EmitterRun.dispatch_chunk = counted
+    trace_mod.scheduled_trace = counted_round
     progress = []  # per-emitter progress lines: hundreds, summarised below
     solver_mod._log = progress.append
     sweep_rays.launches = 0
+    sweep_rays_scheduled.launches = 0
+    count_codes.launches = 0
 
-    # 4. plates
+    def route_solve(route, solve):
+        """(result, rounds, chunks) of one solve through ``route``."""
+        config.SCHEDULER = route
+        r0, c0 = len(rounds), len(dispatches)
+        out = solve()
+        config.SCHEDULER = "auto"
+        return out, len(rounds) - r0, len(dispatches) - c0
+
+    # 5. plates
     plates, plates_params = cases["plates"]
     t0 = time.perf_counter()
-    vf = view_factor_matrix(plates, plates_params)
+    vf, n_rounds, n_chunks = route_solve("auto", lambda: view_factor_matrix(
+        plates, plates_params))
     f = vf["bottom"]["top_front"]
     err = abs(f - PLATES_EXACT)
     print(f"[plates] F(bottom->top_front) = {f!r} |err| = {err:.3e} "
-          f"({time.perf_counter() - t0:.2f} s); equals the TPU's {PLATES_TPU}: "
+          f"({time.perf_counter() - t0:.2f} s, {n_rounds} scheduled rounds, "
+          f"{n_chunks} per-emitter chunks); equals the TPU's {PLATES_TPU}: "
           f"{abs(f - PLATES_TPU) < 5e-11}")
     check(err <= 3e-4, f"plates |err| {err} > 3e-4")
+    check(n_rounds > 0 and n_chunks == 0, "plates did not take the scheduled route")
 
-    # 5. canyon
+    # 6. canyon
     canyon, canyon_params = cases["canyon"]
     names = [name for name, _, _ in canyon]
     t0 = time.perf_counter()
-    got = base_matrix(view_factor_matrix(canyon, canyon_params))
+    vf, n_rounds, n_chunks = route_solve("auto", lambda: view_factor_matrix(
+        canyon, canyon_params))
+    got = base_matrix(vf)
     canyon_s = time.perf_counter() - t0
     truth = canyon_ground_truth()
     diff, pair = max(
@@ -323,43 +502,85 @@ def main() -> int:
         for s in names for r in names
     )
     print(f"[canyon] max |dF| = {diff:.3e} at {pair[0]} -> {pair[1]} "
-          f"(solve {canyon_s:.3f} s)")
+          f"(solve {canyon_s:.3f} s, {n_rounds} scheduled rounds, "
+          f"{n_chunks} per-emitter chunks)")
     check(diff <= 1e-4, f"canyon max |dF| {diff} > 1e-4")
+    check(n_rounds > 0 and n_chunks == 0, "canyon did not take the scheduled route")
 
-    # 6. district
+    # 7. district, through both routes
     district, district_params = cases["district"]
     district_ps = PreparedSolver(district)
     solve = lambda: view_factor_matrix(district, district_params,  # noqa: E731
                                        prepared=district_ps)
     t0 = time.perf_counter()
-    vf = solve()
+    vf, n_rounds, n_chunks = route_solve("auto", solve)
     cold_s = time.perf_counter() - t0
     n_rows = sum(1 for row in vf.values() if row)
-    print(f"[district] {len(district)} emitters, {n_rows} non-empty rows; "
-          f"first solve {cold_s:.3f} s, warm solve {spread(wall_times(solve, 5))}")
+    k2 = sweep_rays_scheduled.launches
+    warm, _, _ = route_solve("auto", lambda: wall_times(solve, 5))
+    print(f"[district] {len(district)} emitters, {n_rows} non-empty rows; scheduled: "
+          f"{n_rounds} rounds, {n_chunks} per-emitter chunks, first solve {cold_s:.3f} s, "
+          f"warm solve {spread(warm)}")
     check(n_rows >= 90, f"district: {n_rows} non-empty rows < 90")
+    check(n_rounds > 0 and n_chunks == 0, "district did not take the scheduled route")
+    k2 = sweep_rays_scheduled.launches - k2
+    vf_pe, _, pe_chunks = route_solve("grouped", solve)
+    warm_pe, _, _ = route_solve("grouped", lambda: wall_times(solve, 5))
+    print(f"[district] per-emitter route: {pe_chunks} chunks, warm solve {spread(warm_pe)}; "
+          f"kernel #2 launches in the 5 warm scheduled solves: {k2} "
+          f"({k2 / 5:.1f} rounds per solve); dicts identical: {vf_pe == vf}")
+    check(vf_pe == vf, "district: scheduled dict != per-emitter dict")
 
-    # 7. soup through the entry point
+    # 8. soup through the entry point (one emitter: the per-emitter route)
     solve = lambda: view_factor_matrix(soup, soup_params, prepared=soup_ps)  # noqa: E731
-    vf = solve()
+    vf, n_rounds, n_chunks = route_solve("auto", solve)
     soup_times = wall_times(solve, 3)
     tests = SOUP_CHUNK * 65536 * SOUP_TRIS
     f = vf["emitter"].get("cloud_front", 0.0)
-    print(f"[soup] F(emitter->cloud_front) = {f!r}; warm solve {spread(soup_times)} "
+    print(f"[soup] F(emitter->cloud_front) = {f!r}; {n_chunks} chunks, {n_rounds} rounds; "
+          f"warm solve {spread(soup_times)} "
           f"= {tests / float(np.median(soup_times)):.4g} tests/s at the median")
     check(f == soup_front, f"soup solve F {f} != kernel phase counts {soup_front}")
+    check(n_rounds == 0 and n_chunks == 1, "soup did not take the per-emitter route")
 
-    # 8. launches
-    launches = sweep_rays.launches
+    # 9. soup8 through both routes
+    solve = lambda: view_factor_matrix(soup8, soup8_params, prepared=soup8_ps)  # noqa: E731
+    vf, n_rounds, _ = route_solve("auto", solve)
+    warm, _, _ = route_solve("auto", lambda: wall_times(solve, 5))
+    vf_pe, _, pe_chunks = route_solve("grouped", solve)
+    warm_pe, _, _ = route_solve("grouped", lambda: wall_times(solve, 5))
+    print(f"[soup8] scheduled: {n_rounds} round(s), warm solve {spread(warm)} = "
+          f"{SOUP8_RAYS * 98432 / float(np.median(warm)):.4g} tests/s at the median; "
+          f"per-emitter: {pe_chunks} chunks, warm solve {spread(warm_pe)}; "
+          f"dicts identical: {vf_pe == vf}")
+    check(vf_pe == vf, "soup8: scheduled dict != per-emitter dict")
+    for e, front in soup8_fronts.items():
+        name = soup8[e][0]
+        check(vf[name].get("cloud_front", 0.0) == front / (SOUP8_RAYS // 8),
+              f"soup8 {name}: solve F != kernel #2 phase counts")
+    print(f"[soup8] F(plate -> cloud_front) of all 8 plates equal phase 4's counts")
+
+    # 10. launches
+    launches, launches2 = sweep_rays.launches, sweep_rays_scheduled.launches
+    launches3 = count_codes.launches
     solver_mod._EmitterRun.dispatch_chunk = dispatch
+    trace_mod.scheduled_trace = real_round
     parsed = [re.search(r"\[(.+?)\] (\d+) iter", line) for line in progress]
     print(f"[launches] {len(progress)} progress lines, e.g. {progress[0]!r}")
     check(all(parsed), "a progress line lost its '[name] K iter' format")
-    print(f"[launches] {launches} kernel launches for {len(dispatches)} chunks; "
-          f"packs on cuda in every chunk: {all(dispatches)}")
+    print(f"[launches] kernel #1: {launches} launches for {len(dispatches)} per-emitter "
+          f"chunks; kernel #2: {launches2} launches for {len(rounds)} scheduled rounds; "
+          f"on cuda in every chunk and round: {all(dispatches) and all(rounds)}")
     check(launches > 0 and launches == len(dispatches),
-          f"{launches} launches != {len(dispatches)} chunks")
-    check(all(dispatches), "a chunk ran with a pack tensor off the card")
+          f"{launches} kernel #1 launches != {len(dispatches)} chunks")
+    check(launches2 > 0 and launches2 == len(rounds),
+          f"{launches2} kernel #2 launches != {len(rounds)} rounds")
+    print(f"[launches] count kernel: {launches3} launches for "
+          f"{len(dispatches) + len(rounds)} chunks and rounds")
+    check(launches3 == len(dispatches) + len(rounds),
+          f"{launches3} count kernel launches != {len(dispatches) + len(rounds)} "
+          f"chunks and rounds")
+    check(all(dispatches) and all(rounds), "a chunk or round ran with a tensor off the card")
 
     print(json.dumps({"kernels": [{
         "name": "sweep_rays",
@@ -370,6 +591,25 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "sweep_rays_scheduled",
+        "route": "cuda",
+        "source": "raystrack_tpu_torch/csrc/sweep.cu",
+        "replaces": "raystrack_tpu/ops/trace_pallas.py:1267",
+        "launches": launches2,
+        "max_abs_err": max_err2,
+        "ms": ms2,
+        "plain_ms": plain_ms2,
+    }, {
+        "name": "count_codes",
+        "route": "cuda",
+        "source": "raystrack_tpu_torch/csrc/count.cu",
+        # not a Pallas kernel: the XLA compare-and-sum it stands in for
+        "replaces": "raystrack_tpu/ops/trace.py:865",
+        "launches": launches3,
+        "max_abs_err": max_err3,
+        "ms": ms3,
+        "plain_ms": plain_ms3,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

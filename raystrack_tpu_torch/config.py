@@ -1,8 +1,9 @@
 """Runtime knobs of the PyTorch port, read from the same environment
 variables (and with the same defaults) as ``raystrack_tpu.config``.
 
-Only the knobs the per-emitter matrix solve reads are carried over; they
-are read once, at import.
+Only the knobs the matrix solve reads are carried over. They are read
+once, at import; the solver reads them through this module at call time,
+so a test or a harness may set them on the module.
 """
 from __future__ import annotations
 
@@ -45,6 +46,41 @@ SPECULATION_PCT = _env_int("RAYSTRACK_TPU_SPECULATION_PCT", 25, minimum=0)
 # package's Pallas sweep; whole tiles with no eligible triangle are skipped.
 PALLAS_TRI_TILE = _env_int("RAYSTRACK_TPU_PALLAS_TRI_TILE", 2048)
 
+# Multi-emitter route: "scheduled" packs every pending emitter's next
+# iterations into one dispatch per convergence round (the whole-scene
+# scheduled driver and the multi-emitter sweep kernel); "grouped" solves
+# emitter by emitter (the per-emitter pipelined driver: the JAX package's
+# grouped vmap driver is not ported, ROADMAP port queue 1); "auto" picks
+# "scheduled" on a CUDA card and "grouped" on the CPU.
+SCHEDULER = os.environ.get("RAYSTRACK_TPU_SCHEDULER", "auto").lower()
+
+# Scheduled-driver flat-table budget: the scheduler keeps 7 f32 per-ray
+# tables spanning every emitter's padded ray count on the device; past this
+# many total rays it declines and the per-emitter driver runs instead
+# (64M rays ~= 1.8 GB of tables).
+SCHED_MAX_FLAT_RAYS = _env_int("RAYSTRACK_TPU_SCHED_MAX_FLAT_RAYS", 67_108_864)
+
+# Scheduled-round block budget floor: a round always admits at least this
+# many RAY_BLOCK-sized blocks even when TARGET_CHUNK_RAYS is tiny.
+SCHED_MIN_BLOCKS = _env_int("RAYSTRACK_TPU_SCHED_MIN_BLOCKS", 256)
+
+# Round pipelining: the scheduled driver dispatches convergence round k+1
+# before it fetches round k's counts, so the card works while the host
+# replays. Overshoot iterations of emitters that converge in round k are
+# discarded by the replay; results are identical. 0 = sequential.
+SCHED_PIPELINE = _env_int("RAYSTRACK_TPU_SCHED_PIPELINE", 1, minimum=0)
+
+# Fused multi-round dispatch: plan up to this many consecutive convergence
+# rounds into one dispatch, each from the position round pipelining plans
+# from. 0 = auto = no fusing (the JAX package measured fusing slower than
+# pipelining); results are identical either way.
+SCHED_FUSE_ROUNDS = _env_int("RAYSTRACK_TPU_SCHED_FUSE_ROUNDS", 0, minimum=0)
+
+# Implicit PreparedSolver reuse: solves without an explicit prepared= keep
+# up to 4 content-keyed PreparedSolvers (with their device packs and flat
+# tables) alive. Set to 0 to disable; clear_prepared_cache() drops them.
+PREPARED_CACHE = _env_int("RAYSTRACK_TPU_PREPARED_CACHE", 1, minimum=0)
+
 __all__ = [
     "RAY_BLOCK",
     "RAY_BUCKETING",
@@ -52,4 +88,10 @@ __all__ = [
     "MAX_CHUNK",
     "SPECULATION_PCT",
     "PALLAS_TRI_TILE",
+    "SCHEDULER",
+    "SCHED_MAX_FLAT_RAYS",
+    "SCHED_MIN_BLOCKS",
+    "SCHED_PIPELINE",
+    "SCHED_FUSE_ROUNDS",
+    "PREPARED_CACHE",
 ]

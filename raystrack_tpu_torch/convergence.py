@@ -48,6 +48,7 @@ def plan_chunk(
     max_iters: int,
     rays_per_iter: int,
     projected_total: Optional[int] = None,
+    pow4: bool = True,
 ) -> int:
     """Pick the next speculative chunk size (power of four, bounded).
 
@@ -57,6 +58,11 @@ def plan_chunk(
     ``SPECULATION_PCT`` percent of completed iterations. Overshoot
     iterations are discarded by the replay, so speculation trades cheap
     device compute for host/device round trips.
+
+    ``pow4=False`` returns the exact bounded size instead: the scheduled
+    driver plans exact chunks, so a round reaches each checkpoint at once
+    (min_iters=5 takes one 5-iteration round instead of 4-then-1). Results
+    are identical either way: the replay discards overshoot iterations.
     """
     remaining = int(max_iters) - int(iters_done)
     if remaining <= 0:
@@ -70,6 +76,8 @@ def plan_chunk(
     desired = min(need + (iters_done * SPECULATION_PCT) // 100, remaining)
     ray_cap = max(1, TARGET_CHUNK_RAYS // max(1, int(rays_per_iter)))
     bound = min(desired, ray_cap, MAX_CHUNK, remaining)
+    if not pow4:
+        return max(1, bound)
     chunk = 1
     while chunk * 4 <= bound:
         chunk *= 4

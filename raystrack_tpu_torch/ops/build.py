@@ -3,8 +3,10 @@
 ``csrc/*.cu`` compile into one shared library with a plain C interface,
 written to ``build/raystrack_tpu_torch/`` beside the package and named by a
 hash of the sources, the flags and the compiler, so a changed source
-rebuilds and an unchanged one is reused. The library is loaded with
-``ctypes``. Nothing is built from anywhere but ``csrc/``.
+rebuilds and an unchanged one is reused. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them. The
+library is loaded with ``ctypes``. Nothing is built from anywhere but
+``csrc/``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raystrack_tpu_torch
 # ops. -Xptxas=-v reports registers, shared memory and spills in the log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -57,7 +59,7 @@ def find_nvcc() -> str:
 
 def build() -> Build:
     """Compile ``csrc/*.cu`` unless a library of the same sources and flags
-    exists; raises with nvcc's output when the compile fails."""
+    exists; raises with nvcc's output when a compile or the link fails."""
     nvcc = find_nvcc()
     sources = sorted(CSRC.glob("*.cu"))
     if not sources:
@@ -70,15 +72,30 @@ def build() -> Build:
     if lib.exists():
         return Build(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs))
+    ]
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(out for _, out, _ in logs)
+    failed = [(cmd, rc) for cmd, _, rc in logs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        cmd, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, lib)
     return Build(lib, seconds, log)
 
@@ -93,6 +110,24 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int,  # pack, n_tri_pad
         ctypes.c_void_p, ctypes.c_int,  # tiles_on, tile
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # want_matrix, want_any, baked
+        ctypes.c_void_p, ctypes.c_void_p,  # codes, any
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.raystrack_count_codes
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # codes, n_valid
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, length, n_codes
+        ctypes.c_void_p, ctypes.c_void_p,  # counts, stream
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.raystrack_sweep_rays_scheduled
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,  # rays, n
+        ctypes.c_void_p, ctypes.c_int,  # pack, n_tri_pad
+        ctypes.c_void_p, ctypes.c_int,  # masks, n_emit
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # emap, tiles_on, tile
+        ctypes.c_int, ctypes.c_int,  # want_matrix, want_any
         ctypes.c_void_p, ctypes.c_void_p,  # codes, any
         ctypes.c_void_p,  # stream
     ]

@@ -1,8 +1,10 @@
-"""Möller–Trumbore sweep of rays against all triangles: CUDA kernel wrapper,
-its plain PyTorch version, and the operand pack both consume.
+"""Möller–Trumbore sweeps of rays against all triangles: the CUDA kernels'
+wrappers, their plain PyTorch versions, and the operand pack they consume.
 
-Counterpart of ``raystrack_tpu/ops/trace_pallas.py`` (``sweep_rays`` and its
-shared tile math ``_tile_step``). The kernel lives in ``csrc/sweep.cu``.
+Counterpart of ``raystrack_tpu/ops/trace_pallas.py``: ``sweep_rays``
+(kernel #1, one emitter), ``sweep_rays_scheduled`` (kernel #2, each block
+of 256 rays names its own emitter) and their shared tile math
+``_tile_step``. Both kernels live in ``csrc/sweep.cu``.
 
 Layouts:
 
@@ -10,6 +12,9 @@ Layouts:
 - pack ``(24, Tpad)`` f32 rows: 0-2 cross_e, 3-5 e1, 6-8 e2, 9-11 v0 x e2,
   12-14 v0 x e1, 15 d0 = v0 . cross_e, 16 code_base = 2*sid, 17 mask_any,
   18 mask_mat, 19-23 zero,
+- kernel #2's combined mask rows ``(E, Tpad)`` f32 ``m_any + m_mat`` in
+  {0, 1, 2} (any-hit eligible if > 0, matrix eligible if > 1) and its
+  ``emap`` ``(N / 256,)`` int32, the emitter row of each block of rays,
 - outputs ``(N,)`` int32: the nearest eligible hit packed as
   ``2*sid + front`` (-1 on a miss), and a 0/1 any-hit flag.
 
@@ -17,8 +22,8 @@ Per-pair math and epsilons: ``|det| >= 1e-7``, ``t > 1e-6``,
 ``front = det > 0``. The nearest-hit fold runs over tiles of
 ``sweep_tile_width(Tpad, tri_tile)`` triangles: inside a tile the smallest
 code wins among the triangles at the tile's minimum ``t``; across tiles only
-a strictly smaller ``t`` replaces the carry. Tiles whose ``sweep_mask`` holds
-no eligible triangle are skipped whole.
+a strictly smaller ``t`` replaces the carry. Tiles with no eligible triangle
+(per emitter, for kernel #2) are skipped whole.
 """
 from __future__ import annotations
 
@@ -42,6 +47,10 @@ ROW_MASK_MAT = 18
 # Triangles per shared-memory stage of the kernel (csrc/sweep.cu kStage);
 # every sweep tile width is a multiple of it.
 _STAGE = 128
+
+# Rays per block of kernel #2 (csrc/sweep.cu kThreads): emap names one
+# emitter per block of this many rays, as the JAX package's ray_block.
+RAY_SUBBLOCK = 256
 
 # (B, T) pair elements per step of the plain version: bounds its memory.
 _REF_PAIRS = 1 << 22
@@ -182,6 +191,33 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_common(rays, tri_pack, want_matrix: bool, want_any: bool,
+                  tri_tile: int, name: str, **others) -> Tuple[torch.device, int, int, int]:
+    """Checks both wrappers share; returns (device, N, Tpad, tile)."""
+    if not (want_matrix or want_any):
+        raise ValueError(f"{name} needs want_matrix or want_any")
+    for arg, t in (("rays", rays), ("tri_pack", tri_pack), *others.items()):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{arg} must be a torch.Tensor")
+    if rays.dim() != 2 or tri_pack.dim() != 2:
+        raise ValueError("rays must be (9, N) and tri_pack (24, Tpad)")
+    device = rays.device
+    n, n_tri_pad = int(rays.shape[1]), int(tri_pack.shape[1])
+    _check("rays", rays, torch.float32, (9, n), device)
+    _check("tri_pack", tri_pack, torch.float32, (TRI_ROWS, n_tri_pad), device)
+    tile = sweep_tile_width(n_tri_pad, tri_tile)
+    if n_tri_pad == 0 or tile % _STAGE or n_tri_pad % tile:
+        raise ValueError(
+            f"sweep tile {tile} (from tri_tile={tri_tile}) must be a multiple of "
+            f"{_STAGE} dividing the pack width {n_tri_pad}"
+        )
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors (got {device})")
+    if n >= 2**31 or n_tri_pad >= 2**31:
+        raise ValueError(f"{name} takes fewer than 2**31 rays and triangles")
+    return device, n, n_tri_pad, tile
+
+
 def sweep_rays(
     rays: torch.Tensor,  # (9, N) f32: [o | d | o x d] rows
     tri_pack: torch.Tensor,  # (24, Tpad) f32
@@ -201,24 +237,11 @@ def sweep_rays(
     current stream, not synchronised; ``sweep_rays.launches`` counts the
     launches); CPU tensors go to :func:`sweep_rays_reference`.
     """
-    if not (want_matrix or want_any):
-        raise ValueError("sweep_rays needs want_matrix or want_any")
-    for name, t in (("rays", rays), ("tri_pack", tri_pack), ("sweep_mask", sweep_mask)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-    if rays.dim() != 2 or tri_pack.dim() != 2:
-        raise ValueError("rays must be (9, N) and tri_pack (24, Tpad)")
-    device = rays.device
-    n, n_tri_pad = int(rays.shape[1]), int(tri_pack.shape[1])
-    _check("rays", rays, torch.float32, (9, n), device)
-    _check("tri_pack", tri_pack, torch.float32, (TRI_ROWS, n_tri_pad), device)
+    device, n, n_tri_pad, tile = _check_common(
+        rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays",
+        sweep_mask=sweep_mask,
+    )
     _check("sweep_mask", sweep_mask, torch.bool, (n_tri_pad,), device)
-    tile = sweep_tile_width(n_tri_pad, tri_tile)
-    if n_tri_pad == 0 or tile % _STAGE or n_tri_pad % tile:
-        raise ValueError(
-            f"sweep tile {tile} (from tri_tile={tri_tile}) must be a multiple of "
-            f"{_STAGE} dividing the pack width {n_tri_pad}"
-        )
     tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
 
     if device.type == "cpu":
@@ -226,10 +249,6 @@ def sweep_rays(
             rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
             want_any=want_any, masks_baked=masks_baked,
         )
-    if device.type != "cuda":
-        raise ValueError(f"sweep_rays runs on cuda or cpu tensors (got {device})")
-    if n >= 2**31 or n_tri_pad >= 2**31:
-        raise ValueError("sweep_rays takes fewer than 2**31 rays and triangles")
 
     from .build import load_library
 
@@ -254,7 +273,122 @@ def sweep_rays(
 
 sweep_rays.launches = 0
 
+
+def scheduled_tiles_on(masks: torch.Tensor, tile: int, *, want_matrix: bool,
+                       want_any: bool) -> torch.Tensor:
+    """(E, n_tiles) int32 per-emitter tile activity of kernel #2: a tile is
+    on for emitter e when its row holds a triangle eligible for what the
+    sweep computes (> 1 for matrix only, > 0 when any-hits are wanted)."""
+    thresh = 1.0 if (want_matrix and not want_any) else 0.0
+    n_emit, n_tri_pad = masks.shape
+    return (masks.view(n_emit, n_tri_pad // tile, tile) > thresh).any(dim=2).to(torch.int32)
+
+
+def sweep_rays_scheduled_reference(
+    rays: torch.Tensor,
+    tri_pack: torch.Tensor,
+    masks: torch.Tensor,
+    emap: torch.Tensor,
+    tiles_on: torch.Tensor,
+    tile: int,
+    *,
+    want_matrix: bool,
+    want_any: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel #2: per emitter row named in
+    ``emap``, its blocks of rays are swept by :func:`sweep_rays_reference`
+    (the same pair math and tie rule) against the pack with that emitter's
+    combined row written into the mask rows (``> 0`` any, ``> 1`` matrix)
+    and that emitter's row of ``tiles_on``. A block whose row lies outside
+    ``0..E-1`` sweeps nothing (-1 and 0), as in the kernel."""
+    n = rays.shape[1]
+    codes = torch.full((n,), -1, dtype=torch.int32, device=rays.device)
+    any_out = torch.zeros((n,), dtype=torch.int32, device=rays.device)
+    ray_emitter = emap.repeat_interleave(RAY_SUBBLOCK)
+    for e in torch.unique(emap).tolist():
+        if not 0 <= e < masks.shape[0]:
+            continue
+        idx = torch.nonzero(ray_emitter == e).squeeze(1)
+        pack = tri_pack.clone()
+        pack[ROW_MASK_ANY] = (masks[e] > 0.0).to(torch.float32)
+        pack[ROW_MASK_MAT] = (masks[e] > 1.0).to(torch.float32)
+        c, a = sweep_rays_reference(
+            rays.index_select(1, idx).contiguous(), pack, tiles_on[e], tile,
+            want_matrix=want_matrix, want_any=want_any, masks_baked=False,
+        )
+        codes[idx] = c
+        any_out[idx] = a
+    return codes, any_out
+
+
+def sweep_rays_scheduled(
+    rays: torch.Tensor,  # (9, N) f32: [o | d | o x d] rows, N = 256 * n_blocks
+    tri_pack: torch.Tensor,  # (24, Tpad) f32; its mask rows are not read
+    masks: torch.Tensor,  # (E, Tpad) f32 combined rows m_any + m_mat
+    emap: torch.Tensor,  # (N / 256,) i32: block of 256 rays -> emitter row
+    *,
+    tri_tile: int,
+    want_matrix: bool,
+    want_any: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-emitter sweep; returns (codes (N,), any (N,)).
+
+    Each block of 256 rays is swept for the emitter row ``emap`` names:
+    its eligibility comes from that row of ``masks`` and whole tiles with
+    no eligible triangle for that emitter are skipped. Per ray the result
+    equals :func:`sweep_rays` with that emitter's masks. A block whose row
+    lies outside ``0..E-1`` sweeps nothing (codes -1, any 0): reading
+    ``emap`` on the host would wait for the card.
+
+    CUDA tensors go to kernel #2 of ``csrc/sweep.cu`` (launched on the
+    current stream, not synchronised; ``sweep_rays_scheduled.launches``
+    counts the launches); CPU tensors go to
+    :func:`sweep_rays_scheduled_reference`.
+    """
+    device, n, n_tri_pad, tile = _check_common(
+        rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays_scheduled",
+        masks=masks, emap=emap,
+    )
+    if masks.dim() != 2 or emap.dim() != 1:
+        raise ValueError("masks must be (E, Tpad) and emap (N / 256,)")
+    n_emit = int(masks.shape[0])
+    _check("masks", masks, torch.float32, (n_emit, n_tri_pad), device)
+    if n % RAY_SUBBLOCK:
+        raise ValueError(f"sweep_rays_scheduled takes a multiple of {RAY_SUBBLOCK} rays")
+    _check("emap", emap, torch.int32, (n // RAY_SUBBLOCK,), device)
+    tiles_on = scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any)
+
+    if device.type == "cpu":
+        return sweep_rays_scheduled_reference(
+            rays, tri_pack, masks, emap, tiles_on, tile,
+            want_matrix=want_matrix, want_any=want_any,
+        )
+
+    from .build import load_library
+
+    lib = load_library()
+    codes = torch.empty((n,), dtype=torch.int32, device=device)
+    any_hit = torch.empty((n,), dtype=torch.int32, device=device)
+    if n == 0:  # nothing to launch
+        return codes, any_hit
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.raystrack_sweep_rays_scheduled(
+            rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
+            masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(), tile,
+            int(want_matrix), int(want_any),
+            codes.data_ptr(), any_hit.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"scheduled sweep kernel launch failed: CUDA error {err}")
+    sweep_rays_scheduled.launches += 1
+    return codes, any_hit
+
+
+sweep_rays_scheduled.launches = 0
+
 __all__ = [
-    "build_tri_pack", "sweep_rays", "sweep_rays_reference",
-    "sweep_tile_width", "TRI_ROWS",
+    "build_tri_pack", "sweep_rays", "sweep_rays_reference", "sweep_rays_scheduled",
+    "sweep_rays_scheduled_reference", "scheduled_tiles_on", "sweep_tile_width",
+    "RAY_SUBBLOCK", "TRI_ROWS",
 ]

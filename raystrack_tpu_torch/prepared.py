@@ -24,14 +24,14 @@ The device side packs those tables into padded tensors on an explicit
   cross product (see ops/trace_cuda.py).
 
 ``PreparedSolver`` caches all of it across solves: the scene by accel flag,
-emitters by (samples, rays, flip_faces), device packs additionally by device
-and padding alignment.
+emitters by (samples, rays, flip_faces), device packs and the scheduled
+driver's flat tables additionally by device and padding alignment.
 """
 from __future__ import annotations
 
 import functools as _functools
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -523,9 +523,44 @@ def pack_emitter(
     )
 
 
+class LazyEmitterPack:
+    """Deferred EmitterPack: the ray counts and the host plane vector are
+    there at once; the per-ray device tables are uploaded only if a
+    per-emitter dispatch touches them.
+
+    The scheduled driver reads rays from the scene-wide flat tables, so
+    with this wrapper a scheduled solve never holds a second device copy of
+    every emitter's padded ray tables.
+    """
+
+    def __init__(self, factory, *, n_rays_once: int, n_rays_pad: int,
+                 plane_host: np.ndarray):
+        self._factory = factory
+        self._pack: Optional[EmitterPack] = None
+        self.n_rays_once = n_rays_once
+        self.n_rays_pad = n_rays_pad
+        self.plane_host = plane_host
+
+    def __getattr__(self, name):
+        if name.startswith("__"):  # no pack for copy/pickle protocol probes
+            raise AttributeError(name)
+        if self._pack is None:
+            self._pack = self._factory()
+        return getattr(self._pack, name)
+
+
 # ---------------------------------------------------------------------------
 # PreparedSolver cache
 # ---------------------------------------------------------------------------
+
+
+def _device_key(device) -> str:
+    """One cache key per physical device: an index-less CUDA device means
+    the current card, so ``"cuda"`` and ``"cuda:0"`` share their packs."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 class PreparedSolver:
@@ -543,6 +578,7 @@ class PreparedSolver:
         self._emitter_cache: Dict[Tuple[int, int, bool], List[PreparedEmitter]] = {}
         self._scene_pack_cache: Dict[Tuple[str, bool], ScenePack] = {}
         self._emitter_pack_cache: Dict[Tuple, EmitterPack] = {}
+        self._flat_cache: Dict[Tuple, Tuple] = {}
         self._mesh_bounds_cache = None
 
     # -- host state --------------------------------------------------------
@@ -591,13 +627,87 @@ class PreparedSolver:
     def get_scene_pack(
         self, *, use_accel: bool = False, device: torch.device
     ) -> ScenePack:
-        key = (str(torch.device(device)), bool(use_accel))
+        dev = _device_key(device)
+        key = (dev, bool(use_accel))
         if key not in self._scene_pack_cache:
             scene = self.get_scene(use_accel=use_accel)
             self._scene_pack_cache[key] = pack_scene(
-                scene, len(self.meshes), device=torch.device(device)
+                scene, len(self.meshes), device=torch.device(dev)
             )
         return self._scene_pack_cache[key]
+
+    def get_flat_tables(
+        self,
+        *,
+        samples: int,
+        rays: int,
+        flip_faces: bool,
+        align: int = RAY_BLOCK,
+        device: torch.device,
+    ):
+        """Scene-wide flat ray tables and stacked geometry for scheduled solves.
+
+        Concatenates every emitter's padded per-ray tables into 7 flat
+        device tensors and stacks the per-emitter geometry padded to the
+        largest face count ``F_max`` (the CDF padded with 1.0, which a
+        left CDF search never selects past the last real face). Returns
+        ``(tables_flat, geom_stacked, offsets, n_rays_pad)``: ``offsets[e]``
+        is emitter e's first row in the flat tables, both NumPy int64.
+        Built on the host, as the JAX package builds tables below its
+        device-Halton threshold.
+        """
+        dev = _device_key(device)
+        key = (dev, int(samples), int(rays), bool(flip_faces), int(align))
+        cached = self._flat_cache.get(key)
+        if cached is not None:
+            return cached
+
+        emitters = self.get_emitters(samples=samples, rays=rays, flip_faces=flip_faces)
+        n_pad = np.array(
+            [_pad_rays(e.n_cells * rays, align) for e in emitters], dtype=np.int64
+        )
+        offsets = np.concatenate([[0], np.cumsum(n_pad)[:-1]]).astype(np.int64)
+        put = lambda a: _put(a, torch.device(dev))  # noqa: E731
+
+        def flat(per_emitter_fn) -> torch.Tensor:
+            out = np.zeros(int(n_pad.sum()), dtype=np.float32)
+            for e_idx, em in enumerate(emitters):
+                arr = np.asarray(per_emitter_fn(em))
+                out[offsets[e_idx] : offsets[e_idx] + arr.shape[0]] = arr
+            return put(out)
+
+        tables_flat = (
+            flat(lambda em: np.repeat(em.u_grid, rays)),
+            flat(lambda em: np.repeat(em.v_grid, rays)),
+            flat(lambda em: em.halton_tri),
+            flat(lambda em: em.halton_u),
+            flat(lambda em: em.halton_v),
+            flat(lambda em: em.halton_r1),
+            flat(lambda em: em.halton_r2),
+        )
+
+        f_max = max(em.cdf.shape[0] for em in emitters)
+
+        def stack(get, tail=(), fill=0.0) -> torch.Tensor:
+            out = np.full((len(emitters), f_max) + tail, fill, dtype=np.float32)
+            for e_idx, em in enumerate(emitters):
+                arr = get(em)
+                out[e_idx, : arr.shape[0]] = arr
+            return put(out)
+
+        geom_stacked = (
+            stack(lambda em: em.cdf, fill=1.0),
+            stack(lambda em: em.tri_a, (3,)),
+            stack(lambda em: em.tri_e1, (3,)),
+            stack(lambda em: em.tri_e2, (3,)),
+            stack(lambda em: em.tri_u, (3,)),
+            stack(lambda em: em.tri_v, (3,)),
+            stack(lambda em: em.tri_n, (3,)),
+            stack(lambda em: em.tri_origin_eps),
+        )
+        cached = (tables_flat, geom_stacked, offsets, n_pad)
+        self._flat_cache[key] = cached
+        return cached
 
     def get_emitter_pack(
         self,
@@ -609,8 +719,9 @@ class PreparedSolver:
         align: int = RAY_BLOCK,
         device: torch.device,
     ) -> EmitterPack:
+        dev = _device_key(device)
         key = (
-            str(torch.device(device)),
+            dev,
             int(index),
             int(samples),
             int(rays),
@@ -622,7 +733,7 @@ class PreparedSolver:
                 index, samples=samples, rays=rays, flip_faces=flip_faces
             )
             self._emitter_pack_cache[key] = pack_emitter(
-                emitter, rays, align=align, device=torch.device(device)
+                emitter, rays, align=align, device=torch.device(dev)
             )
         return self._emitter_pack_cache[key]
 
@@ -632,6 +743,7 @@ __all__ = [
     "PreparedEmitter",
     "ScenePack",
     "EmitterPack",
+    "LazyEmitterPack",
     "PreparedSolver",
     "prepare_scene",
     "prepare_emitters",

@@ -1,7 +1,10 @@
-"""Card tests of the port: the CUDA sweep kernel against its plain PyTorch
-version at shapes the CPU tests cannot reach (ragged ray counts, narrow and
-whole-scene tiles, skipped tiles, exact distance ties), and a solve on the
-card against the same solve on the CPU.
+"""Card tests of the port: the CUDA sweep kernels against their plain
+PyTorch versions at shapes the CPU tests cannot reach (ragged ray counts,
+narrow and whole-scene tiles, skipped tiles, exact distance ties, per-emitter
+tile activity, an all-masked emitter row), kernel #2 against kernel #1 per
+emitter, the count kernel against its plain version and numpy.bincount,
+one device key per card, and solves on the card against the CPU and across
+the two routes.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -15,9 +18,12 @@ import pytest
 import torch
 
 import raystrack_tpu_torch
+from raystrack_tpu_torch import config as tconfig
+from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
 from raystrack_tpu_torch.ops.trace import compute_masks
 from raystrack_tpu_torch.ops.trace_cuda import (
-    build_tri_pack, sweep_rays, sweep_rays_reference, sweep_tile_width,
+    build_tri_pack, scheduled_tiles_on, sweep_rays, sweep_rays_reference,
+    sweep_rays_scheduled, sweep_rays_scheduled_reference, sweep_tile_width,
 )
 
 pytestmark = pytest.mark.card
@@ -108,13 +114,15 @@ def test_kernel_rejects_mixed_devices(card):
 
 def test_solve_on_card_matches_cpu(card):
     """Same keys and |dF| <= 1e-4: the card's sin/cos may round ray
-    directions an ulp apart from the CPU's, moving a few edge rays."""
+    directions an ulp apart from the CPU's, moving a few edge rays. Two
+    emitters on the card take the scheduled route (kernel #2); the CPU
+    solve takes the per-emitter one."""
     meshes = [("bottom", *_square(0.0, False)), ("top", *_square(1.0, True))]
     kw = dict(samples=32, rays=1024, seed=11, min_iters=8, max_iters=8, reciprocity=False)
-    before = sweep_rays.launches
+    before = sweep_rays_scheduled.launches
     got = raystrack_tpu_torch.view_factor_matrix(
         meshes, raystrack_tpu_torch.MatrixParams(device="gpu", **kw))
-    assert sweep_rays.launches > before
+    assert sweep_rays_scheduled.launches > before
     want = raystrack_tpu_torch.view_factor_matrix(
         meshes, raystrack_tpu_torch.MatrixParams(device="cpu", **kw))
     assert set(got) == set(want)
@@ -130,3 +138,126 @@ def _square(z, flip):
                  np.float32)
     F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
     return V, (F[:, [0, 2, 1]].copy() if flip else F)
+
+
+def _sched_inputs(card, n_blocks, seed):
+    """The tie scene's zero-mask pack, four combined emitter rows (the
+    third all zero: a dummy row) and a random emap over them."""
+    sp = raystrack_tpu_torch.PreparedSolver(_tie_scene()).get_scene_pack(device=card)
+    scene = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
+    zeros = torch.zeros_like(sp.sid, dtype=torch.bool)
+    sid = sp.sid.cpu().numpy()
+    rows = [
+        np.where(sid == 0, 1, np.where(sid == 2, 2, 0)),  # low any-only, dup matrix
+        np.where(sid == 0, 2, np.where(sid == 1, 2, 0)),  # dup's tiles all off
+        np.zeros_like(sid),
+        np.where(sid < 3, 2, 0),
+    ]
+    masks = torch.from_numpy(np.stack(rows).astype(np.float32)).to(card)
+    rng = np.random.default_rng(seed)
+    emap = torch.from_numpy(rng.integers(0, 4, n_blocks).astype(np.int32)).to(card)
+    rays = _rays(n_blocks * 256, seed, card)
+    return scene, build_tri_pack(scene, zeros, zeros), masks, emap, rays
+
+
+@pytest.mark.parametrize("tri_tile", [128, 2048], ids=["tile128", "whole"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_scheduled_kernel_equals_plain_version(card, want_matrix, want_any, tri_tile):
+    """Kernel #2 bitwise equal (torch.equal) to its plain version, with tile
+    activity that differs between emitters and an all-zero emitter row;
+    one launch per call."""
+    _, pack, masks, emap, rays = _sched_inputs(card, 40, 5)
+    tile = sweep_tile_width(pack.shape[1], tri_tile)
+    tiles_on = scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any)
+    if tile < pack.shape[1]:
+        assert len({tuple(r) for r in tiles_on.tolist()}) == 4  # ragged activity
+    before = sweep_rays_scheduled.launches
+    codes, any_hit = sweep_rays_scheduled(rays, pack, masks, emap, tri_tile=tri_tile,
+                                          want_matrix=want_matrix, want_any=want_any)
+    torch.cuda.synchronize()
+    assert sweep_rays_scheduled.launches == before + 1
+    want_codes, want_any_hit = sweep_rays_scheduled_reference(
+        rays, pack, masks, emap, tiles_on, tile, want_matrix=want_matrix,
+        want_any=want_any)
+    assert torch.equal(codes, want_codes) and torch.equal(any_hit, want_any_hit)
+    dummy = (emap == 2).repeat_interleave(256)
+    assert bool((codes[dummy] == -1).all()) and not bool(any_hit[dummy].any())
+    if want_matrix:
+        assert int((codes >= 0).sum()) > 100
+    if want_any:
+        assert int(any_hit.sum()) > 100
+
+
+def test_scheduled_kernel_equals_single_emitter_kernel(card):
+    """Per emitter row, kernel #2's codes and flags equal kernel #1's with
+    that emitter's masks as pack rows, on the same rays."""
+    scene, pack, masks, emap, rays = _sched_inputs(card, 24, 8)
+    codes, any_hit = sweep_rays_scheduled(rays, pack, masks, emap, tri_tile=128,
+                                          want_matrix=True, want_any=True)
+    block_of = emap.repeat_interleave(256)
+    for e in range(4):
+        sel = block_of == e
+        m_any, m_mat = masks[e] > 0, masks[e] > 1
+        c1, a1 = sweep_rays(rays[:, sel].contiguous(), build_tri_pack(scene, m_any, m_mat),
+                            m_any, tri_tile=128, want_matrix=True, want_any=True)
+        assert torch.equal(codes[sel], c1) and torch.equal(any_hit[sel], a1), e
+
+
+def test_device_key_cuda_equals_indexed(card):
+    """"cuda" and "cuda:<current>" name one card: one pack, not two."""
+    ps = raystrack_tpu_torch.PreparedSolver(_tie_scene())
+    kw = dict(samples=2, rays=16, flip_faces=False)
+    assert ps.get_scene_pack(device="cuda") is ps.get_scene_pack(device=card)
+    assert ps.get_emitter_pack(0, device="cuda", **kw) is ps.get_emitter_pack(
+        0, device=card, **kw)
+    assert ps.get_flat_tables(device="cuda", **kw) is ps.get_flat_tables(device=card, **kw)
+
+
+def test_scheduled_solve_on_card_equals_per_emitter_solve(card, monkeypatch):
+    """The two routes on the card: equal dicts (==); the scheduled one
+    launches kernel #2 and not kernel #1."""
+    meshes = [("bottom", *_square(0.0, False)), ("top", *_square(1.0, True))]
+    params = raystrack_tpu_torch.MatrixParams(
+        samples=16, rays=256, seed=3, min_iters=3, max_iters=12, tol=1e-3,
+        reciprocity=False, device="gpu")
+    monkeypatch.setattr(tconfig, "SCHEDULER", "grouped")
+    want = raystrack_tpu_torch.view_factor_matrix(meshes, params)
+    monkeypatch.setattr(tconfig, "SCHEDULER", "auto")
+    before = (sweep_rays.launches, sweep_rays_scheduled.launches)
+    got = raystrack_tpu_torch.view_factor_matrix(meshes, params)
+    assert sweep_rays.launches == before[0]
+    assert sweep_rays_scheduled.launches > before[1]
+    assert got == want
+
+
+@pytest.mark.parametrize(
+    "rows,length,n_surf",
+    [(6, 2048, 11), (4, 65536, 2), (3, 5000, 7000)],
+    ids=["canyon_rows", "soup_chunk", "global_bins"],
+)
+def test_count_kernel_equals_plain_version(card, rows, length, n_surf):
+    """The count kernel equal (torch.equal) to its plain version and to
+    numpy.bincount per row, with misses, out-of-range codes, padded rays
+    and rows whose n_valid is 0 or past the row; ``global_bins`` has more
+    codes than the kernel's shared-memory bins and counts in global memory."""
+    rng = np.random.default_rng(rows + n_surf)
+    codes = rng.integers(-3, 2 * n_surf + 3, size=(rows, length)).astype(np.int32)
+    codes[:, : length // 2] = rng.integers(0, 4, size=(rows, length // 2))  # hot bins
+    n_valid = rng.integers(0, length + 1, size=rows).astype(np.int32)
+    n_valid[0], n_valid[-1] = 0, length + 7
+    c_t, v_t = torch.from_numpy(codes).to(card), torch.from_numpy(n_valid).to(card)
+    before = count_codes.launches
+    counts_f, counts_b = count_codes(c_t, v_t, n_surf)
+    torch.cuda.synchronize()
+    assert count_codes.launches == before + 1
+    plain = count_codes_reference(c_t, v_t, n_surf).view(rows, n_surf, 2)
+    assert torch.equal(counts_f, plain[:, :, 1]) and torch.equal(counts_b, plain[:, :, 0])
+    for r in range(rows):
+        row = codes[r, : max(0, min(int(n_valid[r]), length))]
+        want = np.bincount(row[(row >= 0) & (row < 2 * n_surf)],
+                           minlength=2 * n_surf).reshape(n_surf, 2)
+        np.testing.assert_array_equal(counts_b[r].cpu().numpy(), want[:, 0])
+        np.testing.assert_array_equal(counts_f[r].cpu().numpy(), want[:, 1])
