@@ -4,10 +4,13 @@
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_profile.py [--reps 5] [--traced 3] [--route auto|scheduled|grouped]
-                            [--count kernel|plain] [plates canyon district soup soup8]
+                            [--count kernel|plain] [--bvh auto|off]
+                            [plates canyon district soup soup8 city city_matrix city_plates]
 
-For each solve of chip_smoke.py (all five by default), after one warm-up
-solve, it prints:
+For each solve of chip_smoke.py (the first five by default; ``city`` is the
+1M-triangle occluded city's ground -> city solve, ``city_matrix`` its
+two-emitter matrix, ``city_plates`` the matrix of the city with its ground
+split into ten plates), after one warm-up solve, it prints:
 
 - the untraced warm wall time over ``--reps`` solves: median, min and max;
 - for each of ``--traced`` solves under ``torch.profiler``: its wall time,
@@ -22,7 +25,9 @@ solve, it prints:
 
 ``--route`` picks the multi-emitter route (``RAYSTRACK_TPU_SCHEDULER``):
 ``auto`` (scheduled on the card), ``scheduled`` or ``grouped`` (per
-emitter). ``--count plain`` counts with the count kernel's plain tensor
+emitter). ``--bvh off`` solves without the AABB gate (the default is each
+solve's own setting; the city's is the gate). ``--count plain`` counts
+with the count kernel's plain tensor
 version on the card instead of the kernel, to time the two formulations
 against each other; the solve's result does not change. The card's name
 and power limit come first; one JSON line ends each solve's block.
@@ -31,6 +36,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -52,11 +58,13 @@ def busy_seconds(intervals) -> float:
     return total / 1e6
 
 
-# ops.trace functions whose device time is reported apart: label -> names
+# functions whose device time is reported apart: label -> names, in ops.trace
+# unless prefixed "trace_cuda."
 STAGES = {
     "histogram": ("count_codes",),
     "raygen": ("generate_rays", "scheduled_rays"),
     "masks": ("emitter_operands", "combined_masks"),
+    "gate": ("_sorted_for_gate", "trace_cuda._gate_tables"),
 }
 
 
@@ -120,7 +128,14 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
     chunks, chunk_rows, rounds = [], [], []
     dispatch = solver_mod._EmitterRun.dispatch_chunk
     real_round = trace_mod.scheduled_trace
-    real_stage = {fn: getattr(trace_mod, fn) for names in STAGES.values() for fn in names}
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    def owner(fn):
+        """(module, attribute) of a STAGES name."""
+        mod, _, attr = fn.rpartition(".")
+        return (trace_cuda if mod == "trace_cuda" else trace_mod), attr
+
+    real_stage = {fn: getattr(*owner(fn)) for names in STAGES.values() for fn in names}
 
     def counted(self, chunk):
         chunks.append(chunk)
@@ -142,7 +157,7 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
     trace_mod.scheduled_trace = counted_round
     for label, names in STAGES.items():
         for fn in names:
-            setattr(trace_mod, fn, labelled(label, real_stage[fn]))
+            setattr(*owner(fn), labelled(label, real_stage[fn]))
     try:
         for i in range(n_traced):
             chunks.clear()
@@ -154,6 +169,8 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
             busy = busy_seconds((e.time_range.start, e.time_range.end) for e in kernels)
             sweep = sum(e.time_range.elapsed_us() for e in kernels
                         if "sweep_kernel" in e.name or "sweep_sched_kernel" in e.name) / 1e6
+            # the gate's per-call tables and the coherence sort are torch ops
+            gate = stages["gate"]
             count_k = sum(e.time_range.elapsed_us() for e in kernels
                           if "count_codes_kernel" in e.name) / 1e6
             dispatches = len(chunks) + len(rounds)
@@ -162,7 +179,7 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                        sweep_s=sweep, sweep_share_of_busy=sweep / busy,
                        histogram_s=stages["histogram"], count_kernel_s=count_k,
                        raygen_s=stages["raygen"],
-                       masks_s=stages["masks"],
+                       masks_s=stages["masks"], gate_s=gate,
                        chunks=len(chunks), chunk_rows=sum(chunk_rows), rounds=len(rounds),
                        round_rows=list(rounds),
                        kernels_per_dispatch=len(kernels) / max(1, dispatches))
@@ -173,7 +190,8 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                   f"{run['sweep_share_of_busy']:.1%} of busy; histogram "
                   f"{stages['histogram'] * 1e3:.3f} ms (count kernel {count_k * 1e3:.3f} ms), "
                   f"raygen {stages['raygen'] * 1e3:.3f} ms, "
-                  f"masks {stages['masks'] * 1e3:.3f} ms; {len(chunks)} chunks "
+                  f"masks {stages['masks'] * 1e3:.3f} ms, gate tables and ray sort "
+                  f"{gate * 1e3:.3f} ms; {len(chunks)} chunks "
                   f"({sum(chunks)} iterations, {sum(chunk_rows)} rows), {len(rounds)} rounds "
                   f"({sum(rounds)} rows), "
                   f"{run['kernels_per_dispatch']:.1f} device kernels per chunk or round")
@@ -181,7 +199,7 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
         solver_mod._EmitterRun.dispatch_chunk = dispatch
         trace_mod.scheduled_trace = real_round
         for fn, f in real_stage.items():
-            setattr(trace_mod, fn, f)
+            setattr(*owner(fn), f)
         trace_mod.count_codes = real_count
 
     by_name = {}
@@ -201,6 +219,7 @@ def main() -> int:
     parser.add_argument("--route", choices=("auto", "scheduled", "grouped"),
                         default="auto")
     parser.add_argument("--count", choices=("kernel", "plain"), default="kernel")
+    parser.add_argument("--bvh", choices=("auto", "off"), default=None)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
     args = parser.parse_args()
@@ -221,6 +240,8 @@ def main() -> int:
     cases = chip_smoke.solve_cases()
     for name in args.solves:
         meshes, params = cases[name]
+        if args.bvh:
+            params = dataclasses.replace(params, bvh=args.bvh)
         profile_case(name, meshes, params, args.reps, args.traced, card, args.route,
                      args.count)
     return 0

@@ -7,33 +7,53 @@ Run from the repository root on a machine with one NVIDIA card:
 
 It builds the CUDA kernels from ``raystrack_tpu_torch/csrc`` (nvcc, at first
 use), checks each bitwise against its plain PyTorch version at the shapes
-the main path gives it, then drives ``view_factor_matrix`` on the card
-through five scenes and checks each against its analytic or plain
-reference:
+the main path gives it, then drives ``view_factor_matrix`` / ``view_factor``
+on the card through six scenes and checks each against its analytic or
+plain reference:
 
 1. card       name, power limit, torch and CUDA versions
-2. build      nvcc build time and register/spill report
+2. build      nvcc build time, register/spill report, FP32 operations per
+              ray-triangle pair counted from each sweep kernel's SASS
 3. kernel #1  single-emitter sweep vs its plain version on the soup (98,304
               triangles x 262,144 rays), 6 output/mask variants
 4. kernel #2  multi-emitter sweep vs its plain version on the soup8 round
-              (98,432 triangles x 262,144 rays of 8 emitters), 3 variants,
-              and vs kernel #1 per emitter on the same rays; then the count
-              kernel vs its plain version on the codes of phases 3 and 4
-5. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4), scheduled
-6. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4),
+              (100,352 padded triangles x 262,144 rays of 8 emitters), 3
+              variants, and vs kernel #1 per emitter on the same rays; then
+              the count kernel vs its plain version on the codes of phases 3-4
+5. gate       on the 1M-triangle occluded city (bench.py's ``_city``), each
+              kernel gated by the scene's AABBs, on the coherence-sorted
+              rays of the first chunk (kernel #1, ground -> city) and round
+              (kernel #2, the matrix of the city with its ground split into
+              ten plates: 245,760 rays, all real) the solves
+              dispatch: gated == ungated
+              over all of them, gated == its plain gated version on the
+              leading blocks; times, the share of (block, tile) visits the
+              gate leaves, the gate-table build time
+6. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4), scheduled
+7. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4),
               scheduled
-7. district   97 emitters: >= 90 non-empty rows; scheduled dict == the
+8. district   97 emitters: >= 90 non-empty rows; scheduled dict == the
               per-emitter route's; rounds and warm solve times of both
-8. soup       one emitter (per-emitter route); equals phase 3's counts
-9. soup8      8 emitters: scheduled dict == per-emitter dict == phase 4's counts
-10. launches  kernel #1 once per per-emitter chunk, kernel #2 once per
+9. soup       one emitter (per-emitter route); equals phase 3's counts
+10. soup8     8 emitters: scheduled dict == per-emitter dict == phase 4's counts
+11. launches  kernel #1 once per per-emitter chunk, kernel #2 once per
               scheduled round, the count kernel once per chunk or round, all
-              on card tensors, during phases 5-9
+              on card tensors, none of them gated, during phases 6-10
+12. city      ``view_factor`` ground -> city (per-emitter route, kernel #1)
+              and ``view_factor_matrix`` of both meshes and of the ten
+              plates and the boxes (scheduled route, kernel #2), each with
+              bvh="auto" (gated) == bvh="off" (dicts
+              ``==``); warm walls, rays/s, peak device memory; one gated
+              launch per chunk or round of the gated solves, one ungated
+              launch per chunk or round of the others
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
-one comparison run. The last three lines are the kernels' JSON summary, the
-card line and the result line. Any failed check exits non-zero before them.
-Imports nothing of JAX.
+one comparison run. Each kernel's bound is the larger of its bytes over
+3.35 TB/s and its FP32 instructions (the SASS count per pair times the pair
+tests it runs) over 33.5e12 per second, one per lane per clock: half the
+H100 SXM data sheet's 67 TFLOP/s, which counts an FFMA as 2. The last three lines
+are the kernels' JSON summary, the card line and the result line. Any failed
+check exits non-zero before them. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -54,6 +74,14 @@ PLATES_TPU = 0.1998818169
 SOUP_TRIS = 98304
 SOUP_CHUNK = 4
 SOUP8_RAYS = 8 * 4 * 8192  # emitters x iterations x rays per iteration
+CITY_TRIS = 1_000_000
+CITY_PLAIN_BLOCKS = 64  # leading 256-ray blocks the plain gated versions run
+RAY_SUB = 256  # rays per kernel block (trace_cuda.RAY_SUBBLOCK)
+# H100 SXM data sheet: HBM3 bytes/s, and FP32 instructions/s: the sheet's
+# 67 TFLOP/s counts an FFMA as 2 flops, so one FP32 instruction per lane
+# per clock (132 SMs x 128 lanes x 1.98 GHz) is half of it
+PEAK_BYTES = 3.35e12
+PEAK_FP32_INSTR = 67e12 / 2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -98,6 +126,53 @@ def soup8_meshes():
                           [x0, y0 + 8, 0]], np.float32)
             plates.append((f"plate_{i}{j}", V, F.copy()))
     return plates + [soup_meshes()[1]]
+
+
+def city_meshes(n_tri: int = CITY_TRIS, extent: float = 100.0, seed: int = 0):
+    """Ground emitter + dense random boxes, near geometry occluding far: the
+    JAX package's bench.py ``_city`` (occluded_city), copied. At 1M
+    triangles: a 200 x 200 ground and 83,333 boxes, 999,998 triangles."""
+    V = np.array([[-extent, -extent, 0], [extent, -extent, 0],
+                  [extent, extent, 0], [-extent, extent, 0]], np.float32)
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    n_boxes = max(1, (n_tri - 2) // 12)
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(-extent, extent, (n_boxes, 2))
+    w = rng.uniform(1.0, 4.0, (n_boxes, 2))
+    h = rng.uniform(2.0, 25.0, n_boxes)
+    box_f = np.array([[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6],
+                      [0, 4, 5], [0, 5, 1], [1, 5, 6], [1, 6, 2],
+                      [2, 6, 7], [2, 7, 3], [3, 7, 4], [3, 4, 0]], np.int32)
+    x0, y0 = (cx - w).T.astype(np.float32)
+    x1, y1 = (cx + w).T.astype(np.float32)
+    h32 = h.astype(np.float32)
+    vs = np.empty((n_boxes, 8, 3), np.float32)
+    vs[:, (0, 3, 4, 7), 0] = x0[:, None]
+    vs[:, (1, 2, 5, 6), 0] = x1[:, None]
+    vs[:, (0, 1, 4, 5), 1] = y0[:, None]
+    vs[:, (2, 3, 6, 7), 1] = y1[:, None]
+    vs[:, :4, 2] = np.float32(0.05)
+    vs[:, 4:, 2] = h32[:, None]
+    faces = (box_f[None, :, :]
+             + 8 * np.arange(n_boxes, dtype=np.int32)[:, None, None])
+    return [("ground", V, F),
+            ("city", vs.reshape(-1, 3), faces.reshape(-1, 3))]
+
+
+def city_plates_meshes():
+    """The 1M city with its 200 x 200 ground split into ten 40 x 100
+    plates (as soup8 splits the soup's ground). With reciprocity the boxes,
+    listed last, receive from every plate and trace nothing themselves, so
+    a round of the matrix holds only plate rows, each sweeping the boxes.
+    The 999,996 box triangles and 20 plate triangles pad as the city's do."""
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    plates = []
+    for i, x0 in enumerate((-100.0, -60.0, -20.0, 20.0, 60.0)):
+        for j, y0 in enumerate((-100.0, 0.0)):
+            V = np.array([[x0, y0, 0], [x0 + 40, y0, 0], [x0 + 40, y0 + 100, 0],
+                          [x0, y0 + 100, 0]], np.float32)
+            plates.append((f"ground_{i}{j}", V, F.copy()))
+    return plates + [city_meshes()[1]]
 
 
 def district_meshes(n_buildings: int = 96, extent: float = 60.0, seed: int = 3):
@@ -155,6 +230,27 @@ def solve_cases():
         "soup8": (soup8_meshes(), MatrixParams(
             bvh="off", samples=2, rays=128, min_iters=SOUP_CHUNK,
             max_iters=SOUP_CHUNK, reciprocity=True, device="gpu")),
+        # ground -> city, what view_factor(ground, city) solves: with
+        # reciprocity the city has no receiver, so one emitter (per-emitter
+        # route); 240,000 rays per iteration pad to chunks of 262,144
+        "city": (city_meshes(), MatrixParams(
+            samples=1, rays=6, min_iters=2, max_iters=2, reciprocity=True,
+            device="gpu")),
+        # both emitters (scheduled route): the city's 26.6M m2 at 0.005
+        # samples per m2 is 133,225 rays per iteration, one round of
+        # 4 iterations
+        "city_matrix": (city_meshes(), MatrixParams(
+            samples=0.005, rays=1, min_iters=4, max_iters=4, reciprocity=False,
+            device="gpu")),
+        # ten plates x 6 iterations x 4,096 rays: one scheduled round of
+        # 245,760 rays, all real (2 blocks of 2,048 per plate and
+        # iteration). samples=0 floors every emitter's grid at 4 x 4 cells,
+        # 256 rays each: at 1 sample per m2 the boxes' 26.6M m2 would add
+        # 26.6M cells of host Halton tables (40 s of set-up on the card's
+        # host), though they trace nothing
+        "city_plates": (city_plates_meshes(), MatrixParams(
+            samples=0, rays=256, min_iters=6, max_iters=6, reciprocity=True,
+            device="gpu")),
     }
 
 
@@ -222,6 +318,81 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX")
+
+
+def sass_pair_ops(lib_path) -> dict:
+    """FP32 instructions per ray-triangle pair of each sweep instantiation,
+    counted from the library's SASS (``cuobjdump -sass``): the FADD, FMUL,
+    FFMA, FSETP, FSEL and FMNMX instructions of the innermost loop (the one
+    holding the shared-memory loads), outside the branches that only pairs
+    passing the barycentric test take, divided by the pairs one pass of
+    that loop tests (5 LDS.128 each). Each issues once per lane, an FFMA
+    too. ``"sweep_kernel<1,0,1,0>"`` -> (instructions per pair, {opcode:
+    count per pair})."""
+    from raystrack_tpu_torch.ops.build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, ins = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(sweep_(?:sched_)?kernel)((?:ILb\d)?(?:ELb\d)*)E", line)
+            ins = None
+            if m:
+                flags = ",".join(re.findall(r"b(\d)", m.group(2)))
+                ins = funcs.setdefault(f"{m.group(1)}<{flags}>", [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and ins is not None:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    out = {}
+    for name, ins in funcs.items():
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"BRA (0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                lo, hi = int(m.group(1), 16), addr
+                body = [o for a, o in ins if lo <= a <= hi]
+                if any("LDS.128" in o for o in body) and not any("BAR" in o for o in body):
+                    loops.append((hi - lo, lo, hi))
+        _, lo, hi = min(loops)
+        skips = []
+        for a, o in ins:
+            m = re.search(r"@!?P\d BRA (0x[0-9a-f]+)", o)
+            if m and lo <= a < int(m.group(1), 16) <= hi:
+                skips.append((a, int(m.group(1), 16)))
+        counts, loads = {}, 0
+        for a, o in ins:
+            if not lo <= a <= hi or any(s < a < e for s, e in skips):
+                continue
+            o = o.split(None, 1)[1] if o.startswith("@") else o
+            opc = o.split()[0].split(".")[0]
+            if opc in FP32_OPCODES:
+                counts[opc] = counts.get(opc, 0) + 1
+            loads += o.startswith("LDS.128")
+        pairs = loads // 5
+        ops = sum(counts.values()) / pairs
+        out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())})
+    return out
+
+
+def bound(n_bytes: float, pairs: float = 0.0, ops_per_pair: float = 0.0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the FP32 instructions over its issue rate."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = pairs * ops_per_pair / PEAK_FP32_INSTR * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def sweep_bytes(rays, pack, *others) -> int:
+    """Bytes a sweep must move: every input once (rays, pack, tables) and
+    its two (N,) int32 outputs once."""
+    return (rays.numel() + pack.numel()) * 4 + sum(t.numel() * t.element_size()
+                                                  for t in others) + 8 * rays.shape[1]
+
+
 def timed_once(fn):
     """One call of ``fn()``: (ms by CUDA events, result)."""
     return cuda_ms(fn, reps=1)
@@ -280,12 +451,16 @@ def phase_kernel(dev, soup_ps, seed: int):
                   f"({n * tpad / ms * 1e3:.4g} tests/s) plain {plain_ms:.3f} ms "
                   f"({n * tpad / plain_ms * 1e3:.4g} tests/s)")
             check(same, f"kernel #1 != plain version in variant {name}")
-    codes = sweep_rays(rays, build_tri_pack(scene, m_any, m_mat, bake=m_mat), m_mat,
-                       tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
-                       masks_baked=True)[0]
+    pack = build_tri_pack(scene, m_any, m_mat, bake=m_mat)
+    codes = sweep_rays(rays, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True,
+                       want_any=False, masks_baked=True)[0]
     front = int((codes == 3).sum())
     ms, plain_ms = rows[(True, False, True)]  # the solve's own variant
-    return max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 2)
+    tiles_on = m_mat.reshape(-1, tile).any(dim=1)
+    pairs = -(-n // 256) * 256 * int(tiles_on.sum()) * tile
+    nbytes = sweep_bytes(rays, pack, tiles_on.to(torch.int32))
+    return (max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 2),
+            pairs, nbytes)
 
 
 def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
@@ -307,8 +482,9 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     n, tpad, n_emit = rays.shape[1], tri_pack.shape[1], masks.shape[0]
     check(n == SOUP8_RAYS and n_emit == 8, f"soup8 round: {n} rays, {n_emit} emitters")
     tile = sweep_tile_width(tpad, tri_tile)
-    print(f"[kernel2] soup8 round: {tpad} triangles x {n} rays of {n_emit} emitters "
-          f"= {n * tpad:.4g} pair tests, tile {tile}, {schedule.shape[0]} schedule rows")
+    print(f"[kernel2] soup8 round: {tpad} padded triangles x {n} rays of {n_emit} "
+          f"emitters = {n * tpad:.4g} pair tests, tile {tile}, {schedule.shape[0]} "
+          f"schedule rows")
     max_err = 0
     times = {}
     outs = {}
@@ -351,7 +527,11 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     fronts = {int(sel[e]): int((c[ray_row == e] == 2 * 8 + 1).sum()) for e in range(n_emit)}
     ms, plain_ms = times[(True, False)]  # the solve's own variant
     codes_rows = outs[(True, False)][0].view(schedule.shape[0], sb)
-    return max_err, ms, plain_ms, fronts, (codes_rows, valid, surf.shape[1] - 1)
+    tiles_on = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)
+    pairs = int(tiles_on[emap.long()].sum()) * RAY_SUBBLOCK * tile
+    nbytes = sweep_bytes(rays, tri_pack, masks, emap, tiles_on)
+    return (max_err, ms, plain_ms, fronts, (codes_rows, valid, surf.shape[1] - 1), pairs,
+            nbytes)
 
 
 def phase_count(cases):
@@ -362,18 +542,206 @@ def phase_count(cases):
     max_err, times = 0, {}
     for name, (codes, n_valid, n_surf) in cases.items():
         args = (codes, n_valid, n_surf)
+        rows, length = codes.shape
         ms, (cf, cb) = cuda_ms(lambda: count_codes(*args))  # noqa: B023
         plain_ms, counts = timed_once(lambda: count_codes_reference(*args))  # noqa: B023
-        counts = counts.view(codes.shape[0], n_surf, 2)
+        counts = counts.view(rows, n_surf, 2)
         same = torch.equal(cf, counts[:, :, 1]) and torch.equal(cb, counts[:, :, 0])
         max_err = max(max_err, int((cf - counts[:, :, 1]).abs().max()),
                       int((cb - counts[:, :, 0]).abs().max()))
-        times[name] = (ms, plain_ms)
-        print(f"[count] {name}: {codes.shape[0]} rows x {codes.shape[1]} codes, "
-              f"{n_surf} surfaces: equal={same} hits={int(cf.sum() + cb.sum())} "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-        check(same, f"count kernel != plain version on {name}")
+        # the library yardstick: one torch.bincount over (row, code) keys,
+        # every ray that counts nowhere sent to one extra bin
+        n_codes = 2 * n_surf
+        ray = torch.arange(length, device=codes.device)
+        ok = (ray[None, :] < n_valid[:, None]) & (codes >= 0) & (codes < n_codes)
+        keys = torch.where(ok, torch.arange(rows, device=codes.device)[:, None] * n_codes
+                           + codes, rows * n_codes).reshape(-1)
+        lib_ms, lib = cuda_ms(lambda: torch.bincount(keys, minlength=rows * n_codes + 1))  # noqa: B023
+        same = same and torch.equal(lib[:-1].view(rows, n_surf, 2).to(torch.int32), counts)
+        nbytes = (codes.numel() + n_valid.numel() + counts.numel()) * 4
+        times[name] = (ms, plain_ms, lib_ms, bound(nbytes))
+        print(f"[count] {name}: {rows} rows x {length} codes, {n_surf} surfaces: "
+              f"equal={same} hits={int(cf.sum() + cb.sum())} kernel {ms:.3f} ms "
+              f"plain {plain_ms:.3f} ms torch.bincount {lib_ms:.3f} ms "
+              f"bound {times[name][3][0]:.4f} ms ({times[name][3][1]})")
+        check(same, f"count kernel != plain version or bincount on {name}")
     return max_err, times
+
+
+def first_call(mod, name: str, fn):
+    """Run ``fn()`` with ``mod.<name>`` wrapped, and return the (args,
+    kwargs) of its first call."""
+    real, calls = getattr(mod, name), []
+
+    def record(*args, **kwargs):
+        if not calls:
+            calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(mod, name, record)
+    try:
+        fn()
+    finally:
+        setattr(mod, name, real)
+    check(bool(calls), f"the solve never called {name}")
+    return calls[0]
+
+
+def gate_phase(label, rays, kernel, plain, tables, n_blocks, tiles_total, tile, ops, nbytes):
+    """Gated kernel vs ungated kernel (whole input) and vs its plain gated
+    version on the leading CITY_PLAIN_BLOCKS blocks, with times, the visit
+    share and the gate-table build time. ``kernel(rays, gated, visits)``
+    and ``plain(rays, gate, visits)`` run the two versions; ``tables()``
+    builds the gate's tables and padded tile flags for ``rays``;
+    ``tiles_total`` is the (block, tile) visits of the ungated sweep.
+
+    The wrapper builds the gate's tables at every call; the kernel's own
+    time is taken with the tables built once beforehand."""
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    dev = rays.device
+    visits = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+    full = torch.zeros_like(visits)
+    table_ms, (gate, tiles_on) = cuda_ms(lambda: tables(rays))
+    wrapper_ms, (c, a) = cuda_ms(lambda: kernel(rays, True, visits))
+    build = trace_cuda._gate_for
+    trace_cuda._gate_for = lambda *args: gate
+    try:
+        ms, (c2, a2) = cuda_ms(lambda: kernel(rays, True, visits))
+    finally:
+        trace_cuda._gate_for = build
+    ms_u, (cu, au) = cuda_ms(lambda: kernel(rays, False, full))
+    check(torch.equal(c, cu) and torch.equal(a, au) and torch.equal(c2, c)
+          and torch.equal(a2, a), f"{label}: gated kernel != ungated kernel")
+    k = min(CITY_PLAIN_BLOCKS, n_blocks)
+    sub = rays[:, : k * RAY_SUB].contiguous()
+    sub_visits = torch.zeros(k, dtype=torch.int32, device=dev)
+    plain_visits = torch.zeros_like(sub_visits)
+    sub_ms, (cs, as_) = cuda_ms(lambda: kernel(sub, True, sub_visits))
+    plain_ms, (cp, ap) = timed_once(
+        lambda: plain(sub, gate.blocks(torch.arange(k, device=dev)), tiles_on, plain_visits))
+    lead = slice(0, k * RAY_SUB)
+    same = (torch.equal(cp, c[lead]) and torch.equal(ap, a[lead])
+            and torch.equal(plain_visits, visits[:k]))
+    err = max(int((cp - c[lead]).abs().max()), int((ap - a[lead]).abs().max()))
+    check(same, f"{label}: gated kernel != its plain gated version on {k} blocks")
+    # the leading blocks alone (timed against the plain version) build their
+    # own tables; a block's mean origin may round apart, reordering ties only
+    sub_same = torch.equal(cs, cp) and torch.equal(as_, ap)
+    swept, total = int(visits.sum()), int(full.sum())
+    check(total == tiles_total, f"{label}: ungated visits {total} != {tiles_total}")
+    pairs, pairs_full = swept * RAY_SUB * tile, total * RAY_SUB * tile
+    out = dict(
+        gated_ms=ms, gated_wrapper_ms=wrapper_ms, ungated_ms=ms_u, gated_plain_ms=plain_ms,
+        gated_plain_blocks=k,
+        gated_kernel_ms_on_plain_blocks=sub_ms, gate_tables_ms=table_ms,
+        visit_share=swept / total, gated_pairs=pairs, ungated_pairs=pairs_full,
+        max_abs_err=err)
+    out["gated_bound_ms"], out["gated_bound_by"] = bound(nbytes, pairs, ops[0])
+    out["ungated_bound_ms"], out["ungated_bound_by"] = bound(nbytes, pairs_full, ops[1])
+    print(f"[gate] {label}: {n_blocks} blocks, {total} (block, tile) visits of {tile} "
+          f"triangles ungated; the gate "
+          f"leaves {swept} of {total} (block, tile) visits = {swept / total:.4%} "
+          f"({pairs:.4g} of {pairs_full:.4g} pair tests); gated == ungated and == the "
+          f"plain gated version on {k} blocks (codes, flags, visits): {same}; the "
+          f"kernel on those blocks alone: codes equal {sub_same}, visits equal "
+          f"{torch.equal(sub_visits, plain_visits)}")
+    print(f"[gate] {label}: at most {int(visits.max())} tiles in one block (ungated "
+          f"{int(full.max())}); per block, the median {float(visits.float().median()):g}")
+    print(f"[gate] {label}: gated kernel {ms:.3f} ms (bound {out['gated_bound_ms']:.3f} ms, "
+          f"{out['gated_bound_by']}), ungated kernel {ms_u:.3f} ms (bound "
+          f"{out['ungated_bound_ms']:.3f} ms, {out['ungated_bound_by']}), gate tables "
+          f"{table_ms:.3f} ms, the gated wrapper (tables and kernel) {wrapper_ms:.3f} ms; "
+          f"on the leading {k} blocks (tables included): gated kernel {sub_ms:.3f} ms, "
+          f"plain gated version {plain_ms:.3f} ms")
+    return out
+
+
+def phase_city_kernels(chunk_call, round_call, pair_ops):
+    """Kernels #1 and #2 gated on the city: the first chunk of the
+    ground -> city solve and the first round of the ten-plate matrix
+    solve, with the rays those dispatches sweep (generated and
+    coherence-sorted as chunk_body / scheduled_trace do)."""
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        _gate_for, _gated_tiles_on, scheduled_tiles_on, sweep_rays, sweep_rays_reference,
+        sweep_rays_scheduled, sweep_rays_scheduled_reference, sweep_tile_width,
+    )
+
+    # kernel #1: chunk_body's rays and operands
+    (pack, sweep_mask, tables, geom, cp, _, n_once), kw = chunk_call
+    accel = kw["accel"]
+    chunk, n_local = cp.shape[0], tables[0].shape[0]
+    dev = cp.device
+    o, d = T.generate_rays(tables, geom, cp)
+    valid = (torch.arange(n_local, device=dev) < n_once).expand(chunk, n_local)
+    o, d, _ = T._sorted_for_gate(o, d, valid, accel)
+    rays = T.ray_pack(o, d)
+    n, tpad = rays.shape[1], pack.shape[1]
+    tile = sweep_tile_width(tpad, PALLAS_TRI_TILE)
+    tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+    check(tpad % 2048 == 0 and tile == 2048, f"city pack {tpad}, tile {tile}")
+    print(f"[gate] city chunk: {n} rays ({chunk} x {n_local}, {n_once} real per "
+          f"iteration) x {tpad} padded triangles ({tpad // tile} tiles of {tile}) = "
+          f"{n * tpad:.4g} pair tests ungated")
+    sweep_kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+                    masks_baked=True)
+
+    def tables1(r):
+        gate = _gate_for(accel, r, tpad, tile, PALLAS_TRI_TILE, dev)
+        return gate, _gated_tiles_on(tiles_on, gate)
+
+    k1 = gate_phase(
+        "kernel #1, city chunk", rays,
+        lambda r, gated, v: sweep_rays(r, pack, sweep_mask, accel=accel if gated else None,
+                                       visits=v, **sweep_kw),
+        lambda r, gate, t_on, v: sweep_rays_reference(
+            r, pack, t_on, tile, want_matrix=True, want_any=False, masks_baked=True,
+            gate=gate, visits=v),
+        tables1, n // RAY_SUB, n // RAY_SUB * int(tiles_on.sum()), tile,
+        (pair_ops["sweep_kernel<1,0,1,1>"][0], pair_ops["sweep_kernel<1,0,1,0>"][0]),
+        sweep_bytes(rays, pack, tiles_on, *accel))
+
+    # kernel #2: scheduled_trace's rays, masks and emap
+    (scene, pack2, tables, geom, cp, surf, emit, mins, once, plane, schedule, sel), kw = \
+        round_call
+    sb, accel = kw["sched_block"], kw["accel"]
+    masks = T.combined_masks(scene, surf, emit, mins, plane)
+    o, d, n_valid = T.scheduled_rays(tables, geom, cp, once, schedule, sel, sched_block=sb)
+    ray = torch.arange(sb, dtype=n_valid.dtype, device=dev)
+    o, d, _ = T._sorted_for_gate(o, d, ray[None, :] < n_valid[:, None], accel)
+    rays = T.ray_pack(o, d)
+    emap = schedule[:, 0].repeat_interleave(sb // RAY_SUB)
+    t_on = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)
+    n, n_real = rays.shape[1], int(n_valid.sum())
+    print(f"[gate] city_plates round: {schedule.shape[0]} rows of {sb} rays ({n} rays, {n_real} "
+          f"real) of {masks.shape[0]} emitters x {tpad} padded triangles; active tiles "
+          f"per emitter row {t_on.sum(dim=1).tolist()} of {tpad // tile}")
+    check(masks.shape[0] == 10 and n == n_real == 245760,
+          f"city_plates round: {masks.shape[0]} emitters, {n} rays, {n_real} real")
+
+    def tables2(r):
+        gate = _gate_for(accel, r, tpad, tile, PALLAS_TRI_TILE, dev)
+        return gate, _gated_tiles_on(t_on, gate)
+
+    def plain2(r, gate, t_pad, v):
+        return sweep_rays_scheduled_reference(
+            r, pack2, masks, emap[: r.shape[1] // RAY_SUB], t_pad, tile, want_matrix=True,
+            want_any=False, gate=gate, visits=v)
+
+    def kernel2(r, gated, v):
+        return sweep_rays_scheduled(
+            r, pack2, masks, emap[: r.shape[1] // RAY_SUB].contiguous(),
+            tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+            accel=accel if gated else None, visits=v)
+
+    k2 = gate_phase(
+        "kernel #2, city_plates round", rays, kernel2, plain2, tables2, n // RAY_SUB,
+        int(t_on[emap.long()].sum()), tile,
+        (pair_ops["sweep_sched_kernel<1,0,1>"][0], pair_ops["sweep_sched_kernel<1,0,0>"][0]),
+        sweep_bytes(rays, pack2, masks, emap, t_on, *accel))
+    return k1, k2
 
 
 def main() -> int:
@@ -384,7 +752,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "validation"))
     import raystrack_tpu_torch.solver as solver_mod
-    from raystrack_tpu_torch import PreparedSolver, config, view_factor_matrix
+    from raystrack_tpu_torch import PreparedSolver, config, view_factor, view_factor_matrix
     from raystrack_tpu_torch.ops import build
     from raystrack_tpu_torch.ops import trace as trace_mod
     from raystrack_tpu_torch.ops.count_cuda import count_codes
@@ -406,13 +774,19 @@ def main() -> int:
           f"build() {time.perf_counter() - t0:.2f} s")
     for line in ptxas_lines(b.log):
         print(f"[build] {line}")
+    pair_ops = sass_pair_ops(b.path)
+    for name, (ops, counts) in pair_ops.items():
+        print(f"[build] {name}: {ops:g} FP32 instructions per pair in the SASS ({counts})")
 
     # 3. kernel #1 vs plain
     cases = solve_cases()
     soup, soup_params = cases["soup"]
     soup_ps = PreparedSolver(soup)
-    max_err, ms, plain_ms, soup_front, soup_codes = phase_kernel(
+    max_err, ms, plain_ms, soup_front, soup_codes, pairs1, bytes1 = phase_kernel(
         dev, soup_ps, soup_params.seed)
+    bound1 = bound(bytes1, pairs1, pair_ops["sweep_kernel<1,0,1,0>"][0])
+    print(f"[kernel1] matrix,baked: {pairs1:.4g} pair tests, bound {bound1[0]:.3f} ms "
+          f"({bound1[1]}); the kernel at {bound1[0] / ms:.1%} of it")
 
     # 4. kernel #2 vs plain, on the round the soup8 solve dispatches
     soup8, soup8_params = cases["soup8"]
@@ -425,17 +799,44 @@ def main() -> int:
         return real_round(*args, **kwargs)
 
     trace_mod.scheduled_trace = capture
+    quiet = solver_mod._log
+    solver_mod._log = lambda line: None
     view_factor_matrix(soup8, soup8_params, prepared=soup8_ps)
+    solver_mod._log = quiet
     trace_mod.scheduled_trace = real_round
     check(len(captured) == 1, f"soup8 took {len(captured)} scheduled rounds, not 1")
-    max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes = phase_sched_kernel(
+    max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes, pairs2, bytes2 = phase_sched_kernel(
         *captured[0], ms)
     del captured
+    bound2 = bound(bytes2, pairs2, pair_ops["sweep_sched_kernel<1,0,0>"][0])
+    print(f"[kernel2] matrix: {pairs2:.4g} pair tests, bound {bound2[0]:.3f} ms "
+          f"({bound2[1]}); the kernel at {bound2[0] / ms2:.1%} of it")
     max_err3, count_times = phase_count({"soup chunk": soup_codes, "soup8 round": soup8_codes})
     del soup_codes, soup8_codes
-    ms3, plain_ms3 = count_times["soup8 round"]
+    ms3, plain_ms3, lib_ms3, bound3 = count_times["soup8 round"]
 
-    # phases 5-9 run the main path: count its chunks, rounds and launches
+    # 5. the gate on the 1M-triangle city: the first chunk of ground -> city
+    # and the first round of the ten-plate matrix, captured from their
+    # first (set-up) solves
+    city, vf_params = cases["city"]
+    mx_params = cases["city_matrix"][1]
+    city_plates, city_plates_params = cases["city_plates"]
+    city_ps, city_plates_ps = PreparedSolver(city), PreparedSolver(city_plates)
+    solver_mod._log = lambda line: None
+    t0 = time.perf_counter()
+    chunk_call = first_call(trace_mod, "chunk_body", lambda: view_factor(
+        city[0], city[1], vf_params, prepared=city_ps))
+    t1 = time.perf_counter()
+    round_call = first_call(trace_mod, "scheduled_trace", lambda: view_factor_matrix(
+        city_plates, city_plates_params, prepared=city_plates_ps))
+    solver_mod._log = quiet
+    print(f"[gate] city: {sum(F.shape[0] for _, _, F in city)} triangles; first solves "
+          f"with set-up: ground -> city {t1 - t0:.2f} s, ten-plate matrix "
+          f"{time.perf_counter() - t1:.2f} s")
+    city_k1, city_k2 = phase_city_kernels(chunk_call, round_call, pair_ops)
+    del chunk_call, round_call
+
+    # phases 6-10 run the main path: count its chunks, rounds and launches
     def on_card(x) -> bool:
         if isinstance(x, torch.Tensor):
             return x.is_cuda
@@ -446,8 +847,11 @@ def main() -> int:
     dispatches, rounds = [], []
     dispatch = solver_mod._EmitterRun.dispatch_chunk
 
+    chunk_rays, round_rays = [], []
+
     def counted(self, chunk):
         harvest = dispatch(self, chunk)
+        chunk_rays.append(chunk * self.em_pack.n_rays_pad)
         dispatches.append(on_card(
             [self.tri_pack, self.sweep_mask]
             + [getattr(self.scene_pack, f.name) for f in dataclasses.fields(self.scene_pack)]
@@ -456,14 +860,15 @@ def main() -> int:
 
     def counted_round(*args, **kwargs):
         rounds.append(on_card(args))
+        round_rays.append(int(args[10].shape[0]) * kwargs["sched_block"])
         return real_round(*args, **kwargs)
 
     solver_mod._EmitterRun.dispatch_chunk = counted
     trace_mod.scheduled_trace = counted_round
     progress = []  # per-emitter progress lines: hundreds, summarised below
     solver_mod._log = progress.append
-    sweep_rays.launches = 0
-    sweep_rays_scheduled.launches = 0
+    sweep_rays.launches = sweep_rays.gated_launches = 0
+    sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
     count_codes.launches = 0
 
     def route_solve(route, solve):
@@ -474,7 +879,7 @@ def main() -> int:
         config.SCHEDULER = "auto"
         return out, len(rounds) - r0, len(dispatches) - c0
 
-    # 5. plates
+    # 6. plates
     plates, plates_params = cases["plates"]
     t0 = time.perf_counter()
     vf, n_rounds, n_chunks = route_solve("auto", lambda: view_factor_matrix(
@@ -488,7 +893,7 @@ def main() -> int:
     check(err <= 3e-4, f"plates |err| {err} > 3e-4")
     check(n_rounds > 0 and n_chunks == 0, "plates did not take the scheduled route")
 
-    # 6. canyon
+    # 7. canyon
     canyon, canyon_params = cases["canyon"]
     names = [name for name, _, _ in canyon]
     t0 = time.perf_counter()
@@ -507,7 +912,7 @@ def main() -> int:
     check(diff <= 1e-4, f"canyon max |dF| {diff} > 1e-4")
     check(n_rounds > 0 and n_chunks == 0, "canyon did not take the scheduled route")
 
-    # 7. district, through both routes
+    # 8. district, through both routes
     district, district_params = cases["district"]
     district_ps = PreparedSolver(district)
     solve = lambda: view_factor_matrix(district, district_params,  # noqa: E731
@@ -531,7 +936,7 @@ def main() -> int:
           f"({k2 / 5:.1f} rounds per solve); dicts identical: {vf_pe == vf}")
     check(vf_pe == vf, "district: scheduled dict != per-emitter dict")
 
-    # 8. soup through the entry point (one emitter: the per-emitter route)
+    # 9. soup through the entry point (one emitter: the per-emitter route)
     solve = lambda: view_factor_matrix(soup, soup_params, prepared=soup_ps)  # noqa: E731
     vf, n_rounds, n_chunks = route_solve("auto", solve)
     soup_times = wall_times(solve, 3)
@@ -543,14 +948,15 @@ def main() -> int:
     check(f == soup_front, f"soup solve F {f} != kernel phase counts {soup_front}")
     check(n_rounds == 0 and n_chunks == 1, "soup did not take the per-emitter route")
 
-    # 9. soup8 through both routes
+    # 10. soup8 through both routes
+    soup8_tris = soup8_ps.get_scene_pack(device=dev).n_tri_pad
     solve = lambda: view_factor_matrix(soup8, soup8_params, prepared=soup8_ps)  # noqa: E731
     vf, n_rounds, _ = route_solve("auto", solve)
     warm, _, _ = route_solve("auto", lambda: wall_times(solve, 5))
     vf_pe, _, pe_chunks = route_solve("grouped", solve)
     warm_pe, _, _ = route_solve("grouped", lambda: wall_times(solve, 5))
     print(f"[soup8] scheduled: {n_rounds} round(s), warm solve {spread(warm)} = "
-          f"{SOUP8_RAYS * 98432 / float(np.median(warm)):.4g} tests/s at the median; "
+          f"{SOUP8_RAYS * soup8_tris / float(np.median(warm)):.4g} tests/s at the median; "
           f"per-emitter: {pe_chunks} chunks, warm solve {spread(warm_pe)}; "
           f"dicts identical: {vf_pe == vf}")
     check(vf_pe == vf, "soup8: scheduled dict != per-emitter dict")
@@ -560,21 +966,22 @@ def main() -> int:
               f"soup8 {name}: solve F != kernel #2 phase counts")
     print(f"[soup8] F(plate -> cloud_front) of all 8 plates equal phase 4's counts")
 
-    # 10. launches
+    # 11. launches
     launches, launches2 = sweep_rays.launches, sweep_rays_scheduled.launches
     launches3 = count_codes.launches
-    solver_mod._EmitterRun.dispatch_chunk = dispatch
-    trace_mod.scheduled_trace = real_round
+    gated = sweep_rays.gated_launches + sweep_rays_scheduled.gated_launches
     parsed = [re.search(r"\[(.+?)\] (\d+) iter", line) for line in progress]
     print(f"[launches] {len(progress)} progress lines, e.g. {progress[0]!r}")
     check(all(parsed), "a progress line lost its '[name] K iter' format")
     print(f"[launches] kernel #1: {launches} launches for {len(dispatches)} per-emitter "
           f"chunks; kernel #2: {launches2} launches for {len(rounds)} scheduled rounds; "
-          f"on cuda in every chunk and round: {all(dispatches) and all(rounds)}")
+          f"{gated} gated (none of these scenes has more than one sweep tile and "
+          f"acceleration); on cuda in every chunk and round: {all(dispatches) and all(rounds)}")
     check(launches > 0 and launches == len(dispatches),
           f"{launches} kernel #1 launches != {len(dispatches)} chunks")
     check(launches2 > 0 and launches2 == len(rounds),
           f"{launches2} kernel #2 launches != {len(rounds)} rounds")
+    check(gated == 0, f"{gated} gated launches on scenes the gate cannot prune")
     print(f"[launches] count kernel: {launches3} launches for "
           f"{len(dispatches) + len(rounds)} chunks and rounds")
     check(launches3 == len(dispatches) + len(rounds),
@@ -582,35 +989,94 @@ def main() -> int:
           f"chunks and rounds")
     check(all(dispatches) and all(rounds), "a chunk or round ran with a tensor off the card")
 
-    print(json.dumps({"kernels": [{
-        "name": "sweep_rays",
-        "route": "cuda",
-        "source": "raystrack_tpu_torch/csrc/sweep.cu",
-        "replaces": "raystrack_tpu/ops/trace_pallas.py:1453",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "sweep_rays_scheduled",
-        "route": "cuda",
-        "source": "raystrack_tpu_torch/csrc/sweep.cu",
-        "replaces": "raystrack_tpu/ops/trace_pallas.py:1267",
-        "launches": launches2,
-        "max_abs_err": max_err2,
-        "ms": ms2,
-        "plain_ms": plain_ms2,
-    }, {
-        "name": "count_codes",
-        "route": "cuda",
-        "source": "raystrack_tpu_torch/csrc/count.cu",
-        # not a Pallas kernel: the XLA compare-and-sum it stands in for
-        "replaces": "raystrack_tpu/ops/trace.py:865",
-        "launches": launches3,
-        "max_abs_err": max_err3,
-        "ms": ms3,
-        "plain_ms": plain_ms3,
-    }]}))
+    # 12. the city through both entry points, gated (bvh="auto") and not
+    sweep_rays.launches = sweep_rays.gated_launches = 0
+    sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
+    count_codes.launches = 0
+    n_chunks = {True: 0, False: 0}
+    n_rounds = {True: 0, False: 0}
+    solves = {
+        "view_factor ground -> city": (vf_params, lambda p: view_factor(
+            city[0], city[1], p, prepared=city_ps)),
+        "view_factor_matrix, two meshes": (mx_params, lambda p: view_factor_matrix(
+            city, p, prepared=city_ps)),
+        "view_factor_matrix, ten plates": (city_plates_params, lambda p: view_factor_matrix(
+            city_plates, p, prepared=city_plates_ps)),
+    }
+    for name, (params, solve) in solves.items():
+        results, walls, peak, rays = {}, {}, {}, {}
+        for gate_on in (True, False):
+            p = params if gate_on else dataclasses.replace(params, bvh="off")
+            torch.cuda.reset_peak_memory_stats(dev)
+            r0, c0 = len(round_rays), len(chunk_rays)
+            results[gate_on], n_r, n_c = route_solve("auto", lambda: solve(p))  # noqa: B023
+            check((n_r > 0 and n_c == 0) if name.startswith("view_factor_matrix")
+                  else (n_c > 0 and n_r == 0), f"city {name}: {n_r} rounds and {n_c} chunks, "
+                  f"not the route its phase holds")
+            peak[gate_on] = torch.cuda.max_memory_allocated(dev)
+            rays[gate_on] = sum(round_rays[r0:]) + sum(chunk_rays[c0:])
+            walls[gate_on], n_r2, n_c2 = route_solve(
+                "auto", lambda: wall_times(lambda: solve(p), 3))  # noqa: B023
+            n_rounds[gate_on] += n_r + n_r2
+            n_chunks[gate_on] += n_c + n_c2
+            label = "auto (gated)" if gate_on else "off"
+            print(f"[city] {name}, bvh={label}: {n_r} rounds, {n_c} per-emitter chunks, "
+                  f"{rays[gate_on]} rays traced; warm solve {spread(walls[gate_on])} = "
+                  f"{rays[gate_on] / float(np.median(walls[gate_on])):.4g} rays/s at the "
+                  f"median; peak device memory {peak[gate_on] / 2**20:.1f} MiB")
+        same = results[True] == results[False]
+        print(f"[city] {name}: dicts identical: {same}; gated speed-up at the median "
+              f"{float(np.median(walls[False])) / float(np.median(walls[True])):.2f}x; "
+              f"{results[True]}")
+        check(same, f"city {name}: bvh='auto' dict != bvh='off' dict")
+        check(sum(len(row) for row in results[True].values()) > 0, f"city {name}: no hits")
+    launches_city = (sweep_rays.launches, sweep_rays.gated_launches,
+                     sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
+    solver_mod._EmitterRun.dispatch_chunk = dispatch
+    trace_mod.scheduled_trace = real_round
+    print(f"[launches] city: kernel #1 {launches_city[0]} launches ({launches_city[1]} gated) "
+          f"for {n_chunks[True]} gated and {n_chunks[False]} ungated chunks; kernel #2 "
+          f"{launches_city[2]} ({launches_city[3]} gated) for {n_rounds[True]} gated and "
+          f"{n_rounds[False]} ungated rounds; count kernel {count_codes.launches}")
+    check(launches_city[1] == n_chunks[True] > 0
+          and launches_city[0] == n_chunks[True] + n_chunks[False],
+          "city: kernel #1 launches != one gated launch per gated chunk")
+    check(launches_city[3] == n_rounds[True] > 0
+          and launches_city[2] == n_rounds[True] + n_rounds[False],
+          "city: kernel #2 launches != one gated launch per gated round")
+    check(count_codes.launches == sum(n_chunks.values()) + sum(n_rounds.values()),
+          "city: count launches != chunks and rounds")
+
+    def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
+        entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep.cu",
+                 "replaces": replaces, "launches": n_launches,
+                 "max_abs_err": max(err, city_k["max_abs_err"]), "ms": ms_,
+                 "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "library_ms": None, "gated_launches": gated_launches}
+        entry.update({k: v for k, v in city_k.items() if k != "max_abs_err"})
+        return entry
+
+    print(json.dumps({"kernels": [
+        kernel_entry("sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
+                     launches + launches_city[0], launches_city[1], max_err, ms, plain_ms,
+                     bound1, city_k1),
+        kernel_entry("sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
+                     launches2 + launches_city[2], launches_city[3], max_err2, ms2, plain_ms2,
+                     bound2, city_k2),
+        {
+            "name": "count_codes",
+            "route": "cuda",
+            "source": "raystrack_tpu_torch/csrc/count.cu",
+            # not a Pallas kernel: the XLA compare-and-sum it stands in for
+            "replaces": "raystrack_tpu/ops/trace.py:865",
+            "launches": launches3 + count_codes.launches,
+            "max_abs_err": max_err3,
+            "ms": ms3,
+            "plain_ms": plain_ms3,
+            "bound_ms": bound3[0],
+            "bound_by": bound3[1],
+            "library_ms": lib_ms3,
+        }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -46,6 +46,38 @@ SPECULATION_PCT = _env_int("RAYSTRACK_TPU_SPECULATION_PCT", 25, minimum=0)
 # package's Pallas sweep; whole tiles with no eligible triangle are skipped.
 PALLAS_TRI_TILE = _env_int("RAYSTRACK_TPU_PALLAS_TRI_TILE", 2048)
 
+# Past this many padded triangles pack_scene pads to a multiple of
+# PALLAS_TRI_TILE instead of 128, so the sweep tile never shrinks and the
+# pack equals the JAX package's (which streams such scenes from HBM). A
+# module constant, not read from the environment: the packs must stay the
+# JAX package's at its default.
+PALLAS_MAX_TRIS = 32768
+
+# Largest width pack_scene records as the scene's ScenePack.tri_tile (the
+# JAX package's XLA sweep tile), halved until it divides the padded count.
+# Nothing in the port sweeps at it: the field exists so the packs match the
+# JAX package's field for field.
+TRI_TILE = 512
+
+# Triangles per AABB of the scene's acceleration boxes (ScenePack.tile_lo /
+# tile_hi); every sweep tile width is a multiple of it, so the gate's boxes
+# reduce from these.
+ACCEL_GRAIN = 128
+
+# AABB distance gate: one box per sweep tile up to this many tiles; past
+# it one box per group of consecutive Morton-ordered tiles (two-level).
+GATE_MAX_TILES = _env_int("RAYSTRACK_TPU_GATE_MAX_TILES", 8192)
+
+# Largest tiles-per-box group the two-level gate takes; beyond it the sweep
+# runs ungated.
+GATE_MAX_GROUP = _env_int("RAYSTRACK_TPU_GATE_MAX_GROUP", 64)
+
+# Visit positions per early-exit check of the per-tile gate: at every K-th
+# position a block whose rays are all settled below the rest of its visit
+# list stops. 8 or 16 (other values > 1 mean 16); 0 or 1 turns the early
+# exit off.
+GATE_WINDOW = _env_int("RAYSTRACK_TPU_GATE_WINDOW", 16, minimum=0)
+
 # Multi-emitter route: "scheduled" packs every pending emitter's next
 # iterations into one dispatch per convergence round (the whole-scene
 # scheduled driver and the multi-emitter sweep kernel); "grouped" solves
@@ -88,6 +120,12 @@ __all__ = [
     "MAX_CHUNK",
     "SPECULATION_PCT",
     "PALLAS_TRI_TILE",
+    "PALLAS_MAX_TRIS",
+    "TRI_TILE",
+    "ACCEL_GRAIN",
+    "GATE_MAX_TILES",
+    "GATE_MAX_GROUP",
+    "GATE_WINDOW",
     "SCHEDULER",
     "SCHED_MAX_FLAT_RAYS",
     "SCHED_MIN_BLOCKS",

@@ -27,19 +27,36 @@
 // TPU's union fallback past SCHED_TILES_SMEM_BUDGET is a limit of its scalar
 // memory that this card does not have.
 //
+// The AABB distance gate (the kGate instantiations; the TPU kernels' use_gate
+// modes, _gate_need_rays / _gate_indexers): each block walks its own visit
+// list of tiles (near to far from the block's mean origin, only boxes some
+// ray statically crosses) and sweeps a tile only when some ray's margined
+// slab interval against the tile's box can still improve its nearest hit
+// or set its any-hit; __syncthreads_or is the block's vote. Where the TPU
+// evaluates 16 boxes' slab tests into a bitmask per window to save a
+// vector->scalar sync, a thread here tests its own ray against one box per
+// step; only the window's early-exit bound is kept (__syncthreads_and). The
+// TPU's split between VMEM-resident and HBM-streamed bodies is a VMEM limit:
+// here every tile streams through shared memory, so a skipped tile is a
+// skipped stage_tile. The gated and ungated loops share sweep_tile, so they
+// run the same pair math.
+//
 // Exactness: built with --fmad=false and without fast math, every product
 // and sum rounds as PyTorch's eager ops do and the division is IEEE, in the
 // association order of _tile_step; the nearest-hit fold keeps its tie rule
 // (smallest code among equal t inside a sweep tile, strictly smaller t
 // across tiles). Each kernel is bitwise equal to its plain version
-// (sweep_rays_reference, sweep_rays_scheduled_reference).
+// (sweep_rays_reference, sweep_rays_scheduled_reference), gated or not. The
+// gate is exact: a skipped tile cannot hold a hit at t <= best_t, so the
+// gated result differs from the ungated one only where the visit order
+// decides an exact-t tie across tiles.
 //
 // Layouts (see ops/trace_cuda.py): rays (9, N) f32 rows [o | d | o x d];
 // pack (24, Tpad) f32 rows 0-2 cross_e, 3-5 e1, 6-8 e2, 9-11 v0 x e2,
 // 12-14 v0 x e1, 15 d0, 16 2*sid, 17 mask_any, 18 mask_mat; tiles_on
 // (Tpad / tile,) i32 for kernel #1, (E, Tpad / tile) i32 for kernel #2;
 // masks (E, Tpad) f32 and emap (N / 256,) i32 for kernel #2; codes and any
-// (N,) i32.
+// (N,) i32; the gate's tables as struct Gate says.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -161,94 +178,221 @@ struct CombinedMask {
   }
 };
 
-// One ray against every active tile, with the two-level nearest-hit fold.
-// tiles_on and mask_row are uniform across the block, so every thread
-// takes the same branches and reaches every barrier.
+// The gate's per-call tables (ops/trace_cuda.py _gate_tables). Block b
+// visits positions j < counts[b] * group: box order[b][j / group], tile
+// box * group + j % group (tiles_on is padded with inactive phantom tiles
+// up to whole groups). With window > 0, at j % window == 0 the block stops
+// once every ray's best_t <= suffmin[b][j / window] (and any_hit is set,
+// when wanted).
+struct Gate {
+  const float* boxes;    // (n_boxes, 6): lo_x, lo_y, lo_z, hi_x, hi_y, hi_z
+  const int* order;      // (n_blocks, n_boxes)
+  const int* counts;     // (n_blocks,)
+  const float* suffmin;  // (n_blocks, n_windows)
+  int n_boxes;
+  int group;
+  int window;
+  int n_windows;
+};
+
+// NaN-propagating max, as torch.maximum / jnp.maximum.
+__device__ __forceinline__ float pmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The ray terms of the slab test, computed once per thread (_ray_inv).
+struct RayInv {
+  float inv[3];
+  bool zero[3];
+  bool pos[3];
+};
+
+__device__ __forceinline__ RayInv ray_inv(const Ray& r) {
+  const float d[3] = {r.dx, r.dy, r.dz};
+  RayInv v;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    v.zero[c] = fabsf(d[c]) <= 1e-30f;
+    v.inv[c] = 1.0f / (v.zero[c] ? 1.0f : d[c]);
+    v.pos[c] = d[c] >= 0.0f;
+  }
+  return v;
+}
+
+// Whether this ray still needs the tile under `box` (_gate_need_rays):
+// its margined slab interval crosses the box and starts before its
+// nearest hit, or it crosses it and has no any-hit yet. The margins keep
+// the test conservative, so skipping a tile no ray of the block needs is
+// exact. The op order is the plain version's (trace_cuda._box_interval).
+template <bool kMatrix, bool kAny>
+__device__ __forceinline__ bool box_needed(const Ray& r, const RayInv& v,
+                                           const float* __restrict__ box, float best_t,
+                                           int any_hit) {
+  const float o[3] = {r.ox, r.oy, r.oz};
+  float near = 0.0f, far = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float lo = box[c];
+    const float hi = box[3 + c];
+    float t_n, t_f;
+    if (v.zero[c]) {
+      const bool inside = o[c] >= lo && o[c] <= hi;
+      t_n = inside ? -kInf : kInf;
+      t_f = inside ? kInf : -kInf;
+    } else {
+      t_n = ((v.pos[c] ? lo : hi) - o[c]) * v.inv[c];
+      t_f = ((v.pos[c] ? hi : lo) - o[c]) * v.inv[c];
+    }
+    near = c == 0 ? t_n : pmax(near, t_n);
+    far = c == 0 ? t_f : pmin(far, t_f);
+  }
+  const float near_c = near - (fabsf(near) * 1e-4f + 1e-6f);
+  const float far_c = far + (fabsf(far) * 1e-4f + 1e-6f);
+  const bool hit_box = far_c >= near_c && far_c > 1e-6f;
+  bool need = false;
+  if (kMatrix) need = hit_box && near_c < best_t;
+  if (kAny) need = need || (hit_box && any_hit == 0);
+  return need;
+}
+
+// One sweep tile of one ray, staged kStage triangles at a time, folded into
+// the ray's carry with the tile-level tie rule. Every thread of the block
+// must call it: stage_tile holds barriers.
 template <bool kMatrix, bool kAny, int kRows, bool kMaskRow, class Elig>
-__device__ __forceinline__ void sweep_ray(const Ray& ray, const float* __restrict__ pack,
-                                          int n_tri_pad, const int* __restrict__ tiles_on,
-                                          int tile, const float* __restrict__ mask_row,
-                                          Tri* stage, Elig elig, int& code_out,
-                                          int& any_out) {
-  float best_t = kInf;
-  int best_code = -1;
-  int any_hit = 0;
-  const int n_tiles = n_tri_pad / tile;
-  for (int it = 0; it < n_tiles; ++it) {
-    if (tiles_on[it] == 0) continue;  // no eligible triangle: exact skip
-    float tile_t = kInf;
-    int tile_code = 1 << 30;
-    const int tile_end = (it + 1) * tile;
-    for (int base = it * tile; base < tile_end; base += kStage) {
-      stage_tile<kRows, kMaskRow>(stage, pack, n_tri_pad, base, mask_row);
+__device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restrict__ pack,
+                                           int n_tri_pad, int it, int tile,
+                                           const float* __restrict__ mask_row, Tri* stage,
+                                           Elig elig, float& best_t, int& best_code,
+                                           int& any_hit) {
+  float tile_t = kInf;
+  int tile_code = 1 << 30;
+  const int tile_end = (it + 1) * tile;
+  for (int base = it * tile; base < tile_end; base += kStage) {
+    stage_tile<kRows, kMaskRow>(stage, pack, n_tri_pad, base, mask_row);
 #pragma unroll 2
-      for (int j = 0; j < kStage; ++j) {
-        float t;
-        int front;
-        if (!pair_hit(ray, stage[j], t, front)) continue;
-        if (kAny && elig.any(stage[j])) any_hit = 1;
-        if (kMatrix && elig.mat(stage[j])) {
-          const int code = static_cast<int>(stage[j].e1_code.w) + front;
-          if (t < tile_t) {
-            tile_t = t;
-            tile_code = code;
-          } else if (t == tile_t && code < tile_code) {
-            tile_code = code;
-          }
+    for (int j = 0; j < kStage; ++j) {
+      float t;
+      int front;
+      if (!pair_hit(ray, stage[j], t, front)) continue;
+      if (kAny && elig.any(stage[j])) any_hit = 1;
+      if (kMatrix && elig.mat(stage[j])) {
+        const int code = static_cast<int>(stage[j].e1_code.w) + front;
+        if (t < tile_t) {
+          tile_t = t;
+          tile_code = code;
+        } else if (t == tile_t && code < tile_code) {
+          tile_code = code;
         }
       }
     }
-    if (kMatrix && tile_t < best_t) {
-      best_t = tile_t;
-      best_code = tile_code;
+  }
+  if (kMatrix && tile_t < best_t) {
+    best_t = tile_t;
+    best_code = tile_code;
+  }
+}
+
+// One ray against the scene. Ungated: every active tile in order. Gated:
+// the block's visit list, each tile taken only when some live ray of the
+// block needs it (__syncthreads_or: one instruction for the TPU's any-reduce
+// over the block) and the list cut short at window starts once every ray
+// is settled (__syncthreads_and). tiles_on, the visit list and both votes
+// are uniform across the block, so every thread takes the same branches
+// and reaches every barrier; threads past the last ray vote "not needed"
+// and "settled". Thread 0 writes the block's count of swept tiles to
+// `visits` when it is given.
+template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, class Elig>
+__device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
+                                          const float* __restrict__ pack, int n_tri_pad,
+                                          const int* __restrict__ tiles_on, int tile,
+                                          const float* __restrict__ mask_row,
+                                          const Gate& gate, Tri* stage, Elig elig,
+                                          int& code_out, int& any_out,
+                                          int* __restrict__ visits) {
+  float best_t = kInf;
+  int best_code = -1;
+  int any_hit = 0;
+  int n_swept = 0;
+  if (!kGate) {
+    const int n_tiles = n_tri_pad / tile;
+    for (int it = 0; it < n_tiles; ++it) {
+      if (tiles_on[it] == 0) continue;  // no eligible triangle: exact skip
+      sweep_tile<kMatrix, kAny, kRows, kMaskRow>(ray, pack, n_tri_pad, it, tile, mask_row,
+                                                 stage, elig, best_t, best_code, any_hit);
+      ++n_swept;
+    }
+  } else {
+    const RayInv inv = ray_inv(ray);
+    const size_t b = blockIdx.x;
+    const int* __restrict__ order = gate.order + b * gate.n_boxes;
+    const int n_visit = gate.counts[b] * gate.group;
+    for (int j = 0; j < n_visit; ++j) {
+      if (gate.window > 0 && j % gate.window == 0) {
+        const float bound = gate.suffmin[b * gate.n_windows + j / gate.window];
+        const bool settled = !live || (best_t <= bound && (!kAny || any_hit != 0));
+        if (__syncthreads_and(settled)) break;  // no later box can pass
+      }
+      const int box = order[j / gate.group];
+      const int it = box * gate.group + j % gate.group;
+      if (tiles_on[it] == 0) continue;
+      const bool need =
+          live && box_needed<kMatrix, kAny>(ray, inv, gate.boxes + 6 * box, best_t, any_hit);
+      if (!__syncthreads_or(need)) continue;  // no ray can improve: exact skip
+      sweep_tile<kMatrix, kAny, kRows, kMaskRow>(ray, pack, n_tri_pad, it, tile, mask_row,
+                                                 stage, elig, best_t, best_code, any_hit);
+      ++n_swept;
     }
   }
+  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = n_swept;
   code_out = best_t < kInf ? best_code : -1;
   any_out = any_hit;
 }
 
-template <bool kMatrix, bool kAny, bool kBaked>
+template <bool kMatrix, bool kAny, bool kBaked, bool kGate>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const float* __restrict__ rays, int n,
              const float* __restrict__ pack, int n_tri_pad,
-             const int* __restrict__ tiles_on, int tile,
-             int* __restrict__ codes, int* __restrict__ any_out) {
+             const int* __restrict__ tiles_on, int tile, Gate gate,
+             int* __restrict__ codes, int* __restrict__ any_out,
+             int* __restrict__ visits) {
   __shared__ Tri stage[kStage];
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   const bool live = ray < n;
   // threads past the last ray still load stages and reach every barrier
   const Ray r = load_ray(rays, n, live ? ray : 0);
   int code, any_hit;
-  sweep_ray<kMatrix, kAny, kUsedRows, false>(
-      r, pack, n_tri_pad, tiles_on, tile, nullptr, stage,
-      PackMasks<!kBaked, !(kBaked && !kAny)>{}, code, any_hit);
+  sweep_ray<kMatrix, kAny, kGate, kUsedRows, false>(
+      r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, stage,
+      PackMasks<!kBaked, !(kBaked && !kAny)>{}, code, any_hit, visits);
   if (live) {
     codes[ray] = code;
     any_out[ray] = any_hit;
   }
 }
 
-template <bool kMatrix, bool kAny>
+template <bool kMatrix, bool kAny, bool kGate>
 __global__ void __launch_bounds__(kThreads)
 sweep_sched_kernel(const float* __restrict__ rays, int n,
                    const float* __restrict__ pack, int n_tri_pad,
                    const float* __restrict__ masks, int n_emit,
                    const int* __restrict__ emap, const int* __restrict__ tiles_on,
-                   int tile, int* __restrict__ codes, int* __restrict__ any_out) {
+                   int tiles_stride, int tile, Gate gate, int* __restrict__ codes,
+                   int* __restrict__ any_out, int* __restrict__ visits) {
   __shared__ Tri stage[kStage];
   const int ray = blockIdx.x * kThreads + threadIdx.x;  // n is a multiple of kThreads
   const int e = emap[blockIdx.x];
-  if (e < 0 || e >= n_emit) {  // a row the masks do not hold sweeps nothing
-    codes[ray] = -1;
+  if (e < 0 || e >= n_emit) {  // a row the masks do not hold sweeps nothing;
+    codes[ray] = -1;           // block-uniform, and before any barrier
     any_out[ray] = 0;
+    if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = 0;
     return;
   }
   const size_t row = static_cast<size_t>(e);
   const Ray r = load_ray(rays, n, ray);
   int code, any_hit;
-  sweep_ray<kMatrix, kAny, kCodeRows, true>(
-      r, pack, n_tri_pad, tiles_on + row * (n_tri_pad / tile), tile,
-      masks + row * n_tri_pad, stage, CombinedMask{}, code, any_hit);
+  sweep_ray<kMatrix, kAny, kGate, kCodeRows, true>(
+      r, true, pack, n_tri_pad, tiles_on + row * tiles_stride, tile,
+      masks + row * n_tri_pad, gate, stage, CombinedMask{}, code, any_hit, visits);
   codes[ray] = code;
   any_out[ray] = any_hit;
 }
@@ -260,28 +404,52 @@ struct Args {
   int n_tri_pad;
   const int* tiles_on;
   int tile;
+  Gate gate;
   int* codes;
   int* any_out;
+  int* visits;
   cudaStream_t stream;
 };
 
-template <bool kMatrix, bool kAny>
+template <bool kMatrix, bool kAny, bool kGate>
 void launch(bool baked, const Args& a) {
   const dim3 grid((a.n + kThreads - 1) / kThreads);
   if (baked) {
-    sweep_kernel<kMatrix, kAny, true><<<grid, kThreads, 0, a.stream>>>(
-        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.codes, a.any_out);
+    sweep_kernel<kMatrix, kAny, true, kGate><<<grid, kThreads, 0, a.stream>>>(
+        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
+        a.visits);
   } else {
-    sweep_kernel<kMatrix, kAny, false><<<grid, kThreads, 0, a.stream>>>(
-        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.codes, a.any_out);
+    sweep_kernel<kMatrix, kAny, false, kGate><<<grid, kThreads, 0, a.stream>>>(
+        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
+        a.visits);
   }
 }
 
 template <bool kMatrix, bool kAny>
-void launch_sched(const Args& a, const float* masks, int n_emit, const int* emap) {
-  sweep_sched_kernel<kMatrix, kAny><<<a.n / kThreads, kThreads, 0, a.stream>>>(
-      a.rays, a.n, a.pack, a.n_tri_pad, masks, n_emit, emap, a.tiles_on, a.tile,
-      a.codes, a.any_out);
+void launch_outputs(bool baked, bool gated, const Args& a) {
+  if (gated) {
+    launch<kMatrix, kAny, true>(baked, a);
+  } else {
+    launch<kMatrix, kAny, false>(baked, a);
+  }
+}
+
+template <bool kMatrix, bool kAny, bool kGate>
+void launch_sched(const Args& a, const float* masks, int n_emit, const int* emap,
+                  int tiles_stride) {
+  sweep_sched_kernel<kMatrix, kAny, kGate><<<a.n / kThreads, kThreads, 0, a.stream>>>(
+      a.rays, a.n, a.pack, a.n_tri_pad, masks, n_emit, emap, a.tiles_on, tiles_stride,
+      a.tile, a.gate, a.codes, a.any_out, a.visits);
+}
+
+template <bool kMatrix, bool kAny>
+void launch_sched_outputs(bool gated, const Args& a, const float* masks, int n_emit,
+                          const int* emap, int tiles_stride) {
+  if (gated) {
+    launch_sched<kMatrix, kAny, true>(a, masks, n_emit, emap, tiles_stride);
+  } else {
+    launch_sched<kMatrix, kAny, false>(a, masks, n_emit, emap, tiles_stride);
+  }
 }
 
 bool bad_shape(int n, int n_tri_pad, int tile, int want_matrix, int want_any) {
@@ -289,53 +457,75 @@ bool bad_shape(int n, int n_tri_pad, int tile, int want_matrix, int want_any) {
          !(want_matrix || want_any);
 }
 
+// A gate is given when `order` is not NULL; then all its tables must be.
+bool bad_gate(const Gate& g) {
+  if (g.order == nullptr) return false;
+  return g.boxes == nullptr || g.counts == nullptr || g.n_boxes <= 0 || g.group < 1 ||
+         g.window < 0 || (g.window > 0 && (g.suffmin == nullptr ||
+                                           g.n_windows * g.window < g.n_boxes));
+}
+
 }  // namespace
 
 // Launches kernel #1 on `stream` without synchronising and returns
 // cudaGetLastError() (0 when the launch was accepted). `tile` must be a
 // multiple of 128 that divides n_tri_pad; at least one output is wanted.
+// With a gate (`order` not NULL) the tables are those of ops/trace_cuda.py
+// _gate_tables for these rays: one row per block of 256 rays, and tiles_on
+// padded to whole groups. `visits` (NULL, or one int per block) receives
+// each block's count of swept tiles.
 extern "C" int raystrack_sweep_rays(const float* rays, int n, const float* pack,
                                     int n_tri_pad, const int* tiles_on, int tile,
                                     int want_matrix, int want_any, int masks_baked,
-                                    int* codes, int* any_out, void* stream) {
-  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any)) {
+                                    const float* boxes, const int* order, const int* counts,
+                                    const float* suffmin, int n_boxes, int group,
+                                    int window, int n_windows, int* codes, int* any_out,
+                                    int* visits, void* stream) {
+  const Gate gate{boxes, order, counts, suffmin, n_boxes, group, window, n_windows};
+  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any) || bad_gate(gate)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, codes, any_out,
+  const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, gate, codes, any_out, visits,
                static_cast<cudaStream_t>(stream)};
   const bool baked = masks_baked != 0;
+  const bool gated = order != nullptr;
   if (want_matrix && want_any) {
-    launch<true, true>(baked, a);
+    launch_outputs<true, true>(baked, gated, a);
   } else if (want_matrix) {
-    launch<true, false>(baked, a);
+    launch_outputs<true, false>(baked, gated, a);
   } else {
-    launch<false, true>(baked, a);
+    launch_outputs<false, true>(baked, gated, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches kernel #2 on `stream` without synchronising and returns
 // cudaGetLastError(). n must be a multiple of 256 (one emap entry per block
-// of 256 rays); masks is (n_emit, n_tri_pad) and tiles_on
-// (n_emit, n_tri_pad / tile); the other rules are kernel #1's.
+// of 256 rays); masks is (n_emit, n_tri_pad) and tiles_on (n_emit,
+// tiles_stride), tiles_stride >= n_tri_pad / tile; the other rules are
+// kernel #1's.
 extern "C" int raystrack_sweep_rays_scheduled(
     const float* rays, int n, const float* pack, int n_tri_pad, const float* masks,
-    int n_emit, const int* emap, const int* tiles_on, int tile, int want_matrix,
-    int want_any, int* codes, int* any_out, void* stream) {
-  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any) || n % kThreads != 0 ||
-      n_emit < 0) {
+    int n_emit, const int* emap, const int* tiles_on, int tiles_stride, int tile,
+    int want_matrix, int want_any, const float* boxes, const int* order,
+    const int* counts, const float* suffmin, int n_boxes, int group, int window,
+    int n_windows, int* codes, int* any_out, int* visits, void* stream) {
+  const Gate gate{boxes, order, counts, suffmin, n_boxes, group, window, n_windows};
+  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any) || bad_gate(gate) ||
+      n % kThreads != 0 || n_emit < 0 || tiles_stride < n_tri_pad / tile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, codes, any_out,
+  const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, gate, codes, any_out, visits,
                static_cast<cudaStream_t>(stream)};
+  const bool gated = order != nullptr;
   if (want_matrix && want_any) {
-    launch_sched<true, true>(a, masks, n_emit, emap);
+    launch_sched_outputs<true, true>(gated, a, masks, n_emit, emap, tiles_stride);
   } else if (want_matrix) {
-    launch_sched<true, false>(a, masks, n_emit, emap);
+    launch_sched_outputs<true, false>(gated, a, masks, n_emit, emap, tiles_stride);
   } else {
-    launch_sched<false, true>(a, masks, n_emit, emap);
+    launch_sched_outputs<false, true>(gated, a, masks, n_emit, emap, tiles_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,9 @@ of ``raystrack_tpu.prepared.ScenePack`` / ``EmitterPack`` (scalars as
 ints; e.g. ``{f.name: np.asarray(getattr(pack, f.name)) ...}``) and return
 the port's packs on ``device``, so one prepared state drives both packages.
 
-The JAX scene pack's AABB-gate fields (``tri_tile``, ``tile_lo``,
-``tile_hi``) only gate work the port's sweep does anyway, so they are
-dropped; slim packs (``tri_pack``) are not taken yet.
+Every field of the JAX scene pack carries across, the acceleration boxes
+(``tile_lo``/``tile_hi``, None with acceleration off) included; slim packs
+(``tri_pack``) are not taken yet.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ import torch
 
 from .prepared import EmitterPack, ScenePack
 
-_SCENE_IGNORED = ("tri_tile", "tile_lo", "tile_hi")
 _EMITTER_IGNORED = ("plane_host",)
 
 
@@ -32,6 +31,8 @@ def _convert(cls, d: Dict[str, Any], device: torch.device, ignored):
         value = d[f.name]
         if f.type == "int":
             kwargs[f.name] = int(value)
+        elif value is None:
+            kwargs[f.name] = None
         else:
             # np.array copies: the caller's arrays may be read-only views
             kwargs[f.name] = torch.from_numpy(np.array(value)).to(device)
@@ -49,7 +50,7 @@ def scene_pack_from_arrays(d: Dict[str, Any], device: torch.device) -> ScenePack
             "the slim pack-resident mode)"
         )
     d = {k: v for k, v in d.items() if k != "tri_pack"}
-    return _convert(ScenePack, d, torch.device(device), _SCENE_IGNORED)
+    return _convert(ScenePack, d, torch.device(device), ())
 
 
 def emitter_pack_from_arrays(d: Dict[str, Any], device: torch.device) -> EmitterPack:

@@ -104,13 +104,16 @@ def build() -> Build:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
     lib = ctypes.CDLL(str(build().path))
+    # the gate: boxes, order, counts, suffmin; n_boxes, group, window, n_windows
+    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     fn = lib.raystrack_sweep_rays
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # rays, n
         ctypes.c_void_p, ctypes.c_int,  # pack, n_tri_pad
         ctypes.c_void_p, ctypes.c_int,  # tiles_on, tile
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # want_matrix, want_any, baked
-        ctypes.c_void_p, ctypes.c_void_p,  # codes, any
+        *gate,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -126,9 +129,10 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int,  # rays, n
         ctypes.c_void_p, ctypes.c_int,  # pack, n_tri_pad
         ctypes.c_void_p, ctypes.c_int,  # masks, n_emit
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # emap, tiles_on, tile
-        ctypes.c_int, ctypes.c_int,  # want_matrix, want_any
-        ctypes.c_void_p, ctypes.c_void_p,  # codes, any
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # emap, tiles_on, tiles_stride
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tile, want_matrix, want_any
+        *gate,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int

@@ -18,17 +18,26 @@ Both run
 
 and return only int32 count tensors. Everything here is plain PyTorch on
 the solve's device; the sweeps and the count are the kernels.
+
+With the scene's acceleration boxes (``accel``) on a scene of more than
+one sweep tile, both first sort each iteration's (or schedule row's) rays
+by a Morton key of origin and direction (:func:`sort_rays_for_coherence`),
+so each 256-ray block is a tight bundle, and the sweep's AABB distance gate
+skips the tiles no ray of a block can reach. The counts are
+permutation-invariant, so the sort changes no result.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import PALLAS_TRI_TILE
 from .count_cuda import count_codes
-from .trace_cuda import RAY_SUBBLOCK, build_tri_pack, sweep_rays, sweep_rays_scheduled
+from .trace_cuda import (
+    RAY_SUBBLOCK, build_tri_pack, gate_prunes, sweep_rays, sweep_rays_scheduled,
+)
 
 TWO_PI = 6.283185307179586
 
@@ -86,6 +95,50 @@ def ray_pack(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     dx, dy, dz = d.unbind(1)
     cross = (oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx)
     return torch.stack((ox, oy, oz, dx, dy, dz) + cross)
+
+
+def _morton3(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Interleave the low ``bits`` of (..., 3) int32 coords into one code."""
+    code = torch.zeros(q.shape[:-1], dtype=torch.int32, device=q.device)
+    for b in range(bits):
+        for axis in range(3):
+            code = code | (((q[..., axis] >> b) & 1) << (3 * b + axis))
+    return code
+
+
+def sort_rays_for_coherence(o, d, valid, *, scene_lo, scene_hi):
+    """Per-row coherence sort: (o, d, valid) of shapes (R, N, 3), (R, N, 3)
+    and (R, N) permuted within each row by a Morton key whose major part
+    is the origin quantised to 64 cells per axis of the scene's box and
+    whose minor part is the direction quantised to 8 per axis.
+
+    The key and the stable sort are the JAX package's
+    (``raystrack_tpu/ops/trace.py`` ``sort_rays_for_coherence``), so both
+    put the same rays in each 256-ray block. A block then covers a compact
+    origin patch, which is what lets the block-level gate skip tiles.
+    """
+    dq = torch.clamp((d + 1.0) * 0.5 * 7.9999, 0.0, 7.0).to(torch.int32)
+    span = torch.clamp(scene_hi - scene_lo, min=1e-12)
+    oq = torch.clamp((o - scene_lo) / span * 63.9999, 0.0, 63.0).to(torch.int32)
+    key = (_morton3(oq, 6) << 9) | _morton3(dq, 3)
+    perm = torch.argsort(key, dim=1, stable=True)
+    take3 = perm[..., None].expand_as(o)
+    return o.gather(1, take3), d.gather(1, take3), valid.gather(1, perm)
+
+
+def _gate_accel(accel, n_tri_pad: int, tri_tile: int):
+    """``accel`` where :func:`gate_prunes`, else None: the one decision of
+    whether a chunk or round sorts its rays and gates its sweep. The sweep
+    wrappers gate only what they are handed, so a caller that did not sort
+    never gets a gated sweep."""
+    return accel if gate_prunes(accel, n_tri_pad, tri_tile) else None
+
+
+def _sorted_for_gate(o, d, valid, accel):
+    """The rays sorted for the gate (:func:`sort_rays_for_coherence` within
+    each row, against the scene box of ``accel``)."""
+    return sort_rays_for_coherence(o, d, valid, scene_lo=accel[0].amin(dim=0),
+                                   scene_hi=accel[1].amax(dim=0))
 
 
 def compute_masks(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
@@ -152,6 +205,16 @@ def emitter_operands(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
     return build_tri_pack(scene, m_any, m_mat, bake=m_mat), m_mat
 
 
+def _count_rows(codes: torch.Tensor, valid, n_valid: torch.Tensor, n_surf: int):
+    """count_codes of (rows, L) codes. After a coherence sort the real rays
+    no longer lead their rows: ``valid`` (rows, L) then masks the codes of
+    padded rays to -1 and every ray of a row is counted."""
+    if valid is not None:
+        codes = torch.where(valid, codes, -1)
+        n_valid = torch.full_like(n_valid, codes.shape[1])
+    return count_codes(codes, n_valid, n_surf)
+
+
 def chunk_body(
     tri_pack: torch.Tensor,
     sweep_mask: torch.Tensor,
@@ -160,25 +223,33 @@ def chunk_body(
     cp: torch.Tensor,
     n_surf: int,
     n_rays_once: int,
+    accel=None,
 ) -> Dict[str, torch.Tensor]:
     """Trace ``chunk = cp.shape[0]`` iterations of one emitter.
 
-    Sweeps against the operands of :func:`emitter_operands`, drops padded
-    tail rays, and returns per-iteration ``counts_f`` / ``counts_b``
-    (chunk, n_surf) int32 hit counts, left on the solve's device.
+    Sweeps against the operands of :func:`emitter_operands` (gated by the
+    scene's ``accel`` boxes where :func:`gate_prunes`, after a coherence
+    sort of each iteration's rays), drops padded tail rays, and returns
+    per-iteration ``counts_f`` / ``counts_b`` (chunk, n_surf) int32 hit
+    counts, left on the solve's device.
     """
     chunk = cp.shape[0]
     n_local = tables[0].shape[0]
     device = cp.device
 
     o, d = generate_rays(tables, geom, cp)
+    valid = None
+    accel = _gate_accel(accel, tri_pack.shape[1], PALLAS_TRI_TILE)
+    if accel is not None:
+        valid = (torch.arange(n_local, device=device) < n_rays_once).expand(chunk, n_local)
+        o, d, valid = _sorted_for_gate(o, d, valid, accel)
     codes, _ = sweep_rays(
         ray_pack(o, d), tri_pack, sweep_mask, tri_tile=PALLAS_TRI_TILE,
-        want_matrix=True, want_any=False, masks_baked=True,
+        want_matrix=True, want_any=False, masks_baked=True, accel=accel,
     )
     n_valid = torch.full((chunk,), min(n_rays_once, n_local), dtype=torch.int32,
                          device=device)
-    counts_f, counts_b = count_codes(codes.view(chunk, n_local), n_valid, n_surf)
+    counts_f, counts_b = _count_rows(codes.view(chunk, n_local), valid, n_valid, n_surf)
     return {"counts_b": counts_b, "counts_f": counts_f}
 
 
@@ -254,17 +325,19 @@ def scheduled_trace(
     sel: torch.Tensor,
     *,
     sched_block: int,
-    tri_tile: int = PALLAS_TRI_TILE,
+    tri_tile: Optional[int] = None,
+    accel=None,
 ) -> torch.Tensor:
     """Trace a block schedule spanning many emitters and iterations.
 
     Counterpart of the JAX package's ``scheduled_trace_pallas`` (matrix
     counts): the round's combined mask rows for all its E emitters
     (:func:`combined_masks`), the rays of all nb schedule rows
-    (:func:`scheduled_rays`), one multi-emitter sweep over them (kernel
-    #2) against ``tri_pack`` (the scene pack built once with zero mask
-    rows: one pack serves every emitter), and the per-row counts (the
-    count kernel).
+    (:func:`scheduled_rays`; coherence-sorted within each row where the
+    scene's ``accel`` boxes let the gate prune), one multi-emitter sweep
+    over them (kernel #2) against ``tri_pack`` (the scene pack built once
+    with zero mask rows: one pack serves every emitter), and the per-row
+    counts (the count kernel).
 
     Per-round inputs are indexed by emitter row: ``surf_active_ext`` (E,
     S+1), ``emit_sid``/``min_sid``/``n_rays_once`` (E,), ``plane_vec`` (E,
@@ -274,6 +347,7 @@ def scheduled_trace(
     """
     nb = schedule.shape[0]
     n_surf = surf_active_ext.shape[1] - 1
+    tri_tile = tri_tile or PALLAS_TRI_TILE
     if tables_flat[0].shape[0] % sched_block or sched_block % RAY_SUBBLOCK:
         raise ValueError(
             f"flat ray tables ({tables_flat[0].shape[0]} rows) must be a multiple of "
@@ -282,12 +356,18 @@ def scheduled_trace(
     masks = combined_masks(scene, surf_active_ext, emit_sid, min_sid, plane_vec)
     o, d, n_valid = scheduled_rays(tables_flat, geom_stacked, cp, n_rays_once,
                                    schedule, sel, sched_block=sched_block)
+    valid = None
+    accel = _gate_accel(accel, tri_pack.shape[1], tri_tile)
+    if accel is not None:
+        # rows never mix emitters, so each row sorts on its own
+        ray = torch.arange(sched_block, dtype=n_valid.dtype, device=n_valid.device)
+        o, d, valid = _sorted_for_gate(o, d, ray[None, :] < n_valid[:, None], accel)
     emap = schedule[:, 0].repeat_interleave(sched_block // RAY_SUBBLOCK)
     codes, _ = sweep_rays_scheduled(
         ray_pack(o, d), tri_pack, masks, emap, tri_tile=tri_tile,
-        want_matrix=True, want_any=False,
+        want_matrix=True, want_any=False, accel=accel,
     )
-    counts_f, counts_b = count_codes(codes.view(nb, sched_block), n_valid, n_surf)
+    counts_f, counts_b = _count_rows(codes.view(nb, sched_block), valid, n_valid, n_surf)
     return pack_outputs({"counts_b": counts_b, "counts_f": counts_f})
 
 
@@ -313,6 +393,6 @@ def unpack_outputs(flat: np.ndarray, nb: int, n_surf: int) -> Dict[str, np.ndarr
 
 
 __all__ = [
-    "generate_rays", "ray_pack", "compute_masks", "combined_masks", "emitter_operands",
-    "chunk_body", "scheduled_rays", "scheduled_trace", "pack_outputs", "unpack_outputs",
+    "generate_rays", "ray_pack", "sort_rays_for_coherence", "compute_masks", "combined_masks",
+    "emitter_operands", "chunk_body", "scheduled_rays", "scheduled_trace", "pack_outputs", "unpack_outputs",
 ]

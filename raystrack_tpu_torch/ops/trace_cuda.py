@@ -1,10 +1,12 @@
 """Möller–Trumbore sweeps of rays against all triangles: the CUDA kernels'
-wrappers, their plain PyTorch versions, and the operand pack they consume.
+wrappers, their plain PyTorch versions, the operand pack they consume and
+the host side of their AABB distance gate.
 
 Counterpart of ``raystrack_tpu/ops/trace_pallas.py``: ``sweep_rays``
 (kernel #1, one emitter), ``sweep_rays_scheduled`` (kernel #2, each block
-of 256 rays names its own emitter) and their shared tile math
-``_tile_step``. Both kernels live in ``csrc/sweep.cu``.
+of 256 rays names its own emitter), their shared tile math ``_tile_step``
+and the gate's tables (``_gate_tables``). Both kernels live in
+``csrc/sweep.cu``.
 
 Layouts:
 
@@ -24,12 +26,23 @@ Per-pair math and epsilons: ``|det| >= 1e-7``, ``t > 1e-6``,
 code wins among the triangles at the tile's minimum ``t``; across tiles only
 a strictly smaller ``t`` replaces the carry. Tiles with no eligible triangle
 (per emitter, for kernel #2) are skipped whole.
+
+The gate (``accel=``, the scene's per-``ACCEL_GRAIN`` boxes): each block of
+256 rays visits only the tiles whose box some of its rays statically cross,
+nearest box first from the block's mean origin, and skips a tile when no
+ray's margined slab interval can still improve its nearest hit or block it
+anew. Past ``GATE_MAX_TILES`` tiles one box covers a group of consecutive
+tiles. It is exact: only the visit order differs from the ungated sweep,
+and that decides nothing but exact-``t`` ties across tiles.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
+
+from .. import config as _cfg
 
 INF = 1.0e20
 TRI_ROWS = 24  # 19 used; the pack keeps the JAX package's row count
@@ -48,12 +61,16 @@ ROW_MASK_MAT = 18
 # every sweep tile width is a multiple of it.
 _STAGE = 128
 
-# Rays per block of kernel #2 (csrc/sweep.cu kThreads): emap names one
-# emitter per block of this many rays, as the JAX package's ray_block.
+# Rays per block of both kernels (csrc/sweep.cu kThreads): emap names one
+# emitter per block of this many rays, and the gate decides per block, as
+# the JAX package's ray_block.
 RAY_SUBBLOCK = 256
 
-# (B, T) pair elements per step of the plain version: bounds its memory.
+# (B, T) pair elements per step of the plain versions: bounds their memory.
 _REF_PAIRS = 1 << 22
+
+# Empty-box padding of a two-level gate group: no slab test crosses it.
+_EMPTY_BOX = 3.0e37
 
 
 def sweep_tile_width(n_tri_pad: int, tri_tile: int) -> int:
@@ -93,6 +110,176 @@ def build_tri_pack(scene: Tuple, m_any, m_mat, *, bake=None) -> torch.Tensor:
     return pack
 
 
+# ---------------------------------------------------------------------------
+# The AABB distance gate: host side (trace_pallas.py gate_prunes,
+# gate_group_size, _resolve_gate_window, _gate_loop_bound, _gate_tables)
+# ---------------------------------------------------------------------------
+
+
+def gate_group_size(n_tiles: int) -> int:
+    """Tiles per gate box: 1 up to ``GATE_MAX_TILES`` tiles, then the
+    smallest group that brings the box count back under it."""
+    return -(-n_tiles // _cfg.GATE_MAX_TILES)
+
+
+def gate_prunes(accel, n_tri_pad: int, tri_tile: int) -> bool:
+    """Whether the sweeps gate this scene: it has acceleration boxes, more
+    than one sweep tile (a single tile leaves nothing to skip) and a group
+    size within ``GATE_MAX_GROUP``. Callers sort rays for coherence only
+    then: the sort exists to make the gate fire."""
+    if accel is None:
+        return False
+    n_tiles = n_tri_pad // sweep_tile_width(n_tri_pad, tri_tile)
+    return n_tiles > 1 and gate_group_size(n_tiles) <= _cfg.GATE_MAX_GROUP
+
+
+def _resolve_gate_window(gate_group: int) -> int:
+    """Visit positions between early-exit checks (``GATE_WINDOW``: 8 or
+    16), or 0 for none. Only the per-tile gate (group 1) exits early."""
+    k = _cfg.GATE_WINDOW
+    if gate_group != 1 or k <= 1:
+        return 0
+    return k if k in (8, 16) else 16
+
+
+def _gate_loop_bound(n_tiles: int, gate_group: int) -> int:
+    """Tile indices the gated loop can reach: whole groups, so ``tiles_on``
+    is padded with inactive phantom tiles up to this bound."""
+    return -(-n_tiles // gate_group) * gate_group
+
+
+@dataclasses.dataclass(frozen=True)
+class GateTables:
+    """Per-call tables of the gate, on the rays' device.
+
+    Block b (of ``ray_block`` rays) visits positions ``j < counts[b] *
+    group``: box ``order[b, j // group]``, tile ``box * group + j % group``.
+    At window starts (``j % window == 0``) it stops once every ray's nearest
+    hit is at or below ``suffmin[b, j // window]`` (and has an any-hit, when
+    those are wanted): no later box could then pass the gate.
+    """
+
+    boxes: torch.Tensor  # (n_boxes, 6) f32 [lo_x, lo_y, lo_z, hi_x, hi_y, hi_z]
+    order: torch.Tensor  # (n_blocks, n_boxes) int32: crossed boxes first, near to far
+    counts: torch.Tensor  # (n_blocks,) int32: boxes some ray of the block crosses
+    suffmin: torch.Tensor  # (n_blocks, n_windows) f32; n_windows = 0 without window
+    group: int
+    window: int
+    ray_block: int
+
+    def blocks(self, idx: torch.Tensor) -> "GateTables":
+        """The tables of the blocks ``idx``, in that order (a block's rows
+        depend on its own rays only)."""
+        return dataclasses.replace(
+            self, order=self.order[idx], counts=self.counts[idx],
+            suffmin=self.suffmin[idx])
+
+
+def _ray_inv(dirs):
+    """Per direction component: (|d| <= 1e-30, 1 / d, d >= 0), the slab
+    test's ray terms (trace_pallas.py _ray_inv)."""
+    out = []
+    for d_c in dirs:
+        d_zero = d_c.abs() <= 1e-30
+        out.append((d_zero, torch.reciprocal(torch.where(d_zero, 1.0, d_c)), d_c >= 0.0))
+    return out
+
+
+def _box_interval(o, inv, lo, hi):
+    """Margined ray-box slab interval (near_c, far_c), broadcast over the
+    shapes of the per-axis ray terms ``o``/``inv`` and box bounds ``lo``/
+    ``hi``. The relative margins keep it conservative against any faithful
+    f32 evaluation, so the gate never drops a tile holding a better hit.
+    The op order is the kernel's (csrc/sweep.cu box_needed)."""
+    near = far = None
+    for c in range(3):
+        d_zero, inv_c, d_pos = inv[c]
+        t_n = (torch.where(d_pos, lo[c], hi[c]) - o[c]) * inv_c
+        t_f = (torch.where(d_pos, hi[c], lo[c]) - o[c]) * inv_c
+        inside = (o[c] >= lo[c]) & (o[c] <= hi[c])
+        t_n = torch.where(d_zero, torch.where(inside, -INF, INF), t_n)
+        t_f = torch.where(d_zero, torch.where(inside, INF, -INF), t_f)
+        near = t_n if near is None else torch.maximum(near, t_n)
+        far = t_f if far is None else torch.minimum(far, t_f)
+    near_c = near - (near.abs() * 1e-4 + 1e-6)
+    far_c = far + (far.abs() * 1e-4 + 1e-6)
+    return near_c, far_c
+
+
+def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
+                 window: int = 0, ray_block: int = RAY_SUBBLOCK) -> GateTables:
+    """The gate's tables for one sweep of ``rays`` (9, N) over ``n_tiles``
+    tiles of width ``tile``, in tensor ops on the rays' device.
+
+    ``accel`` is the scene's (tile_lo, tile_hi) at ``ACCEL_GRAIN``
+    granularity; boxes reduce to the tile width, then, past
+    ``GATE_MAX_TILES`` tiles, to groups of consecutive tiles. Per block:
+    the boxes some ray statically crosses (the kernel's slab test without
+    the carry terms) sort first, by squared distance from the block's mean
+    origin (a stable sort, as ``jnp.argsort``), and ``counts`` says how
+    many; the suffix-min of the crossing rays' near bound over the visit
+    order, read at window starts, is the early-exit bound. Rays past N in
+    the last block cross nothing and do not move its mean. The crossing
+    slab is built a few blocks at a time, so its (rays, boxes) steps stay
+    near 4M elements.
+    """
+    device = rays.device
+    per = tile // _cfg.ACCEL_GRAIN
+    lo = accel[0].view(n_tiles, per, 3).amin(dim=1)
+    hi = accel[1].view(n_tiles, per, 3).amax(dim=1)
+    group = gate_group_size(n_tiles)
+    n_boxes = -(-n_tiles // group)
+    if group > 1:
+        pad = n_boxes * group - n_tiles
+        lo = torch.cat([lo, lo.new_full((pad, 3), _EMPTY_BOX)]).view(n_boxes, group, 3)
+        hi = torch.cat([hi, hi.new_full((pad, 3), -_EMPTY_BOX)]).view(n_boxes, group, 3)
+        lo, hi = lo.amin(dim=1), hi.amax(dim=1)
+
+    n = rays.shape[1]
+    n_blocks = -(-n // ray_block)
+    tail = n_blocks * ray_block - n
+    o = torch.nn.functional.pad(rays[0:3], (0, tail), value=float("nan"))
+    d = torch.nn.functional.pad(rays[3:6], (0, tail), value=1.0)
+    o3 = o.view(3, n_blocks, ray_block)
+    cent = o3.mean(dim=2).T  # (n_blocks, 3)
+    if tail:
+        cent[-1] = rays[0:3, (n_blocks - 1) * ray_block:].mean(dim=1)
+    gap = torch.maximum(lo[None] - cent[:, None], cent[:, None] - hi[None]).clamp_min(0.0)
+    dist2 = (gap * gap).sum(dim=2)  # (n_blocks, n_boxes)
+
+    crossed = torch.empty((n_blocks, n_boxes), dtype=torch.bool, device=device)
+    minnear = torch.empty((n_blocks, n_boxes), dtype=torch.float32, device=device)
+    lo_c, hi_c = [lo[None, :, c] for c in range(3)], [hi[None, :, c] for c in range(3)]
+    per_step = max(1, min(n_blocks, _REF_PAIRS // max(ray_block * n_boxes, 1)))
+    for b0 in range(0, n_blocks, per_step):
+        b1 = min(n_blocks, b0 + per_step)
+        ob = o3[:, b0:b1].reshape(3, -1, 1)
+        inv = _ray_inv(d.view(3, n_blocks, ray_block)[:, b0:b1].reshape(3, -1, 1))
+        near_c, far_c = _box_interval(ob, inv, lo_c, hi_c)  # (rays, n_boxes)
+        hit = ((far_c >= near_c) & (far_c > 1e-6)).view(b1 - b0, ray_block, n_boxes)
+        crossed[b0:b1] = hit.any(dim=1)
+        minnear[b0:b1] = torch.where(hit, near_c.view(hit.shape), INF).amin(dim=1)
+
+    order = torch.argsort(torch.where(crossed, dist2, float("inf")), dim=1, stable=True)
+    counts = crossed.sum(dim=1, dtype=torch.int32)
+    if window:
+        n_w = -(-n_boxes // window)
+        mn = torch.nn.functional.pad(minnear.gather(1, order), (0, n_w * window - n_boxes),
+                                     value=INF)
+        suffix = mn.flip(1).cummin(dim=1).values.flip(1)
+        suffmin = suffix[:, ::window].contiguous()
+    else:
+        suffmin = torch.empty((n_blocks, 0), dtype=torch.float32, device=device)
+    return GateTables(
+        boxes=torch.cat([lo, hi], dim=1).contiguous(), order=order.to(torch.int32),
+        counts=counts, suffmin=suffmin, group=group, window=window, ray_block=ray_block)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
 def _mask_tests(want_any: bool, masks_baked: bool) -> Tuple[bool, bool]:
     """Which per-pair mask-row tests the plain version runs: a baked pack
     folds the primary mask (m_any when any-hits are wanted, else m_mat)
@@ -104,6 +291,120 @@ def _mask_tests(want_any: bool, masks_baked: bool) -> Tuple[bool, bool]:
     return test_any, test_mat
 
 
+def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
+               test_any: bool, test_mat: bool):
+    """One tile of the sweep in tensor ops (trace_pallas.py _tile_step):
+    ray columns ``rays`` (..., B, 1), operand rows ``row(r)`` (..., 1, T)
+    and the carry (best_t, best_code, any_hit) (..., B, 1).
+
+    Each product and sum rounds separately and ``t = t_num / det`` is an
+    IEEE division, as in the kernel, so the two agree bitwise.
+    """
+    ox, oy, oz, dx, dy, dz, cx, cy, cz = rays
+    best_t, best_code, any_hit = carry
+    ce_x, ce_y, ce_z = row(ROW_CE), row(ROW_CE + 1), row(ROW_CE + 2)
+    det = -(dx * ce_x + dy * ce_y + dz * ce_z)
+    t_num = ox * ce_x + oy * ce_y + oz * ce_z - row(ROW_D0)
+    u_num = (
+        cx * row(ROW_E2) + cy * row(ROW_E2 + 1) + cz * row(ROW_E2 + 2)
+        + dx * row(ROW_WU) + dy * row(ROW_WU + 1) + dz * row(ROW_WU + 2)
+    )
+    v_num = -(
+        cx * row(ROW_E1) + cy * row(ROW_E1 + 1) + cz * row(ROW_E1 + 2)
+        + dx * row(ROW_WV) + dy * row(ROW_WV + 1) + dz * row(ROW_WV + 2)
+    )
+    sign = torch.where(det >= 0.0, 1.0, -1.0)
+    abs_det = det * sign
+    un = u_num * sign
+    vn = v_num * sign
+    t_hit = t_num / det
+    margin = torch.minimum(
+        torch.minimum(abs_det - 1e-7, un),
+        torch.minimum(vn, abs_det - (un + vn)),
+    )
+    valid = (margin >= 0.0) & (t_hit > 1e-6)
+    if want_any:
+        blocked = valid & (row(ROW_MASK_ANY) > 0.0) if test_any else valid
+        any_hit = any_hit | blocked.any(dim=-1, keepdim=True)
+    if want_matrix:
+        mat_ok = valid & (row(ROW_MASK_MAT) > 0.0) if test_mat else valid
+        t_masked = torch.where(mat_ok, t_hit, INF)
+        tile_best = t_masked.amin(dim=-1, keepdim=True)
+        code_all = row(ROW_CODE).to(torch.int32) + (det > 0.0).to(torch.int32)
+        code = torch.where(t_masked == tile_best, code_all, 2**30).amin(dim=-1, keepdim=True)
+        take = tile_best < best_t
+        best_t = torch.where(take, tile_best, best_t)
+        best_code = torch.where(take, code, best_code)
+    return best_t, best_code, any_hit
+
+
+def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matrix: bool,
+                 want_any: bool, test_any: bool, test_mat: bool, visits=None):
+    """The gated sweep in tensor ops: every block walks its visit list as
+    the gated kernel does (the same early-exit checks, the same per-box
+    decision against the current carry, the same tiles_on skip and
+    two-level indexing), all blocks in step, each visit running
+    :func:`_tile_step` on the blocks that take it."""
+    n = rays.shape[1]
+    B = gate.ray_block
+    n_blocks = gate.counts.shape[0]
+    device = rays.device
+    cols = torch.nn.functional.pad(rays, (0, n_blocks * B - n)).view(9, n_blocks, B, 1)
+    live = (torch.arange(n_blocks * B, device=device) < n).view(n_blocks, B, 1)
+    inv = _ray_inv(cols[3:6])
+    best_t = torch.full((n_blocks, B, 1), INF, dtype=torch.float32, device=device)
+    best_code = torch.full((n_blocks, B, 1), -1, dtype=torch.int32, device=device)
+    any_hit = torch.zeros((n_blocks, B, 1), dtype=torch.bool, device=device)
+    n_visit = gate.counts.long() * gate.group
+    done = torch.zeros(n_blocks, dtype=torch.bool, device=device)
+    n_done = torch.zeros(n_blocks, dtype=torch.int32, device=device)
+    lanes = torch.arange(tile, device=device)
+    step = max(1, _REF_PAIRS // (B * tile))
+    kw = dict(want_matrix=want_matrix, want_any=want_any, test_any=test_any,
+              test_mat=test_mat)
+    for j in range(int(n_visit.max()) if n_blocks else 0):
+        act = (n_visit > j) & ~done
+        if gate.window and j % gate.window == 0:
+            settled = best_t <= gate.suffmin[:, j // gate.window, None, None]
+            if want_any:
+                settled &= any_hit
+            stop = act & (settled | ~live).all(dim=2).all(dim=1)
+            done |= stop
+            act &= ~stop
+        box = gate.order[:, j // gate.group].long()
+        it = box * gate.group + j % gate.group
+        act &= tiles_on[it] > 0
+        blk = act.nonzero().squeeze(1)
+        if blk.numel() == 0:
+            continue
+        sub = lambda t: t.index_select(0, blk)  # noqa: E731
+        bx = gate.boxes.index_select(0, box.index_select(0, blk))[:, :, None, None]
+        near_c, far_c = _box_interval(
+            [sub(cols[c]) for c in range(3)], [tuple(map(sub, v)) for v in inv],
+            [bx[:, c] for c in range(3)], [bx[:, 3 + c] for c in range(3)])
+        hit = (far_c >= near_c) & (far_c > 1e-6)
+        need = torch.zeros_like(hit)
+        if want_matrix:
+            need = hit & (near_c < sub(best_t))
+        if want_any:
+            need = need | (hit & ~sub(any_hit))
+        blk = blk[(need & sub(live)).any(dim=2).any(dim=1)]
+        n_done.index_add_(0, blk, torch.ones_like(blk, dtype=torch.int32))
+        for k0 in range(0, blk.numel(), step):
+            kb = blk[k0 : k0 + step]
+            idx = it.index_select(0, kb)[:, None] * tile + lanes  # (K, T)
+            tri = tri_pack[:, idx]  # (24, K, T)
+            row = lambda r: tri[r][:, None, :]  # noqa: E731, B023 - (K, 1, T)
+            carry = tuple(c.index_select(0, kb) for c in (best_t, best_code, any_hit))
+            new = _tile_step([cols[c].index_select(0, kb) for c in range(9)], row, carry, **kw)
+            for c, v in zip((best_t, best_code, any_hit), new):
+                c.index_copy_(0, kb, v)
+    if visits is not None:
+        visits.copy_(n_done)
+    codes = torch.where(best_t < INF, best_code, -1).view(-1)[:n]
+    return codes, any_hit.view(-1)[:n].to(torch.int32)
+
+
 def sweep_rays_reference(
     rays: torch.Tensor,
     tri_pack: torch.Tensor,
@@ -113,67 +414,46 @@ def sweep_rays_reference(
     want_matrix: bool,
     want_any: bool,
     masks_baked: bool = False,
+    gate: Optional[GateTables] = None,
+    visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the sweep kernel: ``_tile_step`` in tensor
-    ops, looped over triangle tiles of width ``tile`` (skipping tiles whose
-    ``tiles_on`` flag is 0) and over ray chunks that bound its memory.
+    """Plain PyTorch version of kernel #1: :func:`_tile_step` over triangle
+    tiles of width ``tile``, skipping tiles whose ``tiles_on`` flag is 0.
 
-    Each product and sum rounds separately and ``t = t_num / det`` is an
-    IEEE division, as in the kernel, so the two agree bitwise.
+    Ungated, every ray takes the active tiles in order, in ray chunks that
+    bound its memory. With ``gate`` (:func:`_gate_tables` of these rays;
+    ``tiles_on`` padded to :func:`_gate_loop_bound`) each block of
+    ``gate.ray_block`` rays walks its own visit list as the gated kernel
+    does. ``visits``, a (blocks,) int32 tensor, receives the number of
+    tiles each block ran (a test and measurement aid, as in the kernel).
     """
-    n = rays.shape[1]
     test_any, test_mat = _mask_tests(want_any, masks_baked)
+    if gate is not None:
+        return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, want_matrix=want_matrix,
+                            want_any=want_any, test_any=test_any, test_mat=test_mat,
+                            visits=visits)
+    n = rays.shape[1]
     device = rays.device
     codes = torch.full((n,), -1, dtype=torch.int32, device=device)
     any_out = torch.zeros((n,), dtype=torch.int32, device=device)
     active = [i for i, on in enumerate(tiles_on.tolist()) if on]
+    if visits is not None:
+        visits.fill_(len(active))
     chunk = max(1, _REF_PAIRS // tile)
+    kw = dict(want_matrix=want_matrix, want_any=want_any, test_any=test_any,
+              test_mat=test_mat)
     for r0 in range(0, n, chunk):
-        ox, oy, oz, dx, dy, dz, cx, cy, cz = (
-            rays[j, r0 : r0 + chunk, None] for j in range(9)
+        ray_cols = [rays[j, r0 : r0 + chunk, None] for j in range(9)]
+        b = ray_cols[0].shape[0]
+        carry = (
+            torch.full((b, 1), INF, dtype=torch.float32, device=device),
+            torch.full((b, 1), -1, dtype=torch.int32, device=device),
+            torch.zeros((b, 1), dtype=torch.bool, device=device),
         )
-        b = ox.shape[0]
-        best_t = torch.full((b, 1), INF, dtype=torch.float32, device=device)
-        best_code = torch.full((b, 1), -1, dtype=torch.int32, device=device)
-        any_hit = torch.zeros((b, 1), dtype=torch.bool, device=device)
         for i in active:
             tri = tri_pack[:, i * tile : (i + 1) * tile]
-            row = lambda r: tri[r : r + 1]  # noqa: E731 - (1, T) operand row
-            ce_x, ce_y, ce_z = row(ROW_CE), row(ROW_CE + 1), row(ROW_CE + 2)
-            det = -(dx * ce_x + dy * ce_y + dz * ce_z)
-            t_num = ox * ce_x + oy * ce_y + oz * ce_z - row(ROW_D0)
-            u_num = (
-                cx * row(ROW_E2) + cy * row(ROW_E2 + 1) + cz * row(ROW_E2 + 2)
-                + dx * row(ROW_WU) + dy * row(ROW_WU + 1) + dz * row(ROW_WU + 2)
-            )
-            v_num = -(
-                cx * row(ROW_E1) + cy * row(ROW_E1 + 1) + cz * row(ROW_E1 + 2)
-                + dx * row(ROW_WV) + dy * row(ROW_WV + 1) + dz * row(ROW_WV + 2)
-            )
-            sign = torch.where(det >= 0.0, 1.0, -1.0)
-            abs_det = det * sign
-            un = u_num * sign
-            vn = v_num * sign
-            t_hit = t_num / det
-            margin = torch.minimum(
-                torch.minimum(abs_det - 1e-7, un),
-                torch.minimum(vn, abs_det - (un + vn)),
-            )
-            valid = (margin >= 0.0) & (t_hit > 1e-6)
-            if want_any:
-                blocked = valid & (row(ROW_MASK_ANY) > 0.0) if test_any else valid
-                any_hit |= blocked.any(dim=1, keepdim=True)
-            if want_matrix:
-                mat_ok = valid & (row(ROW_MASK_MAT) > 0.0) if test_mat else valid
-                t_masked = torch.where(mat_ok, t_hit, INF)
-                tile_best = t_masked.amin(dim=1, keepdim=True)
-                code_all = row(ROW_CODE).to(torch.int32) + (det > 0.0).to(torch.int32)
-                code = torch.where(t_masked == tile_best, code_all, 2**30).amin(
-                    dim=1, keepdim=True
-                )
-                take = tile_best < best_t
-                best_t = torch.where(take, tile_best, best_t)
-                best_code = torch.where(take, code, best_code)
+            carry = _tile_step(ray_cols, lambda r: tri[r : r + 1], carry, **kw)  # noqa: B023
+        best_t, best_code, any_hit = carry
         codes[r0 : r0 + b] = torch.where(best_t < INF, best_code, -1)[:, 0]
         any_out[r0 : r0 + b] = any_hit[:, 0].to(torch.int32)
     return codes, any_out
@@ -218,6 +498,51 @@ def _check_common(rays, tri_pack, want_matrix: bool, want_any: bool,
     return device, n, n_tri_pad, tile
 
 
+def _gate_for(accel, rays: torch.Tensor, n_tri_pad: int, tile: int, tri_tile: int,
+              device: torch.device) -> Optional[GateTables]:
+    """The gate's tables when the sweep is gated (:func:`gate_prunes`, as
+    ``trace_pallas.py`` decides ``use_gate``), else None."""
+    if not gate_prunes(accel, n_tri_pad, tri_tile) or rays.shape[1] == 0:
+        return None
+    if not isinstance(accel, (tuple, list)) or len(accel) != 2:
+        raise TypeError("accel must be the scene's (tile_lo, tile_hi) pair")
+    grains = n_tri_pad // _cfg.ACCEL_GRAIN
+    for name, t in zip(("tile_lo", "tile_hi"), accel):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"accel {name} must be a torch.Tensor")
+        _check(f"accel {name}", t, torch.float32, (grains, 3), device)
+    n_tiles = n_tri_pad // tile
+    return _gate_tables(accel, rays, n_tiles, tile,
+                        window=_resolve_gate_window(gate_group_size(n_tiles)))
+
+
+def _gated_tiles_on(tiles_on: torch.Tensor, gate: Optional[GateTables]) -> torch.Tensor:
+    """``tiles_on`` (..., n_tiles) padded with inactive phantom tiles up to
+    :func:`_gate_loop_bound`, which whole gate groups reach."""
+    if gate is None:
+        return tiles_on
+    n_tiles = tiles_on.shape[-1]
+    extra = _gate_loop_bound(n_tiles, gate.group) - n_tiles
+    return torch.nn.functional.pad(tiles_on, (0, extra)).contiguous()
+
+
+def _check_visits(visits, n: int, device: torch.device) -> None:
+    if visits is not None:
+        if not isinstance(visits, torch.Tensor):
+            raise TypeError("visits must be a torch.Tensor")
+        _check("visits", visits, torch.int32, (-(-n // RAY_SUBBLOCK),), device)
+
+
+def _gate_args(gate: Optional[GateTables]) -> tuple:
+    """The C entries' gate arguments: table pointers and sizes (NULL
+    pointers for an ungated sweep)."""
+    if gate is None:
+        return (None, None, None, None, 0, 1, 0, 0)
+    return (gate.boxes.data_ptr(), gate.order.data_ptr(), gate.counts.data_ptr(),
+            gate.suffmin.data_ptr(), int(gate.boxes.shape[0]), gate.group, gate.window,
+            int(gate.suffmin.shape[1]))
+
+
 def sweep_rays(
     rays: torch.Tensor,  # (9, N) f32: [o | d | o x d] rows
     tri_pack: torch.Tensor,  # (24, Tpad) f32
@@ -227,27 +552,37 @@ def sweep_rays(
     want_matrix: bool,
     want_any: bool,
     masks_baked: bool = False,
+    accel=None,
+    visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sweep all rays against all triangles; returns (codes (N,), any (N,)).
 
     ``masks_baked`` promises the pack was built with :func:`build_tri_pack`'s
     ``bake`` option, letting the sweep drop per-pair tests of that mask.
+    ``accel``, the scene's ``(tile_lo, tile_hi)``, gates the sweep where
+    :func:`gate_prunes` (pair it with ``ops.trace.sort_rays_for_coherence``:
+    gating is exact either way, but only coherent blocks make it fire).
+    ``visits``, a (ceil(N / 256),) int32 tensor, receives the number of
+    tiles each block of 256 rays swept.
 
-    CUDA tensors go to the kernel of ``csrc/sweep.cu`` (launched on the
+    CUDA tensors go to kernel #1 of ``csrc/sweep.cu`` (launched on the
     current stream, not synchronised; ``sweep_rays.launches`` counts the
-    launches); CPU tensors go to :func:`sweep_rays_reference`.
+    launches, ``sweep_rays.gated_launches`` the gated ones); CPU tensors go
+    to :func:`sweep_rays_reference`.
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays",
         sweep_mask=sweep_mask,
     )
     _check("sweep_mask", sweep_mask, torch.bool, (n_tri_pad,), device)
-    tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+    _check_visits(visits, n, device)
+    gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
+    tiles_on = _gated_tiles_on(sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
 
     if device.type == "cpu":
         return sweep_rays_reference(
             rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
-            want_any=want_any, masks_baked=masks_baked,
+            want_any=want_any, masks_baked=masks_baked, gate=gate, visits=visits,
         )
 
     from .build import load_library
@@ -262,16 +597,19 @@ def sweep_rays(
         err = lib.raystrack_sweep_rays(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
             tiles_on.data_ptr(), tile,
-            int(want_matrix), int(want_any), int(masks_baked),
-            codes.data_ptr(), any_hit.data_ptr(), stream,
+            int(want_matrix), int(want_any), int(masks_baked), *_gate_args(gate),
+            codes.data_ptr(), any_hit.data_ptr(),
+            None if visits is None else visits.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     sweep_rays.launches += 1
+    sweep_rays.gated_launches += gate is not None
     return codes, any_hit
 
 
 sweep_rays.launches = 0
+sweep_rays.gated_launches = 0
 
 
 def scheduled_tiles_on(masks: torch.Tensor, tile: int, *, want_matrix: bool,
@@ -294,30 +632,40 @@ def sweep_rays_scheduled_reference(
     *,
     want_matrix: bool,
     want_any: bool,
+    gate: Optional[GateTables] = None,
+    visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #2: per emitter row named in
     ``emap``, its blocks of rays are swept by :func:`sweep_rays_reference`
-    (the same pair math and tie rule) against the pack with that emitter's
-    combined row written into the mask rows (``> 0`` any, ``> 1`` matrix)
-    and that emitter's row of ``tiles_on``. A block whose row lies outside
-    ``0..E-1`` sweeps nothing (-1 and 0), as in the kernel."""
+    (the same pair math and tie rule, and with ``gate`` those blocks' rows
+    of the gate tables) against the pack with that emitter's combined row
+    written into the mask rows (``> 0`` any, ``> 1`` matrix) and that
+    emitter's row of ``tiles_on``. A block whose row lies outside
+    ``0..E-1`` sweeps nothing (-1 and 0, no visit), as in the kernel."""
     n = rays.shape[1]
     codes = torch.full((n,), -1, dtype=torch.int32, device=rays.device)
     any_out = torch.zeros((n,), dtype=torch.int32, device=rays.device)
-    ray_emitter = emap.repeat_interleave(RAY_SUBBLOCK)
+    if visits is not None:
+        visits.zero_()
     for e in torch.unique(emap).tolist():
         if not 0 <= e < masks.shape[0]:
             continue
-        idx = torch.nonzero(ray_emitter == e).squeeze(1)
+        blocks = torch.nonzero(emap == e).squeeze(1)
+        idx = (blocks[:, None] * RAY_SUBBLOCK
+               + torch.arange(RAY_SUBBLOCK, device=rays.device)).reshape(-1)
         pack = tri_pack.clone()
         pack[ROW_MASK_ANY] = (masks[e] > 0.0).to(torch.float32)
         pack[ROW_MASK_MAT] = (masks[e] > 1.0).to(torch.float32)
+        v = None if visits is None else torch.zeros_like(blocks, dtype=torch.int32)
         c, a = sweep_rays_reference(
             rays.index_select(1, idx).contiguous(), pack, tiles_on[e], tile,
             want_matrix=want_matrix, want_any=want_any, masks_baked=False,
+            gate=None if gate is None else gate.blocks(blocks), visits=v,
         )
         codes[idx] = c
         any_out[idx] = a
+        if visits is not None:
+            visits[blocks] = v
     return codes, any_out
 
 
@@ -330,6 +678,8 @@ def sweep_rays_scheduled(
     tri_tile: int,
     want_matrix: bool,
     want_any: bool,
+    accel=None,
+    visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-emitter sweep; returns (codes (N,), any (N,)).
 
@@ -338,12 +688,13 @@ def sweep_rays_scheduled(
     no eligible triangle for that emitter are skipped. Per ray the result
     equals :func:`sweep_rays` with that emitter's masks. A block whose row
     lies outside ``0..E-1`` sweeps nothing (codes -1, any 0): reading
-    ``emap`` on the host would wait for the card.
+    ``emap`` on the host would wait for the card. ``accel`` and ``visits``
+    are :func:`sweep_rays`'.
 
     CUDA tensors go to kernel #2 of ``csrc/sweep.cu`` (launched on the
     current stream, not synchronised; ``sweep_rays_scheduled.launches``
-    counts the launches); CPU tensors go to
-    :func:`sweep_rays_scheduled_reference`.
+    counts the launches, ``sweep_rays_scheduled.gated_launches`` the gated
+    ones); CPU tensors go to :func:`sweep_rays_scheduled_reference`.
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays_scheduled",
@@ -356,12 +707,15 @@ def sweep_rays_scheduled(
     if n % RAY_SUBBLOCK:
         raise ValueError(f"sweep_rays_scheduled takes a multiple of {RAY_SUBBLOCK} rays")
     _check("emap", emap, torch.int32, (n // RAY_SUBBLOCK,), device)
-    tiles_on = scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any)
+    _check_visits(visits, n, device)
+    gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
+    tiles_on = _gated_tiles_on(
+        scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
 
     if device.type == "cpu":
         return sweep_rays_scheduled_reference(
             rays, tri_pack, masks, emap, tiles_on, tile,
-            want_matrix=want_matrix, want_any=want_any,
+            want_matrix=want_matrix, want_any=want_any, gate=gate, visits=visits,
         )
 
     from .build import load_library
@@ -375,20 +729,23 @@ def sweep_rays_scheduled(
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raystrack_sweep_rays_scheduled(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
-            masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(), tile,
-            int(want_matrix), int(want_any),
-            codes.data_ptr(), any_hit.data_ptr(), stream,
+            masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(),
+            int(tiles_on.shape[1]), tile, int(want_matrix), int(want_any),
+            *_gate_args(gate), codes.data_ptr(), any_hit.data_ptr(),
+            None if visits is None else visits.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"scheduled sweep kernel launch failed: CUDA error {err}")
     sweep_rays_scheduled.launches += 1
+    sweep_rays_scheduled.gated_launches += gate is not None
     return codes, any_hit
 
 
 sweep_rays_scheduled.launches = 0
+sweep_rays_scheduled.gated_launches = 0
 
 __all__ = [
-    "build_tri_pack", "sweep_rays", "sweep_rays_reference", "sweep_rays_scheduled",
-    "sweep_rays_scheduled_reference", "scheduled_tiles_on", "sweep_tile_width",
-    "RAY_SUBBLOCK", "TRI_ROWS",
+    "GateTables", "build_tri_pack", "gate_group_size", "gate_prunes", "sweep_rays",
+    "sweep_rays_reference", "sweep_rays_scheduled", "sweep_rays_scheduled_reference",
+    "scheduled_tiles_on", "sweep_tile_width", "RAY_SUBBLOCK", "TRI_ROWS",
 ]

@@ -27,9 +27,12 @@ class MatrixParams:
         Base RNG seed. Each emitter/iteration derives its own sub-seed
         (``seed + emitter_index + iteration``).
     bvh : {"auto", "off", "builtin"}
-        ``builtin`` Morton-orders the scene's triangles, which decides the
-        order in which exact distance ties resolve; ``auto`` turns it on at
-        >= 512 faces. The sweep visits every triangle tile either way.
+        ``builtin`` Morton-orders the scene's triangles (which decides the
+        order in which exact distance ties resolve) and, on scenes of more
+        than one sweep tile, gates the sweep by per-tile AABBs, which skips
+        tiles no ray of a 256-ray block can reach; ``auto`` turns it on at
+        >= 512 faces. Results equal those of ``off`` up to the order in
+        which exact distance ties resolve.
     device : {"auto", "gpu", "cpu"}
         ``auto`` picks the CUDA card when one is present, else the CPU;
         ``gpu`` requires a card; ``cpu`` runs the plain PyTorch sweep.

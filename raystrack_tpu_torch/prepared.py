@@ -13,9 +13,13 @@ NumPy), so prepared arrays are bitwise equal to the JAX package's:
 The device side packs those tables into padded tensors on an explicit
 ``torch.device``:
 
-- triangles are zero-padded to a multiple of 128; a padded triangle has
+- triangles are zero-padded to a multiple of 128 (of ``PALLAS_TRI_TILE``
+  past ``PALLAS_MAX_TRIS``, as the JAX package pads); a padded triangle has
   ``e1 = e2 = 0`` so its intersection determinant is exactly 0 and it can
   never register a hit,
+- with acceleration on, each run of ``ACCEL_GRAIN`` Morton-ordered
+  triangles gets an AABB, from which the sweeps' distance gate builds its
+  boxes,
 - padded triangle surface-ids point at a sentinel slot appended to the
   surface-active vector,
 - per-cell jitter values are pre-expanded to per-ray tables,
@@ -30,13 +34,15 @@ driver's flat tables additionally by device and padding alignment.
 from __future__ import annotations
 
 import functools as _functools
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import RAY_BLOCK
+from . import config as _cfg
+from .config import ACCEL_GRAIN, RAY_BLOCK
 from .ops.halton import cached_halton, cached_halton_dims
 from .utils.helpers import grid_from_density
 
@@ -388,7 +394,8 @@ class ScenePack:
     - ``v_num = -(o×d) · e1 - d · (v0 × e1)``
     - ``t_num =  o · cross_e - v0 · cross_e``
 
-    and the front/back flag is ``det > 0``.
+    and the front/back flag is ``det > 0``. Field for field the JAX
+    package's ScenePack, except its slim-mode ``tri_pack``.
     """
 
     v0: torch.Tensor  # (Tp, 3) f32
@@ -401,7 +408,19 @@ class ScenePack:
     sid: torch.Tensor  # (Tp,) i32   padded entries = n_surf (sentinel)
     n_tri: int
     n_tri_pad: int
+    tri_tile: int
     n_surf: int
+    # AABB per ACCEL_GRAIN triangles, only with acceleration on; a fully
+    # padded grain gets the empty box (lo > hi) that every slab test misses
+    tile_lo: Optional[torch.Tensor] = None  # (Tp / ACCEL_GRAIN, 3) f32
+    tile_hi: Optional[torch.Tensor] = None  # (Tp / ACCEL_GRAIN, 3) f32
+
+    @property
+    def accel(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """``(tile_lo, tile_hi)``, the sweeps' ``accel`` argument, or None."""
+        if self.tile_lo is None:
+            return None
+        return (self.tile_lo, self.tile_hi)
 
 
 @dataclass(frozen=True)
@@ -437,15 +456,55 @@ def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> ScenePack:
-    """Pad the triangle soup to a multiple of 128 (Morton-ordered when the
-    scene was prepared with ``use_accel``) and upload it to ``device``.
+def pick_tri_tile(n_tri_pad: int) -> int:
+    """Largest tile width from {TRI_TILE, ..., 128} dividing the padded count."""
+    tile = _cfg.TRI_TILE
+    while tile > 128 and n_tri_pad % tile != 0:
+        tile //= 2
+    return max(128, min(tile, n_tri_pad))
 
-    The derived operands are computed on the host with the JAX package's
-    NumPy formulas, so the packs are bitwise equal to its ``pack_scene``.
+
+# Empty-box sentinel: any slab test against (lo=+BIG, hi=-BIG) misses.
+_ACCEL_EMPTY = 3.0e37
+
+
+def _tile_bounds(
+    v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, n_tri: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(n_tiles, 3) AABB lo/hi per ACCEL_GRAIN-triangle tile (padded arrays).
+
+    Only real triangles contribute; fully padded tiles get the empty box.
+    """
+    n_tri_pad = v0.shape[0]
+    pts = np.stack([v0, v0 + e1, v0 + e2], axis=1).astype(np.float32)  # (Tp,3,3)
+    real = np.arange(n_tri_pad) < n_tri
+    pts = np.where(real[:, None, None], pts, np.float32(np.nan))
+    tiles = pts.reshape(n_tri_pad // ACCEL_GRAIN, ACCEL_GRAIN * 3, 3)
+    with warnings.catch_warnings(), np.errstate(invalid="ignore"):
+        # fully padded tiles are all-NaN on purpose; they become empty boxes
+        warnings.simplefilter("ignore", RuntimeWarning)
+        lo = np.nanmin(tiles, axis=1)
+        hi = np.nanmax(tiles, axis=1)
+    lo = np.where(np.isnan(lo), np.float32(_ACCEL_EMPTY), lo).astype(np.float32)
+    hi = np.where(np.isnan(hi), np.float32(-_ACCEL_EMPTY), hi).astype(np.float32)
+    return lo, hi
+
+
+def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> ScenePack:
+    """Pad the triangle soup (Morton-ordered when the scene was prepared
+    with ``use_accel``, then with its acceleration boxes) and upload it to
+    ``device``.
+
+    The padded count is a multiple of 128, and of ``PALLAS_TRI_TILE`` once
+    it passes ``PALLAS_MAX_TRIS``, so a large scene's sweep tile stays
+    ``PALLAS_TRI_TILE`` wide. Padding, derived operands and boxes are
+    computed on the host with the JAX package's NumPy formulas, so the
+    packs are bitwise equal to its ``pack_scene``.
     """
     n_tri = int(scene.v0.shape[0])
     n_tri_pad = _round_up(n_tri, 128)
+    if n_tri_pad > _cfg.PALLAS_MAX_TRIS:
+        n_tri_pad = _round_up(n_tri, _cfg.PALLAS_TRI_TILE)
 
     if scene.use_accel and n_tri > 1:
         perm = morton_order(scene.v0, scene.e1, scene.e2)
@@ -467,6 +526,10 @@ def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> Sc
     w_u = np.cross(v0, e2).astype(np.float32)
     w_v = np.cross(v0, e1).astype(np.float32)
     d0 = np.einsum("ij,ij->i", v0, cross_e).astype(np.float32)
+    if scene.use_accel and n_tri > 0:
+        tile_lo, tile_hi = (_put(a, device) for a in _tile_bounds(v0, e1, e2, n_tri))
+    else:
+        tile_lo = tile_hi = None
 
     return ScenePack(
         v0=_put(v0, device),
@@ -479,7 +542,10 @@ def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> Sc
         sid=_put(sid, device),
         n_tri=n_tri,
         n_tri_pad=n_tri_pad,
+        tri_tile=pick_tri_tile(n_tri_pad),
         n_surf=n_surf,
+        tile_lo=tile_lo,
+        tile_hi=tile_hi,
     )
 
 
@@ -750,4 +816,5 @@ __all__ = [
     "pack_scene",
     "pack_emitter",
     "morton_order",
+    "pick_tri_tile",
 ]

@@ -25,8 +25,11 @@ return equal dicts. Also as in the JAX package:
 - solves without ``prepared=`` reuse an implicit, content-keyed LRU of
   ``PreparedSolver``s (``clear_prepared_cache`` empties it).
 
-On a CUDA device the sweeps are the kernels of ``csrc/sweep.cu``; on the
-CPU they are the kernels' plain PyTorch versions.
+With ``bvh`` on (``auto`` from 512 faces), both routes gate their sweeps
+by the scene's AABBs where it has more than one sweep tile (see
+``ops/trace_cuda.py``), which changes no result. On a CUDA
+device the sweeps are the kernels of ``csrc/sweep.cu``; on the CPU they are
+the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -297,7 +300,7 @@ class _EmitterRun:
             (em.u_cell, em.v_cell, em.h_tri, em.h_u, em.h_v, em.h_r1, em.h_r2),
             (em.cdf, em.tri_a, em.tri_e1, em.tri_e2,
              em.tri_u, em.tri_v, em.tri_n, em.tri_eps),
-            cp, self.scene_pack.n_surf, em.n_rays_once,
+            cp, self.scene_pack.n_surf, em.n_rays_once, accel=self.scene_pack.accel,
         )
         if not on_card:
             return lambda: {k: v.numpy() for k, v in out.items()}
@@ -586,6 +589,7 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         flat = _trace.scheduled_trace(
             scene_t, tri_pack, tables_flat, geom_stacked, cp_t, surf_t, emit_t,
             min_t, once_t, plane_t, schedule, sel_t, sched_block=RAY_BLOCK,
+            accel=scene_pack.accel,
         )
         if device.type != "cuda":
             return _Round(flat, None, plan, n_rows)

@@ -2,9 +2,10 @@
 PyTorch versions at shapes the CPU tests cannot reach (ragged ray counts,
 narrow and whole-scene tiles, skipped tiles, exact distance ties, per-emitter
 tile activity, an all-masked emitter row), kernel #2 against kernel #1 per
-emitter, the count kernel against its plain version and numpy.bincount,
-one device key per card, and solves on the card against the CPU and across
-the two routes.
+emitter, the gated kernels against their plain gated versions and the
+ungated kernels (per-tile and two-level gate, ragged ray counts), the count
+kernel against its plain version and numpy.bincount, one device key per
+card, and solves on the card against the CPU and across the two routes.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -20,10 +21,11 @@ import torch
 import raystrack_tpu_torch
 from raystrack_tpu_torch import config as tconfig
 from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
-from raystrack_tpu_torch.ops.trace import compute_masks
+from raystrack_tpu_torch.ops.trace import compute_masks, sort_rays_for_coherence
 from raystrack_tpu_torch.ops.trace_cuda import (
-    build_tri_pack, scheduled_tiles_on, sweep_rays, sweep_rays_reference,
-    sweep_rays_scheduled, sweep_rays_scheduled_reference, sweep_tile_width,
+    _gate_tables, _gated_tiles_on, _resolve_gate_window, build_tri_pack, gate_group_size,
+    scheduled_tiles_on, sweep_rays, sweep_rays_reference, sweep_rays_scheduled,
+    sweep_rays_scheduled_reference, sweep_tile_width,
 )
 
 pytestmark = pytest.mark.card
@@ -261,3 +263,162 @@ def test_count_kernel_equals_plain_version(card, rows, length, n_surf):
                            minlength=2 * n_surf).reshape(n_surf, 2)
         np.testing.assert_array_equal(counts_b[r].cpu().numpy(), want[:, 0])
         np.testing.assert_array_equal(counts_f[r].cpu().numpy(), want[:, 1])
+
+
+def _street_scene(n_tri=1100, seed=0, hx=32.0, hy=1.0, top=1.6):
+    """tests/test_torch_gate.py's street: a 64 m canyon of roof and wall
+    quads filled with random triangles, over a 64 x 0.2 m emitter strip."""
+    V = np.array([[-hx, 0.1, 0], [hx, 0.1, 0], [hx, 0.3, 0], [-hx, 0.3, 0]], np.float32)
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform([-hx, -hy, 0.2], [hx, hy, top - 0.1], size=(n_tri, 3))
+    spans = rng.normal(scale=0.3, size=(n_tri, 2, 3))
+    tris = [np.concatenate([centers, centers + spans[:, 0], centers + spans[:, 1]], axis=1)]
+    for x in np.arange(-hx, hx):
+        for a, b, c, d in (
+            ([x, -hy, top], [x, hy, top], [x + 1, hy, top], [x + 1, -hy, top]),
+            ([x, -hy, 0], [x + 1, -hy, 0], [x + 1, -hy, top], [x, -hy, top]),
+            ([x, hy, 0], [x, hy, top], [x + 1, hy, top], [x + 1, hy, 0]),
+        ):
+            tris += [np.array([a + b + c]), np.array([a + c + d])]
+    Vc = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
+    return [("emitter", V, F),
+            ("cloud", Vc, np.arange(Vc.shape[0], dtype=np.int32).reshape(-1, 3))]
+
+
+@pytest.fixture(scope="module")
+def street():
+    """The street's accel pack on the card, emitter 0's masks and 6,000
+    coherence-sorted rays from its strip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sp = raystrack_tpu_torch.PreparedSolver(_street_scene()).get_scene_pack(
+        use_accel=True, device=dev)
+    scene = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
+    masks = compute_masks(scene, torch.tensor([0, 1, 0], dtype=torch.int32, device=dev), 0, 1)
+    rng = np.random.default_rng(3)
+    n = 6000
+    o = np.stack([rng.uniform(-32, 32, n), rng.uniform(0.1, 0.3, n), np.full(n, 1e-4)], 1)
+    r1, r2 = rng.uniform(size=n), rng.uniform(size=n)
+    d = np.stack([np.sqrt(1 - r1) * np.cos(2 * np.pi * r2),
+                  np.sqrt(1 - r1) * np.sin(2 * np.pi * r2), np.sqrt(r1)], 1)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(dev)[None] for a in (o, d))
+    o, d, _ = sort_rays_for_coherence(o, d, torch.ones(o.shape[:2], dtype=torch.bool,
+                                                       device=dev),
+                                      scene_lo=sp.tile_lo.amin(0), scene_hi=sp.tile_hi.amax(0))
+    o, d = o[0], d[0]
+    rays = torch.cat([o, d, torch.linalg.cross(o, d)], dim=1).T.contiguous()
+    return sp, scene, masks, rays
+
+
+def _gated_plain(rays, pack, tiles_on, tile, accel, visits, **kw):
+    """The plain gated sweep on the card with the wrapper's own tables."""
+    n_tiles = pack.shape[1] // tile
+    gate = _gate_tables(accel, rays, n_tiles, tile,
+                        window=_resolve_gate_window(gate_group_size(n_tiles)))
+    return sweep_rays_reference(rays, pack, _gated_tiles_on(tiles_on, gate), tile, gate=gate,
+                                visits=visits, **kw)
+
+
+@pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
+                         ids=["per_tile", "two_level"])
+@pytest.mark.parametrize("baked", [True, False], ids=["baked", "rows"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_gated_kernel_equals_plain_and_ungated(street, monkeypatch, want_matrix, want_any,
+                                               baked, max_tiles, tri_tile):
+    """Gated kernel #1 == its plain gated version (codes, flags and each
+    block's visits) == the ungated kernel, at ray counts that are and are
+    not multiples of 256; one gated launch per call."""
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", max_tiles)
+    sp, scene, (m_any, m_mat), rays_all = street
+    prim = m_any if want_any else m_mat
+    pack = build_tri_pack(scene, m_any, m_mat, bake=prim if baked else None)
+    tile = sweep_tile_width(sp.n_tri_pad, tri_tile)
+    tiles_on = prim.reshape(-1, tile).any(dim=1).to(torch.int32)
+    kw = dict(want_matrix=want_matrix, want_any=want_any, masks_baked=baked)
+    for n in (1, 257, 5 * 256, 6000):
+        rays = rays_all[:, :n].contiguous()
+        nb = -(-n // 256)
+        visits = torch.full((nb,), -1, dtype=torch.int32, device=rays.device)
+        before = sweep_rays.gated_launches
+        codes, any_hit = sweep_rays(rays, pack, prim, tri_tile=tri_tile, accel=sp.accel,
+                                    visits=visits, **kw)
+        torch.cuda.synchronize()
+        assert sweep_rays.gated_launches == before + 1
+        plain_visits = torch.full_like(visits, -2)
+        want = _gated_plain(rays, pack, tiles_on, tile, sp.accel, plain_visits, **kw)
+        assert torch.equal(codes, want[0]) and torch.equal(any_hit, want[1]), n
+        assert torch.equal(visits, plain_visits), n
+        ungated = sweep_rays(rays, pack, prim, tri_tile=tri_tile, **kw)
+        assert torch.equal(codes, ungated[0]) and torch.equal(any_hit, ungated[1]), n
+    if max_tiles == 8192:
+        assert int(visits.sum()) < nb * int(tiles_on.sum())  # the gate skipped tiles
+
+
+@pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
+                         ids=["per_tile", "two_level"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_gated_scheduled_kernel_equals_plain_and_ungated(street, monkeypatch, want_matrix,
+                                                         want_any, max_tiles, tri_tile):
+    """Gated kernel #2 == its plain gated version (with visits) == the
+    ungated kernel, with an all-zero emitter row and a row past E."""
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", max_tiles)
+    sp, scene, (m_any, m_mat), rays_all = street
+    rays = rays_all[:, : 20 * 256].contiguous()
+    dev = rays.device
+    masks = torch.stack([m_mat.float() * 2, m_any.float() + m_mat.float(),
+                         torch.zeros_like(m_any, dtype=torch.float32)])
+    emap = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 4, 20).astype(np.int32)).to(dev)
+    zeros = torch.zeros_like(m_any)
+    pack = build_tri_pack(scene, zeros, zeros)
+    kw = dict(tri_tile=tri_tile, want_matrix=want_matrix, want_any=want_any)
+    visits = torch.full((20,), -1, dtype=torch.int32, device=dev)
+    before = sweep_rays_scheduled.gated_launches
+    codes, any_hit = sweep_rays_scheduled(rays, pack, masks, emap, accel=sp.accel,
+                                          visits=visits, **kw)
+    torch.cuda.synchronize()
+    assert sweep_rays_scheduled.gated_launches == before + 1
+    tile = sweep_tile_width(sp.n_tri_pad, tri_tile)
+    n_tiles = sp.n_tri_pad // tile
+    gate = _gate_tables(sp.accel, rays, n_tiles, tile,
+                        window=_resolve_gate_window(gate_group_size(n_tiles)))
+    tiles_on = _gated_tiles_on(
+        scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
+    plain_visits = torch.full_like(visits, -2)
+    want = sweep_rays_scheduled_reference(rays, pack, masks, emap, tiles_on, tile,
+                                          want_matrix=want_matrix, want_any=want_any,
+                                          gate=gate, visits=plain_visits)
+    assert torch.equal(codes, want[0]) and torch.equal(any_hit, want[1])
+    assert torch.equal(visits, plain_visits)
+    ungated = sweep_rays_scheduled(rays, pack, masks, emap, **kw)
+    assert torch.equal(codes, ungated[0]) and torch.equal(any_hit, ungated[1])
+    idle = emap >= 2
+    assert not bool(visits[idle].any()) and bool((codes.view(20, 256)[idle] == -1).all())
+
+
+def test_gated_solves_on_card_equal_ungated(card, monkeypatch):
+    """bvh="builtin" == bvh="off" on the card, both routes, on the street
+    (12 sweep tiles of 128); the gated kernels ran."""
+    import raystrack_tpu_torch.ops.trace as ttrace
+
+    monkeypatch.setattr(ttrace, "PALLAS_TRI_TILE", 128)
+    meshes = _street_scene(seed=2)
+    kw = dict(samples=2, rays=8, seed=4, device="gpu", max_iters=3, min_iters=2, tol=1e-3,
+              reciprocity=False)
+    for route in ("grouped", "scheduled"):
+        monkeypatch.setattr(tconfig, "SCHEDULER", route)
+        before = sweep_rays.gated_launches + sweep_rays_scheduled.gated_launches
+        on = raystrack_tpu_torch.view_factor_matrix(
+            meshes, raystrack_tpu_torch.MatrixParams(bvh="builtin", **kw))
+        assert sweep_rays.gated_launches + sweep_rays_scheduled.gated_launches > before
+        off = raystrack_tpu_torch.view_factor_matrix(
+            meshes, raystrack_tpu_torch.MatrixParams(bvh="off", **kw))
+        assert on == off, route
