@@ -4,13 +4,15 @@
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_profile.py [--reps 5] [--traced 3] [--route auto|scheduled|grouped]
-                            [--count kernel|plain] [--bvh auto|off]
-                            [plates canyon district soup soup8 city city_matrix city_plates]
+                            [--count kernel|plain] [--bvh auto|off] [--slim]
+                            [plates canyon district soup soup8 city city_matrix city_plates
+                             city10m]
 
 For each solve of chip_smoke.py (the first five by default; ``city`` is the
 1M-triangle occluded city's ground -> city solve, ``city_matrix`` its
 two-emitter matrix, ``city_plates`` the matrix of the city with its ground
-split into ten plates), after one warm-up solve, it prints:
+split into ten plates, ``city10m`` the ground -> city solve of the
+10M-triangle city), after one warm-up solve, it prints:
 
 - the untraced warm wall time over ``--reps`` solves: median, min and max;
 - for each of ``--traced`` solves under ``torch.profiler``: its wall time,
@@ -29,7 +31,10 @@ emitter). ``--bvh off`` solves without the AABB gate (the default is each
 solve's own setting; the city's is the gate). ``--count plain`` counts
 with the count kernel's plain tensor
 version on the card instead of the kernel, to time the two formulations
-against each other; the solve's result does not change. The card's name
+against each other; the solve's result does not change. ``--slim`` packs
+every scene slim (pack-resident: ``config.SLIM_PACK_MIN_TRIS`` set to 1 for
+the run), so each solve goes emitter by emitter through kernel #1's
+code_bounds mode on the scene's one resident pack. The card's name
 and power limit come first; one JSON line ends each solve's block.
 Imports nothing of JAX.
 """
@@ -63,7 +68,7 @@ def busy_seconds(intervals) -> float:
 STAGES = {
     "histogram": ("count_codes",),
     "raygen": ("generate_rays", "scheduled_rays"),
-    "masks": ("emitter_operands", "combined_masks"),
+    "masks": ("emitter_operands", "slim_operands", "combined_masks"),
     "gate": ("_sorted_for_gate", "trace_cuda._gate_tables"),
 }
 
@@ -107,7 +112,7 @@ def plain_count(codes, n_valid, n_surf):
 
 
 def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
-                 route: str, count: str) -> None:
+                 route: str, count: str, slim: bool = False) -> None:
     import chip_smoke
     import raystrack_tpu_torch.solver as solver_mod
     from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
@@ -120,10 +125,14 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
     prepared = PreparedSolver(meshes)
     solve = lambda: view_factor_matrix(meshes, params, prepared=prepared)  # noqa: E731
     solve()  # set-up and first build outside every timing
+    if prepared.get_scene_pack(
+            use_accel=solver_mod._select_bvh(params.bvh, prepared.total_faces),
+            device=solver_mod._resolve_device(params.device)).slim != slim:
+        raise SystemExit(f"FAILED: {name}: the scene pack is not {'slim' if slim else 'full'}")
     warm = chip_smoke.wall_times(solve, reps)
     median = float(np.median(warm))
-    print(f"[{name}] route {route}, count {count}: untraced warm solve "
-          f"{chip_smoke.spread(warm)}")
+    print(f"[{name}] route {route}, count {count}, {'slim' if slim else 'full'} pack: "
+          f"untraced warm solve {chip_smoke.spread(warm)}")
 
     chunks, chunk_rows, rounds = [], [], []
     dispatch = solver_mod._EmitterRun.dispatch_chunk
@@ -168,7 +177,8 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                 raise SystemExit(f"FAILED: {name}: the trace holds no device kernel")
             busy = busy_seconds((e.time_range.start, e.time_range.end) for e in kernels)
             sweep = sum(e.time_range.elapsed_us() for e in kernels
-                        if "sweep_kernel" in e.name or "sweep_sched_kernel" in e.name) / 1e6
+                        if any(k in e.name for k in ("sweep_kernel", "sweep_code_kernel",
+                                                     "sweep_sched_kernel"))) / 1e6
             # the gate's per-call tables and the coherence sort are torch ops
             gate = stages["gate"]
             count_k = sum(e.time_range.elapsed_us() for e in kernels
@@ -208,8 +218,8 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     for kname, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"[{name}]   {us / 1e3:9.3f} ms {n:6d}x  {kname[:100]}")
-    print(json.dumps({"solve": name, "route": route, "count": count, "card": card,
-                      "warm_s": warm, "traced": runs}))
+    print(json.dumps({"solve": name, "route": route, "count": count, "slim": slim,
+                      "card": card, "warm_s": warm, "traced": runs}))
 
 
 def main() -> int:
@@ -220,6 +230,7 @@ def main() -> int:
                         default="auto")
     parser.add_argument("--count", choices=("kernel", "plain"), default="kernel")
     parser.add_argument("--bvh", choices=("auto", "off"), default=None)
+    parser.add_argument("--slim", action="store_true")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
     args = parser.parse_args()
@@ -234,16 +245,20 @@ def main() -> int:
     from raystrack_tpu_torch import config
 
     config.SCHEDULER = args.route
+    if args.slim:
+        config.SLIM_PACK_MIN_TRIS = 1
     solver_mod._log = lambda line: None  # progress lines would flood the output
     card = chip_smoke.card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     cases = chip_smoke.solve_cases()
+    if "city10m" in args.solves:  # built only on request: 10M triangles on the host
+        cases["city10m"] = (chip_smoke.city_meshes(chip_smoke.BIG_CITY_TRIS), cases["city"][1])
     for name in args.solves:
         meshes, params = cases[name]
         if args.bvh:
             params = dataclasses.replace(params, bvh=args.bvh)
         profile_case(name, meshes, params, args.reps, args.traced, card, args.route,
-                     args.count)
+                     args.count, args.slim)
     return 0
 
 

@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA card:
 It builds the CUDA kernels from ``raystrack_tpu_torch/csrc`` (nvcc, at first
 use), checks each bitwise against its plain PyTorch version at the shapes
 the main path gives it, then drives ``view_factor_matrix`` / ``view_factor``
-on the card through six scenes and checks each against its analytic or
+on the card through seven scenes and checks each against its analytic or
 plain reference:
 
 1. card       name, power limit, torch and CUDA versions
@@ -28,7 +28,11 @@ plain reference:
               dispatch: gated == ungated
               over all of them, gated == its plain gated version on the
               leading blocks; times, the share of (block, tile) visits the
-              gate leaves, the gate-table build time
+              gate leaves, the gate-table build time; then kernel #1 in its
+              code_bounds mode (the slim pack-resident scene's) on the same
+              chunk: == the baked kernel over the whole chunk and == its
+              plain version on the leading blocks, gated and ungated, with
+              times beside the baked kernel's and its SASS count per pair
 6. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4), scheduled
 7. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4),
               scheduled
@@ -46,6 +50,25 @@ plain reference:
               ``==``); warm walls, rays/s, peak device memory; one gated
               launch per chunk or round of the gated solves, one ungated
               launch per chunk or round of the others
+13. slim 1M   the same ground -> city solve and the ten-plate matrix with the
+              scene pack slim (forced through config.SLIM_PACK_MIN_TRIS,
+              restored after): dicts ``==`` phase 12's; per-emitter chunks
+              only, one gated code-mode launch each, on the resident pack,
+              no per-emitter pack built; peak device memory of both modes
+14. slim 10M  ``view_factor`` ground -> city of the 10M-triangle city
+              (10,000,384 padded, 4,883 tiles), bvh="auto", full mode then
+              slim mode, each from a fresh PreparedSolver with the other's
+              packs freed: dicts ``==``, set-up seconds, warm walls, peak
+              device memory; then the full-mode scheduled matrix of ten
+              and of two ground plates over each city's boxes, the same
+              way; from the two sizes, the bytes per padded triangle of
+              each mode and per emitter row of a round, and the sizes at
+              which full mode's peaks would pass half the card's memory
+              (the reckoning behind the default of SLIM_PACK_MIN_TRIS)
+15. kernel #3 the FP32 FMA-peak probe (1.374e11 dependent-chain FFMAs): best
+              of 5 by CUDA events, FFMA/s and its share of the data sheet's
+              33.5e12, the SM clock while it runs, every repeat against the
+              plain version; the sweeps' share restated against it
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run. Each kernel's bound is the larger of its bytes over
@@ -57,7 +80,9 @@ check exits non-zero before them. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -75,6 +100,7 @@ SOUP_TRIS = 98304
 SOUP_CHUNK = 4
 SOUP8_RAYS = 8 * 4 * 8192  # emitters x iterations x rays per iteration
 CITY_TRIS = 1_000_000
+BIG_CITY_TRIS = 10_000_000  # bench.py's largest gated city: 4,883 tiles of 2048
 CITY_PLAIN_BLOCKS = 64  # leading 256-ray blocks the plain gated versions run
 RAY_SUB = 256  # rays per kernel block (trace_cuda.RAY_SUBBLOCK)
 # H100 SXM data sheet: HBM3 bytes/s, and FP32 instructions/s: the sheet's
@@ -159,20 +185,24 @@ def city_meshes(n_tri: int = CITY_TRIS, extent: float = 100.0, seed: int = 0):
             ("city", vs.reshape(-1, 3), faces.reshape(-1, 3))]
 
 
-def city_plates_meshes():
-    """The 1M city with its 200 x 200 ground split into ten 40 x 100
-    plates (as soup8 splits the soup's ground). With reciprocity the boxes,
-    listed last, receive from every plate and trace nothing themselves, so
-    a round of the matrix holds only plate rows, each sweeping the boxes.
-    The 999,996 box triangles and 20 plate triangles pad as the city's do."""
+def city_plates_meshes(boxes=None, nx: int = 5):
+    """The city with its 200 x 200 ground split into ``2 * nx`` plates of
+    ``200 / nx`` x 100 (ten 40 x 100 plates by default, as soup8 splits the
+    soup's ground) over ``boxes``, the 1M city's unless given. With
+    reciprocity the boxes, listed last, receive from every plate and trace
+    nothing themselves, so a round of the matrix holds only plate rows, each
+    sweeping the boxes. At 1M the 999,996 box triangles and 20 plate
+    triangles pad as the city's do."""
     F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    w = 200.0 / nx
     plates = []
-    for i, x0 in enumerate((-100.0, -60.0, -20.0, 20.0, 60.0)):
+    for i in range(nx):
+        x0 = -100.0 + i * w
         for j, y0 in enumerate((-100.0, 0.0)):
-            V = np.array([[x0, y0, 0], [x0 + 40, y0, 0], [x0 + 40, y0 + 100, 0],
+            V = np.array([[x0, y0, 0], [x0 + w, y0, 0], [x0 + w, y0 + 100, 0],
                           [x0, y0 + 100, 0]], np.float32)
             plates.append((f"ground_{i}{j}", V, F.copy()))
-    return plates + [city_meshes()[1]]
+    return plates + [city_meshes()[1] if boxes is None else boxes]
 
 
 def district_meshes(n_buildings: int = 96, extent: float = 60.0, seed: int = 3):
@@ -303,12 +333,14 @@ def spread(times: list) -> str:
 
 def ptxas_lines(log: str) -> list:
     """ptxas -v lines naming each kernel instantiation, sweep_kernel as
-    <matrix,any,baked>, sweep_sched_kernel as <matrix,any> and
-    count_codes_kernel, beside its registers, shared memory and spills."""
+    <matrix,any,baked,gate>, sweep_code_kernel and sweep_sched_kernel as
+    <matrix,any,gate>, count_codes_kernel and fma_peak_kernel, beside its
+    registers, shared memory and spills."""
     out, name = [], "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"(sweep_(?:sched_)?kernel|count_codes_kernel)((?:ILb\d)?(?:ELb\d)*)E",
+                      r"(sweep_(?:sched_|code_)?kernel|count_codes_kernel|fma_peak_kernel)"
+                      r"((?:ILb\d)?(?:ELb\d)*)E",
                       line)
         if m:
             flags = re.findall(r"b(\d)", m.group(2))
@@ -321,15 +353,10 @@ def ptxas_lines(log: str) -> list:
 FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX")
 
 
-def sass_pair_ops(lib_path) -> dict:
-    """FP32 instructions per ray-triangle pair of each sweep instantiation,
-    counted from the library's SASS (``cuobjdump -sass``): the FADD, FMUL,
-    FFMA, FSETP, FSEL and FMNMX instructions of the innermost loop (the one
-    holding the shared-memory loads), outside the branches that only pairs
-    passing the barycentric test take, divided by the pairs one pass of
-    that loop tests (5 LDS.128 each). Each issues once per lane, an FFMA
-    too. ``"sweep_kernel<1,0,1,0>"`` -> (instructions per pair, {opcode:
-    count per pair})."""
+def sass_functions(lib_path) -> dict:
+    """The library's SASS (``cuobjdump -sass``) by kernel: each sweep
+    instantiation as ``"sweep_kernel<1,0,1,0>"`` and ``"fma_peak_kernel"``
+    -> [(address, instruction)]."""
     from raystrack_tpu_torch.ops.build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -338,26 +365,48 @@ def sass_pair_ops(lib_path) -> dict:
     funcs, ins = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = re.search(r"(sweep_(?:sched_)?kernel)((?:ILb\d)?(?:ELb\d)*)E", line)
+            m = re.search(r"(sweep_(?:sched_|code_)?kernel|fma_peak_kernel)"
+                          r"((?:ILb\d)?(?:ELb\d)*)E", line)
             ins = None
             if m:
                 flags = ",".join(re.findall(r"b(\d)", m.group(2)))
-                ins = funcs.setdefault(f"{m.group(1)}<{flags}>", [])
+                ins = funcs.setdefault(m.group(1) + (f"<{flags}>" if flags else ""), [])
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if m and ins is not None:
             ins.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def sass_loops(ins, holds: str) -> list:
+    """(length, first, last address) of the loops (a backward BRA and its
+    target) that hold an instruction starting with ``holds`` and no barrier."""
+    loops = []
+    for addr, op in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < addr:
+            lo, hi = int(m.group(1), 16), addr
+            body = [o.split(None, 1)[1] if o.startswith("@") else o
+                    for a, o in ins if lo <= a <= hi]
+            if any(o.startswith(holds) for o in body) and not any("BAR" in o for o in body):
+                loops.append((hi - lo, lo, hi))
+    return loops
+
+
+def sass_pair_ops(funcs: dict) -> dict:
+    """FP32 instructions per ray-triangle pair of each sweep instantiation,
+    counted from its SASS: the FADD, FMUL, FFMA, FSETP, FSEL and FMNMX
+    instructions of the innermost loop (the one holding the shared-memory
+    loads), outside the branches that only pairs passing the barycentric
+    test take, divided by the pairs one pass of that loop tests (5 LDS.128
+    each). Each issues once per lane, an FFMA too.
+    ``"sweep_kernel<1,0,1,0>"`` -> (instructions per pair, {opcode: count
+    per pair})."""
     out = {}
     for name, ins in funcs.items():
-        loops = []
-        for addr, op in ins:
-            m = re.search(r"BRA (0x[0-9a-f]+)", op)
-            if m and int(m.group(1), 16) < addr:
-                lo, hi = int(m.group(1), 16), addr
-                body = [o for a, o in ins if lo <= a <= hi]
-                if any("LDS.128" in o for o in body) and not any("BAR" in o for o in body):
-                    loops.append((hi - lo, lo, hi))
-        _, lo, hi = min(loops)
+        if not name.startswith("sweep_"):
+            continue
+        _, lo, hi = min(sass_loops(ins, "LDS.128"))
         skips = []
         for a, o in ins:
             m = re.search(r"@!?P\d BRA (0x[0-9a-f]+)", o)
@@ -376,6 +425,14 @@ def sass_pair_ops(lib_path) -> dict:
         ops = sum(counts.values()) / pairs
         out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())})
     return out
+
+
+def sass_ffma_share(ins) -> tuple:
+    """(FFMAs, instructions) of the probe's chain loop: the largest loop
+    holding an FFMA."""
+    _, lo, hi = max(sass_loops(ins, "FFMA"))
+    body = [o.split(None, 1)[1] if o.startswith("@") else o for a, o in ins if lo <= a <= hi]
+    return sum(o.startswith("FFMA") for o in body), len(body)
 
 
 def bound(n_bytes: float, pairs: float = 0.0, ops_per_pair: float = 0.0):
@@ -744,6 +801,197 @@ def phase_city_kernels(chunk_call, round_call, pair_ops):
     return k1, k2
 
 
+def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
+    """Kernel #1 in its code_bounds mode on the city's first ground -> city
+    chunk, with the operands the slim solve dispatched (``code_call``: the
+    resident pack, the sweep mask from the surface ids, the two codes) and
+    the rays of the full-mode chunk (``chunk_call``; both solves generate
+    the same): == the baked kernel over the whole chunk, gated and ungated,
+    == its plain version on the leading blocks, visits included; times
+    beside the baked kernel's (``baked``, from :func:`phase_city_kernels`)."""
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference, sweep_tile_width,
+    )
+
+    (baked_pack, baked_mask, tables, geom, cp, _, n_once), kw = chunk_call
+    (pack, mask, tables_s, _, cp_s, _, n_once_s), kw_s = code_call
+    accel, bounds = kw["accel"], kw_s["code_bounds"]
+    dev = cp.device
+    check(bounds == (0.0, 2.0), f"ground -> city code_bounds {bounds}")
+    check(torch.equal(cp, cp_s) and n_once == n_once_s
+          and all(torch.equal(a, b) for a, b in zip(tables, tables_s)),
+          "the slim solve's first chunk is not the full-mode solve's")
+    check(torch.equal(mask, baked_mask), "ground -> city: slim sweep mask != full-mode mask")
+    check(not bool(pack[17:].any()), "the resident pack's mask rows are not zero")
+    chunk, n_local = cp.shape[0], tables[0].shape[0]
+    o, d = T.generate_rays(tables, geom, cp)
+    valid = (torch.arange(n_local, device=dev) < n_once).expand(chunk, n_local)
+    o, d, _ = T._sorted_for_gate(o, d, valid, accel)
+    rays = T.ray_pack(o, d)
+    n, tpad = rays.shape[1], pack.shape[1]
+    tile = sweep_tile_width(tpad, PALLAS_TRI_TILE)
+    tiles_on = mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+    out_kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False)
+
+    def kernel(r, gated, v):
+        return sweep_rays(r, pack, mask, accel=accel if gated else None, visits=v,
+                          code_bounds=bounds, **out_kw)
+
+    def plain(r, gate, t_on, v):
+        return sweep_rays_reference(r, pack, t_on, tile, want_matrix=True, want_any=False,
+                                    code_bounds=bounds, gate=gate, visits=v)
+
+    def tables1(r):
+        gate = _gate_for(accel, r, tpad, tile, PALLAS_TRI_TILE, dev)
+        return gate, _gated_tiles_on(tiles_on, gate)
+
+    k = gate_phase(
+        "kernel #1 code mode, city chunk", rays, kernel, plain, tables1, n // RAY_SUB,
+        n // RAY_SUB * int(tiles_on.sum()), tile,
+        (pair_ops["sweep_code_kernel<1,0,1>"][0], pair_ops["sweep_code_kernel<1,0,0>"][0]),
+        sweep_bytes(rays, pack, tiles_on, *accel))
+    # against the baked kernel over the whole chunk, and the ungated plain
+    # version on the leading blocks
+    for gated in (True, False):
+        a = accel if gated else None
+        code = sweep_rays(rays, pack, mask, accel=a, code_bounds=bounds, **out_kw)
+        full = sweep_rays(rays, baked_pack, baked_mask, accel=a, masks_baked=True, **out_kw)
+        check(torch.equal(code[0], full[0]) and torch.equal(code[1], full[1]),
+              f"code-mode kernel != baked kernel (gated={gated})")
+    lead = min(CITY_PLAIN_BLOCKS, n // RAY_SUB)
+    sub = rays[:, : lead * RAY_SUB].contiguous()
+    v_k = torch.zeros(lead, dtype=torch.int32, device=dev)
+    v_p = torch.zeros_like(v_k)
+    ms_sub, (ck, ak) = cuda_ms(lambda: kernel(sub, False, v_k))
+    plain_ms, (cr, ar) = timed_once(lambda: plain(sub, None, tiles_on, v_p))
+    same = torch.equal(ck, cr) and torch.equal(ak, ar) and torch.equal(v_k, v_p)
+    k["max_abs_err"] = max(k["max_abs_err"], int((ck - cr).abs().max()),
+                           int((ak - ar).abs().max()))
+    check(same, "code-mode kernel != its plain version, ungated, on the leading blocks")
+    ops_code, ops_baked = pair_ops["sweep_code_kernel<1,0,0>"], pair_ops["sweep_kernel<1,0,1,0>"]
+    print(f"[code] == the baked kernel over the whole chunk (codes and flags), gated and "
+          f"ungated: True; ungated == its plain version on {lead} blocks (codes, flags, "
+          f"visits): {same} (kernel {ms_sub:.3f} ms, plain {plain_ms:.3f} ms)")
+    print(f"[code] code mode vs baked: gated {k['gated_ms']:.3f} vs {baked['gated_ms']:.3f} ms "
+          f"({k['gated_ms'] / baked['gated_ms'] - 1:+.2%}), ungated {k['ungated_ms']:.3f} vs "
+          f"{baked['ungated_ms']:.3f} ms ({k['ungated_ms'] / baked['ungated_ms'] - 1:+.2%}); "
+          f"FP32 instructions per pair in the SASS {ops_code[0]:g} vs {ops_baked[0]:g} "
+          f"(the two code compares sit in the branch only pairs that hit take); the code "
+          f"kernel stages 17 pack rows, the baked one 19")
+    k["ungated_plain_ms"], k["ungated_kernel_ms_on_plain_blocks"] = plain_ms, ms_sub
+    return k
+
+
+@contextlib.contextmanager
+def slim_threshold(config, n_tris: int):
+    """The port's slim threshold set to ``n_tris`` for the block, then restored."""
+    default = config.SLIM_PACK_MIN_TRIS
+    config.SLIM_PACK_MIN_TRIS = n_tris
+    try:
+        yield
+    finally:
+        config.SLIM_PACK_MIN_TRIS = default
+
+
+def mode_footprint(label, meshes, solve_with, slim: bool, dev, repeats: int = 3):
+    """``solve_with(prepared)`` on ``meshes`` from a fresh PreparedSolver in
+    full or slim mode: the dict, set-up (first solve) seconds, warm walls,
+    and device bytes over what was allocated before: the peak of the first
+    solve (pack build included), of the warm solves, and what stays
+    resident. Frees its packs before it returns."""
+    from raystrack_tpu_torch import PreparedSolver, config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with slim_threshold(config, 1 if slim else 2**62):
+        ps = PreparedSolver(meshes)
+        t0 = time.perf_counter()
+        result = solve_with(ps)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        pack = ps.get_scene_pack(use_accel=True, device=dev)
+        check(pack.slim == slim, f"{label}: scene pack slim={pack.slim}, wanted {slim}")
+        first_peak = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        warm = wall_times(lambda: solve_with(ps), repeats)
+        warm_peak = torch.cuda.max_memory_allocated(dev) - base
+        resident = torch.cuda.memory_allocated(dev) - base
+        n_tri_pad = pack.n_tri_pad
+    del ps, pack
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[slim] {label}, {'slim' if slim else 'full'} mode: {n_tri_pad} padded triangles; "
+          f"first solve with set-up {setup_s:.2f} s; warm solve {spread(warm)}; device "
+          f"memory over the {base / 2**20:.1f} MiB held before: peak of the first solve "
+          f"{first_peak / 2**20:.1f} MiB = {first_peak / n_tri_pad:.1f} B per padded triangle, "
+          f"of the warm solves {warm_peak / 2**20:.1f} MiB = {warm_peak / n_tri_pad:.1f} B, "
+          f"resident after {resident / 2**20:.1f} MiB = {resident / n_tri_pad:.1f} B")
+    return dict(result=result, setup_s=setup_s, warm=warm, first_peak=first_peak,
+                warm_peak=warm_peak, resident=resident, n_tri_pad=n_tri_pad)
+
+
+def phase_fma_peak(dev, sass, sweep_rates):
+    """Kernel #3, the FP32 FMA-peak probe: every repeat against its plain
+    version, best of 5 by CUDA events, the SM clock during a burst, and the
+    sweeps' FP32 instruction rates (``sweep_rates``: label -> instructions
+    per second) as shares of the measured rate."""
+    from raystrack_tpu_torch.ops.peak_cuda import (
+        REPEATS, fma_count, fma_peak, fma_peak_reference, fma_peak_tolerance,
+    )
+
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((32, 128)).astype(np.float32)).to(dev)
+    c, d = 0.999999881, 0.25  # the JAX package's probe's scalars
+    out = fma_peak(x, c, d)  # first launch: also the warm-up
+    plain_ms, plain = timed_once(lambda: fma_peak_reference(x, c, d))
+    torch.cuda.synchronize()
+    tol = fma_peak_tolerance(x, c, d)
+    err = float((out - plain).abs().max())
+    err64 = float((out.double() - fma_peak_reference(x.double(), c, d)).abs().max())
+    repeats_same = bool((out == out[0]).all())
+    print(f"[peak] {REPEATS} repeats of (32, 128) x 16 chains x 1024 FFMAs = {fma_count():.4g} "
+          f"FFMAs; max |kernel - plain| over every repeat {err:.3e} (allowed {2 * tol:.3e}: "
+          f"twice the bound of either f32 version against the float64 recurrence), "
+          f"|kernel - float64| {err64:.3e} (allowed {tol:.3e}); all repeats bitwise the "
+          f"same: {repeats_same}; values up to {float(out.abs().max()):.1f}")
+    check(err <= 2 * tol and err64 <= tol and repeats_same,
+          "the FMA-peak kernel disagrees with its plain version")
+    n_ffma, n_ins = sass_ffma_share(sass["fma_peak_kernel"])
+    print(f"[peak] chain loop in the SASS: {n_ffma} FFMA of {n_ins} instructions "
+          f"({n_ffma / n_ins:.2%})")
+    check(n_ffma >= 16 * 16, "the probe's loop holds fewer FFMAs than 16 chains x 16 steps")
+    fma_peak.launches = 0
+    ms, _ = cuda_ms(lambda: fma_peak(x, c, d), reps=5)
+    for _ in range(150):  # ~0.7 s of queued probes
+        fma_peak(x, c, d)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    launches = fma_peak.launches
+    rate = fma_count() / (ms * 1e-3)
+    bnd = fma_count() / PEAK_FP32_INSTR * 1e3
+    print(f"[peak] best of 5: {ms:.4f} ms = {rate:.4g} FFMA/s = {rate / PEAK_FP32_INSTR:.2%} "
+          f"of the data sheet's {PEAK_FP32_INSTR:.4g} (bound {bnd:.3f} ms); SM clock, its "
+          f"maximum and the power draw during a burst of 150 probes: {clocks}; plain "
+          f"version (one repeat, 2,048 tensor ops) {plain_ms:.3f} ms")
+    for label, r in sweep_rates.items():
+        print(f"[peak] {label}: {r:.4g} FP32 instructions/s = {r / PEAK_FP32_INSTR:.1%} of "
+              f"the data sheet's rate, {r / rate:.1%} of the measured FFMA rate")
+    return {"name": "fma_peak", "route": "cuda", "source": "raystrack_tpu_torch/csrc/peak.cu",
+            "replaces": "docs/measurements/vpu_roofline_r05.py:62", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": "operations",
+            # one torch.addcmul chain reads and writes memory at every step:
+            # not the same function
+            "library_ms": None, "ffma_per_s": rate, "share_of_data_sheet": rate / PEAK_FP32_INSTR,
+            "tolerance": 2 * tol, "clocks": clocks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -760,6 +1008,10 @@ def main() -> int:
     from raystrack_tpu_torch.prepared import EmitterPack
     from analytic import canyon_ground_truth
 
+    check(config.SLIM_PACK_MIN_TRIS > BIG_CITY_TRIS + 2048,
+          "SLIM_PACK_MIN_TRIS is set below this script's scenes: unset "
+          "RAYSTRACK_TPU_SLIM_PACK_MIN_TRIS")
+
     # 1. card
     card = card_line()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -774,7 +1026,8 @@ def main() -> int:
           f"build() {time.perf_counter() - t0:.2f} s")
     for line in ptxas_lines(b.log):
         print(f"[build] {line}")
-    pair_ops = sass_pair_ops(b.path)
+    sass = sass_functions(b.path)
+    pair_ops = sass_pair_ops(sass)
     for name, (ops, counts) in pair_ops.items():
         print(f"[build] {name}: {ops:g} FP32 instructions per pair in the SASS ({counts})")
 
@@ -834,7 +1087,15 @@ def main() -> int:
           f"with set-up: ground -> city {t1 - t0:.2f} s, ten-plate matrix "
           f"{time.perf_counter() - t1:.2f} s")
     city_k1, city_k2 = phase_city_kernels(chunk_call, round_call, pair_ops)
-    del chunk_call, round_call
+    # kernel #1's code mode, with the operands of the same solve on a slim pack
+    city_slim_ps = PreparedSolver(city)
+    solver_mod._log = lambda line: None
+    with slim_threshold(config, 1):
+        code_call = first_call(trace_mod, "chunk_body", lambda: view_factor(
+            city[0], city[1], vf_params, prepared=city_slim_ps))
+    solver_mod._log = quiet
+    city_code = phase_code_kernel(chunk_call, code_call, pair_ops, city_k1)
+    del chunk_call, round_call, code_call
 
     # phases 6-10 run the main path: count its chunks, rounds and launches
     def on_card(x) -> bool:
@@ -848,10 +1109,13 @@ def main() -> int:
     dispatch = solver_mod._EmitterRun.dispatch_chunk
 
     chunk_rays, round_rays = [], []
+    resident = []  # per chunk of a slim scene: it swept the scene's resident pack
 
     def counted(self, chunk):
         harvest = dispatch(self, chunk)
         chunk_rays.append(chunk * self.em_pack.n_rays_pad)
+        if self.scene_pack.slim:
+            resident.append(self.tri_pack is self.scene_pack.tri_pack)
         dispatches.append(on_card(
             [self.tri_pack, self.sweep_mask]
             + [getattr(self.scene_pack, f.name) for f in dataclasses.fields(self.scene_pack)]
@@ -867,9 +1131,12 @@ def main() -> int:
     trace_mod.scheduled_trace = counted_round
     progress = []  # per-emitter progress lines: hundreds, summarised below
     solver_mod._log = progress.append
-    sweep_rays.launches = sweep_rays.gated_launches = 0
-    sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
-    count_codes.launches = 0
+    def reset_launches():
+        sweep_rays.launches = sweep_rays.gated_launches = sweep_rays.code_launches = 0
+        sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
+        count_codes.launches = 0
+
+    reset_launches()
 
     def route_solve(route, solve):
         """(result, rounds, chunks) of one solve through ``route``."""
@@ -990,9 +1257,8 @@ def main() -> int:
     check(all(dispatches) and all(rounds), "a chunk or round ran with a tensor off the card")
 
     # 12. the city through both entry points, gated (bvh="auto") and not
-    sweep_rays.launches = sweep_rays.gated_launches = 0
-    sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
-    count_codes.launches = 0
+    reset_launches()
+    city_dicts = {}
     n_chunks = {True: 0, False: 0}
     n_rounds = {True: 0, False: 0}
     solves = {
@@ -1030,10 +1296,12 @@ def main() -> int:
               f"{results[True]}")
         check(same, f"city {name}: bvh='auto' dict != bvh='off' dict")
         check(sum(len(row) for row in results[True].values()) > 0, f"city {name}: no hits")
+        city_dicts[name] = results[True]
     launches_city = (sweep_rays.launches, sweep_rays.gated_launches,
                      sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
-    solver_mod._EmitterRun.dispatch_chunk = dispatch
-    trace_mod.scheduled_trace = real_round
+    count_city = count_codes.launches
+    check(sweep_rays.code_launches == 0 and not resident,
+          "a full-mode solve launched kernel #1 in code mode")
     print(f"[launches] city: kernel #1 {launches_city[0]} launches ({launches_city[1]} gated) "
           f"for {n_chunks[True]} gated and {n_chunks[False]} ungated chunks; kernel #2 "
           f"{launches_city[2]} ({launches_city[3]} gated) for {n_rounds[True]} gated and "
@@ -1044,8 +1312,154 @@ def main() -> int:
     check(launches_city[3] == n_rounds[True] > 0
           and launches_city[2] == n_rounds[True] + n_rounds[False],
           "city: kernel #2 launches != one gated launch per gated round")
-    check(count_codes.launches == sum(n_chunks.values()) + sum(n_rounds.values()),
+    check(count_city == sum(n_chunks.values()) + sum(n_rounds.values()),
           "city: count launches != chunks and rounds")
+
+    # 13. the same solves with the scene pack slim: per-emitter chunks on the
+    # resident pack, kernel #1 in code mode, the dicts of phase 12
+    reset_launches()
+    built = []
+    real_build = trace_mod.build_tri_pack
+
+    def counted_build(*args, **kwargs):
+        built.append(1)
+        return real_build(*args, **kwargs)
+
+    trace_mod.build_tri_pack = solver_mod.build_tri_pack = counted_build
+    city_plates_slim_ps = PreparedSolver(city_plates)
+    slim_solves = {
+        "view_factor ground -> city": (vf_params, lambda p: view_factor(
+            city[0], city[1], p, prepared=city_slim_ps)),
+        "view_factor_matrix, ten plates": (city_plates_params, lambda p: view_factor_matrix(
+            city_plates, p, prepared=city_plates_slim_ps)),
+    }
+    n_slim_chunks = 0
+    with slim_threshold(config, 1):
+        for name, (params, solve) in slim_solves.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            c0 = len(chunk_rays)
+            t0 = time.perf_counter()
+            got, n_r, n_c = route_solve("auto", lambda: solve(params))  # noqa: B023
+            first_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            rays = sum(chunk_rays[c0:])
+            walls, n_r2, n_c2 = route_solve(
+                "auto", lambda: wall_times(lambda: solve(params), 3))  # noqa: B023
+            n_slim_chunks += n_c + n_c2
+            same = got == city_dicts[name]
+            print(f"[slim] {name}, slim, bvh=auto (gated): {n_r} rounds, {n_c} per-emitter "
+                  f"chunks, {rays} rays traced; first solve {first_s:.2f} s, warm solve "
+                  f"{spread(walls)} = {rays / float(np.median(walls)):.4g} rays/s at the "
+                  f"median; peak device memory {peak / 2**20:.1f} MiB; dict == the "
+                  f"full-mode dict of phase 12: {same}")
+            check(same, f"slim {name}: dict != the full-mode dict")
+            check(n_r == n_r2 == 0 and n_c > 0 and n_c2 == 3 * n_c,
+                  f"slim {name}: {n_r} + {n_r2} rounds, {n_c} + {n_c2} chunks")
+    trace_mod.build_tri_pack = solver_mod.build_tri_pack = real_build
+    for ps in (city_slim_ps, city_plates_slim_ps):
+        check(ps.get_scene_pack(use_accel=True, device=dev).slim, "a slim solve's pack is full")
+    launches_slim = (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays.code_launches)
+    count_slim = count_codes.launches
+    print(f"[slim] kernel #1: {launches_slim[0]} launches ({launches_slim[1]} gated, "
+          f"{launches_slim[2]} in code mode) for {n_slim_chunks} chunks; kernel #2 "
+          f"{sweep_rays_scheduled.launches}; count kernel {count_slim}; per-emitter packs "
+          f"built: {len(built)}; chunks that swept the scene's resident pack: "
+          f"{sum(resident)} of {len(resident)}")
+    check(launches_slim == (n_slim_chunks,) * 3 and sweep_rays_scheduled.launches == 0
+          and count_slim == n_slim_chunks,
+          "slim: not one gated code-mode launch per chunk and no round")
+    check(not built, f"slim: {len(built)} per-emitter packs were built")
+    check(len(resident) == n_slim_chunks and all(resident),
+          "slim: a chunk did not sweep the scene's resident pack")
+    del city_slim_ps, city_plates_slim_ps, city_ps, city_plates_ps
+
+    # 14. slim where it matters: the 10M-triangle city in both modes, and the
+    # 1M city measured the same way, for the bytes per triangle of each; then
+    # the full-mode scheduled matrix, which holds the zero-mask scene pack and
+    # a round's (E, Tpad) mask rows, with ten and with two plates
+    reset_launches()
+    del resident[:]
+    big = city_meshes(BIG_CITY_TRIS)
+    foot = {}
+    for size, meshes in (("1M", city), ("10M", big)):
+        for slim in (False, True):
+            foot[size, slim] = mode_footprint(
+                f"city {size}, view_factor ground -> city", meshes,
+                lambda ps: view_factor(meshes[0], meshes[1], vf_params,  # noqa: B023
+                                       prepared=ps), slim, dev)
+        same = foot[size, True]["result"] == foot[size, False]["result"]
+        print(f"[slim] city {size}: slim dict == full dict: {same}; {foot[size, True]['result']}")
+        check(same, f"city {size}: slim dict != full dict")
+    check(foot["1M", False]["result"] == city_dicts["view_factor ground -> city"],
+          "city 1M: a fresh full-mode solve != phase 12's dict")
+    check(foot["10M", True]["n_tri_pad"] == 10_000_384, "the 10M city's padded size")
+    launches_big = (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays.code_launches)
+    check(launches_big[0] == launches_big[1] > launches_big[2] > 0
+          and len(resident) == launches_big[2] and all(resident)
+          and sweep_rays_scheduled.launches == 0,
+          f"phase 14 launches {launches_big}: not all gated, or a slim chunk off the "
+          f"resident pack")
+    for size, boxes in (("1M", city[1]), ("10M", big[1])):
+        for n_plates in (10, 2):
+            meshes = city_plates_meshes(boxes, nx=n_plates // 2)
+            foot[size, n_plates] = mode_footprint(
+                f"city {size}, view_factor_matrix of {n_plates} plates (scheduled)", meshes,
+                lambda ps: view_factor_matrix(meshes, city_plates_params,  # noqa: B023
+                                              prepared=ps), False, dev,
+                repeats=3 if size == "1M" else 1)
+            check(sum(len(row) for row in foot[size, n_plates]["result"].values()) > 0,
+                  f"city {size}, {n_plates} plates: no hits")
+    check(foot["1M", 10]["result"] == city_dicts["view_factor_matrix, ten plates"],
+          "city 1M: a fresh ten-plate solve != phase 12's dict")
+    del big, boxes, meshes
+    launches_big2 = (sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
+    count_big = count_codes.launches
+    check(launches_big2[0] == launches_big2[1] > 0 and sweep_rays.launches == launches_big[0],
+          f"phase 14: the plate solves launched kernel #2 {launches_big2} times, not all "
+          f"gated, or took per-emitter chunks")
+    solver_mod._EmitterRun.dispatch_chunk = dispatch
+    trace_mod.scheduled_trace = real_round
+    d_tri = foot["10M", True]["n_tri_pad"] - foot["1M", True]["n_tri_pad"]
+    per_tri = {key: {k: (foot["10M", key][k] - foot["1M", key][k]) / d_tri
+                     for k in ("first_peak", "warm_peak", "resident")}
+               for key in (False, True, 10, 2)}
+    worst = {key: max(v["first_peak"], v["warm_peak"]) for key, v in per_tri.items()}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[slim] bytes per padded triangle, from the 1M and 10M cities (the slope), "
+          f"view_factor ground -> city: full mode peak {worst[False]:.1f} (first solve "
+          f"{per_tri[False]['first_peak']:.1f}, warm {per_tri[False]['warm_peak']:.1f}, "
+          f"resident {per_tri[False]['resident']:.1f}); slim mode peak {worst[True]:.1f} "
+          f"(first solve {per_tri[True]['first_peak']:.1f}, warm "
+          f"{per_tri[True]['warm_peak']:.1f}, resident {per_tri[True]['resident']:.1f})")
+    per_row = (worst[10] - worst[2]) / 8
+    fixed = worst[2] - 2 * per_row
+    print(f"[slim] full-mode scheduled matrix: peak {worst[10]:.1f} with ten plates (first "
+          f"solve {per_tri[10]['first_peak']:.1f}, warm {per_tri[10]['warm_peak']:.1f}, "
+          f"resident {per_tri[10]['resident']:.1f}), {worst[2]:.1f} with two (resident "
+          f"{per_tri[2]['resident']:.1f}) = {fixed:.1f} + {per_row:.1f} per emitter row of "
+          f"a round")
+    print(f"[slim] the card holds {total} bytes: full mode's peak passes half of it at "
+          f"{total / 2 / worst[False]:.4g} padded triangles for one emitter and at "
+          f"{total / 2 / worst[10]:.4g} for a round of ten, and all of it at "
+          f"{total / worst[False]:.4g} and {total / worst[10]:.4g}; slim mode's passes all "
+          f"of it at {total / worst[True]:.4g}; "
+          f"config.SLIM_PACK_MIN_TRIS = {config.SLIM_PACK_MIN_TRIS}")
+    check(worst[True] < worst[False] < worst[10] and worst[2] < worst[10],
+          "peaks per triangle out of order: slim < full single emitter < a round of ten")
+    check(config.SLIM_PACK_MIN_TRIS * worst[10] < 0.75 * total,
+          "a full-mode round of ten emitters would not fit the card just below "
+          "SLIM_PACK_MIN_TRIS")
+
+    # 15. kernel #3, the FMA-peak probe, and the sweeps against its rate
+    peak_entry = phase_fma_peak(dev, sass, {
+        "kernel #1, soup (matrix, baked)":
+            pairs1 * pair_ops["sweep_kernel<1,0,1,0>"][0] / (ms * 1e-3),
+        "kernel #2, soup8 round (matrix)":
+            pairs2 * pair_ops["sweep_sched_kernel<1,0,0>"][0] / (ms2 * 1e-3),
+        "kernel #1 code mode, city chunk ungated":
+            city_code["ungated_pairs"] * pair_ops["sweep_code_kernel<1,0,0>"][0]
+            / (city_code["ungated_ms"] * 1e-3),
+    })
 
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep.cu",
@@ -1056,27 +1470,33 @@ def main() -> int:
         entry.update({k: v for k, v in city_k.items() if k != "max_abs_err"})
         return entry
 
+    sweep_entry = kernel_entry(
+        "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
+        launches + launches_city[0] + launches_slim[0] + launches_big[0],
+        launches_city[1] + launches_slim[1] + launches_big[1],
+        max(max_err, city_code["max_abs_err"]), ms, plain_ms, bound1, city_k1)
+    sweep_entry["code_launches"] = launches_slim[2] + launches_big[2]
+    sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
     print(json.dumps({"kernels": [
-        kernel_entry("sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
-                     launches + launches_city[0], launches_city[1], max_err, ms, plain_ms,
-                     bound1, city_k1),
+        sweep_entry,
         kernel_entry("sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
-                     launches2 + launches_city[2], launches_city[3], max_err2, ms2, plain_ms2,
-                     bound2, city_k2),
+                     launches2 + launches_city[2] + launches_big2[0],
+                     launches_city[3] + launches_big2[1], max_err2, ms2, plain_ms2, bound2,
+                     city_k2),
         {
             "name": "count_codes",
             "route": "cuda",
             "source": "raystrack_tpu_torch/csrc/count.cu",
             # not a Pallas kernel: the XLA compare-and-sum it stands in for
             "replaces": "raystrack_tpu/ops/trace.py:865",
-            "launches": launches3 + count_codes.launches,
+            "launches": launches3 + count_city + count_slim + count_big,
             "max_abs_err": max_err3,
             "ms": ms3,
             "plain_ms": plain_ms3,
             "bound_ms": bound3[0],
             "bound_by": bound3[1],
             "library_ms": lib_ms3,
-        }]}))
+        }, peak_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

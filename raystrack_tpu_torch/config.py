@@ -1,5 +1,6 @@
 """Runtime knobs of the PyTorch port, read from the same environment
-variables (and with the same defaults) as ``raystrack_tpu.config``.
+variables (and with the same defaults) as ``raystrack_tpu.config``, but for
+``SLIM_PACK_MIN_TRIS``, whose default is reckoned from the card's memory.
 
 Only the knobs the matrix solve reads are carried over. They are read
 once, at import; the solver reads them through this module at call time,
@@ -78,6 +79,31 @@ GATE_MAX_GROUP = _env_int("RAYSTRACK_TPU_GATE_MAX_GROUP", 64)
 # exit off.
 GATE_WINDOW = _env_int("RAYSTRACK_TPU_GATE_WINDOW", 16, minimum=0)
 
+# Slim (pack-resident) scene threshold, in padded triangles: at or above it
+# pack_scene builds the (24, Tpad) sweep operand pack once, in chunks, and
+# keeps only it, the surface ids and the acceleration boxes on the device,
+# instead of the scene's per-triangle fields from which every emitter
+# assembles its own baked pack. Slim scenes sweep with kernel #1 in its
+# code_bounds mode, emitter by emitter (the scheduled driver is declined,
+# which costs a many-emitter solve its one dispatch per round), and return
+# the same dicts, so the threshold sits as high as memory lets it.
+# The reckoning, on an NVIDIA H100 80GB HBM3 at a 700.00 W limit
+# (chip_smoke.py phase 14: the 1M- and the 10M-triangle city, the slope
+# between the two sizes, in bytes per padded triangle). view_factor ground
+# -> city, one emitter: a full-mode solve peaks at 191.4 (80.2 of resident
+# fields, the emitter's 96-byte baked pack and the temporaries of building
+# it), a slim one at 115.5 (100.2 resident). The heavier path is the
+# full-mode scheduled matrix: the zero-mask scene pack, the flat tables'
+# geometry stack (80 bytes per emitter and face of the largest mesh, here
+# the boxes, nearly the whole scene) and a round's (E, Tpad) mask rows with
+# their temporaries come to 249.5 + 132.8 per emitter row, 1577.5 with ten
+# ground plates (960.3 of it resident). Of the card's 85.0e9 bytes a full-
+# mode round of ten emitters passes half at 2.69e7 padded triangles and all
+# at 5.39e7 (one emitter: 2.22e8 and 4.44e8); the default is the first of
+# these, rounded down, which leaves the other half to ray tables, chunks
+# and rounds of more emitters. Slim mode's peak passes the card at 7.36e8.
+SLIM_PACK_MIN_TRIS = _env_int("RAYSTRACK_TPU_SLIM_PACK_MIN_TRIS", 25_000_000)
+
 # Multi-emitter route: "scheduled" packs every pending emitter's next
 # iterations into one dispatch per convergence round (the whole-scene
 # scheduled driver and the multi-emitter sweep kernel); "grouped" solves
@@ -126,6 +152,7 @@ __all__ = [
     "GATE_MAX_TILES",
     "GATE_MAX_GROUP",
     "GATE_WINDOW",
+    "SLIM_PACK_MIN_TRIS",
     "SCHEDULER",
     "SCHED_MAX_FLAT_RAYS",
     "SCHED_MIN_BLOCKS",

@@ -12,7 +12,13 @@
 // on a miss) and a 0/1 any-hit flag. The TPU shares its tile math,
 // _tile_step, between the two; here both kernels run the same device
 // functions stage_tile, pair_hit and sweep_ray, so on the same rays and the
-// same eligibility they give the same bits.
+// same eligibility they give the same bits. Kernel #1 takes a triangle's
+// eligibility from the pack's mask rows, from a pack with the primary mask
+// baked into zeroed cross_e rows (sweep_kernel), or, as sweep_rays' code_bounds
+// mode does for a slim pack-resident scene, from the staged code row against
+// two scalars (sweep_code_kernel): any-hit if code != emit_code, matrix if
+// also code >= min_code. That pack is built once per scene and never
+// rewritten per emitter, and only its 17 operand rows are staged.
 //
 // What bounds them: FP32 ALU work. Each ray-triangle pair costs about 42
 // flops plus about 14 compares and selects; a triangle's operands are 76
@@ -66,7 +72,7 @@ namespace {
 constexpr int kThreads = 256;   // rays per block, one per thread
 constexpr int kStage = 128;     // triangles per shared-memory stage
 constexpr int kUsedRows = 19;   // pack rows kernel #1 reads
-constexpr int kCodeRows = 17;   // pack rows kernel #2 reads (no mask rows)
+constexpr int kCodeRows = 17;   // pack rows kernel #2 and code mode read (no mask rows)
 constexpr int kMaskSlot = 19;   // Tri float slot of kernel #2's mask row
 constexpr float kInf = 1.0e20f;
 
@@ -156,7 +162,7 @@ __device__ __forceinline__ bool pair_hit(const Ray& r, const Tri& tri, float& t,
 
 // Kernel #1's eligibility: the pack's mask rows. A baked pack folds the
 // primary mask (m_any when any-hits are wanted, else m_mat) into zeroed
-// cross_e rows; only the other test survives (trace_cuda._mask_tests
+// cross_e rows; only the other test survives (trace_cuda._eligibility
 // states the same rule for the plain version).
 template <bool kTestAny, bool kTestMat>
 struct PackMasks {
@@ -165,6 +171,22 @@ struct PackMasks {
   }
   __device__ __forceinline__ bool mat(const Tri& tri) const {
     return !kTestMat || tri.wu_mmat.w > 0.0f;
+  }
+};
+
+// Kernel #1's eligibility in code mode: the staged code 2*sid against the
+// emitter's code and the smallest code the matrix counts (both 2*sid, exact
+// in f32). Triangles of a surface the emitter's plane cull switched off stay
+// eligible here: they lie behind the emission plane, so no ray can hit them,
+// and whole tiles of them still drop out through tiles_on.
+struct CodeBounds {
+  float emit_code;
+  float min_code;
+  __device__ __forceinline__ bool any(const Tri& tri) const {
+    return tri.e1_code.w != emit_code;
+  }
+  __device__ __forceinline__ bool mat(const Tri& tri) const {
+    return tri.e1_code.w != emit_code && tri.e1_code.w >= min_code;
   }
 };
 
@@ -372,6 +394,27 @@ sweep_kernel(const float* __restrict__ rays, int n,
 
 template <bool kMatrix, bool kAny, bool kGate>
 __global__ void __launch_bounds__(kThreads)
+sweep_code_kernel(const float* __restrict__ rays, int n,
+                  const float* __restrict__ pack, int n_tri_pad,
+                  const int* __restrict__ tiles_on, int tile, float emit_code,
+                  float min_code, Gate gate, int* __restrict__ codes,
+                  int* __restrict__ any_out, int* __restrict__ visits) {
+  __shared__ Tri stage[kStage];
+  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = ray < n;
+  const Ray r = load_ray(rays, n, live ? ray : 0);
+  int code, any_hit;
+  sweep_ray<kMatrix, kAny, kGate, kCodeRows, false>(
+      r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, stage,
+      CodeBounds{emit_code, min_code}, code, any_hit, visits);
+  if (live) {
+    codes[ray] = code;
+    any_out[ray] = any_hit;
+  }
+}
+
+template <bool kMatrix, bool kAny, bool kGate>
+__global__ void __launch_bounds__(kThreads)
 sweep_sched_kernel(const float* __restrict__ rays, int n,
                    const float* __restrict__ pack, int n_tri_pad,
                    const float* __restrict__ masks, int n_emit,
@@ -411,10 +454,23 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Kernel #1's mask modes, in the order of ops/trace_cuda.py _MASK_MODES.
+enum MaskMode { kRowsMode = 0, kBakedMode = 1, kCodeMode = 2 };
+
+struct Masks {
+  int mode;
+  float emit_code;  // code mode only
+  float min_code;
+};
+
 template <bool kMatrix, bool kAny, bool kGate>
-void launch(bool baked, const Args& a) {
+void launch(const Masks& m, const Args& a) {
   const dim3 grid((a.n + kThreads - 1) / kThreads);
-  if (baked) {
+  if (m.mode == kCodeMode) {
+    sweep_code_kernel<kMatrix, kAny, kGate><<<grid, kThreads, 0, a.stream>>>(
+        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, m.emit_code, m.min_code,
+        a.gate, a.codes, a.any_out, a.visits);
+  } else if (m.mode == kBakedMode) {
     sweep_kernel<kMatrix, kAny, true, kGate><<<grid, kThreads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
         a.visits);
@@ -426,11 +482,11 @@ void launch(bool baked, const Args& a) {
 }
 
 template <bool kMatrix, bool kAny>
-void launch_outputs(bool baked, bool gated, const Args& a) {
+void launch_outputs(const Masks& m, bool gated, const Args& a) {
   if (gated) {
-    launch<kMatrix, kAny, true>(baked, a);
+    launch<kMatrix, kAny, true>(m, a);
   } else {
-    launch<kMatrix, kAny, false>(baked, a);
+    launch<kMatrix, kAny, false>(m, a);
   }
 }
 
@@ -470,32 +526,35 @@ bool bad_gate(const Gate& g) {
 // Launches kernel #1 on `stream` without synchronising and returns
 // cudaGetLastError() (0 when the launch was accepted). `tile` must be a
 // multiple of 128 that divides n_tri_pad; at least one output is wanted.
+// mask_mode is 0 (the pack's mask rows), 1 (a baked pack) or 2 (the pack's
+// code row against emit_code and min_code, which the other modes ignore).
 // With a gate (`order` not NULL) the tables are those of ops/trace_cuda.py
 // _gate_tables for these rays: one row per block of 256 rays, and tiles_on
 // padded to whole groups. `visits` (NULL, or one int per block) receives
 // each block's count of swept tiles.
 extern "C" int raystrack_sweep_rays(const float* rays, int n, const float* pack,
                                     int n_tri_pad, const int* tiles_on, int tile,
-                                    int want_matrix, int want_any, int masks_baked,
-                                    const float* boxes, const int* order, const int* counts,
+                                    int want_matrix, int want_any, int mask_mode,
+                                    float emit_code, float min_code, const float* boxes, const int* order, const int* counts,
                                     const float* suffmin, int n_boxes, int group,
                                     int window, int n_windows, int* codes, int* any_out,
                                     int* visits, void* stream) {
   const Gate gate{boxes, order, counts, suffmin, n_boxes, group, window, n_windows};
-  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any) || bad_gate(gate)) {
+  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any) || bad_gate(gate) ||
+      mask_mode < kRowsMode || mask_mode > kCodeMode) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
   const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, gate, codes, any_out, visits,
                static_cast<cudaStream_t>(stream)};
-  const bool baked = masks_baked != 0;
+  const Masks m{mask_mode, emit_code, min_code};
   const bool gated = order != nullptr;
   if (want_matrix && want_any) {
-    launch_outputs<true, true>(baked, gated, a);
+    launch_outputs<true, true>(m, gated, a);
   } else if (want_matrix) {
-    launch_outputs<true, false>(baked, gated, a);
+    launch_outputs<true, false>(m, gated, a);
   } else {
-    launch_outputs<false, true>(baked, gated, a);
+    launch_outputs<false, true>(m, gated, a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ ints; e.g. ``{f.name: np.asarray(getattr(pack, f.name)) ...}``) and return
 the port's packs on ``device``, so one prepared state drives both packages.
 
 Every field of the JAX scene pack carries across, the acceleration boxes
-(``tile_lo``/``tile_hi``, None with acceleration off) included; slim packs
-(``tri_pack``) are not taken yet.
+(``tile_lo``/``tile_hi``, None with acceleration off) included. A slim
+(pack-resident) pack carries across as it is: ``tri_pack`` set and the
+seven per-triangle fields None.
 """
 from __future__ import annotations
 
@@ -43,14 +44,10 @@ def _convert(cls, d: Dict[str, Any], device: torch.device, ignored):
 
 
 def scene_pack_from_arrays(d: Dict[str, Any], device: torch.device) -> ScenePack:
-    """The port's ScenePack from a JAX ScenePack's fields as NumPy arrays."""
-    if d.get("tri_pack") is not None:
-        raise NotImplementedError(
-            "slim (pack-resident) scene packs are not ported yet (ROADMAP: "
-            "the slim pack-resident mode)"
-        )
-    d = {k: v for k, v in d.items() if k != "tri_pack"}
-    return _convert(ScenePack, d, torch.device(device), ())
+    """The port's ScenePack from a JAX ScenePack's fields as NumPy arrays
+    (None for the fields a full or a slim pack leaves empty; a dict
+    without ``tri_pack`` is a full pack)."""
+    return _convert(ScenePack, {"tri_pack": None, **d}, torch.device(device), ())
 
 
 def emitter_pack_from_arrays(d: Dict[str, Any], device: torch.device) -> EmitterPack:

@@ -111,7 +111,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int,  # rays, n
         ctypes.c_void_p, ctypes.c_int,  # pack, n_tri_pad
         ctypes.c_void_p, ctypes.c_int,  # tiles_on, tile
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # want_matrix, want_any, baked
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # want_matrix, want_any, mask_mode
+        ctypes.c_float, ctypes.c_float,  # emit_code, min_code
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
         ctypes.c_void_p,  # stream
@@ -122,6 +123,12 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,  # codes, n_valid
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, length, n_codes
         ctypes.c_void_p, ctypes.c_void_p,  # counts, stream
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.raystrack_fma_peak
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # x, c, d
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # repeats, out, stream
     ]
     fn.restype = ctypes.c_int
     fn = lib.raystrack_sweep_rays_scheduled

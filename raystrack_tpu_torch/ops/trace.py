@@ -1,8 +1,8 @@
 """The QMC solve's device step: ray generation, sweep, per-surface histograms.
 
 Counterpart of ``raystrack_tpu/ops/trace.py`` (``generate_rays``,
-``compute_masks``, ``chunk_body_pallas``, ``scheduled_trace_pallas`` and
-``pack_outputs``/``unpack_outputs``). Two entry points:
+``compute_masks``, ``compute_masks_slim``, ``chunk_body_pallas``,
+``scheduled_trace_pallas`` and ``pack_outputs``/``unpack_outputs``). Two entry points:
 
 - :func:`chunk_body` traces ``chunk`` Monte-Carlo iterations of one
   emitter (the per-emitter route, sweep kernel #1);
@@ -171,6 +171,20 @@ def compute_masks(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
     return m_any, m_mat
 
 
+def compute_masks_slim(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_sid: int):
+    """Per-triangle masks from the surface ids alone (slim pack-resident
+    scenes): :func:`compute_masks` without the per-triangle plane cull,
+    which needs the vertex fields a slim scene does not keep on the device.
+    Exact: a surface wholly behind the emission plane is already off in
+    ``surf_active_ext``, and the per-triangle cull only removes more
+    triangles no ray can hit. These masks decide the tiles to skip; the
+    kernel's per-pair tests run from the pack's code row."""
+    active = surf_active_ext[sid] > 0  # the padding sid n_surf is inactive
+    m_any = active & (sid != emit_sid)
+    m_mat = m_any & (sid >= min_sid)
+    return m_any, m_mat
+
+
 def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
                    plane_vec) -> torch.Tensor:
     """The (E, Tpad) f32 combined eligibility rows ``m_any + m_mat`` in
@@ -205,6 +219,17 @@ def emitter_operands(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
     return build_tri_pack(scene, m_any, m_mat, bake=m_mat), m_mat
 
 
+def slim_operands(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_sid: int, *,
+                  want_any: bool = False) -> Tuple[torch.Tensor, Tuple[float, float]]:
+    """A slim scene's counterpart of :func:`emitter_operands`, beside the
+    resident ``ScenePack.tri_pack`` every emitter shares: the primary mask
+    (m_any when any-hits are wanted, else m_mat) from the surface ids, which
+    decides the tiles the sweep skips, and the sweep's ``code_bounds``
+    ``(2 * emit_sid, 2 * min_sid)``."""
+    m_any, m_mat = compute_masks_slim(sid, surf_active_ext, emit_sid, min_sid)
+    return (m_any if want_any else m_mat), (2.0 * emit_sid, 2.0 * min_sid)
+
+
 def _count_rows(codes: torch.Tensor, valid, n_valid: torch.Tensor, n_surf: int):
     """count_codes of (rows, L) codes. After a coherence sort the real rays
     no longer lead their rows: ``valid`` (rows, L) then masks the codes of
@@ -224,6 +249,7 @@ def chunk_body(
     n_surf: int,
     n_rays_once: int,
     accel=None,
+    code_bounds=None,
 ) -> Dict[str, torch.Tensor]:
     """Trace ``chunk = cp.shape[0]`` iterations of one emitter.
 
@@ -232,6 +258,11 @@ def chunk_body(
     sort of each iteration's rays), drops padded tail rays, and returns
     per-iteration ``counts_f`` / ``counts_b`` (chunk, n_surf) int32 hit
     counts, left on the solve's device.
+
+    With ``code_bounds`` the operands are a slim scene's: its resident
+    ``tri_pack`` and the mask and bounds of :func:`slim_operands`; the
+    sweep then takes eligibility from the pack's code row instead of a
+    baked pack. The counts are the same.
     """
     chunk = cp.shape[0]
     n_local = tables[0].shape[0]
@@ -245,7 +276,8 @@ def chunk_body(
         o, d, valid = _sorted_for_gate(o, d, valid, accel)
     codes, _ = sweep_rays(
         ray_pack(o, d), tri_pack, sweep_mask, tri_tile=PALLAS_TRI_TILE,
-        want_matrix=True, want_any=False, masks_baked=True, accel=accel,
+        want_matrix=True, want_any=False, masks_baked=code_bounds is None,
+        code_bounds=code_bounds, accel=accel,
     )
     n_valid = torch.full((chunk,), min(n_rays_once, n_local), dtype=torch.int32,
                          device=device)
@@ -393,6 +425,6 @@ def unpack_outputs(flat: np.ndarray, nb: int, n_surf: int) -> Dict[str, np.ndarr
 
 
 __all__ = [
-    "generate_rays", "ray_pack", "sort_rays_for_coherence", "compute_masks", "combined_masks",
-    "emitter_operands", "chunk_body", "scheduled_rays", "scheduled_trace", "pack_outputs", "unpack_outputs",
+    "generate_rays", "ray_pack", "sort_rays_for_coherence", "compute_masks",
+    "compute_masks_slim", "combined_masks", "emitter_operands", "slim_operands", "chunk_body", "scheduled_rays", "scheduled_trace", "pack_outputs", "unpack_outputs",
 ]

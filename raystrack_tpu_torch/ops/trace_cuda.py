@@ -20,6 +20,14 @@ Layouts:
 - outputs ``(N,)`` int32: the nearest eligible hit packed as
   ``2*sid + front`` (-1 on a miss), and a 0/1 any-hit flag.
 
+Kernel #1 takes a triangle's eligibility in one of three mask modes
+(:func:`_mask_mode`): from the pack's mask rows 17-18 (``rows``), from a
+pack whose primary mask is baked into zeroed cross_e rows (``baked``), or
+from the pack's code row against two scalars, ``code != emit_code`` for an
+any-hit and also ``code >= min_code`` for the matrix (``code``: the slim
+pack-resident mode, whose pack is built once per scene and never rewritten
+per emitter).
+
 Per-pair math and epsilons: ``|det| >= 1e-7``, ``t > 1e-6``,
 ``front = det > 0``. The nearest-hit fold runs over tiles of
 ``sweep_tile_width(Tpad, tri_tile)`` triangles: inside a tile the smallest
@@ -280,19 +288,46 @@ def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _mask_tests(want_any: bool, masks_baked: bool) -> Tuple[bool, bool]:
-    """Which per-pair mask-row tests the plain version runs: a baked pack
+# Kernel #1's mask modes, in the order of the C entry's ``mask_mode`` argument.
+_MASK_MODES = ("rows", "baked", "code")
+
+
+def _mask_mode(masks_baked: bool, code_bounds) -> str:
+    """Kernel #1's mask mode, ``"rows"``, ``"baked"`` or ``"code"``, from the
+    wrapper's two arguments (mutually exclusive, as in the JAX package)."""
+    if code_bounds is not None and masks_baked:
+        raise ValueError("masks_baked and code_bounds are mutually exclusive")
+    return "code" if code_bounds is not None else "baked" if masks_baked else "rows"
+
+
+def _code_bounds(code_bounds) -> Tuple[float, float]:
+    """``(emit_code, min_code)`` as two host floats (both ``2 * sid``; they
+    become kernel arguments, so a device tensor here would wait for the
+    card)."""
+    emit_code, min_code = code_bounds
+    return float(emit_code), float(min_code)
+
+
+def _eligibility(row, want_any: bool, mode: str, code_bounds):
+    """One tile's per-triangle ``(m_any, m_mat)`` (..., 1, T) bool rows in
+    mask mode ``mode``; None where every valid pair passes. A baked pack
     folds the primary mask (m_any when any-hits are wanted, else m_mat)
     into zeroed cross_e rows, so only the secondary m_mat test remains, and
-    only when both outputs are wanted. The kernel derives the same two
-    tests from its template flags."""
-    test_any = not masks_baked
-    test_mat = not (masks_baked and not want_any)
-    return test_any, test_mat
+    only when both outputs are wanted. In code mode triangles of a surface
+    the emitter's plane cull switched off stay eligible: they lie behind
+    the emission plane, so no ray can hit them. The kernel derives the same
+    tests from its template arguments."""
+    if mode == "code":
+        code = row(ROW_CODE)
+        not_emit = code != code_bounds[0]
+        return not_emit, not_emit & (code >= code_bounds[1])
+    if mode == "baked":
+        return None, (row(ROW_MASK_MAT) > 0.0) if want_any else None
+    return row(ROW_MASK_ANY) > 0.0, row(ROW_MASK_MAT) > 0.0
 
 
 def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
-               test_any: bool, test_mat: bool):
+               mode: str = "rows", code_bounds=None):
     """One tile of the sweep in tensor ops (trace_pallas.py _tile_step):
     ray columns ``rays`` (..., B, 1), operand rows ``row(r)`` (..., 1, T)
     and the carry (best_t, best_code, any_hit) (..., B, 1).
@@ -323,11 +358,12 @@ def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
         torch.minimum(vn, abs_det - (un + vn)),
     )
     valid = (margin >= 0.0) & (t_hit > 1e-6)
+    m_any, m_mat = _eligibility(row, want_any, mode, code_bounds)
     if want_any:
-        blocked = valid & (row(ROW_MASK_ANY) > 0.0) if test_any else valid
+        blocked = valid if m_any is None else valid & m_any
         any_hit = any_hit | blocked.any(dim=-1, keepdim=True)
     if want_matrix:
-        mat_ok = valid & (row(ROW_MASK_MAT) > 0.0) if test_mat else valid
+        mat_ok = valid if m_mat is None else valid & m_mat
         t_masked = torch.where(mat_ok, t_hit, INF)
         tile_best = t_masked.amin(dim=-1, keepdim=True)
         code_all = row(ROW_CODE).to(torch.int32) + (det > 0.0).to(torch.int32)
@@ -339,7 +375,7 @@ def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
 
 
 def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matrix: bool,
-                 want_any: bool, test_any: bool, test_mat: bool, visits=None):
+                 want_any: bool, mode: str, code_bounds=None, visits=None):
     """The gated sweep in tensor ops: every block walks its visit list as
     the gated kernel does (the same early-exit checks, the same per-box
     decision against the current carry, the same tiles_on skip and
@@ -360,8 +396,7 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matri
     n_done = torch.zeros(n_blocks, dtype=torch.int32, device=device)
     lanes = torch.arange(tile, device=device)
     step = max(1, _REF_PAIRS // (B * tile))
-    kw = dict(want_matrix=want_matrix, want_any=want_any, test_any=test_any,
-              test_mat=test_mat)
+    kw = dict(want_matrix=want_matrix, want_any=want_any, mode=mode, code_bounds=code_bounds)
     for j in range(int(n_visit.max()) if n_blocks else 0):
         act = (n_visit > j) & ~done
         if gate.window and j % gate.window == 0:
@@ -414,11 +449,13 @@ def sweep_rays_reference(
     want_matrix: bool,
     want_any: bool,
     masks_baked: bool = False,
+    code_bounds=None,
     gate: Optional[GateTables] = None,
     visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #1: :func:`_tile_step` over triangle
-    tiles of width ``tile``, skipping tiles whose ``tiles_on`` flag is 0.
+    tiles of width ``tile``, skipping tiles whose ``tiles_on`` flag is 0, in
+    the mask mode ``masks_baked`` / ``code_bounds`` name (:func:`_mask_mode`).
 
     Ungated, every ray takes the active tiles in order, in ray chunks that
     bound its memory. With ``gate`` (:func:`_gate_tables` of these rays;
@@ -427,11 +464,11 @@ def sweep_rays_reference(
     does. ``visits``, a (blocks,) int32 tensor, receives the number of
     tiles each block ran (a test and measurement aid, as in the kernel).
     """
-    test_any, test_mat = _mask_tests(want_any, masks_baked)
+    kw = dict(want_matrix=want_matrix, want_any=want_any,
+              mode=_mask_mode(masks_baked, code_bounds),
+              code_bounds=None if code_bounds is None else _code_bounds(code_bounds))
     if gate is not None:
-        return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, want_matrix=want_matrix,
-                            want_any=want_any, test_any=test_any, test_mat=test_mat,
-                            visits=visits)
+        return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, visits=visits, **kw)
     n = rays.shape[1]
     device = rays.device
     codes = torch.full((n,), -1, dtype=torch.int32, device=device)
@@ -440,8 +477,6 @@ def sweep_rays_reference(
     if visits is not None:
         visits.fill_(len(active))
     chunk = max(1, _REF_PAIRS // tile)
-    kw = dict(want_matrix=want_matrix, want_any=want_any, test_any=test_any,
-              test_mat=test_mat)
     for r0 in range(0, n, chunk):
         ray_cols = [rays[j, r0 : r0 + chunk, None] for j in range(9)]
         b = ray_cols[0].shape[0]
@@ -552,6 +587,7 @@ def sweep_rays(
     want_matrix: bool,
     want_any: bool,
     masks_baked: bool = False,
+    code_bounds=None,
     accel=None,
     visits: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -559,6 +595,11 @@ def sweep_rays(
 
     ``masks_baked`` promises the pack was built with :func:`build_tri_pack`'s
     ``bake`` option, letting the sweep drop per-pair tests of that mask.
+    ``code_bounds``, a pair of host floats ``(emit_code, min_code)``, both
+    ``2 * sid``, instead takes per-pair eligibility from the pack's code
+    row: the slim pack-resident mode, whose pack (``ScenePack.tri_pack``)
+    is built once per scene with zero mask rows; ``sweep_mask`` then only
+    decides the tiles to skip. The two are mutually exclusive.
     ``accel``, the scene's ``(tile_lo, tile_hi)``, gates the sweep where
     :func:`gate_prunes` (pair it with ``ops.trace.sort_rays_for_coherence``:
     gating is exact either way, but only coherent blocks make it fire).
@@ -567,8 +608,9 @@ def sweep_rays(
 
     CUDA tensors go to kernel #1 of ``csrc/sweep.cu`` (launched on the
     current stream, not synchronised; ``sweep_rays.launches`` counts the
-    launches, ``sweep_rays.gated_launches`` the gated ones); CPU tensors go
-    to :func:`sweep_rays_reference`.
+    launches, ``sweep_rays.gated_launches`` the gated ones and
+    ``sweep_rays.code_launches`` those in code mode); CPU tensors go to
+    :func:`sweep_rays_reference`.
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays",
@@ -576,13 +618,16 @@ def sweep_rays(
     )
     _check("sweep_mask", sweep_mask, torch.bool, (n_tri_pad,), device)
     _check_visits(visits, n, device)
+    mode = _mask_mode(masks_baked, code_bounds)
+    emit_code, min_code = _code_bounds(code_bounds) if mode == "code" else (0.0, 0.0)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
     tiles_on = _gated_tiles_on(sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
 
     if device.type == "cpu":
         return sweep_rays_reference(
             rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
-            want_any=want_any, masks_baked=masks_baked, gate=gate, visits=visits,
+            want_any=want_any, masks_baked=masks_baked, code_bounds=code_bounds,
+            gate=gate, visits=visits,
         )
 
     from .build import load_library
@@ -597,7 +642,8 @@ def sweep_rays(
         err = lib.raystrack_sweep_rays(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
             tiles_on.data_ptr(), tile,
-            int(want_matrix), int(want_any), int(masks_baked), *_gate_args(gate),
+            int(want_matrix), int(want_any), _MASK_MODES.index(mode), emit_code, min_code,
+            *_gate_args(gate),
             codes.data_ptr(), any_hit.data_ptr(),
             None if visits is None else visits.data_ptr(), stream,
         )
@@ -605,11 +651,13 @@ def sweep_rays(
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     sweep_rays.launches += 1
     sweep_rays.gated_launches += gate is not None
+    sweep_rays.code_launches += mode == "code"
     return codes, any_hit
 
 
 sweep_rays.launches = 0
 sweep_rays.gated_launches = 0
+sweep_rays.code_launches = 0
 
 
 def scheduled_tiles_on(masks: torch.Tensor, tile: int, *, want_matrix: bool,

@@ -25,7 +25,11 @@ The device side packs those tables into padded tensors on an explicit
 - per-cell jitter values are pre-expanded to per-ray tables,
 - per-triangle intersection operands are precomputed so the Möller–Trumbore
   test reduces to dot products against the ray and its origin-direction
-  cross product (see ops/trace_cuda.py).
+  cross product (see ops/trace_cuda.py),
+- at or above ``SLIM_PACK_MIN_TRIS`` padded triangles the scene pack is
+  slim (pack-resident): the sweep's (24, Tpad) operand pack is built once,
+  in chunks through a pinned staging buffer, and only it, the surface ids
+  and the boxes live on the device.
 
 ``PreparedSolver`` caches all of it across solves: the scene by accel flag,
 emitters by (samples, rays, flip_faces), device packs and the scheduled
@@ -44,6 +48,7 @@ import torch
 from . import config as _cfg
 from .config import ACCEL_GRAIN, RAY_BLOCK
 from .ops.halton import cached_halton, cached_halton_dims
+from .ops.trace_cuda import TRI_ROWS
 from .utils.helpers import grid_from_density
 
 Mesh = Tuple[str, np.ndarray, np.ndarray]
@@ -395,16 +400,18 @@ class ScenePack:
     - ``t_num =  o · cross_e - v0 · cross_e``
 
     and the front/back flag is ``det > 0``. Field for field the JAX
-    package's ScenePack, except its slim-mode ``tri_pack``.
+    package's ScenePack. A slim (pack-resident) pack holds ``tri_pack``, the
+    sweep's operand pack built once from the same values, and None in the
+    seven per-triangle fields; ``sid`` and the boxes stay.
     """
 
-    v0: torch.Tensor  # (Tp, 3) f32
-    e1: torch.Tensor  # (Tp, 3) f32
-    e2: torch.Tensor  # (Tp, 3) f32
-    cross_e: torch.Tensor  # (Tp, 3) f32  e1 x e2
-    w_u: torch.Tensor  # (Tp, 3) f32  v0 x e2
-    w_v: torch.Tensor  # (Tp, 3) f32  v0 x e1
-    d0: torch.Tensor  # (Tp,) f32   v0 . cross_e
+    v0: Optional[torch.Tensor]  # (Tp, 3) f32
+    e1: Optional[torch.Tensor]  # (Tp, 3) f32
+    e2: Optional[torch.Tensor]  # (Tp, 3) f32
+    cross_e: Optional[torch.Tensor]  # (Tp, 3) f32  e1 x e2
+    w_u: Optional[torch.Tensor]  # (Tp, 3) f32  v0 x e2
+    w_v: Optional[torch.Tensor]  # (Tp, 3) f32  v0 x e1
+    d0: Optional[torch.Tensor]  # (Tp,) f32   v0 . cross_e
     sid: torch.Tensor  # (Tp,) i32   padded entries = n_surf (sentinel)
     n_tri: int
     n_tri_pad: int
@@ -414,6 +421,10 @@ class ScenePack:
     # padded grain gets the empty box (lo > hi) that every slab test misses
     tile_lo: Optional[torch.Tensor] = None  # (Tp / ACCEL_GRAIN, 3) f32
     tile_hi: Optional[torch.Tensor] = None  # (Tp / ACCEL_GRAIN, 3) f32
+    # slim mode only: rows 0-16 of ops/trace_cuda.py's pack layout (operands
+    # and 2*sid), mask rows and padding rows zero; every emitter sweeps it as
+    # it is, with eligibility from the code row (sweep_rays' code_bounds)
+    tri_pack: Optional[torch.Tensor] = None  # (TRI_ROWS, Tp) f32
 
     @property
     def accel(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
@@ -421,6 +432,10 @@ class ScenePack:
         if self.tile_lo is None:
             return None
         return (self.tile_lo, self.tile_hi)
+
+    @property
+    def slim(self) -> bool:
+        return self.tri_pack is not None
 
 
 @dataclass(frozen=True)
@@ -490,7 +505,53 @@ def _tile_bounds(
     return lo, hi
 
 
-def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> ScenePack:
+# Triangles per fill step of the slim pack build: one pinned (17, chunk)
+# staging buffer on the host and one slab of the same size in flight on the
+# device.
+_PACK_BUILD_CHUNK = 4_194_304
+
+# Pack rows the slim build fills: the operands and the code row.
+_PACK_BUILD_ROWS = 17
+
+
+def _build_pack_resident(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, sid: np.ndarray,
+                         device: torch.device) -> torch.Tensor:
+    """The device-resident (TRI_ROWS, Tpad) sweep operand pack of a slim
+    scene, from the padded host arrays.
+
+    Rows 0-16 are computed on the host, ``_PACK_BUILD_CHUNK`` triangles at a
+    time, with the NumPy formulas full mode uses, written into a pinned
+    staging buffer and copied into a column slice of the one preallocated
+    pack; the mask rows and padding rows stay zero. So the pack is bitwise
+    equal to ``build_tri_pack`` of the full-mode fields with zero masks,
+    and the device never holds more than the pack and one chunk's slab.
+    """
+    n = int(v0.shape[0])
+    on_card = device.type == "cuda"
+    pack = torch.zeros((TRI_ROWS, n), dtype=torch.float32, device=device)
+    chunk = min(n, _PACK_BUILD_CHUNK)
+    stage = torch.empty(_PACK_BUILD_ROWS * chunk, dtype=torch.float32, pin_memory=on_card)
+    for off in range(0, n, chunk):
+        c = min(chunk, n - off)
+        sl = slice(off, off + c)
+        rows_t = stage[: _PACK_BUILD_ROWS * c].view(_PACK_BUILD_ROWS, c)
+        rows = rows_t.numpy()
+        ce = np.cross(e1[sl], e2[sl]).astype(np.float32)
+        rows[0:3] = ce.T
+        rows[3:6] = e1[sl].T
+        rows[6:9] = e2[sl].T
+        rows[9:12] = np.cross(v0[sl], e2[sl]).astype(np.float32).T
+        rows[12:15] = np.cross(v0[sl], e1[sl]).astype(np.float32).T
+        rows[15] = np.einsum("ij,ij->i", v0[sl], ce).astype(np.float32)
+        rows[16] = (sid[sl] * 2).astype(np.float32)
+        pack[:_PACK_BUILD_ROWS, sl].copy_(rows_t, non_blocking=on_card)
+        if on_card:  # the next chunk overwrites the staging buffer
+            torch.cuda.current_stream(device).synchronize()
+    return pack
+
+
+def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device,
+               slim: Optional[bool] = None) -> ScenePack:
     """Pad the triangle soup (Morton-ordered when the scene was prepared
     with ``use_accel``, then with its acceleration boxes) and upload it to
     ``device``.
@@ -500,11 +561,17 @@ def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> Sc
     ``PALLAS_TRI_TILE`` wide. Padding, derived operands and boxes are
     computed on the host with the JAX package's NumPy formulas, so the
     packs are bitwise equal to its ``pack_scene``.
+
+    ``slim`` (default: at or above ``SLIM_PACK_MIN_TRIS`` padded triangles)
+    builds the pack-resident form instead: ``tri_pack``, ``sid`` and the
+    boxes on the device, the per-triangle fields None.
     """
     n_tri = int(scene.v0.shape[0])
     n_tri_pad = _round_up(n_tri, 128)
     if n_tri_pad > _cfg.PALLAS_MAX_TRIS:
         n_tri_pad = _round_up(n_tri, _cfg.PALLAS_TRI_TILE)
+    if slim is None:
+        slim = n_tri_pad >= _cfg.SLIM_PACK_MIN_TRIS
 
     if scene.use_accel and n_tri > 1:
         perm = morton_order(scene.v0, scene.e1, scene.e2)
@@ -522,15 +589,23 @@ def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> Sc
     sid = np.full(n_tri_pad, n_surf, dtype=np.int32)
     sid[:n_tri] = scene.sid[perm]
 
-    cross_e = np.cross(e1, e2).astype(np.float32)
-    w_u = np.cross(v0, e2).astype(np.float32)
-    w_v = np.cross(v0, e1).astype(np.float32)
-    d0 = np.einsum("ij,ij->i", v0, cross_e).astype(np.float32)
     if scene.use_accel and n_tri > 0:
         tile_lo, tile_hi = (_put(a, device) for a in _tile_bounds(v0, e1, e2, n_tri))
     else:
         tile_lo = tile_hi = None
+    tri_tile = pick_tri_tile(n_tri_pad)
+    if slim:
+        return ScenePack(
+            v0=None, e1=None, e2=None, cross_e=None, w_u=None, w_v=None, d0=None,
+            sid=_put(sid, device), n_tri=n_tri, n_tri_pad=n_tri_pad, tri_tile=tri_tile,
+            n_surf=n_surf, tile_lo=tile_lo, tile_hi=tile_hi,
+            tri_pack=_build_pack_resident(v0, e1, e2, sid, device),
+        )
 
+    cross_e = np.cross(e1, e2).astype(np.float32)
+    w_u = np.cross(v0, e2).astype(np.float32)
+    w_v = np.cross(v0, e1).astype(np.float32)
+    d0 = np.einsum("ij,ij->i", v0, cross_e).astype(np.float32)
     return ScenePack(
         v0=_put(v0, device),
         e1=_put(e1, device),
@@ -542,7 +617,7 @@ def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device) -> Sc
         sid=_put(sid, device),
         n_tri=n_tri,
         n_tri_pad=n_tri_pad,
-        tri_tile=pick_tri_tile(n_tri_pad),
+        tri_tile=tri_tile,
         n_surf=n_surf,
         tile_lo=tile_lo,
         tile_hi=tile_hi,
@@ -693,6 +768,9 @@ class PreparedSolver:
     def get_scene_pack(
         self, *, use_accel: bool = False, device: torch.device
     ) -> ScenePack:
+        """The scene pack on ``device``, one per physical device and accel
+        flag however the device is spelled: at slim sizes a second copy of
+        the resident pack would not fit beside the first."""
         dev = _device_key(device)
         key = (dev, bool(use_accel))
         if key not in self._scene_pack_cache:

@@ -25,6 +25,11 @@ return equal dicts. Also as in the JAX package:
 - solves without ``prepared=`` reuse an implicit, content-keyed LRU of
   ``PreparedSolver``s (``clear_prepared_cache`` empties it).
 
+A scene of ``SLIM_PACK_MIN_TRIS`` padded triangles or more is packed slim
+(``prepared.pack_scene``): the device holds one operand pack for the whole
+solve, every emitter takes the per-emitter driver and sweeps that pack with
+eligibility from its code row, and the dict equals the full-mode one.
+
 With ``bvh`` on (``auto`` from 512 faces), both routes gate their sweeps
 by the scene's AABBs where it has more than one sweep tile (see
 ``ops/trace_cuda.py``), which changes no result. On a CUDA
@@ -242,7 +247,9 @@ class _EmitterRun:
     triangle on the solve's device) are built at its first dispatch,
     reused by every later chunk, and dropped by :meth:`release` when the
     emitter finishes. An emitter the scheduled driver finishes never
-    builds them.
+    builds them. On a slim scene pack no per-emitter pack exists: the
+    operands are the scene's resident ``tri_pack``, a sweep mask from the
+    surface ids and the emitter's two codes (``code_bounds``).
     """
 
     def __init__(
@@ -265,24 +272,32 @@ class _EmitterRun:
         self.min_sid = int(min_sid)
         self.tri_pack: Optional[torch.Tensor] = None
         self.sweep_mask: Optional[torch.Tensor] = None
+        self.code_bounds: Optional[Tuple[float, float]] = None  # slim scenes only
         self.seed = seed
         self.idx_emit = idx_emit
         self.itr_next = 0  # absolute iteration index (drives the RNG stream)
 
     def operands(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The baked pack and sweep mask, built on first use."""
+        """The operand pack (baked, or a slim scene's resident one) and the
+        sweep mask, built on first use."""
         if self.tri_pack is None:
             sp = self.scene_pack
-            self.tri_pack, self.sweep_mask = _trace.emitter_operands(
-                (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid),
-                _upload([self._surf_ext], np.int32, self.device)[0], self.emit_sid,
-                self.min_sid, self.em_pack.plane_vec,
-            )
+            surf_ext = _upload([self._surf_ext], np.int32, self.device)[0]
+            if sp.slim:
+                self.tri_pack = sp.tri_pack
+                self.sweep_mask, self.code_bounds = _trace.slim_operands(
+                    sp.sid, surf_ext, self.emit_sid, self.min_sid)
+            else:
+                self.tri_pack, self.sweep_mask = _trace.emitter_operands(
+                    (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid),
+                    surf_ext, self.emit_sid, self.min_sid, self.em_pack.plane_vec,
+                )
         return self.tri_pack, self.sweep_mask
 
     def release(self) -> None:
-        """Drop the operands; a later dispatch would build them again."""
-        self.tri_pack = self.sweep_mask = None
+        """Drop the operands; a later dispatch would build them again. A
+        slim scene's resident pack stays with its scene pack."""
+        self.tri_pack = self.sweep_mask = self.code_bounds = None
 
     def dispatch_chunk(self, chunk: int) -> Callable[[], Dict[str, np.ndarray]]:
         """Queue ``chunk`` iterations without synchronising, so the driver
@@ -301,6 +316,7 @@ class _EmitterRun:
             (em.cdf, em.tri_a, em.tri_e1, em.tri_e2,
              em.tri_u, em.tri_v, em.tri_n, em.tri_eps),
             cp, self.scene_pack.n_surf, em.n_rays_once, accel=self.scene_pack.accel,
+            code_bounds=self.code_bounds,
         )
         if not on_card:
             return lambda: {k: v.numpy() for k, v in out.items()}
@@ -711,8 +727,13 @@ def view_factor_matrix(
     areas = [e.total_area for e in emitters] if reciprocity else None
     bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
     align = RAY_BLOCK
-    use_scheduler = _use_scheduler(device, emitters, p["rays"], align)
     scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+    # a slim (pack-resident) scene goes emitter by emitter: that driver
+    # sweeps the resident pack as it is, where the scheduled one would
+    # assemble a second pack from per-triangle fields a slim scene does
+    # not hold
+    use_scheduler = not scene_pack.slim and _use_scheduler(
+        device, emitters, p["rays"], align)
 
     n_surf = len(meshes)
     # Phase 1: skip emitters with no receivers, build the work list

@@ -5,7 +5,10 @@ tile activity, an all-masked emitter row), kernel #2 against kernel #1 per
 emitter, the gated kernels against their plain gated versions and the
 ungated kernels (per-tile and two-level gate, ragged ray counts), the count
 kernel against its plain version and numpy.bincount, one device key per
-card, and solves on the card against the CPU and across the two routes.
+card, solves on the card against the CPU and across the two routes, kernel
+#1's code_bounds mode against its plain version and the baked kernel, a slim
+(pack-resident) solve against the full-mode one, and the FMA-peak probe
+against its plain version.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -21,7 +24,13 @@ import torch
 import raystrack_tpu_torch
 from raystrack_tpu_torch import config as tconfig
 from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
-from raystrack_tpu_torch.ops.trace import compute_masks, sort_rays_for_coherence
+from raystrack_tpu_torch.ops.peak_cuda import (
+    fma_peak, fma_peak_reference, fma_peak_tolerance,
+)
+from raystrack_tpu_torch.ops.trace import (
+    compute_masks, slim_operands, sort_rays_for_coherence,
+)
+from raystrack_tpu_torch.prepared import pack_scene
 from raystrack_tpu_torch.ops.trace_cuda import (
     _gate_tables, _gated_tiles_on, _resolve_gate_window, build_tri_pack, gate_group_size,
     scheduled_tiles_on, sweep_rays, sweep_rays_reference, sweep_rays_scheduled,
@@ -422,3 +431,133 @@ def test_gated_solves_on_card_equal_ungated(card, monkeypatch):
         off = raystrack_tpu_torch.view_factor_matrix(
             meshes, raystrack_tpu_torch.MatrixParams(bvh="off", **kw))
         assert on == off, route
+
+
+@pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
+                         ids=["per_tile", "two_level"])
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_code_mode_kernel_equals_plain_and_baked(street, monkeypatch, want_matrix, want_any,
+                                                 gated, max_tiles, tri_tile):
+    """Kernel #1 in code mode on the street's slim pack == its plain version
+    (codes, flags, visits) == the baked kernel on the full-mode pack, at ray
+    counts that are and are not multiples of 256; one code-mode launch per
+    call, gated when the boxes are given."""
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", max_tiles)
+    sp, scene, (m_any, m_mat), rays_all = street
+    dev = rays_all.device
+    meshes = _street_scene()
+    slim = pack_scene(raystrack_tpu_torch.PreparedSolver(meshes).get_scene(use_accel=True),
+                      len(meshes), device=dev, slim=True)
+    assert slim.slim and slim.v0 is None
+    assert torch.equal(slim.tri_pack, build_tri_pack(scene, torch.zeros_like(m_any),
+                                                     torch.zeros_like(m_any)))
+    ext = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    mask, bounds = slim_operands(slim.sid, ext, 0, 1, want_any=want_any)
+    prim = m_any if want_any else m_mat
+    assert torch.equal(mask, prim) and bounds == (0.0, 2.0)
+    baked = build_tri_pack(scene, m_any, m_mat, bake=prim)
+    tile = sweep_tile_width(sp.n_tri_pad, tri_tile)
+    tiles_on = prim.reshape(-1, tile).any(dim=1).to(torch.int32)
+    accel = sp.accel if gated else None
+    kw = dict(want_matrix=want_matrix, want_any=want_any)
+    for n in (1, 257, 6000):
+        rays = rays_all[:, :n].contiguous()
+        nb = -(-n // 256)
+        visits = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+        before = (sweep_rays.launches, sweep_rays.code_launches, sweep_rays.gated_launches)
+        codes, any_hit = sweep_rays(rays, slim.tri_pack, mask, tri_tile=tri_tile, accel=accel,
+                                    code_bounds=bounds, visits=visits, **kw)
+        torch.cuda.synchronize()
+        assert (sweep_rays.launches, sweep_rays.code_launches, sweep_rays.gated_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + gated)
+        plain_visits = torch.full_like(visits, -2)
+        if gated:
+            want = _gated_plain(rays, slim.tri_pack, tiles_on, tile, sp.accel, plain_visits,
+                                code_bounds=bounds, **kw)
+        else:
+            want = sweep_rays_reference(rays, slim.tri_pack, tiles_on, tile,
+                                        code_bounds=bounds, visits=plain_visits, **kw)
+        assert torch.equal(codes, want[0]) and torch.equal(any_hit, want[1]), n
+        assert torch.equal(visits, plain_visits), n
+        full = sweep_rays(rays, baked, prim, tri_tile=tri_tile, accel=accel, masks_baked=True,
+                          **kw)
+        assert torch.equal(codes, full[0]) and torch.equal(any_hit, full[1]), n
+    if want_matrix:
+        assert int((codes >= 0).sum()) > 1000
+    if want_any:
+        assert int(any_hit.sum()) > 1000
+
+
+def test_code_mode_kernel_takes_its_two_codes(card):
+    """The two float arguments reach the kernel: on the tie scene's pack
+    each (emit, min) pair gives what the same pack's mask rows give."""
+    meshes = _tie_scene()
+    ps = raystrack_tpu_torch.PreparedSolver(meshes)
+    full = ps.get_scene_pack(device=card)
+    scene = (full.v0, full.e1, full.e2, full.cross_e, full.w_u, full.w_v, full.d0, full.sid)
+    slim = pack_scene(ps.get_scene(), len(meshes), device=card, slim=True)
+    rays = _rays(5000, 4, card)
+    on = torch.ones_like(full.sid, dtype=torch.bool)
+    kw = dict(tri_tile=128, want_matrix=True, want_any=True)
+    seen = set()
+    for emit_sid, min_sid in ((1, 2), (1, 0), (0, 1), (2, 0)):
+        m_any = (full.sid != emit_sid) & (full.sid < 3)
+        m_mat = m_any & (full.sid >= min_sid)
+        want = sweep_rays(rays, build_tri_pack(scene, m_any, m_mat), on, **kw)
+        got = sweep_rays(rays, slim.tri_pack, on, code_bounds=(2.0 * emit_sid, 2.0 * min_sid),
+                         **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (emit_sid, min_sid)
+        seen.add(tuple((got[0][got[0] >= 0] // 2).unique().tolist()))
+    assert len(seen) == 4  # every pair of codes selects other surfaces
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        sweep_rays(rays, slim.tri_pack, on, masks_baked=True, code_bounds=(0.0, 0.0), **kw)
+
+
+@pytest.mark.parametrize("bvh", ["off", "builtin"])
+def test_slim_solve_on_card_equals_full_solve(card, monkeypatch, bvh):
+    """A slim solve on the card: the full-mode dict (==), per-emitter
+    code-mode launches only (gated with the boxes), no scheduled round."""
+    import raystrack_tpu_torch.ops.trace as ttrace
+
+    monkeypatch.setattr(ttrace, "PALLAS_TRI_TILE", 128)
+    meshes = _street_scene(seed=2)
+    params = raystrack_tpu_torch.MatrixParams(
+        samples=2, rays=8, seed=4, device="gpu", max_iters=3, min_iters=2, tol=1e-3,
+        reciprocity=False, bvh=bvh)
+    want = raystrack_tpu_torch.view_factor_matrix(meshes, params)
+    monkeypatch.setattr(tconfig, "SLIM_PACK_MIN_TRIS", 1)
+    ps = raystrack_tpu_torch.PreparedSolver(meshes)
+    before = (sweep_rays.launches, sweep_rays.code_launches, sweep_rays.gated_launches,
+              sweep_rays_scheduled.launches)
+    got = raystrack_tpu_torch.view_factor_matrix(meshes, params, prepared=ps)
+    assert ps.get_scene_pack(use_accel=bvh == "builtin", device=card).slim
+    assert got == want and sum(len(row) for row in got.values()) >= 2
+    n = sweep_rays.launches - before[0]
+    assert n > 0 and sweep_rays.code_launches - before[1] == n
+    assert sweep_rays.gated_launches - before[2] == (n if bvh == "builtin" else 0)
+    assert sweep_rays_scheduled.launches == before[3]
+
+
+def test_fma_peak_kernel_against_plain_version(card):
+    """Every repeat of the probe within twice ``fma_peak_tolerance`` of the
+    plain version (an FFMA rounds once, ``a * c + d`` twice) and within the
+    tolerance of the float64 recurrence; all repeats bitwise the same."""
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((32, 128)).astype(np.float32)).to(card)
+    c, d = 0.999999881, 0.25
+    before = fma_peak.launches
+    out = fma_peak(x, c, d, repeats=64)
+    torch.cuda.synchronize()
+    assert fma_peak.launches == before + 1 and out.shape == (64, 32, 128)
+    tol = fma_peak_tolerance(x, c, d)
+    plain = fma_peak_reference(x, c, d, 64)
+    assert float((out - plain).abs().max()) <= 2 * tol
+    exact = fma_peak_reference(x.double(), c, d, 64)
+    assert float((out.double() - exact).abs().max()) <= tol
+    assert bool((out == out[0]).all())
+    assert fma_peak(x, c, d, repeats=0).shape == (0, 32, 128)
+    assert fma_peak.launches == before + 1

@@ -152,9 +152,22 @@ def test_interop_carries_jax_packs(scene):
 
 
 def test_interop_rejects_what_it_cannot_carry():
-    arrays = _as_arrays(jprep.PreparedSolver(_cloud_scene()).get_scene_pack())
-    with pytest.raises(NotImplementedError, match="slim"):
-        scene_pack_from_arrays(dict(arrays, tri_pack=np.zeros((24, 128))), CPU)
+    """A slim pack carries across (``tri_pack`` set, the per-triangle
+    fields None) and equals the port's own; a dict without ``tri_pack`` is
+    a full pack; unknown and missing fields are refused."""
+    meshes = _cloud_scene()
+    jscene = jprep.PreparedSolver(meshes).get_scene(use_accel=True)
+    slim = scene_pack_from_arrays(
+        _as_arrays(jprep.pack_scene(jscene, len(meshes), slim=True)), CPU)
+    own = tprep.pack_scene(tprep.PreparedSolver(meshes).get_scene(use_accel=True),
+                           len(meshes), device=CPU, slim=True)
+    assert slim.slim and slim.v0 is None and slim.tri_pack.shape == (24, own.n_tri_pad)
+    for f in dataclasses.fields(tprep.ScenePack):
+        a, b = getattr(slim, f.name), getattr(own, f.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
+    arrays = _as_arrays(jprep.PreparedSolver(meshes).get_scene_pack())
+    assert arrays.pop("tri_pack") is None
+    assert not scene_pack_from_arrays(arrays, CPU).slim
     with pytest.raises(KeyError):
         scene_pack_from_arrays(dict(arrays, bogus=1), CPU)
     del arrays["d0"]
