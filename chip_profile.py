@@ -4,7 +4,8 @@
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_profile.py [--reps 5] [--traced 3] [--route auto|scheduled|grouped]
-                            [--count kernel|plain] [--bvh auto|off] [--slim]
+                            [--count kernel|plain] [--bvh auto|off] [--slim] [--timeline]
+                            [--splits] [--force-split 1|4]
                             [plates canyon district soup soup8 city city_matrix city_plates
                              city10m]
 
@@ -34,7 +35,17 @@ version on the card instead of the kernel, to time the two formulations
 against each other; the solve's result does not change. ``--slim`` packs
 every scene slim (pack-resident: ``config.SLIM_PACK_MIN_TRIS`` set to 1 for
 the run), so each solve goes emitter by emitter through kernel #1's
-code_bounds mode on the scene's one resident pack. The card's name
+code_bounds mode on the scene's one resident pack. ``--timeline`` instead
+prints what the per-block timeline of the two gated launches chip_smoke.py
+times says (the city chunk of kernel #1, the ``city_plates`` round of kernel
+#2): the kernel's span, how full its resident slots were, the slowest block,
+the tail after the first SM ran dry and the fitted cost of a swept tile and
+of a visit that ends at the block's vote. ``--splits`` instead times
+ungated kernel #1 on the leading blocks of the soup chunk at each triangle
+split it is built at, from 32 blocks to the chunk's 1,024, and the whole
+chunk in every output and mask variant: the measurement behind
+``trace_cuda.sweep_split``. ``--force-split N`` solves with every ungated
+sweep at N threads a ray instead of the rule's choice. The card's name
 and power limit come first; one JSON line ends each solve's block.
 Imports nothing of JAX.
 """
@@ -179,8 +190,11 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
             sweep = sum(e.time_range.elapsed_us() for e in kernels
                         if any(k in e.name for k in ("sweep_kernel", "sweep_code_kernel",
                                                      "sweep_sched_kernel"))) / 1e6
-            # the gate's per-call tables and the coherence sort are torch ops
-            gate = stages["gate"]
+            # the gate's per-call tables and the coherence sort: torch ops and
+            # the crossing kernel, which the profiler files under no op
+            cross = sum(e.time_range.elapsed_us() for e in kernels
+                        if "gate_cross_kernel" in e.name) / 1e6
+            gate = stages["gate"] + cross
             count_k = sum(e.time_range.elapsed_us() for e in kernels
                           if "count_codes_kernel" in e.name) / 1e6
             dispatches = len(chunks) + len(rounds)
@@ -189,7 +203,7 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                        sweep_s=sweep, sweep_share_of_busy=sweep / busy,
                        histogram_s=stages["histogram"], count_kernel_s=count_k,
                        raygen_s=stages["raygen"],
-                       masks_s=stages["masks"], gate_s=gate,
+                       masks_s=stages["masks"], gate_s=gate, gate_cross_kernel_s=cross,
                        chunks=len(chunks), chunk_rows=sum(chunk_rows), rounds=len(rounds),
                        round_rows=list(rounds),
                        kernels_per_dispatch=len(kernels) / max(1, dispatches))
@@ -201,7 +215,8 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                   f"{stages['histogram'] * 1e3:.3f} ms (count kernel {count_k * 1e3:.3f} ms), "
                   f"raygen {stages['raygen'] * 1e3:.3f} ms, "
                   f"masks {stages['masks'] * 1e3:.3f} ms, gate tables and ray sort "
-                  f"{gate * 1e3:.3f} ms; {len(chunks)} chunks "
+                  f"{gate * 1e3:.3f} ms (crossing kernel {cross * 1e3:.3f} ms); "
+                  f"{len(chunks)} chunks "
                   f"({sum(chunks)} iterations, {sum(chunk_rows)} rows), {len(rounds)} rounds "
                   f"({sum(rounds)} rows), "
                   f"{run['kernels_per_dispatch']:.1f} device kernels per chunk or round")
@@ -222,6 +237,175 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                       "card": card, "warm_s": warm, "traced": runs}))
 
 
+def timeline_stats(label: str, timeline, visits, n_sms: int) -> dict:
+    """What a gated launch's per-block timeline says: ``timeline`` (blocks,
+    4) int64 holds each block's start and end on the card's nanosecond timer,
+    its SM and the visit positions it walked; ``visits`` its swept tiles."""
+    t = timeline.cpu().numpy()
+    swept = visits.cpu().numpy().astype(np.float64)
+    start, end, sm, walked = t[:, 0], t[:, 1], t[:, 2], t[:, 3].astype(np.float64)
+    t0, t1 = start.min(), end.max()
+    span = float(t1 - t0)
+    spans = (end - start).astype(np.float64)
+    slots = 0  # blocks resident at once on one SM
+    last_end = []
+    for s_id in np.unique(sm):
+        on = sm == s_id
+        edges = sorted([(a, 1) for a in start[on]] + [(b, -1) for b in end[on]],
+                       key=lambda e: (e[0], e[1]))
+        level = 0
+        for _, step in edges:
+            level += step
+            slots = max(slots, level)
+        last_end.append(end[on].max())
+    dry = float(min(last_end))  # the first SM with nothing left to run
+    idle_tail = sum(float(t1 - e) for e in last_end) / (len(last_end) * span)
+    # block span ~ a * swept tiles + c * positions that ended at the vote + d
+    voted = walked - swept
+    A = np.stack([swept, voted, np.ones_like(swept)], axis=1)
+    (a, c, d), *_ = np.linalg.lstsq(A, spans, rcond=None)
+    out = dict(
+        label=label, blocks=int(t.shape[0]), sms_used=int(len(last_end)), slots_per_sm=slots,
+        span_ms=span / 1e6, fill=float(spans.sum()) / (n_sms * slots * span),
+        slowest_block_ms=float(spans.max()) / 1e6, tail_ms=(float(t1) - dry) / 1e6,
+        tail_share=(float(t1) - dry) / span, sm_idle_share_after_last_block=idle_tail,
+        swept_tiles=int(swept.sum()), walked_positions=int(walked.sum()),
+        fit_us_per_swept_tile=a / 1e3, fit_us_per_vote_only_visit=c / 1e3,
+        fit_us_per_block=d / 1e3)
+    print(f"[timeline] {label}: {out['blocks']} blocks on {out['sms_used']} SMs, at most "
+          f"{slots} resident on one SM; kernel span {out['span_ms']:.3f} ms; sum of block "
+          f"spans over ({n_sms} SMs x {slots} slots x span) {out['fill']:.1%}; slowest block "
+          f"{out['slowest_block_ms']:.3f} ms; from the first SM running dry to the end "
+          f"{out['tail_ms']:.3f} ms = {out['tail_share']:.1%} of the span (mean SM idle after "
+          f"its last block {idle_tail:.1%} of the span); {out['swept_tiles']} tiles swept of "
+          f"{out['walked_positions']} positions walked; least-squares block span = "
+          f"{out['fit_us_per_swept_tile']:.3f} us x swept tiles + "
+          f"{out['fit_us_per_vote_only_visit']:.3f} us x visits that end at the vote + "
+          f"{out['fit_us_per_block']:.1f} us")
+    return out
+
+
+def profile_timelines(card: str) -> None:
+    """The per-block timeline of the two gated launches chip_smoke.py times:
+    kernel #1 on the first chunk of the city's ground -> city solve and
+    kernel #2 on the first round of its ten-plate matrix, as the wrappers
+    launch them, on tables built once."""
+    import chip_smoke
+    from raystrack_tpu_torch import PreparedSolver, view_factor, view_factor_matrix
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace as trace_mod
+    from raystrack_tpu_torch.ops import trace_cuda
+    from raystrack_tpu_torch.ops.trace_cuda import sweep_rays, sweep_rays_scheduled
+
+    cases = chip_smoke.solve_cases()
+    city, vf_params = cases["city"]
+    plates, plates_params = cases["city_plates"]
+    chunk_call = chip_smoke.first_call(trace_mod, "chunk_body", lambda: view_factor(
+        city[0], city[1], vf_params, prepared=PreparedSolver(city)))
+    round_call = chip_smoke.first_call(trace_mod, "scheduled_trace", lambda: view_factor_matrix(
+        plates, plates_params, prepared=PreparedSolver(plates)))
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False)
+    rays, pack, mask, accel, _, _ = chip_smoke.city_chunk_inputs(chunk_call)
+    rays2, pack2, masks, emap, accel2, _, _ = chip_smoke.city_round_inputs(round_call)
+    launches = {
+        "kernel #1 gated, city chunk": (rays, pack.shape[1], accel, lambda **dbg: sweep_rays(
+            rays, pack, mask, masks_baked=True, accel=accel, **kw, **dbg)),
+        "kernel #2 gated, city_plates round": (
+            rays2, pack2.shape[1], accel2, lambda **dbg: sweep_rays_scheduled(
+                rays2, pack2, masks, emap, accel=accel2, **kw, **dbg)),
+    }
+    out = []
+    for label, (r, tpad, boxes, launch) in launches.items():
+        dev = r.device
+        n_blocks = -(-r.shape[1] // chip_smoke.RAY_SUB)
+        tile = trace_cuda.sweep_tile_width(tpad, PALLAS_TRI_TILE)
+        gate = trace_cuda._gate_for(boxes, r, tpad, tile, PALLAS_TRI_TILE, dev)
+        split = trace_cuda.sweep_split(n_blocks, True, n_sms)
+        visits = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+        timeline = torch.zeros((n_blocks, 4), dtype=torch.int64, device=dev)
+        with chip_smoke.forced_launch(gate=gate):
+            launch()  # warm
+            ms, _ = chip_smoke.cuda_ms(
+                lambda: launch(visits=visits, timeline=timeline))  # noqa: B023
+        torch.cuda.synchronize()
+        stats = timeline_stats(f"{label}, {split} threads a ray", timeline, visits, n_sms)
+        stats.update(kernel_ms=ms, split=split)
+        out.append(stats)
+        swept = visits.double()
+        print(f"[timeline] {label}: correlation of a block's crossed boxes with its swept "
+              f"tiles "
+              f"{float(torch.corrcoef(torch.stack([gate.counts.double(), swept]))[0, 1]):.3f}; "
+              f"crossed boxes per block: median {float(gate.counts.double().median()):g}, "
+              f"at most {int(gate.counts.max())}")
+    print(json.dumps({"timelines": out, "card": card}))
+
+
+SPLIT_BLOCKS = (32, 66, 128, 132, 160, 200, 264, 300, 396, 528, 792, 1024)
+
+
+def profile_splits(card: str) -> None:
+    """Ungated kernel #1 (matrix, baked pack) on the leading B blocks of 256
+    rays of the soup chunk (98,304 triangles, 48 tiles), B from 32 to the
+    chunk's 1,024, at each triangle split the ungated kernels are built for:
+    best of 3 by CUDA events, every split equal to the first, and the split
+    the wrapper's rule (``trace_cuda.sweep_split``) picks. The measurement
+    behind that rule's thresholds."""
+    import chip_smoke
+    from raystrack_tpu_torch import PreparedSolver
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    soup, params = chip_smoke.solve_cases()["soup"]
+    scene, rays, m_any, m_mat, tpad, _ = chip_smoke.soup_inputs(
+        dev, PreparedSolver(soup), params.seed)
+    pack = trace_cuda.build_tri_pack(scene, m_any, m_mat, bake=m_mat)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for n_blocks in SPLIT_BLOCKS:
+        sub = rays[:, : n_blocks * chip_smoke.RAY_SUB].contiguous()
+        launch = lambda: trace_cuda.sweep_rays(  # noqa: E731
+            sub, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True,  # noqa: B023
+            want_any=False, masks_baked=True)
+        times, first = {}, None
+        for split in trace_cuda.UNGATED_SPLITS:
+            with chip_smoke.forced_launch(split):
+                launch()  # warm
+                times[split], out = chip_smoke.cuda_ms(launch)
+            first = first or out
+            chip_smoke.check(torch.equal(out[0], first[0]) and torch.equal(out[1], first[1]),
+                             f"{n_blocks} blocks: {split} threads a ray != the first split")
+        chosen = trace_cuda.sweep_split(n_blocks, False, n_sms)
+        best = min(times, key=times.get)
+        rows.append(dict(blocks=n_blocks, blocks_per_sm=n_blocks / n_sms, ms=times,
+                         rule=chosen, fastest=best))
+        print(f"[splits] {n_blocks:5d} blocks ({n_blocks / n_sms:.2f} an SM) x {tpad} triangles: "
+              + ", ".join(f"{sp} thread(s) a ray {t:.3f} ms" for sp, t in times.items())
+              + f"; fastest {best}, the rule picks {chosen} "
+                f"({times[chosen] / times[best] - 1:+.1%} on the fastest)")
+    # the whole chunk in every output and mask variant of kernel #1
+    variants = {}
+    for baked in (True, False):
+        for wm, wa in ((True, False), (False, True), (True, True)):
+            prim = m_any if wa else m_mat
+            vpack = trace_cuda.build_tri_pack(scene, m_any, m_mat, bake=prim if baked else None)
+            launch = lambda: trace_cuda.sweep_rays(  # noqa: E731
+                rays, vpack, prim, tri_tile=PALLAS_TRI_TILE, want_matrix=wm,  # noqa: B023
+                want_any=wa, masks_baked=baked)  # noqa: B023
+            name = (f"{'matrix+any' if wm and wa else 'matrix' if wm else 'any'},"
+                    f"{'baked' if baked else 'rows'}")
+            times = {}
+            for split in trace_cuda.UNGATED_SPLITS:
+                with chip_smoke.forced_launch(split):
+                    launch()
+                    times[split], _ = chip_smoke.cuda_ms(launch)
+            variants[name] = times
+            print(f"[splits] whole chunk, {name}: "
+                  + ", ".join(f"{sp} thread(s) a ray {t:.3f} ms" for sp, t in times.items()))
+    print(json.dumps({"splits": rows, "variants": variants, "card": card, "sms": n_sms}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("solves", nargs="*",
@@ -231,6 +415,9 @@ def main() -> int:
     parser.add_argument("--count", choices=("kernel", "plain"), default="kernel")
     parser.add_argument("--bvh", choices=("auto", "off"), default=None)
     parser.add_argument("--slim", action="store_true")
+    parser.add_argument("--timeline", action="store_true")
+    parser.add_argument("--splits", action="store_true")
+    parser.add_argument("--force-split", type=int, default=None)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
     args = parser.parse_args()
@@ -248,8 +435,20 @@ def main() -> int:
     if args.slim:
         config.SLIM_PACK_MIN_TRIS = 1
     solver_mod._log = lambda line: None  # progress lines would flood the output
+    if args.force_split is not None:
+        from raystrack_tpu_torch.ops import trace_cuda
+
+        rule = trace_cuda.sweep_split
+        trace_cuda.sweep_split = lambda n_blocks, gated, n_sms: (
+            rule(n_blocks, gated, n_sms) if gated else args.force_split)
     card = chip_smoke.card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.timeline:
+        profile_timelines(card)
+        return 0
+    if args.splits:
+        profile_splits(card)
+        return 0
     cases = chip_smoke.solve_cases()
     if "city10m" in args.solves:  # built only on request: 10M triangles on the host
         cases["city10m"] = (chip_smoke.city_meshes(chip_smoke.BIG_CITY_TRIS), cases["city"][1])

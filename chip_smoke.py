@@ -13,9 +13,12 @@ plain reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      nvcc build time, register/spill report, FP32 operations per
-              ray-triangle pair counted from each sweep kernel's SASS
+              ray-triangle pair counted from each sweep kernel's SASS (at 1
+              and 4 threads a ray) and per ray-box pair of the gate's
+              crossing kernel
 3. kernel #1  single-emitter sweep vs its plain version on the soup (98,304
-              triangles x 262,144 rays), 6 output/mask variants
+              triangles x 262,144 rays), 6 output/mask variants; the solve's
+              variant also at 4 threads a ray (== 1, timed)
 4. kernel #2  multi-emitter sweep vs its plain version on the soup8 round
               (100,352 padded triangles x 262,144 rays of 8 emitters), 3
               variants, and vs kernel #1 per emitter on the same rays; then
@@ -27,12 +30,20 @@ plain reference:
               ten plates: 245,760 rays, all real) the solves
               dispatch: gated == ungated
               over all of them, gated == its plain gated version on the
-              leading blocks; times, the share of (block, tile) visits the
-              gate leaves, the gate-table build time; then kernel #1 in its
+              leading blocks, run at the kernel's 4 threads a ray
+              (``split=4``) and unsplit: codes, flags, visits; times beside
+              the bound, the share
+              of (block, tile) visits the gate leaves, the gate-table build
+              time; the gate's crossing kernel == its plain version on both
+              inputs, with one box per tile and through the two-level gate,
+              and the tables built through it == those built through the
+              plain crossing, field by field; then kernel #1 in its
               code_bounds mode (the slim pack-resident scene's) on the same
               chunk: == the baked kernel over the whole chunk and == its
               plain version on the leading blocks, gated and ungated, with
-              times beside the baked kernel's and its SASS count per pair
+              times beside the baked kernel's and its SASS count per pair;
+              and 32 blocks alone (a slim chunk that under-fills the card)
+              ungated at 1 and at 4 threads a ray, equal and timed
 6. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4), scheduled
 7. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4),
               scheduled
@@ -48,8 +59,9 @@ plain reference:
               plates and the boxes (scheduled route, kernel #2), each with
               bvh="auto" (gated) == bvh="off" (dicts
               ``==``); warm walls, rays/s, peak device memory; one gated
-              launch per chunk or round of the gated solves, one ungated
-              launch per chunk or round of the others
+              launch, and one launch of the gate's crossing kernel, per
+              chunk or round of the gated solves, one ungated launch per
+              chunk or round of the others
 13. slim 1M   the same ground -> city solve and the ten-plate matrix with the
               scene pack slim (forced through config.SLIM_PACK_MIN_TRIS,
               restored after): dicts ``==`` phase 12's; per-emitter chunks
@@ -331,20 +343,30 @@ def spread(times: list) -> str:
             f"(min {times[0]:.4f}, max {times[-1]:.4f}, {len(times)} runs)")
 
 
+KERNEL_SYMBOL = (r"(sweep_(?:sched_|code_)?kernel|count_codes_kernel|fma_peak_kernel|"
+                 r"gate_cross_kernel)((?:IL[bi]\d)?(?:EL[bi]\d)*)E")
+
+
+def kernel_name(match) -> str:
+    """A kernel instantiation's name from its mangled symbol (a match of
+    KERNEL_SYMBOL): sweep_kernel as ``sweep_kernel<matrix,any,baked,gate>``,
+    sweep_code_kernel and sweep_sched_kernel as ``<matrix,any,gate>``, with
+    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit)."""
+    flags = re.findall(r"Lb(\d)", match.group(2))
+    split = re.findall(r"Li(\d)", match.group(2))
+    return (match.group(1) + (f"<{','.join(flags)}>" if flags else "")
+            + (f"x{split[0]}" if split and split[0] != "1" else ""))
+
+
 def ptxas_lines(log: str) -> list:
-    """ptxas -v lines naming each kernel instantiation, sweep_kernel as
-    <matrix,any,baked,gate>, sweep_code_kernel and sweep_sched_kernel as
-    <matrix,any,gate>, count_codes_kernel and fma_peak_kernel, beside its
-    registers, shared memory and spills."""
+    """ptxas -v lines naming each kernel instantiation (:func:`kernel_name`)
+    beside its registers, shared memory and spills. The sources compile in
+    parallel processes whose outputs follow one another in the log."""
     out, name = [], "?"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?"
-                      r"(sweep_(?:sched_|code_)?kernel|count_codes_kernel|fma_peak_kernel)"
-                      r"((?:ILb\d)?(?:ELb\d)*)E",
-                      line)
+        m = re.search(r"Compiling entry function '.*?" + KERNEL_SYMBOL, line)
         if m:
-            flags = re.findall(r"b(\d)", m.group(2))
-            name = m.group(1) + (f"<{','.join(flags)}>" if flags else "")
+            name = kernel_name(m)
         elif "registers" in line or "spill" in line:
             out.append(f"{name} {line.strip()}")
     return out
@@ -354,9 +376,10 @@ FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX")
 
 
 def sass_functions(lib_path) -> dict:
-    """The library's SASS (``cuobjdump -sass``) by kernel: each sweep
-    instantiation as ``"sweep_kernel<1,0,1,0>"`` and ``"fma_peak_kernel"``
-    -> [(address, instruction)]."""
+    """The library's SASS (``cuobjdump -sass``) by kernel
+    (:func:`kernel_name`, as ``"sweep_kernel<1,0,1,0>"``,
+    ``"sweep_kernel<1,0,1,1>x2"``, ``"gate_cross_kernel"``) -> [(address,
+    instruction)]."""
     from raystrack_tpu_torch.ops.build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -365,12 +388,8 @@ def sass_functions(lib_path) -> dict:
     funcs, ins = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = re.search(r"(sweep_(?:sched_|code_)?kernel|fma_peak_kernel)"
-                          r"((?:ILb\d)?(?:ELb\d)*)E", line)
-            ins = None
-            if m:
-                flags = ",".join(re.findall(r"b(\d)", m.group(2)))
-                ins = funcs.setdefault(m.group(1) + (f"<{flags}>" if flags else ""), [])
+            m = re.search(KERNEL_SYMBOL, line)
+            ins = funcs.setdefault(kernel_name(m), []) if m else None
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if m and ins is not None:
@@ -395,17 +414,19 @@ def sass_loops(ins, holds: str) -> list:
 
 def sass_pair_ops(funcs: dict) -> dict:
     """FP32 instructions per ray-triangle pair of each sweep instantiation,
-    counted from its SASS: the FADD, FMUL, FFMA, FSETP, FSEL and FMNMX
-    instructions of the innermost loop (the one holding the shared-memory
-    loads), outside the branches that only pairs passing the barycentric
-    test take, divided by the pairs one pass of that loop tests (5 LDS.128
-    each). Each issues once per lane, an FFMA too.
+    and per ray-box pair of the gate's crossing kernel, counted from its
+    SASS: the FADD, FMUL, FFMA, FSETP, FSEL and FMNMX instructions of the
+    innermost loop (the one holding the shared-memory loads), outside the
+    branches that only pairs passing the barycentric test take, divided by
+    the pairs one pass of that loop tests (5 LDS.128 a triangle, 2 a ray of
+    the crossing kernel). Each takes one slot per lane, an FFMA too.
     ``"sweep_kernel<1,0,1,0>"`` -> (instructions per pair, {opcode: count
     per pair})."""
     out = {}
     for name, ins in funcs.items():
-        if not name.startswith("sweep_"):
+        if not name.startswith(("sweep_", "gate_cross")):
             continue
+        loads_per_pair = 2 if name.startswith("gate_cross") else 5
         _, lo, hi = min(sass_loops(ins, "LDS.128"))
         skips = []
         for a, o in ins:
@@ -421,7 +442,7 @@ def sass_pair_ops(funcs: dict) -> dict:
             if opc in FP32_OPCODES:
                 counts[opc] = counts.get(opc, 0) + 1
             loads += o.startswith("LDS.128")
-        pairs = loads // 5
+        pairs = loads // loads_per_pair
         ops = sum(counts.values()) / pairs
         out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())})
     return out
@@ -455,13 +476,11 @@ def timed_once(fn):
     return cuda_ms(fn, reps=1)
 
 
-def phase_kernel(dev, soup_ps, seed: int):
-    """Kernel #1 vs its plain version at the soup shape in all 6 variants."""
+def soup_inputs(dev, soup_ps, seed: int):
+    """The operands of the soup solve's one chunk: (scene fields, rays
+    (9, 262144), m_any, m_mat, padded triangles, the emitter's real rays per
+    iteration)."""
     from raystrack_tpu_torch.ops.trace import compute_masks, generate_rays, ray_pack
-    from raystrack_tpu_torch.ops.trace_cuda import (
-        build_tri_pack, sweep_rays, sweep_rays_reference, sweep_tile_width,
-    )
-    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
     from raystrack_tpu_torch.solver import _cp_rows
 
     sp = soup_ps.get_scene_pack(use_accel=False, device=dev)
@@ -474,17 +493,27 @@ def phase_kernel(dev, soup_ps, seed: int):
          em.tri_eps),
         cp,
     )
-    rays = ray_pack(o, d)
     ext = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
     m_any, m_mat = compute_masks(scene, ext, 0, 1, em.plane_vec)
-    n, tpad = rays.shape[1], sp.n_tri_pad
+    return scene, ray_pack(o, d), m_any, m_mat, sp.n_tri_pad, em.n_rays_once
+
+
+def phase_kernel(dev, soup_ps, seed: int):
+    """Kernel #1 vs its plain version at the soup shape in all 6 variants."""
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        build_tri_pack, sweep_rays, sweep_rays_reference, sweep_tile_width,
+    )
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+
+    scene, rays, m_any, m_mat, tpad, n_once = soup_inputs(dev, soup_ps, seed)
+    n = rays.shape[1]
     check(n == SOUP_CHUNK * 65536 and tpad == SOUP_TRIS, f"soup shape {n} x {tpad}")
     tile = sweep_tile_width(tpad, PALLAS_TRI_TILE)
     print(f"[kernel1] soup: {tpad} triangles x {n} rays = {n * tpad:.4g} pair tests, "
           f"tile {tile}")
     max_err = 0
     rows = {}
-    valid = torch.full((SOUP_CHUNK,), em.n_rays_once, dtype=torch.int32, device=dev)
+    valid = torch.full((SOUP_CHUNK,), n_once, dtype=torch.int32, device=dev)
     for baked in (True, False):
         for wm, wa in ((True, False), (False, True), (True, True)):
             prim = m_any if wa else m_mat
@@ -513,6 +542,13 @@ def phase_kernel(dev, soup_ps, seed: int):
                        want_any=False, masks_baked=True)[0]
     front = int((codes == 3).sum())
     ms, plain_ms = rows[(True, False, True)]  # the solve's own variant
+    with forced_launch(split=4):  # the same launch at the under-filled launches' split
+        ms4, (c4, _) = cuda_ms(lambda: sweep_rays(
+            rays, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+            masks_baked=True))
+    check(torch.equal(c4, codes), "kernel #1 at 4 threads a ray != at 1 on the soup")
+    print(f"[kernel1] matrix,baked at 4 threads a ray: equal=True, {ms4:.3f} ms "
+          f"(the wrapper's 1 thread a ray: {ms:.3f} ms)")
     tiles_on = m_mat.reshape(-1, tile).any(dim=1)
     pairs = -(-n // 256) * 256 * int(tiles_on.sum()) * tile
     nbytes = sweep_bytes(rays, pack, tiles_on.to(torch.int32))
@@ -644,44 +680,69 @@ def first_call(mod, name: str, fn):
     return calls[0]
 
 
+@contextlib.contextmanager
+def forced_launch(split=None, gate=None):
+    """Inside the block the sweep wrappers launch at ``split`` threads a ray
+    (else their own choice) and, with ``gate``, on these prebuilt tables
+    (else they build their own)."""
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    real = trace_cuda.sweep_split, trace_cuda._gate_for
+    if split is not None:
+        trace_cuda.sweep_split = lambda n_blocks, gated, n_sms: split
+    if gate is not None:
+        trace_cuda._gate_for = lambda *args: gate
+    try:
+        yield
+    finally:
+        trace_cuda.sweep_split, trace_cuda._gate_for = real
+
+
 def gate_phase(label, rays, kernel, plain, tables, n_blocks, tiles_total, tile, ops, nbytes):
     """Gated kernel vs ungated kernel (whole input) and vs its plain gated
     version on the leading CITY_PLAIN_BLOCKS blocks, with times, the visit
     share and the gate-table build time. ``kernel(rays, gated, visits)``
-    and ``plain(rays, gate, visits)`` run the two versions; ``tables()``
-    builds the gate's tables and padded tile flags for ``rays``;
+    and ``plain(rays, gate, tiles_on, visits, split)`` run the two versions;
+    ``tables()`` builds the gate's tables and padded tile flags for ``rays``;
     ``tiles_total`` is the (block, tile) visits of the ungated sweep.
 
     The wrapper builds the gate's tables at every call; the kernel's own
-    time is taken with the tables built once beforehand."""
+    time is taken with the tables built once beforehand. The gated kernels
+    are built at one triangle split (``trace_cuda.GATED_SPLIT``); the plain
+    version runs at that split and unsplit, and both must give the kernel's
+    codes, flags and visits."""
     from raystrack_tpu_torch.ops import trace_cuda
 
     dev = rays.device
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     visits = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
     full = torch.zeros_like(visits)
     table_ms, (gate, tiles_on) = cuda_ms(lambda: tables(rays))
     wrapper_ms, (c, a) = cuda_ms(lambda: kernel(rays, True, visits))
-    build = trace_cuda._gate_for
-    trace_cuda._gate_for = lambda *args: gate
-    try:
-        ms, (c2, a2) = cuda_ms(lambda: kernel(rays, True, visits))
-    finally:
-        trace_cuda._gate_for = build
+    chosen = trace_cuda.sweep_split(n_blocks, True, n_sms)
+    check(chosen == trace_cuda.GATED_SPLIT, f"{label}: the rule picks {chosen} for a gated launch")
+    v = torch.full_like(visits, -1)
+    with forced_launch(gate=gate):
+        ms, (cs, as_) = cuda_ms(lambda: kernel(rays, True, v))
+    check(torch.equal(cs, c) and torch.equal(as_, a) and torch.equal(v, visits),
+          f"{label}: the kernel on prebuilt tables != the wrapper's launch")
     ms_u, (cu, au) = cuda_ms(lambda: kernel(rays, False, full))
-    check(torch.equal(c, cu) and torch.equal(a, au) and torch.equal(c2, c)
-          and torch.equal(a2, a), f"{label}: gated kernel != ungated kernel")
+    check(torch.equal(c, cu) and torch.equal(a, au), f"{label}: gated kernel != ungated kernel")
     k = min(CITY_PLAIN_BLOCKS, n_blocks)
     sub = rays[:, : k * RAY_SUB].contiguous()
     sub_visits = torch.zeros(k, dtype=torch.int32, device=dev)
-    plain_visits = torch.zeros_like(sub_visits)
     sub_ms, (cs, as_) = cuda_ms(lambda: kernel(sub, True, sub_visits))
-    plain_ms, (cp, ap) = timed_once(
-        lambda: plain(sub, gate.blocks(torch.arange(k, device=dev)), tiles_on, plain_visits))
     lead = slice(0, k * RAY_SUB)
-    same = (torch.equal(cp, c[lead]) and torch.equal(ap, a[lead])
-            and torch.equal(plain_visits, visits[:k]))
-    err = max(int((cp - c[lead]).abs().max()), int((ap - a[lead]).abs().max()))
-    check(same, f"{label}: gated kernel != its plain gated version on {k} blocks")
+    err, plain_ms = 0, {}
+    for split in (chosen, 1):
+        plain_visits = torch.zeros_like(sub_visits)
+        plain_ms[split], (cp, ap) = timed_once(lambda: plain(  # noqa: B023
+            sub, gate.blocks(torch.arange(k, device=dev)), tiles_on, plain_visits, split))  # noqa: B023
+        same = (torch.equal(cp, c[lead]) and torch.equal(ap, a[lead])
+                and torch.equal(plain_visits, visits[:k]))
+        err = max(err, int((cp - c[lead]).abs().max()), int((ap - a[lead]).abs().max()))
+        check(same, f"{label}: gated kernel != its plain gated version (split={split}) on "
+                    f"{k} blocks")
     # the leading blocks alone (timed against the plain version) build their
     # own tables; a block's mean origin may round apart, reordering ties only
     sub_same = torch.equal(cs, cp) and torch.equal(as_, ap)
@@ -689,8 +750,9 @@ def gate_phase(label, rays, kernel, plain, tables, n_blocks, tiles_total, tile, 
     check(total == tiles_total, f"{label}: ungated visits {total} != {tiles_total}")
     pairs, pairs_full = swept * RAY_SUB * tile, total * RAY_SUB * tile
     out = dict(
-        gated_ms=ms, gated_wrapper_ms=wrapper_ms, ungated_ms=ms_u, gated_plain_ms=plain_ms,
-        gated_plain_blocks=k,
+        gated_ms=ms, gated_split=chosen, gated_wrapper_ms=wrapper_ms, ungated_ms=ms_u,
+        ungated_split=trace_cuda.sweep_split(n_blocks, False, n_sms),
+        gated_plain_ms=plain_ms[chosen], gated_plain_blocks=k,
         gated_kernel_ms_on_plain_blocks=sub_ms, gate_tables_ms=table_ms,
         visit_share=swept / total, gated_pairs=pairs, ungated_pairs=pairs_full,
         max_abs_err=err)
@@ -700,48 +762,90 @@ def gate_phase(label, rays, kernel, plain, tables, n_blocks, tiles_total, tile, 
           f"triangles ungated; the gate "
           f"leaves {swept} of {total} (block, tile) visits = {swept / total:.4%} "
           f"({pairs:.4g} of {pairs_full:.4g} pair tests); gated == ungated and == the "
-          f"plain gated version on {k} blocks (codes, flags, visits): {same}; the "
-          f"kernel on those blocks alone: codes equal {sub_same}, visits equal "
+          f"plain gated version at split={chosen} and split=1 on {k} blocks (codes, flags, "
+          f"visits): True; "
+          f"the kernel on those blocks alone: codes equal {sub_same}, visits equal "
           f"{torch.equal(sub_visits, plain_visits)}")
     print(f"[gate] {label}: at most {int(visits.max())} tiles in one block (ungated "
           f"{int(full.max())}); per block, the median {float(visits.float().median()):g}")
-    print(f"[gate] {label}: gated kernel {ms:.3f} ms (bound {out['gated_bound_ms']:.3f} ms, "
-          f"{out['gated_bound_by']}), ungated kernel {ms_u:.3f} ms (bound "
+    print(f"[gate] {label}: gated kernel, {chosen} threads a ray, {ms:.3f} ms (bound "
+          f"{out['gated_bound_ms']:.3f} ms, {out['gated_bound_by']}: "
+          f"{out['gated_bound_ms'] / ms:.1%} of it), ungated kernel, "
+          f"{out['ungated_split']} thread(s) a ray, {ms_u:.3f} ms (bound "
           f"{out['ungated_bound_ms']:.3f} ms, {out['ungated_bound_by']}), gate tables "
           f"{table_ms:.3f} ms, the gated wrapper (tables and kernel) {wrapper_ms:.3f} ms; "
           f"on the leading {k} blocks (tables included): gated kernel {sub_ms:.3f} ms, "
-          f"plain gated version {plain_ms:.3f} ms")
+          f"plain gated version " + ", ".join(f"{t:.3f} ms (split={sp})"
+                                              for sp, t in plain_ms.items()))
     return out
+
+
+def city_chunk_inputs(chunk_call):
+    """The operands of a captured ``chunk_body`` call with the rays it
+    sweeps, generated and coherence-sorted as chunk_body does: (rays, pack,
+    sweep_mask, accel, tile, tiles_on)."""
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.trace_cuda import sweep_tile_width
+
+    (pack, sweep_mask, tables, geom, cp, _, n_once), kw = chunk_call
+    accel = kw["accel"]
+    chunk, n_local = cp.shape[0], tables[0].shape[0]
+    o, d = T.generate_rays(tables, geom, cp)
+    valid = (torch.arange(n_local, device=cp.device) < n_once).expand(chunk, n_local)
+    o, d, _ = T._sorted_for_gate(o, d, valid, accel)
+    rays = T.ray_pack(o, d)
+    tile = sweep_tile_width(pack.shape[1], PALLAS_TRI_TILE)
+    tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+    print(f"[gate] city chunk: {rays.shape[1]} rays ({chunk} x {n_local}, {n_once} real per "
+          f"iteration) x {pack.shape[1]} padded triangles ({pack.shape[1] // tile} tiles of "
+          f"{tile}) = {rays.shape[1] * pack.shape[1]:.4g} pair tests ungated")
+    return rays, pack, sweep_mask, accel, tile, tiles_on
+
+
+def city_round_inputs(round_call):
+    """The operands of a captured ``scheduled_trace`` call with the rays it
+    sweeps, generated and coherence-sorted as scheduled_trace does: (rays,
+    pack, masks, emap, accel, tile, tiles_on (E, n_tiles))."""
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.trace_cuda import scheduled_tiles_on, sweep_tile_width
+
+    (scene, pack, tables, geom, cp, surf, emit, mins, once, plane, schedule, sel), kw = \
+        round_call
+    sb, accel = kw["sched_block"], kw["accel"]
+    masks = T.combined_masks(scene, surf, emit, mins, plane)
+    o, d, n_valid = T.scheduled_rays(tables, geom, cp, once, schedule, sel, sched_block=sb)
+    ray = torch.arange(sb, dtype=n_valid.dtype, device=cp.device)
+    o, d, _ = T._sorted_for_gate(o, d, ray[None, :] < n_valid[:, None], accel)
+    rays = T.ray_pack(o, d)
+    emap = schedule[:, 0].repeat_interleave(sb // RAY_SUB)
+    tpad = pack.shape[1]
+    tile = sweep_tile_width(tpad, PALLAS_TRI_TILE)
+    t_on = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)
+    n, n_real = rays.shape[1], int(n_valid.sum())
+    print(f"[gate] city_plates round: {schedule.shape[0]} rows of {sb} rays ({n} rays, {n_real} "
+          f"real) of {masks.shape[0]} emitters x {tpad} padded triangles; active tiles "
+          f"per emitter row {t_on.sum(dim=1).tolist()} of {tpad // tile}")
+    check(masks.shape[0] == 10 and n == n_real == 245760,
+          f"city_plates round: {masks.shape[0]} emitters, {n} rays, {n_real} real")
+    return rays, pack, masks, emap, accel, tile, t_on
 
 
 def phase_city_kernels(chunk_call, round_call, pair_ops):
     """Kernels #1 and #2 gated on the city: the first chunk of the
     ground -> city solve and the first round of the ten-plate matrix
-    solve, with the rays those dispatches sweep (generated and
-    coherence-sorted as chunk_body / scheduled_trace do)."""
+    solve, with the rays those dispatches sweep."""
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
-    from raystrack_tpu_torch.ops import trace as T
     from raystrack_tpu_torch.ops.trace_cuda import (
-        _gate_for, _gated_tiles_on, scheduled_tiles_on, sweep_rays, sweep_rays_reference,
-        sweep_rays_scheduled, sweep_rays_scheduled_reference, sweep_tile_width,
+        _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference,
+        sweep_rays_scheduled, sweep_rays_scheduled_reference,
     )
 
-    # kernel #1: chunk_body's rays and operands
-    (pack, sweep_mask, tables, geom, cp, _, n_once), kw = chunk_call
-    accel = kw["accel"]
-    chunk, n_local = cp.shape[0], tables[0].shape[0]
-    dev = cp.device
-    o, d = T.generate_rays(tables, geom, cp)
-    valid = (torch.arange(n_local, device=dev) < n_once).expand(chunk, n_local)
-    o, d, _ = T._sorted_for_gate(o, d, valid, accel)
-    rays = T.ray_pack(o, d)
+    rays, pack, sweep_mask, accel, tile, tiles_on = city_chunk_inputs(chunk_call)
+    dev, rays1 = rays.device, rays
     n, tpad = rays.shape[1], pack.shape[1]
-    tile = sweep_tile_width(tpad, PALLAS_TRI_TILE)
-    tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
     check(tpad % 2048 == 0 and tile == 2048, f"city pack {tpad}, tile {tile}")
-    print(f"[gate] city chunk: {n} rays ({chunk} x {n_local}, {n_once} real per "
-          f"iteration) x {tpad} padded triangles ({tpad // tile} tiles of {tile}) = "
-          f"{n * tpad:.4g} pair tests ungated")
     sweep_kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
                     masks_baked=True)
 
@@ -753,39 +857,24 @@ def phase_city_kernels(chunk_call, round_call, pair_ops):
         "kernel #1, city chunk", rays,
         lambda r, gated, v: sweep_rays(r, pack, sweep_mask, accel=accel if gated else None,
                                        visits=v, **sweep_kw),
-        lambda r, gate, t_on, v: sweep_rays_reference(
+        lambda r, gate, t_on, v, split: sweep_rays_reference(
             r, pack, t_on, tile, want_matrix=True, want_any=False, masks_baked=True,
-            gate=gate, visits=v),
+            gate=gate, visits=v, split=split),
         tables1, n // RAY_SUB, n // RAY_SUB * int(tiles_on.sum()), tile,
-        (pair_ops["sweep_kernel<1,0,1,1>"][0], pair_ops["sweep_kernel<1,0,1,0>"][0]),
+        (pair_ops["sweep_kernel<1,0,1,1>x4"][0], pair_ops["sweep_kernel<1,0,1,0>"][0]),
         sweep_bytes(rays, pack, tiles_on, *accel))
 
-    # kernel #2: scheduled_trace's rays, masks and emap
-    (scene, pack2, tables, geom, cp, surf, emit, mins, once, plane, schedule, sel), kw = \
-        round_call
-    sb, accel = kw["sched_block"], kw["accel"]
-    masks = T.combined_masks(scene, surf, emit, mins, plane)
-    o, d, n_valid = T.scheduled_rays(tables, geom, cp, once, schedule, sel, sched_block=sb)
-    ray = torch.arange(sb, dtype=n_valid.dtype, device=dev)
-    o, d, _ = T._sorted_for_gate(o, d, ray[None, :] < n_valid[:, None], accel)
-    rays = T.ray_pack(o, d)
-    emap = schedule[:, 0].repeat_interleave(sb // RAY_SUB)
-    t_on = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)
-    n, n_real = rays.shape[1], int(n_valid.sum())
-    print(f"[gate] city_plates round: {schedule.shape[0]} rows of {sb} rays ({n} rays, {n_real} "
-          f"real) of {masks.shape[0]} emitters x {tpad} padded triangles; active tiles "
-          f"per emitter row {t_on.sum(dim=1).tolist()} of {tpad // tile}")
-    check(masks.shape[0] == 10 and n == n_real == 245760,
-          f"city_plates round: {masks.shape[0]} emitters, {n} rays, {n_real} real")
+    rays, pack2, masks, emap, accel, tile, t_on = city_round_inputs(round_call)
+    n = rays.shape[1]
 
     def tables2(r):
         gate = _gate_for(accel, r, tpad, tile, PALLAS_TRI_TILE, dev)
         return gate, _gated_tiles_on(t_on, gate)
 
-    def plain2(r, gate, t_pad, v):
+    def plain2(r, gate, t_pad, v, split):
         return sweep_rays_scheduled_reference(
             r, pack2, masks, emap[: r.shape[1] // RAY_SUB], t_pad, tile, want_matrix=True,
-            want_any=False, gate=gate, visits=v)
+            want_any=False, gate=gate, visits=v, split=split)
 
     def kernel2(r, gated, v):
         return sweep_rays_scheduled(
@@ -796,9 +885,78 @@ def phase_city_kernels(chunk_call, round_call, pair_ops):
     k2 = gate_phase(
         "kernel #2, city_plates round", rays, kernel2, plain2, tables2, n // RAY_SUB,
         int(t_on[emap.long()].sum()), tile,
-        (pair_ops["sweep_sched_kernel<1,0,1>"][0], pair_ops["sweep_sched_kernel<1,0,0>"][0]),
+        (pair_ops["sweep_sched_kernel<1,0,1>x4"][0], pair_ops["sweep_sched_kernel<1,0,0>"][0]),
         sweep_bytes(rays, pack2, masks, emap, t_on, *accel))
-    return k1, k2
+    cross = phase_gate_cross({"city chunk": rays1, "city_plates round": rays}, accel, tile,
+                             tpad // tile, pair_ops)
+    return k1, k2, cross
+
+
+def phase_gate_cross(cases, accel, tile, n_tiles, pair_ops):
+    """The gate's crossing kernel vs its plain version on the rays of the
+    city chunk and the ``city_plates`` round (``cases``: label -> rays), with
+    one box per tile and, with ``GATE_MAX_TILES`` lowered to 64 for the call,
+    through the two-level gate: ``crossed`` and ``minnear`` equal, and every
+    field of the GateTables built through the kernel equal to those built
+    through the plain crossing; the kernel's time (best of 3) beside the
+    plain loop's, the whole table build both ways, and the bound from the
+    SASS count per (ray, box) pair."""
+    from raystrack_tpu_torch import config
+    from raystrack_tpu_torch.ops import trace_cuda
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        _gate_tables, _resolve_gate_window, gate_cross, gate_cross_reference, gate_group_size,
+    )
+
+    ops = pair_ops["gate_cross_kernel"][0]
+    default, out = config.GATE_MAX_TILES, None
+    try:
+        for label, rays in cases.items():
+            for max_tiles in (default, 64):
+                config.GATE_MAX_TILES = max_tiles
+                group = gate_group_size(n_tiles)
+                build = lambda: _gate_tables(  # noqa: E731
+                    accel, rays, n_tiles, tile, window=_resolve_gate_window(group))  # noqa: B023
+                tables_ms, tables = cuda_ms(build)
+                boxes, n = tables.boxes, rays.shape[1]
+                n_boxes = boxes.shape[0]
+                check(n_boxes == -(-n_tiles // group) and (group > 1) == (max_tiles == 64),
+                      f"gate_cross {label}: {n_boxes} boxes in groups of {group}")
+                ms, (crossed, minnear) = cuda_ms(lambda: gate_cross(rays, boxes))  # noqa: B023
+                plain_ms, (cr, mr) = timed_once(lambda: gate_cross_reference(rays, boxes))  # noqa: B023
+                same = torch.equal(crossed, cr) and torch.equal(minnear, mr)
+                err = float((minnear - mr).abs().max())
+                trace_cuda.gate_cross = gate_cross_reference
+                try:
+                    plain_tables_ms, plain_tables = cuda_ms(build)
+                finally:
+                    trace_cuda.gate_cross = gate_cross
+                fields = ("boxes", "order", "counts", "suffmin")
+                tables_same = all(torch.equal(getattr(tables, f), getattr(plain_tables, f))
+                                  for f in fields)
+                nbytes = 6 * 4 * n + boxes.numel() * 4 + crossed.numel() + minnear.numel() * 4
+                bnd = bound(nbytes, float(n) * n_boxes, ops)
+                print(f"[cross] {label}, {n_boxes} boxes (groups of {group}): {n} rays = "
+                      f"{n * n_boxes:.4g} (ray, box) pairs; kernel == plain (crossed, "
+                      f"minnear): {same}; tables through the kernel == through the plain "
+                      f"crossing ({', '.join(fields)}): {tables_same}; {int(crossed.sum())} of "
+                      f"{crossed.numel()} (block, box) crossed; kernel {ms:.3f} ms (bound "
+                      f"{bnd[0]:.3f} ms, {bnd[1]}, {ops:g} FP32 instructions a pair), plain "
+                      f"loop {plain_ms:.3f} ms; the whole table build {tables_ms:.3f} ms, "
+                      f"with the plain crossing {plain_tables_ms:.3f} ms")
+                check(same, f"gate_cross != its plain version on {label}, {n_boxes} boxes")
+                check(tables_same, f"gate tables through the kernel != through the plain "
+                                   f"crossing on {label}, {n_boxes} boxes")
+                if out is None:  # the city chunk, one box per tile: the entry's shape
+                    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                               max_abs_err=err, tables_ms=tables_ms,
+                               tables_plain_crossing_ms=plain_tables_ms, times={})
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["times"][f"{label}, {n_boxes} boxes"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], tables_ms=tables_ms,
+                    tables_plain_crossing_ms=plain_tables_ms)
+    finally:
+        config.GATE_MAX_TILES = default
+    return out
 
 
 def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
@@ -812,7 +970,8 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
     from raystrack_tpu_torch.ops import trace as T
     from raystrack_tpu_torch.ops.trace_cuda import (
-        _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference, sweep_tile_width,
+        UNGATED_SPLITS, _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference,
+        sweep_split, sweep_tile_width,
     )
 
     (baked_pack, baked_mask, tables, geom, cp, _, n_once), kw = chunk_call
@@ -839,9 +998,9 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
         return sweep_rays(r, pack, mask, accel=accel if gated else None, visits=v,
                           code_bounds=bounds, **out_kw)
 
-    def plain(r, gate, t_on, v):
+    def plain(r, gate, t_on, v, split):
         return sweep_rays_reference(r, pack, t_on, tile, want_matrix=True, want_any=False,
-                                    code_bounds=bounds, gate=gate, visits=v)
+                                    code_bounds=bounds, gate=gate, visits=v, split=split)
 
     def tables1(r):
         gate = _gate_for(accel, r, tpad, tile, PALLAS_TRI_TILE, dev)
@@ -850,7 +1009,7 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     k = gate_phase(
         "kernel #1 code mode, city chunk", rays, kernel, plain, tables1, n // RAY_SUB,
         n // RAY_SUB * int(tiles_on.sum()), tile,
-        (pair_ops["sweep_code_kernel<1,0,1>"][0], pair_ops["sweep_code_kernel<1,0,0>"][0]),
+        (pair_ops["sweep_code_kernel<1,0,1>x4"][0], pair_ops["sweep_code_kernel<1,0,0>"][0]),
         sweep_bytes(rays, pack, tiles_on, *accel))
     # against the baked kernel over the whole chunk, and the ungated plain
     # version on the leading blocks
@@ -865,11 +1024,34 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     v_k = torch.zeros(lead, dtype=torch.int32, device=dev)
     v_p = torch.zeros_like(v_k)
     ms_sub, (ck, ak) = cuda_ms(lambda: kernel(sub, False, v_k))
-    plain_ms, (cr, ar) = timed_once(lambda: plain(sub, None, tiles_on, v_p))
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plain_ms, (cr, ar) = timed_once(lambda: plain(
+        sub, None, tiles_on, v_p, sweep_split(lead, False, n_sms)))
     same = torch.equal(ck, cr) and torch.equal(ak, ar) and torch.equal(v_k, v_p)
     k["max_abs_err"] = max(k["max_abs_err"], int((ck - cr).abs().max()),
                            int((ak - ar).abs().max()))
     check(same, "code-mode kernel != its plain version, ungated, on the leading blocks")
+    # a slim chunk of the ten-plate city is 8,192 rays: 32 blocks on 132 SMs
+    small = rays[:, : 32 * RAY_SUB].contiguous()
+    k["small_chunk_ms"] = {}
+    ref = None
+    for split in UNGATED_SPLITS:
+        v = torch.zeros(32, dtype=torch.int32, device=dev)
+        with forced_launch(split):
+            t, (cs, as_) = cuda_ms(lambda: kernel(small, False, v))  # noqa: B023
+        ref = ref or (cs, as_, v)
+        check(torch.equal(cs, ref[0]) and torch.equal(as_, ref[1]) and torch.equal(v, ref[2]),
+              f"code-mode kernel on 32 blocks, ungated: {split} threads a ray != 1")
+        k["small_chunk_ms"][f"ungated, {split}"] = t
+    t, (cs, as_) = cuda_ms(lambda: kernel(small, True, v))
+    check(torch.equal(cs, ref[0]) and torch.equal(as_, ref[1]),
+          "code-mode kernel on 32 blocks: gated != ungated")
+    k["small_chunk_ms"][f"gated, {sweep_split(32, True, n_sms)}"] = t
+    print(f"[code] 32 leading blocks alone (a slim ten-plate chunk's size), threads a ray "
+          f"(codes, flags and ungated visits equal; the gated time includes the tables): "
+          + "; ".join(f"{key} {t:.3f} ms" for key, t in k["small_chunk_ms"].items())
+          + f"; the wrapper launches {sweep_split(32, False, n_sms)} ungated and "
+            f"{sweep_split(32, True, n_sms)} gated")
     ops_code, ops_baked = pair_ops["sweep_code_kernel<1,0,0>"], pair_ops["sweep_kernel<1,0,1,0>"]
     print(f"[code] == the baked kernel over the whole chunk (codes and flags), gated and "
           f"ungated: True; ungated == its plain version on {lead} blocks (codes, flags, "
@@ -1004,7 +1186,9 @@ def main() -> int:
     from raystrack_tpu_torch.ops import build
     from raystrack_tpu_torch.ops import trace as trace_mod
     from raystrack_tpu_torch.ops.count_cuda import count_codes
-    from raystrack_tpu_torch.ops.trace_cuda import sweep_rays, sweep_rays_scheduled
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        gate_cross, sweep_rays, sweep_rays_scheduled,
+    )
     from raystrack_tpu_torch.prepared import EmitterPack
     from analytic import canyon_ground_truth
 
@@ -1086,7 +1270,7 @@ def main() -> int:
     print(f"[gate] city: {sum(F.shape[0] for _, _, F in city)} triangles; first solves "
           f"with set-up: ground -> city {t1 - t0:.2f} s, ten-plate matrix "
           f"{time.perf_counter() - t1:.2f} s")
-    city_k1, city_k2 = phase_city_kernels(chunk_call, round_call, pair_ops)
+    city_k1, city_k2, cross = phase_city_kernels(chunk_call, round_call, pair_ops)
     # kernel #1's code mode, with the operands of the same solve on a slim pack
     city_slim_ps = PreparedSolver(city)
     solver_mod._log = lambda line: None
@@ -1134,7 +1318,7 @@ def main() -> int:
     def reset_launches():
         sweep_rays.launches = sweep_rays.gated_launches = sweep_rays.code_launches = 0
         sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
-        count_codes.launches = 0
+        count_codes.launches = gate_cross.launches = 0
 
     reset_launches()
 
@@ -1248,7 +1432,9 @@ def main() -> int:
           f"{launches} kernel #1 launches != {len(dispatches)} chunks")
     check(launches2 > 0 and launches2 == len(rounds),
           f"{launches2} kernel #2 launches != {len(rounds)} rounds")
-    check(gated == 0, f"{gated} gated launches on scenes the gate cannot prune")
+    check(gated == 0 and gate_cross.launches == 0,
+          f"{gated} gated launches, {gate_cross.launches} of the crossing kernel, on scenes "
+          f"the gate cannot prune")
     print(f"[launches] count kernel: {launches3} launches for "
           f"{len(dispatches) + len(rounds)} chunks and rounds")
     check(launches3 == len(dispatches) + len(rounds),
@@ -1299,13 +1485,16 @@ def main() -> int:
         city_dicts[name] = results[True]
     launches_city = (sweep_rays.launches, sweep_rays.gated_launches,
                      sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
-    count_city = count_codes.launches
+    count_city, cross_city = count_codes.launches, gate_cross.launches
     check(sweep_rays.code_launches == 0 and not resident,
           "a full-mode solve launched kernel #1 in code mode")
     print(f"[launches] city: kernel #1 {launches_city[0]} launches ({launches_city[1]} gated) "
           f"for {n_chunks[True]} gated and {n_chunks[False]} ungated chunks; kernel #2 "
           f"{launches_city[2]} ({launches_city[3]} gated) for {n_rounds[True]} gated and "
-          f"{n_rounds[False]} ungated rounds; count kernel {count_codes.launches}")
+          f"{n_rounds[False]} ungated rounds; count kernel {count_codes.launches}; the "
+          f"gate's crossing kernel {cross_city}")
+    check(cross_city == n_chunks[True] + n_rounds[True],
+          "city: the crossing kernel did not launch once per gated chunk or round")
     check(launches_city[1] == n_chunks[True] > 0
           and launches_city[0] == n_chunks[True] + n_chunks[False],
           "city: kernel #1 launches != one gated launch per gated chunk")
@@ -1359,14 +1548,14 @@ def main() -> int:
     for ps in (city_slim_ps, city_plates_slim_ps):
         check(ps.get_scene_pack(use_accel=True, device=dev).slim, "a slim solve's pack is full")
     launches_slim = (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays.code_launches)
-    count_slim = count_codes.launches
+    count_slim, cross_slim = count_codes.launches, gate_cross.launches
     print(f"[slim] kernel #1: {launches_slim[0]} launches ({launches_slim[1]} gated, "
           f"{launches_slim[2]} in code mode) for {n_slim_chunks} chunks; kernel #2 "
           f"{sweep_rays_scheduled.launches}; count kernel {count_slim}; per-emitter packs "
           f"built: {len(built)}; chunks that swept the scene's resident pack: "
           f"{sum(resident)} of {len(resident)}")
     check(launches_slim == (n_slim_chunks,) * 3 and sweep_rays_scheduled.launches == 0
-          and count_slim == n_slim_chunks,
+          and count_slim == cross_slim == n_slim_chunks,
           "slim: not one gated code-mode launch per chunk and no round")
     check(not built, f"slim: {len(built)} per-emitter packs were built")
     check(len(resident) == n_slim_chunks and all(resident),
@@ -1413,7 +1602,10 @@ def main() -> int:
           "city 1M: a fresh ten-plate solve != phase 12's dict")
     del big, boxes, meshes
     launches_big2 = (sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
-    count_big = count_codes.launches
+    count_big, cross_big = count_codes.launches, gate_cross.launches
+    check(cross_big == launches_big[1] + launches_big2[1],
+          f"phase 14: {cross_big} crossing-kernel launches for {launches_big[1]} gated chunks "
+          f"and {launches_big2[1]} gated rounds")
     check(launches_big2[0] == launches_big2[1] > 0 and sweep_rays.launches == launches_big[0],
           f"phase 14: the plate solves launched kernel #2 {launches_big2} times, not all "
           f"gated, or took per-emitter chunks")
@@ -1462,7 +1654,7 @@ def main() -> int:
     })
 
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
-        entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep.cu",
+        entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
                  "max_abs_err": max(err, city_k["max_abs_err"]), "ms": ms_,
                  "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -1496,7 +1688,24 @@ def main() -> int:
             "bound_ms": bound3[0],
             "bound_by": bound3[1],
             "library_ms": lib_ms3,
-        }, peak_entry]}))
+        }, peak_entry, {
+            "name": "gate_cross",
+            "route": "cuda",
+            "source": "raystrack_tpu_torch/csrc/gate.cu",
+            # not a Pallas kernel: the XLA slab-and-reduce of the gate's tables
+            "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
+            "launches": cross_city + cross_slim + cross_big,
+            "max_abs_err": cross["max_abs_err"],
+            "ms": cross["ms"],
+            "plain_ms": cross["plain_ms"],
+            "bound_ms": cross["bound_ms"],
+            "bound_by": cross["bound_by"],
+            # no one PyTorch call reduces a ray-box slab test over blocks of rays
+            "library_ms": None,
+            "tables_ms": cross["tables_ms"],
+            "tables_plain_crossing_ms": cross["tables_plain_crossing_ms"],
+            "times": cross["times"],
+        }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,653 @@
+// Möller–Trumbore sweeps of rays against every triangle of a scene.
+//
+// Kernel #1, sweep_kernel, replaces the Pallas TPU kernel
+// raystrack_tpu/ops/trace_pallas.py sweep_rays (bodies _sweep_kernel /
+// _sweep_kernel_streamed): all rays belong to one emitter. Kernel #2,
+// sweep_sched_kernel, replaces sweep_rays_scheduled (bodies
+// _sweep_kernel_sched / _sweep_kernel_sched_streamed): each block of 256
+// rays belongs to the emitter row emap names, and takes its eligibility
+// from that emitter's combined mask row (m_any + m_mat in {0, 1, 2}: any-hit
+// if > 0, matrix if > 1) and its row of the (E, n_tiles) tile table. For
+// each ray both return the nearest eligible hit packed as 2*sid + front (-1
+// on a miss) and a 0/1 any-hit flag. The TPU shares its tile math,
+// _tile_step, between the two; here both kernels run the same device
+// functions stage_tile, pair_hit and sweep_ray, so on the same rays and the
+// same eligibility they give the same bits. Kernel #1 takes a triangle's
+// eligibility from the pack's mask rows, from a pack with the primary mask
+// baked into zeroed cross_e rows (sweep_kernel), or, as sweep_rays' code_bounds
+// mode does for a slim pack-resident scene, from the staged code row against
+// two scalars (sweep_code_kernel): any-hit if code != emit_code, matrix if
+// also code >= min_code. That pack is built once per scene and never
+// rewritten per emitter, and only its 17 operand rows are staged.
+//
+// What bounds them: FP32 ALU work. Each ray-triangle pair costs 51 FP32
+// instructions in the SASS of the matrix instantiations and 57 in the
+// any-only ones (chip_smoke.py counts them from the library at every run); a
+// triangle's operands are 76 bytes, read once per block of rays. So each
+// block stages a tile of triangle operands in shared memory (coalesced loads
+// along the pack's triangle axis) and every thread loops over staged
+// triangles reading the operands as broadcast 16-byte loads. Kernel #2
+// stages its emitter's mask row slice in the same stage, in the slot kernel
+// #1 leaves unused, so the per-pair mask test costs one shared load. The
+// t = t_num / det division runs only for pairs whose barycentric tests pass.
+// Kernel #2 reads its tile table from global memory at every size: the
+// TPU's union fallback past SCHED_TILES_SMEM_BUDGET is a limit of its scalar
+// memory that this card does not have.
+//
+// The triangle split (kSplit in {1, 4}): kSplit threads serve one ray, so a
+// block is 256 rays x kSplit threads, 8 or 32 warps. The TPU kernel has no
+// such choice: its grid runs in order on one core. On this card a launch of
+// few ray blocks, or a gated launch whose blocks sweep between 0 and 124
+// tiles, leaves SMs with one block of 8 warps or none, and a block of rays
+// that crosses the whole scene sweeps hundreds of tiles on one SM: the split
+// lets such a block use the whole width of its SM (one block alone on an SM
+// sweeps 48 tiles in 14.66 ms at one thread a ray and in 7.43 ms at four),
+// and cuts the span of a gated launch's slowest block (62 ms of a launch's
+// 81 ms on the 1M-triangle city at one thread a ray, 20 of 61 ms at four).
+// The kSplit threads of a ray sit in different warps (thread = part * 256 +
+// ray), so each warp still reads one staged triangle at a time as a
+// broadcast, without bank conflicts of the 80-byte Tri stride; within every
+// 128-triangle stage, part p takes triangles
+// [p * 128 / kSplit, (p + 1) * 128 / kSplit). At the end of a sweep
+// tile the parts' (t, code, any-hit) meet in shared memory and every thread
+// of the ray merges all of them by the rule the tile already has: smaller t,
+// and among equal t the smaller code; OR for the any-hit. Inside a tile that
+// rule is a minimum over the tile's triangles in the order (t, code), which
+// does not depend on how they are partitioned or visited, so the merged
+// result is bitwise the unsplit one. The fold across tiles (strictly
+// smaller t replaces the carry), whose order does matter, is untouched, and
+// since every thread of a ray holds the same carry, every thread casts the
+// same vote. A ray block stays 256 rays at every split because the gate's
+// tables (one row per block), emap and the JAX package's ray_block are
+// defined on it: a wider block would change which tiles a block sweeps, a
+// narrower one the tables' size. The wrapper picks kSplit from the launch's
+// shape (ops/trace_cuda.py sweep_split): a gated launch always takes 4, the
+// only split the gated kernels are built at (sweep_gated.cu); an ungated one
+// 4 while it has few blocks an SM and 1 past that (sweep_split4.cu,
+// sweep_split1.cu), where the one-thread kernel is the unsplit one: its
+// shared block is the stage alone and its part and ray indices are constants.
+//
+// The AABB distance gate (the kGate instantiations; the TPU kernels' use_gate
+// modes, _gate_need_rays / _gate_indexers): each block walks its own visit
+// list of tiles (near to far from the block's mean origin, only boxes some
+// ray statically crosses) and sweeps a tile only when some ray's margined
+// slab interval against the tile's box can still improve its nearest hit
+// or set its any-hit; __syncthreads_or is the block's vote. Where the TPU
+// evaluates 16 boxes' slab tests into a bitmask per window to save a
+// vector->scalar sync, a thread here tests its own ray against one box per
+// step; only the window's early-exit bound is kept (__syncthreads_and).
+// About a quarter of the positions a block walks end at the vote (13,288 of
+// 55,382 on a 262,144-ray chunk of the 1M-triangle city: the visit list holds
+// only crossed boxes and ends early), and the list is read ahead for them:
+// 130 threads load the next 16 positions' box indices, boxes, tile flags and
+// early-exit bounds from global memory while the block works through the
+// current 16, and park them in shared memory, so a visit that ends at the
+// vote costs a slab test on shared operands and one barrier. The TPU's
+// split between VMEM-resident and HBM-streamed bodies is a VMEM limit: here
+// every tile streams through shared memory, so a skipped tile is a skipped
+// stage_tile.
+// The gated and ungated loops share sweep_tile, so they run the same pair
+// math.
+//
+// Exactness: built with --fmad=false and without fast math, every product
+// and sum rounds as PyTorch's eager ops do and the division is IEEE, in the
+// association order of _tile_step; the nearest-hit fold keeps its tie rule
+// (smallest code among equal t inside a sweep tile, strictly smaller t
+// across tiles). Each kernel is bitwise equal to its plain version
+// (sweep_rays_reference, sweep_rays_scheduled_reference), gated or not, at
+// every split. The gate is exact: a skipped tile
+// cannot hold a hit at t <= best_t, so the gated result differs from the
+// ungated one only where the visit order decides an exact-t tie across tiles.
+//
+// Layouts (see ops/trace_cuda.py): rays (9, N) f32 rows [o | d | o x d];
+// pack (24, Tpad) f32 rows 0-2 cross_e, 3-5 e1, 6-8 e2, 9-11 v0 x e2,
+// 12-14 v0 x e1, 15 d0, 16 2*sid, 17 mask_any, 18 mask_mat; tiles_on
+// (Tpad / tile,) i32 for kernel #1, (E, Tpad / tile) i32 for kernel #2;
+// masks (E, Tpad) f32 and emap (N / 256,) i32 for kernel #2; codes and any
+// (N,) i32; the gate's tables as struct Gate says (sweep.cuh).
+#pragma once
+
+#include <cstddef>
+
+#include "gate.cuh"
+#include "sweep.cuh"
+
+namespace raystrack {
+namespace {
+
+constexpr int kRays = 256;      // rays per block; kSplit threads each
+constexpr int kStage = 128;     // triangles per shared-memory stage
+constexpr int kUsedRows = 19;   // pack rows kernel #1 reads
+constexpr int kCodeRows = 17;   // pack rows kernel #2 and code mode read (no mask rows)
+constexpr int kMaskSlot = 19;   // Tri float slot of kernel #2's mask row
+constexpr int kAhead = 16;      // visit-list positions read ahead at a time
+constexpr int kAheadWords = 8;  // per position: six box floats, tile flag, box index
+
+// One staged triangle: the operand rows in five 16-byte groups.
+struct alignas(16) Tri {
+  float4 ce_d0;    // cross_e, d0
+  float4 e1_code;  // e1, 2*sid
+  float4 e2_many;  // e2, mask_any (kernel #1)
+  float4 wu_mmat;  // v0 x e2, mask_mat (kernel #1)
+  float4 wv_comb;  // v0 x e1, the emitter's combined mask (kernel #2)
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, cx, cy, cz;
+};
+
+// A block's shared memory: the triangle stage; at more than one thread a
+// ray, the parts' results of a split tile; in a gated block, the read-ahead
+// (two buffers of kAhead positions). What an instantiation does not use is
+// an empty base: an ungated block at one thread a ray holds the 10,240
+// bytes of its stage and nothing else, so six of them fit the 64 KB
+// shared-memory carve-out and leave the rest of the SM's 256 KB to the L1
+// cache, through which they share the pack.
+template <int kSplit>
+struct Parts {
+  float part_t[kSplit * kRays];
+  int part_code[kSplit * kRays];
+  int part_any[kSplit * kRays];
+};
+template <>
+struct Parts<1> {};
+
+template <bool kGate>
+struct Ahead {
+  alignas(16) unsigned ahead[2][kAhead][kAheadWords];
+  float bound[2][2];  // early-exit bounds of the windows inside kAhead positions
+};
+template <>
+struct Ahead<false> {};
+
+template <int kSplit, bool kGate>
+struct Shared : Parts<kSplit>, Ahead<kGate> {
+  Tri stage[kStage];
+};
+
+// Which of a ray's kSplit threads this one is, and the ray's index in the
+// block: thread = part * kRays + ray. Constants at one thread a ray.
+template <int kSplit>
+__device__ __forceinline__ int split_part() {
+  return kSplit == 1 ? 0 : static_cast<int>(threadIdx.x) / kRays;
+}
+
+template <int kSplit>
+__device__ __forceinline__ int split_ray() {
+  return kSplit == 1 ? static_cast<int>(threadIdx.x) : static_cast<int>(threadIdx.x) % kRays;
+}
+
+// Float offset of pack row `row` inside Tri.
+__device__ __forceinline__ int tri_slot(int row) {
+  return row < 15 ? (row / 3) * 4 + row % 3 : (row - 15) * 4 + 3;
+}
+
+// Nanoseconds of the card's global timer, and the SM this block runs on.
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int sm_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int n, int ray) {
+  const size_t r = static_cast<size_t>(ray);
+  const size_t ns = static_cast<size_t>(n);
+  return Ray{rays[0 * ns + r], rays[1 * ns + r], rays[2 * ns + r],
+             rays[3 * ns + r], rays[4 * ns + r], rays[5 * ns + r],
+             rays[6 * ns + r], rays[7 * ns + r], rays[8 * ns + r]};
+}
+
+// Stage pack columns [base, base + kStage): the first kRows rows and, with
+// kMaskRow, the same slice of the emitter's mask row. Every thread of the
+// block must call it: it holds both barriers.
+template <int kRows, bool kMaskRow, int kSplit>
+__device__ __forceinline__ void stage_tile(Tri* stage, const float* __restrict__ pack,
+                                           int n_tri_pad, int base,
+                                           const float* __restrict__ mask_row) {
+  float* stage_f = reinterpret_cast<float*>(stage);
+  __syncthreads();  // the previous stage is no longer read
+  for (int idx = threadIdx.x; idx < kRows * kStage; idx += kRays * kSplit) {
+    const int row = idx / kStage;
+    const int k = idx - row * kStage;
+    stage_f[k * 20 + tri_slot(row)] =
+        pack[static_cast<size_t>(row) * n_tri_pad + base + k];
+  }
+  if (kMaskRow) {
+    for (int k = threadIdx.x; k < kStage; k += kRays * kSplit) {
+      stage_f[k * 20 + kMaskSlot] = mask_row[base + k];
+    }
+  }
+  __syncthreads();
+}
+
+// The pair math of _tile_step: true when the ray hits the triangle inside
+// its barycentric margin at t > 1e-6; then t and the front flag are set.
+__device__ __forceinline__ bool pair_hit(const Ray& r, const Tri& tri, float& t,
+                                         int& front) {
+  const float4 ce = tri.ce_d0;
+  const float4 e1 = tri.e1_code;
+  const float4 e2 = tri.e2_many;
+  const float4 wu = tri.wu_mmat;
+  const float4 wv = tri.wv_comb;
+  // det = -(d . cross_e); t_num = o . cross_e - d0
+  const float det = -(r.dx * ce.x + r.dy * ce.y + r.dz * ce.z);
+  const float t_num = r.ox * ce.x + r.oy * ce.y + r.oz * ce.z - ce.w;
+  // u_num = (o x d) . e2 + d . (v0 x e2)
+  const float u_num = r.cx * e2.x + r.cy * e2.y + r.cz * e2.z + r.dx * wu.x +
+                      r.dy * wu.y + r.dz * wu.z;
+  // v_num = -((o x d) . e1) - d . (v0 x e1)
+  const float v_num = -(r.cx * e1.x + r.cy * e1.y + r.cz * e1.z + r.dx * wv.x +
+                        r.dy * wv.y + r.dz * wv.z);
+  const float sign = det >= 0.0f ? 1.0f : -1.0f;
+  const float abs_det = det * sign;
+  const float un = u_num * sign;
+  const float vn = v_num * sign;
+  const float margin = pmin(pmin(abs_det - 1e-7f, un), pmin(vn, abs_det - (un + vn)));
+  if (!(margin >= 0.0f)) return false;
+  t = t_num / det;
+  if (!(t > 1e-6f)) return false;
+  front = det > 0.0f ? 1 : 0;
+  return true;
+}
+
+// Kernel #1's eligibility: the pack's mask rows. A baked pack folds the
+// primary mask (m_any when any-hits are wanted, else m_mat) into zeroed
+// cross_e rows; only the other test survives (trace_cuda._eligibility
+// states the same rule for the plain version).
+template <bool kTestAny, bool kTestMat>
+struct PackMasks {
+  __device__ __forceinline__ bool any(const Tri& tri) const {
+    return !kTestAny || tri.e2_many.w > 0.0f;
+  }
+  __device__ __forceinline__ bool mat(const Tri& tri) const {
+    return !kTestMat || tri.wu_mmat.w > 0.0f;
+  }
+};
+
+// Kernel #1's eligibility in code mode: the staged code 2*sid against the
+// emitter's code and the smallest code the matrix counts (both 2*sid, exact
+// in f32). Triangles of a surface the emitter's plane cull switched off stay
+// eligible here: they lie behind the emission plane, so no ray can hit them,
+// and whole tiles of them still drop out through tiles_on.
+struct CodeBounds {
+  float emit_code;
+  float min_code;
+  __device__ __forceinline__ bool any(const Tri& tri) const {
+    return tri.e1_code.w != emit_code;
+  }
+  __device__ __forceinline__ bool mat(const Tri& tri) const {
+    return tri.e1_code.w != emit_code && tri.e1_code.w >= min_code;
+  }
+};
+
+// Kernel #2's eligibility: the emitter's combined row, staged in wv_comb.w.
+struct CombinedMask {
+  __device__ __forceinline__ bool any(const Tri& tri) const {
+    return tri.wv_comb.w > 0.0f;
+  }
+  __device__ __forceinline__ bool mat(const Tri& tri) const {
+    return tri.wv_comb.w > 1.0f;
+  }
+};
+
+// Whether this ray still needs the tile under `box` (_gate_need_rays):
+// its margined slab interval crosses the box and starts before its
+// nearest hit, or it crosses it and has no any-hit yet. The margins keep
+// the test conservative, so skipping a tile no ray of the block needs is
+// exact. `box` is six floats of the read-ahead in shared memory. The ray's
+// reciprocal direction is worked out anew at every visit: three divisions
+// beside the hundred thousand instructions of a swept tile, and no
+// registers held for them across the sweep.
+template <bool kMatrix, bool kAny>
+__device__ __forceinline__ bool box_needed(const Ray& r, const float* box, float best_t,
+                                           int any_hit) {
+  const RayInv v = ray_inv(r.dx, r.dy, r.dz);
+  const float o[3] = {r.ox, r.oy, r.oz};
+  const float lo[3] = {box[0], box[1], box[2]};
+  const float hi[3] = {box[3], box[4], box[5]};
+  float near_c, far_c;
+  slab_interval(o, v, lo, hi, near_c, far_c);
+  const bool hit_box = slab_hit(near_c, far_c);
+  bool need = false;
+  if (kMatrix) need = hit_box && near_c < best_t;
+  if (kAny) need = need || (hit_box && any_hit == 0);
+  return need;
+}
+
+// One sweep tile of one ray, staged kStage triangles at a time, each of the
+// ray's kSplit threads taking its part of every stage; the parts merged by
+// the tile's own tie rule, the result folded into the ray's carry, which
+// all threads of the ray keep alike. Every thread of the block must call
+// it: stage_tile and the merge hold barriers.
+template <bool kMatrix, bool kAny, int kRows, bool kMaskRow, int kSplit, class Sh, class Elig>
+__device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restrict__ pack,
+                                           int n_tri_pad, int it, int tile,
+                                           const float* __restrict__ mask_row, Sh& sh,
+                                           Elig elig, float& best_t, int& best_code,
+                                           int& any_hit) {
+  constexpr int kPart = kStage / kSplit;
+  const Tri* mine = sh.stage + split_part<kSplit>() * kPart;
+  float tile_t = kInf;
+  int tile_code = 1 << 30;
+  const int tile_end = (it + 1) * tile;
+  for (int base = it * tile; base < tile_end; base += kStage) {
+    stage_tile<kRows, kMaskRow, kSplit>(sh.stage, pack, n_tri_pad, base, mask_row);
+#pragma unroll 2
+    for (int j = 0; j < kPart; ++j) {
+      float t;
+      int front;
+      if (!pair_hit(ray, mine[j], t, front)) continue;
+      if (kAny && elig.any(mine[j])) any_hit = 1;
+      if (kMatrix && elig.mat(mine[j])) {
+        const int code = static_cast<int>(mine[j].e1_code.w) + front;
+        if (t < tile_t) {
+          tile_t = t;
+          tile_code = code;
+        } else if (t == tile_t && code < tile_code) {
+          tile_code = code;
+        }
+      }
+    }
+  }
+  if constexpr (kSplit > 1) {
+    // the next write of these slots comes after the next stage's barriers
+    if (kMatrix) {
+      sh.part_t[threadIdx.x] = tile_t;
+      sh.part_code[threadIdx.x] = tile_code;
+    }
+    if (kAny) sh.part_any[threadIdx.x] = any_hit;
+    __syncthreads();
+    const int r = split_ray<kSplit>();
+    tile_t = kInf;
+    tile_code = 1 << 30;
+#pragma unroll
+    for (int p = 0; p < kSplit; ++p) {
+      if (kMatrix) {
+        const float t = sh.part_t[p * kRays + r];
+        const int code = sh.part_code[p * kRays + r];
+        if (t < tile_t) {
+          tile_t = t;
+          tile_code = code;
+        } else if (t == tile_t && code < tile_code) {
+          tile_code = code;
+        }
+      }
+      if (kAny) any_hit |= sh.part_any[p * kRays + r];
+    }
+  }
+  if (kMatrix && tile_t < best_t) {
+    best_t = tile_t;
+    best_code = tile_code;
+  }
+}
+
+// The gate's read-ahead. ahead_load starts this thread's global load for
+// the kAhead visit positions of chunk `c` and returns the raw word, which
+// the caller keeps in a register while the block works; ahead_store parks
+// it in buffer `buf`. Threads 0-127: position k = thread / 8 and word
+// thread % 8 of it (six box floats; the tile's flag when a box is one tile,
+// else 1; the box index). Threads 128-129: the early-exit bounds of the
+// chunk's windows.
+__device__ __forceinline__ unsigned ahead_load(const Gate& gate, const int* __restrict__ order,
+                                               const float* __restrict__ suffmin,
+                                               const int* __restrict__ tiles_on, int n_pos,
+                                               int c) {
+  const int tid = threadIdx.x;
+  if (tid < kAhead * kAheadWords) {
+    const int p = c * kAhead + tid / kAheadWords;
+    const int word = tid % kAheadWords;
+    if (p >= n_pos) return 0u;
+    const int box = order[p];
+    if (word < 6) return __float_as_uint(gate.boxes[6 * static_cast<size_t>(box) + word]);
+    if (word == 6) return gate.group == 1 ? static_cast<unsigned>(tiles_on[box]) : 1u;
+    return static_cast<unsigned>(box);
+  }
+  if (gate.window > 0 && tid < kAhead * kAheadWords + kAhead / gate.window) {
+    const int w = c * (kAhead / gate.window) + tid - kAhead * kAheadWords;
+    if (w < gate.n_windows) return __float_as_uint(suffmin[w]);
+  }
+  return 0u;
+}
+
+template <class Sh>
+__device__ __forceinline__ void ahead_store(Sh& sh, int buf, unsigned word) {
+  const int tid = threadIdx.x;
+  if (tid < kAhead * kAheadWords) {
+    sh.ahead[buf][tid / kAheadWords][tid % kAheadWords] = word;
+  } else if (tid < kAhead * kAheadWords + 2) {
+    sh.bound[buf][tid - kAhead * kAheadWords] = __uint_as_float(word);
+  }
+}
+
+// One ray against the scene. Ungated: every active tile in order. Gated:
+// the block's visit list, read ahead kAhead positions at a time, each tile
+// taken only when some live ray of the block needs it (__syncthreads_or:
+// one instruction for the TPU's any-reduce over the block) and the list cut
+// short at window starts once every ray is settled (__syncthreads_and).
+// tiles_on, the visit list and both votes are uniform across the block, so
+// every thread takes the same branches and reaches every barrier; threads
+// past the last ray vote "not needed" and "settled". Thread 0 writes the
+// block's count of swept tiles to `visits` when it is given, and a gated
+// block its times to `gate.timeline`.
+template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, int kSplit,
+          class Elig>
+__device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
+                                          const float* __restrict__ pack, int n_tri_pad,
+                                          const int* __restrict__ tiles_on, int tile,
+                                          const float* __restrict__ mask_row,
+                                          const Gate& gate, Shared<kSplit, kGate>& sh,
+                                          Elig elig,
+                                          int& code_out, int& any_out,
+                                          int* __restrict__ visits) {
+  float best_t = kInf;
+  int best_code = -1;
+  int any_hit = 0;
+  int n_swept = 0;
+  if constexpr (!kGate) {
+    const int n_tiles = n_tri_pad / tile;
+    for (int it = 0; it < n_tiles; ++it) {
+      if (tiles_on[it] == 0) continue;  // no eligible triangle: exact skip
+      sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit>(
+          ray, pack, n_tri_pad, it, tile, mask_row, sh, elig, best_t, best_code, any_hit);
+      ++n_swept;
+    }
+  } else {
+    const size_t b = blockIdx.x;
+    long long* __restrict__ timeline = gate.timeline;
+    if (timeline != nullptr && threadIdx.x == 0) {
+      timeline[4 * b] = global_ns();
+      timeline[4 * b + 2] = sm_id();
+    }
+    int n_walked = 0;
+    const int* __restrict__ order = gate.order + b * gate.n_boxes;
+    const float* __restrict__ suffmin = gate.suffmin + b * gate.n_windows;
+    const int n_pos = gate.counts[b];  // boxes on the visit list
+    unsigned word = 0u;  // this thread's share of the next kAhead positions
+    if (n_pos > 0) {
+      ahead_store(sh, 0, ahead_load(gate, order, suffmin, tiles_on, n_pos, 0));
+      if (n_pos > kAhead) word = ahead_load(gate, order, suffmin, tiles_on, n_pos, 1);
+      __syncthreads();
+    }
+    for (int p = 0; p < n_pos; ++p) {
+      const int k = p % kAhead;
+      const int buf = (p / kAhead) & 1;
+      if (k == 0 && p > 0) {
+        // this buffer was last read kAhead positions ago, before their barriers
+        ahead_store(sh, buf, word);
+        if (p + kAhead < n_pos) {
+          word = ahead_load(gate, order, suffmin, tiles_on, n_pos, p / kAhead + 1);
+        }
+        __syncthreads();
+      }
+      // only the per-tile gate (group 1) has windows: position = box position
+      if (gate.window > 0 && k % gate.window == 0) {
+        const float bound = sh.bound[buf][k / gate.window];
+        const bool settled = !live || (best_t <= bound && (!kAny || any_hit != 0));
+        if (__syncthreads_and(settled)) break;  // no later box can pass
+      }
+      const unsigned* at = sh.ahead[buf][k];
+      const int box = static_cast<int>(at[7]);
+      for (int g = 0; g < gate.group; ++g, ++n_walked) {
+        const int it = box * gate.group + g;
+        if (gate.group == 1 ? at[6] == 0u : tiles_on[it] == 0) continue;
+        const bool need = live && box_needed<kMatrix, kAny>(
+            ray, reinterpret_cast<const float*>(at), best_t, any_hit);
+        if (!__syncthreads_or(need)) continue;  // no ray can improve: exact skip
+        sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit>(
+            ray, pack, n_tri_pad, it, tile, mask_row, sh, elig, best_t, best_code, any_hit);
+        ++n_swept;
+      }
+    }
+    if (timeline != nullptr && threadIdx.x == 0) {
+      timeline[4 * b + 1] = global_ns();
+      timeline[4 * b + 3] = n_walked;
+    }
+  }
+  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = n_swept;
+  code_out = best_t < kInf ? best_code : -1;
+  any_out = any_hit;
+}
+
+template <bool kMatrix, bool kAny, bool kBaked, bool kGate, int kSplit>
+__global__ void __launch_bounds__(kRays * kSplit)
+sweep_kernel(const float* __restrict__ rays, int n,
+             const float* __restrict__ pack, int n_tri_pad,
+             const int* __restrict__ tiles_on, int tile, Gate gate,
+             int* __restrict__ codes, int* __restrict__ any_out,
+             int* __restrict__ visits) {
+  __shared__ Shared<kSplit, kGate> sh;
+  const int ray = blockIdx.x * kRays + split_ray<kSplit>();
+  const bool live = ray < n;
+  // threads past the last ray still load stages and reach every barrier
+  const Ray r = load_ray(rays, n, live ? ray : 0);
+  int code, any_hit;
+  sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit>(
+      r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
+      PackMasks<!kBaked, !(kBaked && !kAny)>{}, code, any_hit, visits);
+  if (live && split_part<kSplit>() == 0) {
+    codes[ray] = code;
+    any_out[ray] = any_hit;
+  }
+}
+
+template <bool kMatrix, bool kAny, bool kGate, int kSplit>
+__global__ void __launch_bounds__(kRays * kSplit)
+sweep_code_kernel(const float* __restrict__ rays, int n,
+                  const float* __restrict__ pack, int n_tri_pad,
+                  const int* __restrict__ tiles_on, int tile, float emit_code,
+                  float min_code, Gate gate, int* __restrict__ codes,
+                  int* __restrict__ any_out, int* __restrict__ visits) {
+  __shared__ Shared<kSplit, kGate> sh;
+  const int ray = blockIdx.x * kRays + split_ray<kSplit>();
+  const bool live = ray < n;
+  const Ray r = load_ray(rays, n, live ? ray : 0);
+  int code, any_hit;
+  sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit>(
+      r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
+      CodeBounds{emit_code, min_code}, code, any_hit, visits);
+  if (live && split_part<kSplit>() == 0) {
+    codes[ray] = code;
+    any_out[ray] = any_hit;
+  }
+}
+
+template <bool kMatrix, bool kAny, bool kGate, int kSplit>
+__global__ void __launch_bounds__(kRays * kSplit)
+sweep_sched_kernel(const float* __restrict__ rays, int n,
+                   const float* __restrict__ pack, int n_tri_pad,
+                   const float* __restrict__ masks, int n_emit,
+                   const int* __restrict__ emap, const int* __restrict__ tiles_on,
+                   int tiles_stride, int tile, Gate gate, int* __restrict__ codes,
+                   int* __restrict__ any_out, int* __restrict__ visits) {
+  __shared__ Shared<kSplit, kGate> sh;
+  const int ray = blockIdx.x * kRays + split_ray<kSplit>();  // n is a multiple of kRays
+  const size_t b = blockIdx.x;
+  const int e = emap[b];
+  if (e < 0 || e >= n_emit) {  // a row the masks do not hold sweeps nothing;
+    if (split_part<kSplit>() == 0) {  // block-uniform, and before any barrier
+      codes[ray] = -1;
+      any_out[ray] = 0;
+    }
+    if (threadIdx.x == 0) {
+      if (visits != nullptr) visits[b] = 0;
+      if (kGate && gate.timeline != nullptr) {
+        const long long now = global_ns();
+        gate.timeline[4 * b] = now;
+        gate.timeline[4 * b + 1] = now;
+        gate.timeline[4 * b + 2] = sm_id();
+        gate.timeline[4 * b + 3] = 0;
+      }
+    }
+    return;
+  }
+  const size_t row = static_cast<size_t>(e);
+  const Ray r = load_ray(rays, n, ray);
+  int code, any_hit;
+  sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit>(
+      r, true, pack, n_tri_pad, tiles_on + row * tiles_stride, tile,
+      masks + row * n_tri_pad, gate, sh, CombinedMask{}, code, any_hit, visits);
+  if (split_part<kSplit>() == 0) {
+    codes[ray] = code;
+    any_out[ray] = any_hit;
+  }
+}
+
+template <bool kMatrix, bool kAny, bool kGate, int kSplit>
+void launch_masks(const Masks& m, const Args& a) {
+  const dim3 grid((a.n + kRays - 1) / kRays);
+  const int threads = kRays * kSplit;
+  if (m.mode == kCodeMode) {
+    sweep_code_kernel<kMatrix, kAny, kGate, kSplit><<<grid, threads, 0, a.stream>>>(
+        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, m.emit_code, m.min_code,
+        a.gate, a.codes, a.any_out, a.visits);
+  } else if (m.mode == kBakedMode) {
+    sweep_kernel<kMatrix, kAny, true, kGate, kSplit><<<grid, threads, 0, a.stream>>>(
+        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
+        a.visits);
+  } else {
+    sweep_kernel<kMatrix, kAny, false, kGate, kSplit><<<grid, threads, 0, a.stream>>>(
+        a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
+        a.visits);
+  }
+}
+
+template <bool kMatrix, bool kAny, bool kGate, int kSplit>
+void launch_sched_gate(const Sched& s, const Args& a) {
+  sweep_sched_kernel<kMatrix, kAny, kGate, kSplit>
+      <<<a.n / kRays, kRays * kSplit, 0, a.stream>>>(
+          a.rays, a.n, a.pack, a.n_tri_pad, s.masks, s.n_emit, s.emap, a.tiles_on,
+          s.tiles_stride, a.tile, a.gate, a.codes, a.any_out, a.visits);
+}
+
+}  // namespace
+
+// The instantiation a launch's wanted outputs select.
+template <int kSplit, bool kGate>
+void launch_sweep(const Masks& m, const Args& a) {
+  if (a.want_matrix && a.want_any) {
+    launch_masks<true, true, kGate, kSplit>(m, a);
+  } else if (a.want_matrix) {
+    launch_masks<true, false, kGate, kSplit>(m, a);
+  } else {
+    launch_masks<false, true, kGate, kSplit>(m, a);
+  }
+}
+
+template <int kSplit, bool kGate>
+void launch_sweep_sched(const Sched& s, const Args& a) {
+  if (a.want_matrix && a.want_any) {
+    launch_sched_gate<true, true, kGate, kSplit>(s, a);
+  } else if (a.want_matrix) {
+    launch_sched_gate<true, false, kGate, kSplit>(s, a);
+  } else {
+    launch_sched_gate<false, true, kGate, kSplit>(s, a);
+  }
+}
+
+}  // namespace raystrack

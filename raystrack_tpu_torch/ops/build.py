@@ -2,8 +2,9 @@
 
 ``csrc/*.cu`` compile into one shared library with a plain C interface,
 written to ``build/raystrack_tpu_torch/`` beside the package and named by a
-hash of the sources, the flags and the compiler, so a changed source
-rebuilds and an unchanged one is reused. Each source compiles in its own
+hash of the sources (the ``*.cuh`` headers they share included), the flags
+and the compiler, so a changed source rebuilds and an unchanged one is
+reused. Each source compiles in its own
 ``nvcc`` process, all started together, and one more links them. The
 library is loaded with ``ctypes``. Nothing is built from anywhere but
 ``csrc/``.
@@ -65,7 +66,7 @@ def build() -> Build:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     digest.update("\0".join((nvcc,) + NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"libraystrack_kernels-{digest.hexdigest()[:16]}.so"
@@ -104,8 +105,9 @@ def build() -> Build:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
     lib = ctypes.CDLL(str(build().path))
-    # the gate: boxes, order, counts, suffmin; n_boxes, group, window, n_windows
-    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    # the gate: boxes, order, counts, suffmin; n_boxes, group, window,
+    # n_windows; then the triangle split
+    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     fn = lib.raystrack_sweep_rays
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # rays, n
@@ -115,7 +117,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_float,  # emit_code, min_code
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
-        ctypes.c_void_p,  # stream
+        ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
     ]
     fn.restype = ctypes.c_int
     fn = lib.raystrack_count_codes
@@ -140,7 +142,14 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tile, want_matrix, want_any
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
-        ctypes.c_void_p,  # stream
+        ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.raystrack_gate_cross
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,  # rays, n
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # boxes, n_boxes, ray_block
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # crossed, minnear, stream
     ]
     fn.restype = ctypes.c_int
     return lib

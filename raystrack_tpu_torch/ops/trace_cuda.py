@@ -6,7 +6,8 @@ Counterpart of ``raystrack_tpu/ops/trace_pallas.py``: ``sweep_rays``
 (kernel #1, one emitter), ``sweep_rays_scheduled`` (kernel #2, each block
 of 256 rays names its own emitter), their shared tile math ``_tile_step``
 and the gate's tables (``_gate_tables``). Both kernels live in
-``csrc/sweep.cu``.
+``csrc/sweep_kernels.cuh``; the crossing pass of the gate's tables is a third
+kernel, ``csrc/gate.cu`` (:func:`gate_cross`).
 
 Layouts:
 
@@ -42,10 +43,16 @@ ray's margined slab interval can still improve its nearest hit or block it
 anew. Past ``GATE_MAX_TILES`` tiles one box covers a group of consecutive
 tiles. It is exact: only the visit order differs from the ungated sweep,
 and that decides nothing but exact-``t`` ties across tiles.
+
+On the card a block of 256 rays is served by 256 or 1,024 threads:
+``split`` threads share a ray's triangles inside every sweep tile and merge
+by the tile's own tie rule, so the result does not depend on the split
+(:func:`sweep_split` picks it from the launch's shape).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -65,11 +72,11 @@ ROW_CODE = 16
 ROW_MASK_ANY = 17
 ROW_MASK_MAT = 18
 
-# Triangles per shared-memory stage of the kernel (csrc/sweep.cu kStage);
-# every sweep tile width is a multiple of it.
+# Triangles per shared-memory stage of the kernel (csrc/sweep_kernels.cuh
+# kStage); every sweep tile width is a multiple of it.
 _STAGE = 128
 
-# Rays per block of both kernels (csrc/sweep.cu kThreads): emap names one
+# Rays per block of both kernels (csrc/sweep_kernels.cuh kRays): emap names one
 # emitter per block of this many rays, and the gate decides per block, as
 # the JAX package's ray_block.
 RAY_SUBBLOCK = 256
@@ -183,6 +190,61 @@ class GateTables:
             suffmin=self.suffmin[idx])
 
 
+# SMs of the card the port is written for (an H100 SXM): what a CPU tensor's
+# plain version takes for the split its launch would have.
+_H100_SMS = 132
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return _H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The splits the kernels are built at (csrc/sweep_split1.cu, sweep_split4.cu
+# ungated; sweep_gated.cu), and blocks an SM up to which an ungated launch
+# takes four threads a ray.
+UNGATED_SPLITS = (1, 4)
+GATED_SPLIT = 4
+_SPLIT_BLOCKS_PER_SM = 4
+
+
+def sweep_split(n_blocks: int, gated: bool, n_sms: int) -> int:
+    """Threads that share one ray's triangles (the kernels' ``kSplit``) for a
+    launch of ``n_blocks`` blocks of 256 rays on a card of ``n_sms`` SMs: a
+    pure function of the launch's shape.
+
+    A gated launch always takes 4: its blocks sweep between none and a
+    quarter of the tiles, so its SMs run dry one by one long before its
+    slowest block ends, and at four threads a ray a block's span shrinks
+    about threefold while an SM sweeps a tile as fast as the six resident
+    blocks of an ungated launch at one thread a ray do (167-171 us against
+    168 us a tile of 2,048 triangles on an H100, ``chip_profile.py
+    --timeline``); timed at 1, 2 and 4, both gated launches were fastest at
+    4 or within 1% of it (62.1 against 63.7 and 73.9 ms, 90.7 against 89.9
+    and 98.0 ms).
+
+    An ungated launch takes 4 up to four blocks an SM, else 1. A block of
+    256 threads is 8 warps and an SM wants about 32 in flight; on the leading
+    blocks of the soup chunk (98,304 triangles, ``chip_profile.py --splits``,
+    H100, 132 SMs) four threads a ray take 7.4 against 14.7 ms up to 132
+    blocks, 14.8 against 18.5 ms up to 264 and 29.7 against 33.1 ms at 528:
+    10% or more at every size up to there, and two threads a ray are ahead
+    of four nowhere by more than 1.2%, which is why no kernel is built at 2.
+    Past that the gain
+    shrinks (4.5% at the soup's 1,024 blocks, and the any-only variant is 4%
+    slower), and the rounds of small scenes, thousands of blocks over a few
+    hundred triangles, lose 5 to 19% (``chip_profile.py --force-split 4``
+    plates, canyon, district), so full grids keep one thread a ray.
+    """
+    if n_blocks <= 0 or n_sms <= 0:
+        return 1
+    if gated:
+        return GATED_SPLIT
+    return 4 if n_blocks <= _SPLIT_BLOCKS_PER_SM * n_sms else 1
+
+
 def _ray_inv(dirs):
     """Per direction component: (|d| <= 1e-30, 1 / d, d >= 0), the slab
     test's ray terms (trace_pallas.py _ray_inv)."""
@@ -198,7 +260,7 @@ def _box_interval(o, inv, lo, hi):
     shapes of the per-axis ray terms ``o``/``inv`` and box bounds ``lo``/
     ``hi``. The relative margins keep it conservative against any faithful
     f32 evaluation, so the gate never drops a tile holding a better hit.
-    The op order is the kernel's (csrc/sweep.cu box_needed)."""
+    The op order is the kernels' (csrc/gate.cuh slab_interval)."""
     near = far = None
     for c in range(3):
         d_zero, inv_c, d_pos = inv[c]
@@ -214,22 +276,106 @@ def _box_interval(o, inv, lo, hi):
     return near_c, far_c
 
 
+def gate_cross_reference(rays: torch.Tensor, boxes: torch.Tensor,
+                         ray_block: int = RAY_SUBBLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the crossing kernel (``csrc/gate.cu``), the
+    XLA code of ``trace_pallas.py`` ``_gate_tables`` (``block_union``): per
+    block of ``ray_block`` rays of ``rays`` (9, N) and per box of ``boxes``
+    (n_boxes, 6), ``crossed`` (n_blocks, n_boxes) bool, whether some ray of
+    the block statically crosses the box (the kernel's slab test without the
+    carry terms), and ``minnear`` (n_blocks, n_boxes) f32, the smallest near
+    bound among the rays that do (``INF`` where none does). Rays past N in
+    the last block cross nothing. The (rays, boxes) slab is built a few
+    blocks at a time, so its steps stay near 4M elements."""
+    device = rays.device
+    n, n_boxes = rays.shape[1], boxes.shape[0]
+    n_blocks = -(-n // ray_block)
+    tail = n_blocks * ray_block - n
+    o3 = torch.nn.functional.pad(rays[0:3], (0, tail), value=float("nan")).view(
+        3, n_blocks, ray_block)
+    d3 = torch.nn.functional.pad(rays[3:6], (0, tail), value=1.0).view(3, n_blocks, ray_block)
+    crossed = torch.empty((n_blocks, n_boxes), dtype=torch.bool, device=device)
+    minnear = torch.empty((n_blocks, n_boxes), dtype=torch.float32, device=device)
+    lo_c = [boxes[None, :, c] for c in range(3)]
+    hi_c = [boxes[None, :, 3 + c] for c in range(3)]
+    per_step = max(1, min(n_blocks, _REF_PAIRS // max(ray_block * n_boxes, 1)))
+    for b0 in range(0, n_blocks, per_step):
+        b1 = min(n_blocks, b0 + per_step)
+        ob = o3[:, b0:b1].reshape(3, -1, 1)
+        inv = _ray_inv(d3[:, b0:b1].reshape(3, -1, 1))
+        near_c, far_c = _box_interval(ob, inv, lo_c, hi_c)  # (rays, n_boxes)
+        hit = ((far_c >= near_c) & (far_c > 1e-6)).view(b1 - b0, ray_block, n_boxes)
+        crossed[b0:b1] = hit.any(dim=1)
+        minnear[b0:b1] = torch.where(hit, near_c.view(hit.shape), INF).amin(dim=1)
+    return crossed, minnear
+
+
+def gate_cross(rays: torch.Tensor, boxes: torch.Tensor,
+               ray_block: int = RAY_SUBBLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The crossing pass of the gate's tables: ``(crossed, minnear)`` as
+    :func:`gate_cross_reference` defines them, bitwise (OR and minimum are
+    exact in any order).
+
+    CUDA tensors go to the kernel of ``csrc/gate.cu`` (one launch on the
+    current stream, not synchronised; ``gate_cross.launches`` counts them);
+    CPU tensors go to :func:`gate_cross_reference`.
+    """
+    for name, t in (("rays", rays), ("boxes", boxes)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+    if rays.dim() != 2 or boxes.dim() != 2:
+        raise ValueError("rays must be (9, N) and boxes (n_boxes, 6)")
+    device = rays.device
+    n, n_boxes = int(rays.shape[1]), int(boxes.shape[0])
+    _check("rays", rays, torch.float32, (9, n), device)
+    _check("boxes", boxes, torch.float32, (n_boxes, 6), device)
+    if ray_block < 1:
+        raise ValueError(f"ray_block must be positive (got {ray_block})")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gate_cross runs on cuda or cpu tensors (got {device})")
+    if n >= 2**31:
+        raise ValueError("gate_cross takes fewer than 2**31 rays")
+    if device.type == "cpu":
+        return gate_cross_reference(rays, boxes, ray_block)
+
+    from .build import load_library
+
+    lib = load_library()
+    n_blocks = -(-n // ray_block)
+    crossed = torch.empty((n_blocks, n_boxes), dtype=torch.bool, device=device)
+    minnear = torch.empty((n_blocks, n_boxes), dtype=torch.float32, device=device)
+    if n == 0 or n_boxes == 0:  # nothing to launch
+        return crossed, minnear
+    with torch.cuda.device(device):
+        err = lib.raystrack_gate_cross(
+            rays.data_ptr(), n, boxes.data_ptr(), n_boxes, ray_block, crossed.data_ptr(),
+            minnear.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gate crossing kernel launch failed: CUDA error {err}")
+    gate_cross.launches += 1
+    return crossed, minnear
+
+
+gate_cross.launches = 0
+
+
 def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
                  window: int = 0, ray_block: int = RAY_SUBBLOCK) -> GateTables:
     """The gate's tables for one sweep of ``rays`` (9, N) over ``n_tiles``
-    tiles of width ``tile``, in tensor ops on the rays' device.
+    tiles of width ``tile``, on the rays' device.
 
     ``accel`` is the scene's (tile_lo, tile_hi) at ``ACCEL_GRAIN``
     granularity; boxes reduce to the tile width, then, past
     ``GATE_MAX_TILES`` tiles, to groups of consecutive tiles. Per block:
-    the boxes some ray statically crosses (the kernel's slab test without
-    the carry terms) sort first, by squared distance from the block's mean
+    the boxes some ray statically crosses (:func:`gate_cross`: one kernel on
+    the card) sort first, by squared distance from the block's mean
     origin (a stable sort, as ``jnp.argsort``), and ``counts`` says how
     many; the suffix-min of the crossing rays' near bound over the visit
     order, read at window starts, is the early-exit bound. Rays past N in
-    the last block cross nothing and do not move its mean. The crossing
-    slab is built a few blocks at a time, so its (rays, boxes) steps stay
-    near 4M elements.
+    the last block cross nothing and do not move its mean. All but the
+    crossing pass are tensor ops: a dozen launches, and the rounding of the
+    block's mean (a 256-term sum) is what the JAX package's tables are held
+    to.
     """
     device = rays.device
     per = tile // _cfg.ACCEL_GRAIN
@@ -242,31 +388,20 @@ def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
         lo = torch.cat([lo, lo.new_full((pad, 3), _EMPTY_BOX)]).view(n_boxes, group, 3)
         hi = torch.cat([hi, hi.new_full((pad, 3), -_EMPTY_BOX)]).view(n_boxes, group, 3)
         lo, hi = lo.amin(dim=1), hi.amax(dim=1)
+    boxes = torch.cat([lo, hi], dim=1).contiguous()
 
     n = rays.shape[1]
     n_blocks = -(-n // ray_block)
     tail = n_blocks * ray_block - n
-    o = torch.nn.functional.pad(rays[0:3], (0, tail), value=float("nan"))
-    d = torch.nn.functional.pad(rays[3:6], (0, tail), value=1.0)
-    o3 = o.view(3, n_blocks, ray_block)
+    o3 = torch.nn.functional.pad(rays[0:3], (0, tail), value=float("nan")).view(
+        3, n_blocks, ray_block)
     cent = o3.mean(dim=2).T  # (n_blocks, 3)
     if tail:
         cent[-1] = rays[0:3, (n_blocks - 1) * ray_block:].mean(dim=1)
     gap = torch.maximum(lo[None] - cent[:, None], cent[:, None] - hi[None]).clamp_min(0.0)
     dist2 = (gap * gap).sum(dim=2)  # (n_blocks, n_boxes)
 
-    crossed = torch.empty((n_blocks, n_boxes), dtype=torch.bool, device=device)
-    minnear = torch.empty((n_blocks, n_boxes), dtype=torch.float32, device=device)
-    lo_c, hi_c = [lo[None, :, c] for c in range(3)], [hi[None, :, c] for c in range(3)]
-    per_step = max(1, min(n_blocks, _REF_PAIRS // max(ray_block * n_boxes, 1)))
-    for b0 in range(0, n_blocks, per_step):
-        b1 = min(n_blocks, b0 + per_step)
-        ob = o3[:, b0:b1].reshape(3, -1, 1)
-        inv = _ray_inv(d.view(3, n_blocks, ray_block)[:, b0:b1].reshape(3, -1, 1))
-        near_c, far_c = _box_interval(ob, inv, lo_c, hi_c)  # (rays, n_boxes)
-        hit = ((far_c >= near_c) & (far_c > 1e-6)).view(b1 - b0, ray_block, n_boxes)
-        crossed[b0:b1] = hit.any(dim=1)
-        minnear[b0:b1] = torch.where(hit, near_c.view(hit.shape), INF).amin(dim=1)
+    crossed, minnear = gate_cross(rays, boxes, ray_block)
 
     order = torch.argsort(torch.where(crossed, dist2, float("inf")), dim=1, stable=True)
     counts = crossed.sum(dim=1, dtype=torch.int32)
@@ -279,8 +414,8 @@ def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
     else:
         suffmin = torch.empty((n_blocks, 0), dtype=torch.float32, device=device)
     return GateTables(
-        boxes=torch.cat([lo, hi], dim=1).contiguous(), order=order.to(torch.int32),
-        counts=counts, suffmin=suffmin, group=group, window=window, ray_block=ray_block)
+        boxes=boxes, order=order.to(torch.int32), counts=counts, suffmin=suffmin,
+        group=group, window=window, ray_block=ray_block)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +425,10 @@ def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
 
 # Kernel #1's mask modes, in the order of the C entry's ``mask_mode`` argument.
 _MASK_MODES = ("rows", "baked", "code")
+
+# The triangle splits the plain versions take: the kernels' 1 and 4, and 2,
+# another partition the merge must be exact on.
+_SPLITS = (1, 2, 4)
 
 
 def _mask_mode(masks_baked: bool, code_bounds) -> str:
@@ -327,13 +466,20 @@ def _eligibility(row, want_any: bool, mode: str, code_bounds):
 
 
 def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
-               mode: str = "rows", code_bounds=None):
+               mode: str = "rows", code_bounds=None, split: int = 1):
     """One tile of the sweep in tensor ops (trace_pallas.py _tile_step):
     ray columns ``rays`` (..., B, 1), operand rows ``row(r)`` (..., 1, T)
     and the carry (best_t, best_code, any_hit) (..., B, 1).
 
     Each product and sum rounds separately and ``t = t_num / det`` is an
-    IEEE division, as in the kernel, so the two agree bitwise.
+    IEEE division, as in the kernel, so the two agree bitwise. With
+    ``split`` > 1 the tile's triangles are partitioned as the kernel's
+    ``kSplit`` threads of a ray partition them (part ``p`` takes triangles
+    ``[p * 128 / split, (p + 1) * 128 / split)`` of every 128-triangle
+    stage), each part reduces on its own and the parts merge by the tile's
+    rule: the smallest ``t``, among equal ``t`` the smallest code, OR for
+    the any-hit. That rule is a minimum in the order (t, code), so every
+    ``split`` gives the same bits.
     """
     ox, oy, oz, dx, dy, dz, cx, cy, cz = rays
     best_t, best_code, any_hit = carry
@@ -359,14 +505,27 @@ def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
     )
     valid = (margin >= 0.0) & (t_hit > 1e-6)
     m_any, m_mat = _eligibility(row, want_any, mode, code_bounds)
+
+    def parts(x):
+        """(..., B, T) -> (..., B, split, T / split): each part's triangles."""
+        shape = x.shape[:-1] + (x.shape[-1] // _STAGE, split, _STAGE // split)
+        return x.reshape(shape).transpose(-3, -2).flatten(-2)
+
     if want_any:
         blocked = valid if m_any is None else valid & m_any
+        if split > 1:
+            blocked = parts(blocked).any(dim=-1)  # (..., B, split): each part's flag
         any_hit = any_hit | blocked.any(dim=-1, keepdim=True)
     if want_matrix:
         mat_ok = valid if m_mat is None else valid & m_mat
         t_masked = torch.where(mat_ok, t_hit, INF)
-        tile_best = t_masked.amin(dim=-1, keepdim=True)
         code_all = row(ROW_CODE).to(torch.int32) + (det > 0.0).to(torch.int32)
+        if split > 1:  # each part's (t, code), then the merge across parts
+            t_parts = parts(t_masked)
+            part_best = t_parts.amin(dim=-1, keepdim=True)
+            code_all = torch.where(t_parts == part_best, parts(code_all), 2**30).amin(dim=-1)
+            t_masked = part_best.squeeze(-1)
+        tile_best = t_masked.amin(dim=-1, keepdim=True)
         code = torch.where(t_masked == tile_best, code_all, 2**30).amin(dim=-1, keepdim=True)
         take = tile_best < best_t
         best_t = torch.where(take, tile_best, best_t)
@@ -375,7 +534,7 @@ def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
 
 
 def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matrix: bool,
-                 want_any: bool, mode: str, code_bounds=None, visits=None):
+                 want_any: bool, mode: str, code_bounds=None, split: int = 1, visits=None):
     """The gated sweep in tensor ops: every block walks its visit list as
     the gated kernel does (the same early-exit checks, the same per-box
     decision against the current carry, the same tiles_on skip and
@@ -396,7 +555,8 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matri
     n_done = torch.zeros(n_blocks, dtype=torch.int32, device=device)
     lanes = torch.arange(tile, device=device)
     step = max(1, _REF_PAIRS // (B * tile))
-    kw = dict(want_matrix=want_matrix, want_any=want_any, mode=mode, code_bounds=code_bounds)
+    kw = dict(want_matrix=want_matrix, want_any=want_any, mode=mode, code_bounds=code_bounds,
+              split=split)
     for j in range(int(n_visit.max()) if n_blocks else 0):
         act = (n_visit > j) & ~done
         if gate.window and j % gate.window == 0:
@@ -452,6 +612,7 @@ def sweep_rays_reference(
     code_bounds=None,
     gate: Optional[GateTables] = None,
     visits: Optional[torch.Tensor] = None,
+    split: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #1: :func:`_tile_step` over triangle
     tiles of width ``tile``, skipping tiles whose ``tiles_on`` flag is 0, in
@@ -461,12 +622,19 @@ def sweep_rays_reference(
     bound its memory. With ``gate`` (:func:`_gate_tables` of these rays;
     ``tiles_on`` padded to :func:`_gate_loop_bound`) each block of
     ``gate.ray_block`` rays walks its own visit list as the gated kernel
-    does. ``visits``, a (blocks,) int32 tensor, receives the number of
-    tiles each block ran (a test and measurement aid, as in the kernel).
+    does. ``visits``, a (blocks,) int32 tensor, receives the number
+    of tiles each block ran (a test and measurement aid, as in the kernel).
+    ``split`` (1, 2 or 4; the kernels are built at 1 and 4) partitions each
+    tile's triangles as the kernel's ``kSplit`` threads of a ray do and merges
+    the parts by the tile's tie rule (:func:`_tile_step`): the same bits at
+    every split.
     """
+    if split not in _SPLITS:
+        raise ValueError(f"split must be one of {_SPLITS} (got {split})")
     kw = dict(want_matrix=want_matrix, want_any=want_any,
               mode=_mask_mode(masks_baked, code_bounds),
-              code_bounds=None if code_bounds is None else _code_bounds(code_bounds))
+              code_bounds=None if code_bounds is None else _code_bounds(code_bounds),
+              split=split)
     if gate is not None:
         return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, visits=visits, **kw)
     n = rays.shape[1]
@@ -561,21 +729,30 @@ def _gated_tiles_on(tiles_on: torch.Tensor, gate: Optional[GateTables]) -> torch
     return torch.nn.functional.pad(tiles_on, (0, extra)).contiguous()
 
 
-def _check_visits(visits, n: int, device: torch.device) -> None:
+def _check_visits(visits, n: int, device: torch.device, timeline=None,
+                  gated: bool = False) -> None:
+    n_blocks = -(-n // RAY_SUBBLOCK)
     if visits is not None:
         if not isinstance(visits, torch.Tensor):
             raise TypeError("visits must be a torch.Tensor")
-        _check("visits", visits, torch.int32, (-(-n // RAY_SUBBLOCK),), device)
+        _check("visits", visits, torch.int32, (n_blocks,), device)
+    if timeline is not None:
+        if not isinstance(timeline, torch.Tensor):
+            raise TypeError("timeline must be a torch.Tensor")
+        if device.type != "cuda" or not gated:
+            raise ValueError("timeline is the gated kernels' output: it needs cuda tensors "
+                             "and a gated sweep")
+        _check("timeline", timeline, torch.int64, (n_blocks, 4), device)
 
 
-def _gate_args(gate: Optional[GateTables]) -> tuple:
-    """The C entries' gate arguments: table pointers and sizes (NULL
-    pointers for an ungated sweep)."""
+def _gate_args(gate: Optional[GateTables], split: int) -> tuple:
+    """The C entries' gate arguments, table pointers and sizes (NULL
+    pointers for an ungated sweep), and the triangle split after them."""
     if gate is None:
-        return (None, None, None, None, 0, 1, 0, 0)
+        return (None, None, None, None, 0, 1, 0, 0, split)
     return (gate.boxes.data_ptr(), gate.order.data_ptr(), gate.counts.data_ptr(),
-            gate.suffmin.data_ptr(), int(gate.boxes.shape[0]), gate.group, gate.window,
-            int(gate.suffmin.shape[1]))
+            gate.suffmin.data_ptr(), int(gate.boxes.shape[0]),
+            gate.group, gate.window, int(gate.suffmin.shape[1]), split)
 
 
 def sweep_rays(
@@ -590,6 +767,7 @@ def sweep_rays(
     code_bounds=None,
     accel=None,
     visits: Optional[torch.Tensor] = None,
+    timeline: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sweep all rays against all triangles; returns (codes (N,), any (N,)).
 
@@ -604,9 +782,13 @@ def sweep_rays(
     :func:`gate_prunes` (pair it with ``ops.trace.sort_rays_for_coherence``:
     gating is exact either way, but only coherent blocks make it fire).
     ``visits``, a (ceil(N / 256),) int32 tensor, receives the number of
-    tiles each block of 256 rays swept.
+    tiles each block of 256 rays swept; ``timeline``, a (ceil(N / 256), 4)
+    int64 tensor (gated sweeps on the card only), each block's start and end
+    on the card's nanosecond timer, its SM and the visit positions it walked.
 
-    CUDA tensors go to kernel #1 of ``csrc/sweep.cu`` (launched on the
+    CUDA tensors go to kernel #1 of ``csrc/sweep_kernels.cuh``, at the
+    triangle split :func:`sweep_split` gives for the launch's shape (launched
+    on the
     current stream, not synchronised; ``sweep_rays.launches`` counts the
     launches, ``sweep_rays.gated_launches`` the gated ones and
     ``sweep_rays.code_launches`` those in code mode); CPU tensors go to
@@ -617,17 +799,18 @@ def sweep_rays(
         sweep_mask=sweep_mask,
     )
     _check("sweep_mask", sweep_mask, torch.bool, (n_tri_pad,), device)
-    _check_visits(visits, n, device)
     mode = _mask_mode(masks_baked, code_bounds)
     emit_code, min_code = _code_bounds(code_bounds) if mode == "code" else (0.0, 0.0)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
+    _check_visits(visits, n, device, timeline, gate is not None)
     tiles_on = _gated_tiles_on(sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
+    split = sweep_split(-(-n // RAY_SUBBLOCK), gate is not None, _sm_count(device))
 
     if device.type == "cpu":
         return sweep_rays_reference(
             rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
             want_any=want_any, masks_baked=masks_baked, code_bounds=code_bounds,
-            gate=gate, visits=visits,
+            gate=gate, visits=visits, split=split,
         )
 
     from .build import load_library
@@ -643,9 +826,10 @@ def sweep_rays(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
             tiles_on.data_ptr(), tile,
             int(want_matrix), int(want_any), _MASK_MODES.index(mode), emit_code, min_code,
-            *_gate_args(gate),
+            *_gate_args(gate, split),
             codes.data_ptr(), any_hit.data_ptr(),
-            None if visits is None else visits.data_ptr(), stream,
+            None if visits is None else visits.data_ptr(),
+            None if timeline is None else timeline.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
@@ -682,6 +866,7 @@ def sweep_rays_scheduled_reference(
     want_any: bool,
     gate: Optional[GateTables] = None,
     visits: Optional[torch.Tensor] = None,
+    split: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #2: per emitter row named in
     ``emap``, its blocks of rays are swept by :func:`sweep_rays_reference`
@@ -689,7 +874,8 @@ def sweep_rays_scheduled_reference(
     of the gate tables) against the pack with that emitter's combined row
     written into the mask rows (``> 0`` any, ``> 1`` matrix) and that
     emitter's row of ``tiles_on``. A block whose row lies outside
-    ``0..E-1`` sweeps nothing (-1 and 0, no visit), as in the kernel."""
+    ``0..E-1`` sweeps nothing (-1 and 0, no visit), as in the kernel.
+    ``split`` is :func:`sweep_rays_reference`'s."""
     n = rays.shape[1]
     codes = torch.full((n,), -1, dtype=torch.int32, device=rays.device)
     any_out = torch.zeros((n,), dtype=torch.int32, device=rays.device)
@@ -708,7 +894,7 @@ def sweep_rays_scheduled_reference(
         c, a = sweep_rays_reference(
             rays.index_select(1, idx).contiguous(), pack, tiles_on[e], tile,
             want_matrix=want_matrix, want_any=want_any, masks_baked=False,
-            gate=None if gate is None else gate.blocks(blocks), visits=v,
+            gate=None if gate is None else gate.blocks(blocks), visits=v, split=split,
         )
         codes[idx] = c
         any_out[idx] = a
@@ -728,6 +914,7 @@ def sweep_rays_scheduled(
     want_any: bool,
     accel=None,
     visits: Optional[torch.Tensor] = None,
+    timeline: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-emitter sweep; returns (codes (N,), any (N,)).
 
@@ -736,10 +923,11 @@ def sweep_rays_scheduled(
     no eligible triangle for that emitter are skipped. Per ray the result
     equals :func:`sweep_rays` with that emitter's masks. A block whose row
     lies outside ``0..E-1`` sweeps nothing (codes -1, any 0): reading
-    ``emap`` on the host would wait for the card. ``accel`` and ``visits``
-    are :func:`sweep_rays`'.
+    ``emap`` on the host would wait for the card. ``accel``, ``visits`` and
+    ``timeline`` are :func:`sweep_rays`'.
 
-    CUDA tensors go to kernel #2 of ``csrc/sweep.cu`` (launched on the
+    CUDA tensors go to kernel #2 of ``csrc/sweep_kernels.cuh``, at the split
+    of :func:`sweep_rays` (launched on the
     current stream, not synchronised; ``sweep_rays_scheduled.launches``
     counts the launches, ``sweep_rays_scheduled.gated_launches`` the gated
     ones); CPU tensors go to :func:`sweep_rays_scheduled_reference`.
@@ -755,15 +943,17 @@ def sweep_rays_scheduled(
     if n % RAY_SUBBLOCK:
         raise ValueError(f"sweep_rays_scheduled takes a multiple of {RAY_SUBBLOCK} rays")
     _check("emap", emap, torch.int32, (n // RAY_SUBBLOCK,), device)
-    _check_visits(visits, n, device)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
+    _check_visits(visits, n, device, timeline, gate is not None)
     tiles_on = _gated_tiles_on(
         scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
+    split = sweep_split(n // RAY_SUBBLOCK, gate is not None, _sm_count(device))
 
     if device.type == "cpu":
         return sweep_rays_scheduled_reference(
             rays, tri_pack, masks, emap, tiles_on, tile,
             want_matrix=want_matrix, want_any=want_any, gate=gate, visits=visits,
+            split=split,
         )
 
     from .build import load_library
@@ -779,8 +969,9 @@ def sweep_rays_scheduled(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
             masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(),
             int(tiles_on.shape[1]), tile, int(want_matrix), int(want_any),
-            *_gate_args(gate), codes.data_ptr(), any_hit.data_ptr(),
-            None if visits is None else visits.data_ptr(), stream,
+            *_gate_args(gate, split), codes.data_ptr(), any_hit.data_ptr(),
+            None if visits is None else visits.data_ptr(),
+            None if timeline is None else timeline.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"scheduled sweep kernel launch failed: CUDA error {err}")
@@ -793,7 +984,8 @@ sweep_rays_scheduled.launches = 0
 sweep_rays_scheduled.gated_launches = 0
 
 __all__ = [
-    "GateTables", "build_tri_pack", "gate_group_size", "gate_prunes", "sweep_rays",
+    "GateTables", "build_tri_pack", "gate_cross", "gate_cross_reference", "gate_group_size",
+    "gate_prunes", "sweep_rays", "sweep_split",
     "sweep_rays_reference", "sweep_rays_scheduled", "sweep_rays_scheduled_reference",
     "scheduled_tiles_on", "sweep_tile_width", "RAY_SUBBLOCK", "TRI_ROWS",
 ]

@@ -7,8 +7,10 @@ ungated kernels (per-tile and two-level gate, ragged ray counts), the count
 kernel against its plain version and numpy.bincount, one device key per
 card, solves on the card against the CPU and across the two routes, kernel
 #1's code_bounds mode against its plain version and the baked kernel, a slim
-(pack-resident) solve against the full-mode one, and the FMA-peak probe
-against its plain version.
+(pack-resident) solve against the full-mode one, the FMA-peak probe
+against its plain version, the gate's crossing kernel against its plain
+version, and every triangle split the sweep kernels are built at against
+the one-thread-a-ray kernel and their plain ``split=`` versions.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -31,10 +33,12 @@ from raystrack_tpu_torch.ops.trace import (
     compute_masks, slim_operands, sort_rays_for_coherence,
 )
 from raystrack_tpu_torch.prepared import pack_scene
+import raystrack_tpu_torch.ops.trace_cuda as tcuda
 from raystrack_tpu_torch.ops.trace_cuda import (
-    _gate_tables, _gated_tiles_on, _resolve_gate_window, build_tri_pack, gate_group_size,
-    scheduled_tiles_on, sweep_rays, sweep_rays_reference, sweep_rays_scheduled,
-    sweep_rays_scheduled_reference, sweep_tile_width,
+    _gate_tables, _gated_tiles_on, _resolve_gate_window, build_tri_pack, gate_cross,
+    gate_cross_reference, gate_group_size, scheduled_tiles_on, sweep_rays,
+    sweep_rays_reference, sweep_rays_scheduled, sweep_rays_scheduled_reference,
+    sweep_tile_width,
 )
 
 pytestmark = pytest.mark.card
@@ -561,3 +565,202 @@ def test_fma_peak_kernel_against_plain_version(card):
     assert bool((out == out[0]).all())
     assert fma_peak(x, c, d, repeats=0).shape == (0, 32, 128)
     assert fma_peak.launches == before + 1
+
+
+@pytest.mark.parametrize(
+    "n,n_boxes,ray_block",
+    [(6000, 12, 256), (700, 300, 37), (5 * 256, 1, 256), (3000, 600, 1024)],
+    ids=["street", "ragged_small_blocks", "one_box", "wide_blocks"],
+)
+def test_gate_cross_kernel_equals_plain_version(street, n, n_boxes, ray_block):
+    """The crossing kernel == gate_cross_reference (torch.equal of crossed
+    and minnear): a ragged last block, blocks narrower and wider than the
+    kernel's 256-ray staging step, more boxes than one slice of 256, rays
+    with zero direction components and origins inside boxes; one launch."""
+    _, _, _, rays_all = street
+    dev = rays_all.device
+    rays = rays_all[:, :n].clone()
+    rays[3, ::5] = 0.0  # axis-parallel rays: the zero-direction branch
+    rays[4, ::7] = 0.0
+    rng = np.random.default_rng(n_boxes)
+    lo = np.stack([rng.uniform(-32, 30, n_boxes), rng.uniform(-1, 0.5, n_boxes),
+                   rng.uniform(-0.2, 1.2, n_boxes)], 1)
+    hi = lo + rng.uniform(0.05, 8.0, (n_boxes, 3))
+    boxes = torch.from_numpy(np.concatenate([lo, hi], 1).astype(np.float32)).to(dev)
+    before = gate_cross.launches
+    crossed, minnear = gate_cross(rays, boxes, ray_block)
+    torch.cuda.synchronize()
+    assert gate_cross.launches == before + 1
+    want_crossed, want_minnear = gate_cross_reference(rays, boxes, ray_block)
+    assert crossed.dtype == torch.bool and crossed.shape == (-(-n // ray_block), n_boxes)
+    assert torch.equal(crossed, want_crossed)
+    assert torch.equal(minnear, want_minnear)
+    assert bool(crossed.any())
+    if n_boxes > 1:
+        assert not bool(crossed.all())
+
+
+@pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
+                         ids=["per_tile", "two_level"])
+def test_gate_tables_through_the_kernel_equal_the_plain_tables(street, monkeypatch,
+                                                               max_tiles, tri_tile):
+    """Every field of the GateTables built through the crossing kernel ==
+    those built through the plain crossing, with one box per tile and with
+    groups."""
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", max_tiles)
+    sp, _, _, rays_all = street
+    rays = rays_all[:, :5000].contiguous()
+    tile = sweep_tile_width(sp.n_tri_pad, tri_tile)
+    n_tiles = sp.n_tri_pad // tile
+    window = _resolve_gate_window(gate_group_size(n_tiles))
+    got = _gate_tables(sp.accel, rays, n_tiles, tile, window=window)
+    monkeypatch.setattr(tcuda, "gate_cross", gate_cross_reference)
+    want = _gate_tables(sp.accel, rays, n_tiles, tile, window=window)
+    for name in ("boxes", "order", "counts", "suffmin"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.group, got.window) == (want.group, want.window)
+
+
+def _force(monkeypatch, split):
+    """Launch at ``split`` threads a ray, whatever the launch's shape."""
+    monkeypatch.setattr(tcuda, "sweep_split", lambda n_blocks, gated, n_sms: split)
+
+
+@pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
+                         ids=["per_tile", "two_level"])
+@pytest.mark.parametrize("mode", ["rows", "baked", "code"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_every_split_of_kernel_1_equals_one_thread_a_ray(street, monkeypatch, want_matrix,
+                                                         want_any, mode, max_tiles, tri_tile):
+    """Kernel #1 at every split it is built at == one thread a ray (codes,
+    flags, visits), in the three mask modes, at a ray count that is no
+    multiple of 256: ungated, the kernel at 4 against the kernel at 1 and its
+    plain ``split=4`` version; gated (built at 4 only), the kernel against
+    its plain version at ``split=4`` and at ``split=1``."""
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", max_tiles)
+    sp, scene, (m_any, m_mat), rays_all = street
+    dev = rays_all.device
+    prim = m_any if want_any else m_mat
+    if mode == "code":
+        zeros = torch.zeros_like(m_any)
+        pack = build_tri_pack(scene, zeros, zeros)
+        mask_kw = dict(code_bounds=(0.0, 2.0))
+    else:
+        pack = build_tri_pack(scene, m_any, m_mat, bake=prim if mode == "baked" else None)
+        mask_kw = dict(masks_baked=mode == "baked")
+    tile = sweep_tile_width(sp.n_tri_pad, tri_tile)
+    tiles_on = prim.reshape(-1, tile).any(dim=1).to(torch.int32)
+    rays = rays_all[:, :5900].contiguous()
+    nb = -(-5900 // 256)
+    kw = dict(want_matrix=want_matrix, want_any=want_any, **mask_kw)
+
+    def kernel(accel, split, fill):
+        with monkeypatch.context() as m:
+            _force(m, split)
+            v = torch.full((nb,), fill, dtype=torch.int32, device=dev)
+            before = sweep_rays.launches
+            out = sweep_rays(rays, pack, prim, tri_tile=tri_tile, accel=accel, visits=v, **kw)
+            torch.cuda.synchronize()
+            assert sweep_rays.launches == before + 1
+        return (*out, v)
+
+    assert tcuda.UNGATED_SPLITS == (1, 4) and tcuda.GATED_SPLIT == 4
+    want = kernel(None, 1, -1)
+    got = kernel(None, 4, -2)
+    vp = torch.full((nb,), -3, dtype=torch.int32, device=dev)
+    plain = sweep_rays_reference(rays, pack, tiles_on, tile, visits=vp, split=4, **kw)
+    for a, b, c in zip(got, want, (*plain, vp)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    got = kernel(sp.accel, 4, -2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])  # gated == ungated
+    for split in (1, 4):
+        vp = torch.full((nb,), -3, dtype=torch.int32, device=dev)
+        plain = _gated_plain(rays, pack, tiles_on, tile, sp.accel, vp, split=split, **kw)
+        for a, b in zip(got, (*plain, vp)):
+            assert torch.equal(a, b), split
+    if want_matrix:
+        assert int((want[0] >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_every_split_of_kernel_2_equals_one_thread_a_ray(street, monkeypatch, want_matrix,
+                                                         want_any, gated):
+    """Kernel #2 at every split it is built at (1 and 4 ungated, 4 gated) ==
+    its plain version at ``split=1`` and at its own split (codes, flags,
+    visits), with an all-zero emitter row and a row past E."""
+    sp, scene, (m_any, m_mat), rays_all = street
+    rays = rays_all[:, : 20 * 256].contiguous()
+    dev = rays.device
+    masks = torch.stack([m_mat.float() * 2, m_any.float() + m_mat.float(),
+                         torch.zeros_like(m_any, dtype=torch.float32)])
+    emap = torch.from_numpy(
+        np.random.default_rng(6).integers(0, 4, 20).astype(np.int32)).to(dev)
+    zeros = torch.zeros_like(m_any)
+    pack = build_tri_pack(scene, zeros, zeros)
+    kw = dict(tri_tile=128, want_matrix=want_matrix, want_any=want_any)
+    accel = sp.accel if gated else None
+    tile = sweep_tile_width(sp.n_tri_pad, 128)
+    n_tiles = sp.n_tri_pad // tile
+    gate = _gate_tables(sp.accel, rays, n_tiles, tile,
+                        window=_resolve_gate_window(gate_group_size(n_tiles))) if gated else None
+    tiles_on = _gated_tiles_on(
+        scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
+    for split in (tcuda.GATED_SPLIT,) if gated else tcuda.UNGATED_SPLITS:
+        with monkeypatch.context() as m:
+            _force(m, split)
+            v = torch.full((20,), -2, dtype=torch.int32, device=dev)
+            got = sweep_rays_scheduled(rays, pack, masks, emap, accel=accel, visits=v, **kw)
+            torch.cuda.synchronize()
+        for plain_split in {1, split}:
+            vp = torch.full((20,), -3, dtype=torch.int32, device=dev)
+            plain = sweep_rays_scheduled_reference(
+                rays, pack, masks, emap, tiles_on, tile, want_matrix=want_matrix,
+                want_any=want_any, gate=gate, visits=vp, split=plain_split)
+            assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]), split
+            assert torch.equal(v, vp), split
+
+
+def test_sweep_entries_take_the_split_and_the_timeline(street, monkeypatch):
+    """The C entries' new arguments reach the kernels: a gated launch fills
+    the timeline with one (start <= end, SM, positions >= visits) row per
+    block; an ungated sweep takes none; a split the library is not built at
+    (3, 8, and 2; 1 for a gated launch) is refused by either entry."""
+    sp, scene, (m_any, m_mat), rays_all = street
+    dev = rays_all.device
+    pack = build_tri_pack(scene, m_any, m_mat, bake=m_mat)
+    rays = rays_all[:, : 12 * 256].contiguous()
+    kw = dict(tri_tile=128, want_matrix=True, want_any=False, masks_baked=True)
+    visits = torch.zeros(12, dtype=torch.int32, device=dev)
+    timeline = torch.zeros((12, 4), dtype=torch.int64, device=dev)
+    sweep_rays(rays, pack, m_mat, visits=visits, timeline=timeline, accel=sp.accel, **kw)
+    torch.cuda.synchronize()
+    assert bool((timeline[:, 0] > 0).all()) and bool((timeline[:, 1] >= timeline[:, 0]).all())
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert bool(((timeline[:, 2] >= 0) & (timeline[:, 2] < n_sms)).all())
+    assert bool((timeline[:, 3] >= visits).all()) and int(visits.sum()) > 0
+    with pytest.raises(ValueError, match="gated"):
+        sweep_rays(rays, pack, m_mat, timeline=timeline, **kw)
+    masks = torch.stack([m_mat.float() * 2])
+    emap = torch.zeros(12, dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(m_any)
+    pack2 = build_tri_pack(scene, zeros, zeros)
+    timeline.zero_()
+    sweep_rays_scheduled(rays, pack2, masks, emap, tri_tile=128, want_matrix=True,
+                         want_any=False, accel=sp.accel, timeline=timeline)
+    torch.cuda.synchronize()
+    assert bool((timeline[:, 1] >= timeline[:, 0]).all()) and bool((timeline[:, 0] > 0).all())
+    for split, accel in ((3, None), (8, None), (2, None), (1, sp.accel), (2, sp.accel)):
+        with monkeypatch.context() as m:
+            _force(m, split)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                sweep_rays(rays, pack, m_mat, accel=accel, **kw)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                sweep_rays_scheduled(rays, pack2, masks, emap, tri_tile=128, want_matrix=True,
+                                     want_any=False, accel=accel)
