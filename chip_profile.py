@@ -114,11 +114,12 @@ def traced_solve(solve):
     return wall, kernels, stages
 
 
-def plain_count(codes, n_valid, n_surf):
+def plain_count(codes, n_valid, n_surf, *, valid=None):
     """``count_codes`` through its plain tensor version, on any device."""
     from raystrack_tpu_torch.ops.count_cuda import count_codes_reference
 
-    counts = count_codes_reference(codes, n_valid, n_surf).view(codes.shape[0], n_surf, 2)
+    counts = count_codes_reference(codes, n_valid, n_surf, valid).view(
+        codes.shape[0], n_surf, 2)
     return counts[:, :, 1], counts[:, :, 0]
 
 

@@ -12,17 +12,22 @@ on the card through seven scenes and checks each against its analytic or
 plain reference:
 
 1. card       name, power limit, torch and CUDA versions
-2. build      nvcc build time, register/spill report, FP32 operations per
+2. build      where the library was built, nvcc build time, register/spill
+              report, FP32 instructions (and all instructions) per
               ray-triangle pair counted from each sweep kernel's SASS (at 1
               and 4 threads a ray) and per ray-box pair of the gate's
-              crossing kernel
+              crossing kernel (at 1, 2 and 4 boxes a thread)
 3. kernel #1  single-emitter sweep vs its plain version on the soup (98,304
               triangles x 262,144 rays), 6 output/mask variants; the solve's
               variant also at 4 threads a ray (== 1, timed)
 4. kernel #2  multi-emitter sweep vs its plain version on the soup8 round
               (100,352 padded triangles x 262,144 rays of 8 emitters), 3
               variants, and vs kernel #1 per emitter on the same rays; then
-              the count kernel vs its plain version on the codes of phases 3-4
+              the count kernel vs its plain version and torch.bincount on
+              the codes of phases 3-4, measured as a kernel: device time a
+              launch (200 launches enqueued behind a spin kernel, by CUDA
+              events), the wrapper's host enqueue a call, the launch floor
+              (the library's empty kernel, the same way) beside the bound
 5. gate       on the 1M-triangle occluded city (bench.py's ``_city``), each
               kernel gated by the scene's AABBs, on the coherence-sorted
               rays of the first chunk (kernel #1, ground -> city) and round
@@ -36,8 +41,11 @@ plain reference:
               of (block, tile) visits the gate leaves, the gate-table build
               time; the gate's crossing kernel == its plain version on both
               inputs, with one box per tile and through the two-level gate,
-              and the tables built through it == those built through the
-              plain crossing, field by field; then kernel #1 in its
+              measured as the count kernel is, beside two bounds (its FP32
+              instructions and all its instructions a pair), and the tables
+              built through it == those built through the plain crossing,
+              field by field; the count kernel on the gated chunk's codes
+              and valid flags; then kernel #1 in its
               code_bounds mode (the slim pack-resident scene's) on the same
               chunk: == the baked kernel over the whole chunk and == its
               plain version on the leading blocks, gated and ungated, with
@@ -76,14 +84,17 @@ plain reference:
               way; from the two sizes, the bytes per padded triangle of
               each mode and per emitter row of a round, and the sizes at
               which full mode's peaks would pass half the card's memory
-              (the reckoning behind the default of SLIM_PACK_MIN_TRIS)
+              (the reckoning behind the default of SLIM_PACK_MIN_TRIS); the
+              crossing kernel on the 10M chunk's rays and 4,883 boxes
 15. kernel #3 the FP32 FMA-peak probe (1.374e11 dependent-chain FFMAs): best
               of 5 by CUDA events, FFMA/s and its share of the data sheet's
               33.5e12, the SM clock while it runs, every repeat against the
               plain version; the sweeps' share restated against it
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
-one comparison run. Each kernel's bound is the larger of its bytes over
+one comparison run; the count and crossing kernels' ``ms`` is their device
+time a launch, their wrapper's one call beside it. Each kernel's bound is
+the larger of its bytes over
 3.35 TB/s and its FP32 instructions (the SASS count per pair times the pair
 tests it runs) over 33.5e12 per second, one per lane per clock: half the
 H100 SXM data sheet's 67 TFLOP/s, which counts an FFMA as 2. The last three lines
@@ -309,6 +320,61 @@ def base_matrix(vf):
     return out
 
 
+LAUNCHES = 200  # launches a kernel's device time and its wrapper's enqueue are averaged over
+SPIN_NS = 50_000_000  # how long the spin kernel holds the card while they are enqueued
+
+
+def launch_times(raw, wrapper) -> dict:
+    """A small kernel measured as a kernel: ``raw()`` launches it through
+    its C entry on outputs allocated beforehand, ``wrapper()`` is one call
+    of its Python wrapper. Returns ms:
+
+    - ``device_ms``: CUDA events around LAUNCHES back-to-back raw launches,
+      over LAUNCHES; the launches are enqueued behind the library's spin
+      kernel, so they run back to back on the card whatever the host's rate;
+    - ``floor_ms``: the same loop over the library's empty kernel, the
+      launch floor on this card;
+    - ``call_device_ms``: the same loop over LAUNCHES wrapper calls: the
+      card's time a call, a zero-fill before the kernel included;
+    - ``enqueue_ms``: host ``perf_counter`` around LAUNCHES wrapper calls
+      with no synchronise inside, over LAUNCHES;
+    - ``raw_enqueue_ms``: the same for the raw launches, which must stay
+      well inside the spin for ``device_ms`` to hold no host time.
+    """
+    from raystrack_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = lambda: lib.raystrack_empty(stream)  # noqa: E731
+    out = {}
+    for key, fn in (("device_ms", raw), ("floor_ms", empty),
+                    ("call_device_ms", lambda: wrapper() and 0)):
+        check(fn() == 0, f"a launch was refused while timing {key}")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        check(lib.raystrack_spin(SPIN_NS, stream) == 0, "the spin kernel was refused")
+        start.record()
+        t0 = time.perf_counter()
+        errs = sum(fn() != 0 for _ in range(LAUNCHES))
+        enqueued = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        check(errs == 0, f"{errs} launches refused while timing {key}")
+        out[key] = start.elapsed_time(end) / LAUNCHES
+        if key == "device_ms":
+            out["raw_enqueue_ms"] = enqueued / LAUNCHES * 1e3
+        check(enqueued * 1e9 < 0.5 * SPIN_NS, f"the launches took longer to enqueue than "
+              f"half the spin: {key} would hold host time")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAUNCHES):
+        wrapper()
+    out["enqueue_ms"] = (time.perf_counter() - t0) / LAUNCHES * 1e3
+    torch.cuda.synchronize()
+    return out
+
+
 def cuda_ms(fn, reps: int = 3):
     """Best-of-``reps`` time of ``fn()`` in ms, by CUDA events, and the
     last call's result."""
@@ -344,16 +410,22 @@ def spread(times: list) -> str:
 
 
 KERNEL_SYMBOL = (r"(sweep_(?:sched_|code_)?kernel|count_codes_kernel|fma_peak_kernel|"
-                 r"gate_cross_kernel)((?:IL[bi]\d)?(?:EL[bi]\d)*)E")
+                 r"gate_cross_kernel)((?:IL[bi]\d+)?(?:EL[bi]\d+)*)E")
 
 
 def kernel_name(match) -> str:
     """A kernel instantiation's name from its mangled symbol (a match of
     KERNEL_SYMBOL): sweep_kernel as ``sweep_kernel<matrix,any,baked,gate>``,
     sweep_code_kernel and sweep_sched_kernel as ``<matrix,any,gate>``, with
-    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit)."""
+    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit);
+    gate_cross_kernel as ``gate_cross_kernel<K>``, K boxes a thread;
+    count_codes_kernel as ``<shared>``."""
     flags = re.findall(r"Lb(\d)", match.group(2))
-    split = re.findall(r"Li(\d)", match.group(2))
+    split = re.findall(r"Li(\d+)", match.group(2))
+    if match.group(1) == "gate_cross_kernel":
+        return f"gate_cross_kernel<{split[0]}>"
+    if match.group(1) == "count_codes_kernel":
+        return f"count_codes_kernel<{','.join(split + flags)}>"
     return (match.group(1) + (f"<{','.join(flags)}>" if flags else "")
             + (f"x{split[0]}" if split and split[0] != "1" else ""))
 
@@ -418,33 +490,37 @@ def sass_pair_ops(funcs: dict) -> dict:
     SASS: the FADD, FMUL, FFMA, FSETP, FSEL and FMNMX instructions of the
     innermost loop (the one holding the shared-memory loads), outside the
     branches that only pairs passing the barycentric test take, divided by
-    the pairs one pass of that loop tests (5 LDS.128 a triangle, 2 a ray of
-    the crossing kernel). Each takes one slot per lane, an FFMA too.
-    ``"sweep_kernel<1,0,1,0>"`` -> (instructions per pair, {opcode: count
-    per pair})."""
+    the pairs one pass of that loop tests (5 LDS.128 a triangle; one a ray
+    of the crossing kernel, which tests it against its K boxes). Each takes
+    one slot per lane, an FFMA too; so does every other instruction, and the
+    third count is all of them.
+    ``"sweep_kernel<1,0,1,0>"`` -> (FP32 instructions per pair, {opcode:
+    count per pair}, instructions per pair)."""
     out = {}
     for name, ins in funcs.items():
         if not name.startswith(("sweep_", "gate_cross")):
             continue
-        loads_per_pair = 2 if name.startswith("gate_cross") else 5
+        # pairs per LDS.128: K for the crossing kernel, 1/5 for the sweeps
+        per_load = int(name[-2]) if name.startswith("gate_cross") else 0.2
         _, lo, hi = min(sass_loops(ins, "LDS.128"))
         skips = []
         for a, o in ins:
             m = re.search(r"@!?P\d BRA (0x[0-9a-f]+)", o)
             if m and lo <= a < int(m.group(1), 16) <= hi:
                 skips.append((a, int(m.group(1), 16)))
-        counts, loads = {}, 0
+        counts, loads, total = {}, 0, 0
         for a, o in ins:
             if not lo <= a <= hi or any(s < a < e for s, e in skips):
                 continue
+            total += 1
             o = o.split(None, 1)[1] if o.startswith("@") else o
             opc = o.split()[0].split(".")[0]
             if opc in FP32_OPCODES:
                 counts[opc] = counts.get(opc, 0) + 1
             loads += o.startswith("LDS.128")
-        pairs = loads // loads_per_pair
+        pairs = round(loads * per_load)
         ops = sum(counts.values()) / pairs
-        out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())})
+        out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())}, total / pairs)
     return out
 
 
@@ -552,7 +628,7 @@ def phase_kernel(dev, soup_ps, seed: int):
     tiles_on = m_mat.reshape(-1, tile).any(dim=1)
     pairs = -(-n // 256) * 256 * int(tiles_on.sum()) * tile
     nbytes = sweep_bytes(rays, pack, tiles_on.to(torch.int32))
-    return (max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 2),
+    return (max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 2, None),
             pairs, nbytes)
 
 
@@ -623,61 +699,103 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     tiles_on = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)
     pairs = int(tiles_on[emap.long()].sum()) * RAY_SUBBLOCK * tile
     nbytes = sweep_bytes(rays, tri_pack, masks, emap, tiles_on)
-    return (max_err, ms, plain_ms, fronts, (codes_rows, valid, surf.shape[1] - 1), pairs,
+    return (max_err, ms, plain_ms, fronts, (codes_rows, valid, surf.shape[1] - 1, None), pairs,
             nbytes)
 
 
 def phase_count(cases):
-    """The count kernel vs its plain version on the codes the main path
-    gives it: name -> (codes (rows, L), n_valid (rows,), n_surf)."""
-    from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
+    """The count kernel vs its plain version and ``torch.bincount`` on the
+    codes the main path gives it: name -> (codes (rows, L), n_valid (rows,)
+    or None, n_surf, valid (rows, L) or None); the wrapper's one-call time
+    (``ms``) and the kernel measured as a kernel (:func:`launch_times`:
+    device time per launch, host enqueue per call, the launch floor) beside
+    the bytes bound."""
+    from raystrack_tpu_torch.ops.build import load_library
+    from raystrack_tpu_torch.ops.count_cuda import _work, count_codes, count_codes_reference
 
+    lib = load_library()
     max_err, times = 0, {}
-    for name, (codes, n_valid, n_surf) in cases.items():
+    for name, (codes, n_valid, n_surf, valid) in cases.items():
         args = (codes, n_valid, n_surf)
         rows, length = codes.shape
-        ms, (cf, cb) = cuda_ms(lambda: count_codes(*args))  # noqa: B023
-        plain_ms, counts = timed_once(lambda: count_codes_reference(*args))  # noqa: B023
+        n_codes = 2 * n_surf
+        ms, (cf, cb) = cuda_ms(lambda: count_codes(*args, valid=valid))  # noqa: B023
+        out = torch.full((rows, n_codes), -7, dtype=torch.int32, device=codes.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        work = (_work(codes.device, stream, rows * (n_codes + 1))
+                if length > lib.raystrack_count_per_cta() else None)
+        launch = launch_times(
+            lambda: lib.raystrack_count_codes(  # noqa: B023
+                codes.data_ptr(), ptr(n_valid), ptr(valid), rows, length,  # noqa: B023
+                n_codes, out.data_ptr(), ptr(work), stream),  # noqa: B023
+            lambda: count_codes(*args, valid=valid))  # noqa: B023
+        check(work is None or not bool(work.any()), f"count: the work buffer is not zero "
+                                                    f"after the launches on {name}")
+        plain_ms, counts = timed_once(lambda: count_codes_reference(*args, valid))  # noqa: B023
+        # one launch writes every count: the raw launches' outputs, which
+        # started as -7, are the counts
+        same = torch.equal(out, counts)
         counts = counts.view(rows, n_surf, 2)
-        same = torch.equal(cf, counts[:, :, 1]) and torch.equal(cb, counts[:, :, 0])
+        same = same and torch.equal(cf, counts[:, :, 1]) and torch.equal(cb, counts[:, :, 0])
         max_err = max(max_err, int((cf - counts[:, :, 1]).abs().max()),
                       int((cb - counts[:, :, 0]).abs().max()))
         # the library yardstick: one torch.bincount over (row, code) keys,
         # every ray that counts nowhere sent to one extra bin
-        n_codes = 2 * n_surf
         ray = torch.arange(length, device=codes.device)
-        ok = (ray[None, :] < n_valid[:, None]) & (codes >= 0) & (codes < n_codes)
+        ok = (codes >= 0) & (codes < n_codes)
+        if n_valid is not None:
+            ok &= ray[None, :] < n_valid[:, None]
+        if valid is not None:
+            ok &= valid
         keys = torch.where(ok, torch.arange(rows, device=codes.device)[:, None] * n_codes
                            + codes, rows * n_codes).reshape(-1)
-        lib_ms, lib = cuda_ms(lambda: torch.bincount(keys, minlength=rows * n_codes + 1))  # noqa: B023
-        same = same and torch.equal(lib[:-1].view(rows, n_surf, 2).to(torch.int32), counts)
-        nbytes = (codes.numel() + n_valid.numel() + counts.numel()) * 4
-        times[name] = (ms, plain_ms, lib_ms, bound(nbytes))
+        lib_ms, hist = cuda_ms(lambda: torch.bincount(keys, minlength=rows * n_codes + 1))  # noqa: B023
+        same = same and torch.equal(hist[:-1].view(rows, n_surf, 2).to(torch.int32), counts)
+        nbytes = (codes.numel() + counts.numel()) * 4 + sum(
+            t.numel() * t.element_size() for t in (n_valid, valid) if t is not None)
+        times[name] = (ms, plain_ms, lib_ms, bound(nbytes), launch)
         print(f"[count] {name}: {rows} rows x {length} codes, {n_surf} surfaces: "
-              f"equal={same} hits={int(cf.sum() + cb.sum())} kernel {ms:.3f} ms "
-              f"plain {plain_ms:.3f} ms torch.bincount {lib_ms:.3f} ms "
-              f"bound {times[name][3][0]:.4f} ms ({times[name][3][1]})")
+              f"equal={same} hits={int(cf.sum() + cb.sum())} wrapper (one call) {ms:.4f} ms, "
+              f"kernel {launch['device_ms']:.4f} ms a launch on the card "
+              f"({launch['call_device_ms']:.4f} ms a wrapper call), host enqueue "
+              f"{launch['enqueue_ms']:.4f} ms a call ({launch['raw_enqueue_ms']:.4f} ms a raw "
+              f"launch), launch floor {launch['floor_ms']:.4f} ms; plain {plain_ms:.3f} ms "
+              f"torch.bincount {lib_ms:.3f} ms bound {times[name][3][0]:.4f} ms "
+              f"({times[name][3][1]})")
         check(same, f"count kernel != plain version or bincount on {name}")
     return max_err, times
+
+
+@contextlib.contextmanager
+def recording(mod, name: str, calls: list, keep=lambda args, kwargs, out: (args, kwargs, out)):
+    """Inside the block ``mod.<name>`` appends ``keep(args, kwargs, result)``
+    of its first call to ``calls``. Wrap no function whose body reads its
+    own attributes (the wrappers' ``launches``): that body would find the
+    recorder under its name."""
+    real = getattr(mod, name)
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if not calls:
+            calls.append(keep(args, kwargs, out))
+        return out
+
+    setattr(mod, name, record)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
 
 
 def first_call(mod, name: str, fn):
     """Run ``fn()`` with ``mod.<name>`` wrapped, and return the (args,
     kwargs) of its first call."""
-    real, calls = getattr(mod, name), []
-
-    def record(*args, **kwargs):
-        if not calls:
-            calls.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    setattr(mod, name, record)
-    try:
+    calls = []
+    with recording(mod, name, calls):
         fn()
-    finally:
-        setattr(mod, name, real)
     check(bool(calls), f"the solve never called {name}")
-    return calls[0]
+    return calls[0][:2]
 
 
 @contextlib.contextmanager
@@ -898,16 +1016,15 @@ def phase_gate_cross(cases, accel, tile, n_tiles, pair_ops):
     one box per tile and, with ``GATE_MAX_TILES`` lowered to 64 for the call,
     through the two-level gate: ``crossed`` and ``minnear`` equal, and every
     field of the GateTables built through the kernel equal to those built
-    through the plain crossing; the kernel's time (best of 3) beside the
-    plain loop's, the whole table build both ways, and the bound from the
-    SASS count per (ray, box) pair."""
+    through the plain crossing; the kernel's times (:func:`cross_case`)
+    beside the plain loop's and its two bounds, and the whole table build
+    both ways."""
     from raystrack_tpu_torch import config
     from raystrack_tpu_torch.ops import trace_cuda
     from raystrack_tpu_torch.ops.trace_cuda import (
         _gate_tables, _resolve_gate_window, gate_cross, gate_cross_reference, gate_group_size,
     )
 
-    ops = pair_ops["gate_cross_kernel"][0]
     default, out = config.GATE_MAX_TILES, None
     try:
         for label, rays in cases.items():
@@ -917,14 +1034,13 @@ def phase_gate_cross(cases, accel, tile, n_tiles, pair_ops):
                 build = lambda: _gate_tables(  # noqa: E731
                     accel, rays, n_tiles, tile, window=_resolve_gate_window(group))  # noqa: B023
                 tables_ms, tables = cuda_ms(build)
-                boxes, n = tables.boxes, rays.shape[1]
+                boxes = tables.boxes
                 n_boxes = boxes.shape[0]
                 check(n_boxes == -(-n_tiles // group) and (group > 1) == (max_tiles == 64),
                       f"gate_cross {label}: {n_boxes} boxes in groups of {group}")
-                ms, (crossed, minnear) = cuda_ms(lambda: gate_cross(rays, boxes))  # noqa: B023
-                plain_ms, (cr, mr) = timed_once(lambda: gate_cross_reference(rays, boxes))  # noqa: B023
-                same = torch.equal(crossed, cr) and torch.equal(minnear, mr)
-                err = float((minnear - mr).abs().max())
+                got = cross_case(f"{label}, {n_boxes} boxes (groups of {group})", rays, boxes,
+                                 pair_ops)
+                err = got["max_abs_err"]
                 trace_cuda.gate_cross = gate_cross_reference
                 try:
                     plain_tables_ms, plain_tables = cuda_ms(build)
@@ -933,30 +1049,73 @@ def phase_gate_cross(cases, accel, tile, n_tiles, pair_ops):
                 fields = ("boxes", "order", "counts", "suffmin")
                 tables_same = all(torch.equal(getattr(tables, f), getattr(plain_tables, f))
                                   for f in fields)
-                nbytes = 6 * 4 * n + boxes.numel() * 4 + crossed.numel() + minnear.numel() * 4
-                bnd = bound(nbytes, float(n) * n_boxes, ops)
-                print(f"[cross] {label}, {n_boxes} boxes (groups of {group}): {n} rays = "
-                      f"{n * n_boxes:.4g} (ray, box) pairs; kernel == plain (crossed, "
-                      f"minnear): {same}; tables through the kernel == through the plain "
-                      f"crossing ({', '.join(fields)}): {tables_same}; {int(crossed.sum())} of "
-                      f"{crossed.numel()} (block, box) crossed; kernel {ms:.3f} ms (bound "
-                      f"{bnd[0]:.3f} ms, {bnd[1]}, {ops:g} FP32 instructions a pair), plain "
-                      f"loop {plain_ms:.3f} ms; the whole table build {tables_ms:.3f} ms, "
-                      f"with the plain crossing {plain_tables_ms:.3f} ms")
-                check(same, f"gate_cross != its plain version on {label}, {n_boxes} boxes")
+                print(f"[cross] {label}, {n_boxes} boxes: tables through the kernel == "
+                      f"through the plain crossing ({', '.join(fields)}): {tables_same}; the "
+                      f"whole table build {tables_ms:.3f} ms, with the plain crossing "
+                      f"{plain_tables_ms:.3f} ms")
                 check(tables_same, f"gate tables through the kernel != through the plain "
                                    f"crossing on {label}, {n_boxes} boxes")
+                got.update(tables_ms=tables_ms, tables_plain_crossing_ms=plain_tables_ms)
                 if out is None:  # the city chunk, one box per tile: the entry's shape
-                    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                               max_abs_err=err, tables_ms=tables_ms,
-                               tables_plain_crossing_ms=plain_tables_ms, times={})
+                    out = dict(got, times={})
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                out["times"][f"{label}, {n_boxes} boxes"] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], tables_ms=tables_ms,
-                    tables_plain_crossing_ms=plain_tables_ms)
+                out["times"][f"{label}, {n_boxes} boxes"] = {
+                    k: v for k, v in got.items() if k != "max_abs_err"}
     finally:
         config.GATE_MAX_TILES = default
     return out
+
+
+def cross_boxes_a_thread(n_boxes: int) -> int:
+    """K, the boxes a thread of the crossing kernel takes at ``n_boxes``
+    (csrc/gate.cu raystrack_gate_cross): the instantiation it launches."""
+    return 1 if n_boxes <= 256 else 2 if n_boxes <= 512 else 4
+
+
+def cross_case(label, rays, boxes, pair_ops) -> dict:
+    """The crossing kernel on one input: == its plain version (crossed,
+    minnear), the wrapper's one-call time (``ms``), :func:`launch_times`
+    of the raw entry, the plain loop's time and two bounds: the FP32
+    instructions per pair over the card's FP32 peak (``bound_ms``) and
+    every instruction of the pair loop (``bound_all_ms``), each over the
+    issue rate of one instruction per lane per clock."""
+    from raystrack_tpu_torch.ops.build import load_library
+    from raystrack_tpu_torch.ops.trace_cuda import gate_cross, gate_cross_reference
+
+    fp32, _, every = pair_ops[f"gate_cross_kernel<{cross_boxes_a_thread(boxes.shape[0])}>"]
+    n, n_boxes = rays.shape[1], boxes.shape[0]
+    ms, (crossed, minnear) = cuda_ms(lambda: gate_cross(rays, boxes))
+    plain_ms, (cr, mr) = timed_once(lambda: gate_cross_reference(rays, boxes))
+    same = torch.equal(crossed, cr) and torch.equal(minnear, mr)
+    err = float((minnear - mr).abs().max())
+    lib = load_library()
+    c_out, m_out = torch.empty_like(crossed), torch.empty_like(minnear)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = launch_times(
+        lambda: lib.raystrack_gate_cross(rays.data_ptr(), n, boxes.data_ptr(), n_boxes, RAY_SUB,
+                                         c_out.data_ptr(), m_out.data_ptr(), stream),
+        lambda: gate_cross(rays, boxes))
+    check(torch.equal(c_out, crossed) and torch.equal(m_out, minnear),
+          f"gate_cross: the raw launches' tables != the wrapper's on {label}")
+    nbytes = 6 * 4 * n + boxes.numel() * 4 + crossed.numel() + minnear.numel() * 4
+    bnd = bound(nbytes, float(n) * n_boxes, fp32)
+    bnd_all = bound(nbytes, float(n) * n_boxes, every)
+    dev_ms = launch["device_ms"]
+    nearer = "FP32" if abs(dev_ms - bnd[0]) < abs(dev_ms - bnd_all[0]) else "every-instruction"
+    print(f"[cross] {label}: {n} rays = {n * n_boxes:.4g} (ray, box) pairs; kernel == plain "
+          f"(crossed, minnear): {same}; {int(crossed.sum())} of {crossed.numel()} (block, box) "
+          f"crossed; wrapper (one call) {ms:.4f} ms, kernel {dev_ms:.4f} ms a launch on the "
+          f"card ({launch['call_device_ms']:.4f} ms a wrapper call), host enqueue "
+          f"{launch['enqueue_ms']:.4f} ms a call, launch floor {launch['floor_ms']:.4f} ms; "
+          f"bounds: FP32 {bnd[0]:.4f} ms ({fp32:g} a pair, {bnd[0] / dev_ms:.1%} of it reached), "
+          f"every instruction {bnd_all[0]:.4f} ms "
+          f"({every:g} a pair, {bnd_all[0] / dev_ms:.1%}); nearer the {nearer} bound; plain "
+          f"loop {plain_ms:.3f} ms")
+    check(same, f"gate_cross != its plain version on {label}")
+    return dict(ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                bound_all_ms=bnd_all[0], max_abs_err=err, wrapper_ms=ms,
+                enqueue_ms=launch["enqueue_ms"], floor_ms=launch["floor_ms"],
+                call_device_ms=launch["call_device_ms"])
 
 
 def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
@@ -1183,7 +1342,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "validation"))
     import raystrack_tpu_torch.solver as solver_mod
     from raystrack_tpu_torch import PreparedSolver, config, view_factor, view_factor_matrix
-    from raystrack_tpu_torch.ops import build
+    from raystrack_tpu_torch.ops import build, trace_cuda
     from raystrack_tpu_torch.ops import trace as trace_mod
     from raystrack_tpu_torch.ops.count_cuda import count_codes
     from raystrack_tpu_torch.ops.trace_cuda import (
@@ -1206,14 +1365,15 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     b = build.build()
-    print(f"[build] {b.path.name}: nvcc {b.seconds:.2f} s, "
+    print(f"[build] {b.path}: nvcc {b.seconds:.2f} s, "
           f"build() {time.perf_counter() - t0:.2f} s")
     for line in ptxas_lines(b.log):
         print(f"[build] {line}")
     sass = sass_functions(b.path)
     pair_ops = sass_pair_ops(sass)
-    for name, (ops, counts) in pair_ops.items():
-        print(f"[build] {name}: {ops:g} FP32 instructions per pair in the SASS ({counts})")
+    for name, (ops, counts, total) in pair_ops.items():
+        print(f"[build] {name}: {ops:g} FP32 instructions per pair in the SASS ({counts}); "
+              f"{total:g} instructions in all")
 
     # 3. kernel #1 vs plain
     cases = solve_cases()
@@ -1250,7 +1410,7 @@ def main() -> int:
           f"({bound2[1]}); the kernel at {bound2[0] / ms2:.1%} of it")
     max_err3, count_times = phase_count({"soup chunk": soup_codes, "soup8 round": soup8_codes})
     del soup_codes, soup8_codes
-    ms3, plain_ms3, lib_ms3, bound3 = count_times["soup8 round"]
+    ms3, plain_ms3, lib_ms3, bound3, launch3 = count_times["soup8 round"]
 
     # 5. the gate on the 1M-triangle city: the first chunk of ground -> city
     # and the first round of the ten-plate matrix, captured from their
@@ -1261,8 +1421,10 @@ def main() -> int:
     city_ps, city_plates_ps = PreparedSolver(city), PreparedSolver(city_plates)
     solver_mod._log = lambda line: None
     t0 = time.perf_counter()
-    chunk_call = first_call(trace_mod, "chunk_body", lambda: view_factor(
-        city[0], city[1], vf_params, prepared=city_ps))
+    count_calls = []  # the gated chunks' counts: rows of 262,144 codes and their valid flags
+    with recording(trace_mod, "count_codes", count_calls):
+        chunk_call = first_call(trace_mod, "chunk_body", lambda: view_factor(
+            city[0], city[1], vf_params, prepared=city_ps))
     t1 = time.perf_counter()
     round_call = first_call(trace_mod, "scheduled_trace", lambda: view_factor_matrix(
         city_plates, city_plates_params, prepared=city_plates_ps))
@@ -1271,6 +1433,14 @@ def main() -> int:
           f"with set-up: ground -> city {t1 - t0:.2f} s, ten-plate matrix "
           f"{time.perf_counter() - t1:.2f} s")
     city_k1, city_k2, cross = phase_city_kernels(chunk_call, round_call, pair_ops)
+    (codes, n_valid, n_surf), kw, _ = count_calls[0]
+    check(n_valid is None and kw.get("valid") is not None,
+          "the gated chunk's count did not take the valid flags")
+    gated_err, gated_times = phase_count({"city chunk, gated": (codes, None, n_surf,
+                                                                kw["valid"])})
+    max_err3 = max(max_err3, gated_err)
+    count_times.update(gated_times)
+    del count_calls, codes, kw
     # kernel #1's code mode, with the operands of the same solve on a slim pack
     city_slim_ps = PreparedSolver(city)
     solver_mod._log = lambda line: None
@@ -1570,12 +1740,17 @@ def main() -> int:
     del resident[:]
     big = city_meshes(BIG_CITY_TRIS)
     foot = {}
+    cross_big_call = []  # the 10M chunk's (rays, boxes), for the crossing kernel's 10M case
     for size, meshes in (("1M", city), ("10M", big)):
         for slim in (False, True):
-            foot[size, slim] = mode_footprint(
-                f"city {size}, view_factor ground -> city", meshes,
-                lambda ps: view_factor(meshes[0], meshes[1], vf_params,  # noqa: B023
-                                       prepared=ps), slim, dev)
+            # kept on the host: the footprint is measured around it
+            with recording(trace_cuda, "_gate_tables",
+                           cross_big_call if (size, slim) == ("10M", False) else [],
+                           keep=lambda args, kwargs, out: (args[1].cpu(), out.boxes.cpu())):
+                foot[size, slim] = mode_footprint(
+                    f"city {size}, view_factor ground -> city", meshes,
+                    lambda ps: view_factor(meshes[0], meshes[1], vf_params,  # noqa: B023
+                                           prepared=ps), slim, dev)
         same = foot[size, True]["result"] == foot[size, False]["result"]
         print(f"[slim] city {size}: slim dict == full dict: {same}; {foot[size, True]['result']}")
         check(same, f"city {size}: slim dict != full dict")
@@ -1603,6 +1778,15 @@ def main() -> int:
     del big, boxes, meshes
     launches_big2 = (sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
     count_big, cross_big = count_codes.launches, gate_cross.launches
+    # the crossing kernel at the 10M city's shape: one chunk's rays over 4,883 boxes
+    check(bool(cross_big_call), "the 10M city's solve built no gate tables")
+    rays10, boxes10 = (t.to(dev) for t in cross_big_call[0])
+    check(boxes10.shape[0] == 4883, f"the 10M chunk has {boxes10.shape[0]} gate boxes")
+    cross10 = cross_case(f"city 10M chunk, {boxes10.shape[0]} boxes", rays10, boxes10, pair_ops)
+    cross["max_abs_err"] = max(cross["max_abs_err"], cross10["max_abs_err"])
+    cross["times"][f"city 10M chunk, {boxes10.shape[0]} boxes"] = {
+        k: v for k, v in cross10.items() if k != "max_abs_err"}
+    del cross_big_call, rays10, boxes10
     check(cross_big == launches_big[1] + launches_big2[1],
           f"phase 14: {cross_big} crossing-kernel launches for {launches_big[1]} gated chunks "
           f"and {launches_big2[1]} gated rounds")
@@ -1683,11 +1867,17 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace.py:865",
             "launches": launches3 + count_city + count_slim + count_big,
             "max_abs_err": max_err3,
-            "ms": ms3,
+            # the kernel's device time a launch; the wrapper's one call beside it
+            "ms": launch3["device_ms"],
             "plain_ms": plain_ms3,
             "bound_ms": bound3[0],
             "bound_by": bound3[1],
             "library_ms": lib_ms3,
+            "wrapper_ms": ms3,
+            "enqueue_ms": launch3["enqueue_ms"],
+            "floor_ms": launch3["floor_ms"],
+            "times": {k: dict(wrapper_ms=v[0], plain_ms=v[1], library_ms=v[2], bound_ms=v[3][0],
+                              **v[4]) for k, v in count_times.items()},
         }, peak_entry, {
             "name": "gate_cross",
             "route": "cuda",
@@ -1695,16 +1885,11 @@ def main() -> int:
             # not a Pallas kernel: the XLA slab-and-reduce of the gate's tables
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
             "launches": cross_city + cross_slim + cross_big,
-            "max_abs_err": cross["max_abs_err"],
-            "ms": cross["ms"],
-            "plain_ms": cross["plain_ms"],
-            "bound_ms": cross["bound_ms"],
-            "bound_by": cross["bound_by"],
+            # the kernel's device time a launch on the city chunk; the rest
+            # of cross_case's numbers beside it
+            **cross,
             # no one PyTorch call reduces a ray-box slab test over blocks of rays
             "library_ms": None,
-            "tables_ms": cross["tables_ms"],
-            "tables_plain_crossing_ms": cross["tables_plain_crossing_ms"],
-            "times": cross["times"],
         }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

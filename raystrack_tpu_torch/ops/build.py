@@ -1,7 +1,10 @@
 """Build the package's CUDA sources with nvcc at first use and load them.
 
 ``csrc/*.cu`` compile into one shared library with a plain C interface,
-written to ``build/raystrack_tpu_torch/`` beside the package and named by a
+written to ``build/raystrack_tpu_torch/`` beside the package (the
+repository root in a source checkout) or, where that cannot be written (an
+installed package), to ``raystrack_tpu_torch/`` under ``$XDG_CACHE_HOME``
+or ``~/.cache`` (:func:`build_dir`), and named by a
 hash of the sources (the ``*.cuh`` headers they share included), the flags
 and the compiler, so a changed source rebuilds and an unchanged one is
 reused. Each source compiles in its own
@@ -22,7 +25,7 @@ from functools import lru_cache
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raystrack_tpu_torch"
+SOURCE_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raystrack_tpu_torch"
 
 # --fmad=false and no fast math: every product and sum rounds on its own
 # and division is IEEE, so the kernels agree bitwise with PyTorch's eager
@@ -35,7 +38,7 @@ NVCC_FLAGS = (
 
 @dataclass(frozen=True)
 class Build:
-    path: Path  # the shared library
+    path: Path  # the shared library, in build_dir()
     seconds: float  # compile time; 0.0 when an earlier build was reused
     log: str  # nvcc's output ("" when reused)
 
@@ -58,6 +61,26 @@ def find_nvcc() -> str:
     )
 
 
+def _writable(path: Path) -> bool:
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return False
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """Where the library is built: ``SOURCE_BUILD_DIR`` when it can be
+    written, else ``raystrack_tpu_torch`` under ``$XDG_CACHE_HOME`` or
+    ``~/.cache``; raises when neither can."""
+    cache = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache")
+    for path in (SOURCE_BUILD_DIR, cache / "raystrack_tpu_torch"):
+        if _writable(path):
+            return path
+    raise RuntimeError(f"cannot write a build directory ({SOURCE_BUILD_DIR} or "
+                       f"{cache / 'raystrack_tpu_torch'})")
+
+
 def build() -> Build:
     """Compile ``csrc/*.cu`` unless a library of the same sources and flags
     exists; raises with nvcc's output when a compile or the link fails."""
@@ -69,12 +92,12 @@ def build() -> Build:
     for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     digest.update("\0".join((nvcc,) + NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libraystrack_kernels-{digest.hexdigest()[:16]}.so"
+    out_dir = build_dir()
+    lib = out_dir / f"libraystrack_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return Build(lib, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+    objs = [out_dir / f"{src.stem}-{tag}.o" for src in sources]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     procs = [
@@ -96,7 +119,7 @@ def build() -> Build:
     if failed:
         tmp.unlink(missing_ok=True)
         cmd, rc = failed[0]
-        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc failed ({rc}) building in {out_dir}: {' '.join(cmd)}\n{log}")
     os.replace(tmp, lib)
     return Build(lib, seconds, log)
 
@@ -122,11 +145,14 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.raystrack_count_codes
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,  # codes, n_valid
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, n_valid, valid
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, length, n_codes
-        ctypes.c_void_p, ctypes.c_void_p,  # counts, stream
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # counts, work, stream
     ]
     fn.restype = ctypes.c_int
+    for name in ("raystrack_count_smem_bins", "raystrack_count_per_cta"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     fn = lib.raystrack_fma_peak
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # x, c, d
@@ -145,6 +171,10 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
     ]
     fn.restype = ctypes.c_int
+    lib.raystrack_empty.argtypes = [ctypes.c_void_p]  # stream
+    lib.raystrack_empty.restype = ctypes.c_int
+    lib.raystrack_spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p]  # ns, stream
+    lib.raystrack_spin.restype = ctypes.c_int
     fn = lib.raystrack_gate_cross
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # rays, n
@@ -155,4 +185,4 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["Build", "build", "find_nvcc", "load_library"]
+__all__ = ["Build", "build", "build_dir", "find_nvcc", "load_library"]

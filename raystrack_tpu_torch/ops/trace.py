@@ -237,11 +237,10 @@ def slim_operands(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_sid: in
 
 def _count_rows(codes: torch.Tensor, valid, n_valid: torch.Tensor, n_surf: int):
     """count_codes of (rows, L) codes. After a coherence sort the real rays
-    no longer lead their rows: ``valid`` (rows, L) then masks the codes of
-    padded rays to -1 and every ray of a row is counted."""
+    no longer lead their rows: the kernel then takes ``valid`` (rows, L) in
+    place of ``n_valid`` and counts the rays it marks."""
     if valid is not None:
-        codes = torch.where(valid, codes, -1)
-        n_valid = torch.full_like(n_valid, codes.shape[1])
+        return count_codes(codes, None, n_surf, valid=valid)
     return count_codes(codes, n_valid, n_surf)
 
 

@@ -86,5 +86,9 @@ class MatrixParams:
     def as_dict(self) -> Dict[str, Any]:
         return asdict(self)
 
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "MatrixParams":
+        return cls(**data)
+
 
 __all__ = ["MatrixParams"]

@@ -697,7 +697,13 @@ class LazyEmitterPack:
 
 def _device_key(device) -> str:
     """One cache key per physical device: an index-less CUDA device means
-    the current card, so ``"cuda"`` and ``"cuda:0"`` share their packs."""
+    the current card, so ``"cuda"`` and ``"cuda:0"`` share their packs, and
+    ``None`` means the device a solve with ``device="auto"`` takes (the
+    current card, else the CPU), keyed as that device named outright."""
+    if device is None:
+        from .solver import _resolve_device
+
+        device = _resolve_device("auto")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -765,12 +771,20 @@ class PreparedSolver:
 
     # -- device state -------------------------------------------------------
 
+    def clear_device_cache(self) -> None:
+        """Drop every device pack and flat table this solver holds; the host
+        state stays."""
+        self._scene_pack_cache.clear()
+        self._emitter_pack_cache.clear()
+        self._flat_cache.clear()
+
     def get_scene_pack(
-        self, *, use_accel: bool = False, device: torch.device
+        self, *, use_accel: bool = False, device=None
     ) -> ScenePack:
-        """The scene pack on ``device``, one per physical device and accel
-        flag however the device is spelled: at slim sizes a second copy of
-        the resident pack would not fit beside the first."""
+        """The scene pack on ``device`` (None: the default device, see
+        ``_device_key``), one per physical device and accel flag however the
+        device is spelled: at slim sizes a second copy of the resident pack
+        would not fit beside the first."""
         dev = _device_key(device)
         key = (dev, bool(use_accel))
         if key not in self._scene_pack_cache:
@@ -787,7 +801,7 @@ class PreparedSolver:
         rays: int,
         flip_faces: bool,
         align: int = RAY_BLOCK,
-        device: torch.device,
+        device=None,
     ):
         """Scene-wide flat ray tables and stacked geometry for scheduled solves.
 
@@ -861,7 +875,7 @@ class PreparedSolver:
         rays: int,
         flip_faces: bool,
         align: int = RAY_BLOCK,
-        device: torch.device,
+        device=None,
     ) -> EmitterPack:
         dev = _device_key(device)
         key = (

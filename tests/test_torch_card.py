@@ -248,34 +248,82 @@ def test_scheduled_solve_on_card_equals_per_emitter_solve(card, monkeypatch):
     assert got == want
 
 
+@pytest.mark.parametrize("with_valid", [False, True], ids=["n_valid", "valid_flags"])
 @pytest.mark.parametrize(
     "rows,length,n_surf",
-    [(6, 2048, 11), (4, 65536, 2), (3, 5000, 7000)],
-    ids=["canyon_rows", "soup_chunk", "global_bins"],
+    [(6, 2048, 11), (4, 65536, 2), (3, 5000, 7000), (2, 262144, 3), (1, 2049, 5),
+     (2, 4096, 6145), (3, 0, 4)],
+    ids=["canyon_rows", "soup_chunk", "global_bins", "chunk_rows", "two_ctas",
+         "global_6145", "empty_rows"],
 )
-def test_count_kernel_equals_plain_version(card, rows, length, n_surf):
+def test_count_kernel_equals_plain_version(card, rows, length, n_surf, with_valid):
     """The count kernel equal (torch.equal) to its plain version and to
     numpy.bincount per row, with misses, out-of-range codes, padded rays
-    and rows whose n_valid is 0 or past the row; ``global_bins`` has more
-    codes than the kernel's shared-memory bins and counts in global memory."""
-    rng = np.random.default_rng(rows + n_surf)
+    and rows whose n_valid is 0 or past the row, and with the valid flags of
+    a sorted row (rays that count anywhere in it). Rows of 2,048 codes are
+    one CTA's, longer rows several CTAs' that meet in the work buffer
+    (``two_ctas``: one code past one CTA; ``chunk_rows``: a chunk's 262,144,
+    128 CTAs); ``global_bins`` and
+    ``global_6145`` have more codes than the kernel's shared bins and count
+    in global memory; ``empty_rows`` has no rays, and its counts are zero."""
+    rng = np.random.default_rng(rows + n_surf + length)
     codes = rng.integers(-3, 2 * n_surf + 3, size=(rows, length)).astype(np.int32)
     codes[:, : length // 2] = rng.integers(0, 4, size=(rows, length // 2))  # hot bins
     n_valid = rng.integers(0, length + 1, size=rows).astype(np.int32)
     n_valid[0], n_valid[-1] = 0, length + 7
+    valid = rng.uniform(size=(rows, length)) < 0.7
     c_t, v_t = torch.from_numpy(codes).to(card), torch.from_numpy(n_valid).to(card)
+    f_t = torch.from_numpy(valid).to(card) if with_valid else None
     before = count_codes.launches
-    counts_f, counts_b = count_codes(c_t, v_t, n_surf)
+    counts_f, counts_b = count_codes(c_t, v_t, n_surf, valid=f_t)
     torch.cuda.synchronize()
     assert count_codes.launches == before + 1
-    plain = count_codes_reference(c_t, v_t, n_surf).view(rows, n_surf, 2)
+    plain = count_codes_reference(c_t, v_t, n_surf, f_t).view(rows, n_surf, 2)
     assert torch.equal(counts_f, plain[:, :, 1]) and torch.equal(counts_b, plain[:, :, 0])
     for r in range(rows):
-        row = codes[r, : max(0, min(int(n_valid[r]), length))]
+        keep = np.arange(length) < n_valid[r]
+        if with_valid:
+            keep &= valid[r]
+        row = codes[r][keep]
         want = np.bincount(row[(row >= 0) & (row < 2 * n_surf)],
                            minlength=2 * n_surf).reshape(n_surf, 2)
         np.testing.assert_array_equal(counts_b[r].cpu().numpy(), want[:, 0])
         np.testing.assert_array_equal(counts_f[r].cpu().numpy(), want[:, 1])
+    if with_valid:  # the sorted rows' route: flags alone, every ray of a row in play
+        counts_f, counts_b = count_codes(c_t, None, n_surf, valid=f_t)
+        plain = count_codes_reference(c_t, None, n_surf, f_t).view(rows, n_surf, 2)
+        assert torch.equal(counts_f, plain[:, :, 1]) and torch.equal(counts_b, plain[:, :, 0])
+
+
+@pytest.mark.parametrize("rows,length,n_surf", [(128, 2048, 11), (4, 65536, 2), (2, 0, 3)],
+                         ids=["round", "long_rows", "empty_rows"])
+def test_count_kernel_writes_every_count(card, rows, length, n_surf):
+    """With at most the shared bins' codes the kernel writes every count,
+    zeros included, in one launch: the C entry on a buffer filled with -7
+    leaves the plain version's counts, three times over, and leaves its work
+    buffer (rows longer than one CTA's) zero, as it found it."""
+    from raystrack_tpu_torch.ops.build import load_library
+
+    rng = np.random.default_rng(rows)
+    codes = torch.from_numpy(rng.integers(-1, 2 * n_surf, size=(rows, length)).astype(
+        np.int32)).to(card)
+    lib = load_library()
+    assert 2 * n_surf <= lib.raystrack_count_smem_bins()
+    work = torch.zeros(rows * (2 * n_surf + 1), dtype=torch.int32, device=card)
+    needs_work = length > lib.raystrack_count_per_cta()
+    for _ in range(3):
+        out = torch.full((rows, 2 * n_surf), -7, dtype=torch.int32, device=card)
+        err = lib.raystrack_count_codes(codes.data_ptr(), None, None, rows, length, 2 * n_surf,
+                                        out.data_ptr(), work.data_ptr() if needs_work else None,
+                                        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(out, count_codes_reference(codes, None, n_surf))
+        assert not bool(work.any())
+    if needs_work:  # a long row refuses to run without its work buffer
+        assert lib.raystrack_count_codes(codes.data_ptr(), None, None, rows, length,
+                                         2 * n_surf, out.data_ptr(), None,
+                                         torch.cuda.current_stream().cuda_stream) != 0
 
 
 def _street_scene(n_tri=1100, seed=0, hx=32.0, hy=1.0, top=1.6):
@@ -568,24 +616,43 @@ def test_fma_peak_kernel_against_plain_version(card):
 
 
 @pytest.mark.parametrize(
-    "n,n_boxes,ray_block",
-    [(6000, 12, 256), (700, 300, 37), (5 * 256, 1, 256), (3000, 600, 1024)],
-    ids=["street", "ragged_small_blocks", "one_box", "wide_blocks"],
+    "n,n_boxes,ray_block,kind",
+    [(6000, 12, 256, "street"), (700, 300, 37, "street"), (5 * 256, 1, 256, "street"),
+     (3000, 600, 1024, "street"), (3000, 600, 2500, "street"), (6000, 489, 256, "octants"),
+     (4096, 513, 256, "octants"), (2 * 256, 4883, 256, "octants"),
+     (3000, 700, 256, "nan_inf"), (900, 100, 300, "nan_inf")],
+    ids=["street", "ragged_small_blocks", "one_box", "wide_blocks", "staged_in_parts",
+         "octants_489", "octants_513", "octants_4883", "nan_inf", "nan_inf_small"],
 )
-def test_gate_cross_kernel_equals_plain_version(street, n, n_boxes, ray_block):
+def test_gate_cross_kernel_equals_plain_version(street, n, n_boxes, ray_block, kind):
     """The crossing kernel == gate_cross_reference (torch.equal of crossed
     and minnear): a ragged last block, blocks narrower and wider than the
-    kernel's 256-ray staging step, more boxes than one slice of 256, rays
-    with zero direction components and origins inside boxes; one launch."""
+    256 threads and than the 1,024 rays staged at once, one box, box counts
+    that are no multiple of a slice (K * 256 at K = 1, 2, 4 boxes a thread,
+    the 10M city's 4,883 boxes), rays of every octant mixed with zero
+    direction components, origins inside boxes, and in ``nan_inf`` NaN and
+    infinite origins, infinite or huge directions and unbounded boxes; one
+    launch."""
     _, _, _, rays_all = street
     dev = rays_all.device
-    rays = rays_all[:, :n].clone()
-    rays[3, ::5] = 0.0  # axis-parallel rays: the zero-direction branch
-    rays[4, ::7] = 0.0
-    rng = np.random.default_rng(n_boxes)
+    rays = rays_all[:, np.arange(n) % rays_all.shape[1]].clone()
+    rng = np.random.default_rng(n_boxes + n)
+    if kind != "street":  # direction signs drawn per ray and component
+        sign = torch.from_numpy(np.where(rng.uniform(size=(3, n)) < 0.5, -1.0, 1.0)).to(dev)
+        rays[3:6] *= sign.to(torch.float32)
+    rays[3, ::5] = 0.0  # axis-parallel rays: the zero-direction group
+    rays[4, ::7] = -0.0
     lo = np.stack([rng.uniform(-32, 30, n_boxes), rng.uniform(-1, 0.5, n_boxes),
                    rng.uniform(-0.2, 1.2, n_boxes)], 1)
     hi = lo + rng.uniform(0.05, 8.0, (n_boxes, 3))
+    if kind == "nan_inf":
+        for k, value in enumerate((float("nan"), float("inf"), float("-inf"))):
+            rays[k % 3, k::13] = value
+            rays[0:3, k + 6::41] = value
+        rays[3, 4::37] = float("inf")
+        rays[5, 5::43] = 3e38
+        lo[::17, 0], hi[::19, 2] = -np.inf, np.inf
+    rays = rays.contiguous()
     boxes = torch.from_numpy(np.concatenate([lo, hi], 1).astype(np.float32)).to(dev)
     before = gate_cross.launches
     crossed, minnear = gate_cross(rays, boxes, ray_block)

@@ -150,6 +150,101 @@ def test_gate_cross_reference_equals_block_union(monkeypatch, max_tiles, ray_blo
     assert gate_cross.launches == 0
 
 
+def _octant_cross_numpy(rays, lo, hi, ray_block):
+    """The crossing kernel's own evaluation order (csrc/gate.cu) in NumPy
+    float32: per block, the rays grouped by octant (the signs d >= 0) and a
+    group of rays with a component |d| <= 1e-30; per octant the boxes' near
+    and far planes picked once, then the bare (plane - o) * inv chain with
+    NaN-propagating max and min and the margins; the zero group through the
+    general slab test."""
+    f = np.float32
+    n = rays.shape[1]
+    n_blocks = -(-n // ray_block)
+    crossed = np.zeros((n_blocks, lo.shape[0]), bool)
+    minnear = np.full((n_blocks, lo.shape[0]), f(INF), np.float32)
+    for b in range(n_blocks):
+        ob = rays[0:3, b * ray_block:(b + 1) * ray_block].T
+        db = rays[3:6, b * ray_block:(b + 1) * ray_block].T
+        zero = (np.abs(db) <= f(1e-30)).any(axis=1)
+        octant = ((db >= f(0.0)) * np.array([1, 2, 4])).sum(axis=1)
+        for g in range(9):
+            sel = zero if g == 8 else ~zero & (octant == g)
+            if not sel.any():
+                continue
+            if g == 8:
+                c, m = _block_union_numpy(rays[:, b * ray_block:(b + 1) * ray_block][:, sel],
+                                          lo, hi, int(sel.sum()))
+                hit_any, near_min = c[0], m[0]
+            else:
+                inv = (f(1.0) / db[sel])[:, None, :]
+                pos = np.array([(g >> c) & 1 for c in range(3)], bool)
+                np_ = np.where(pos, lo, hi)[None]  # (1, boxes, 3) near planes
+                fp_ = np.where(pos, hi, lo)[None]
+                o = ob[sel][:, None, :]
+                t_n, t_f = (np_ - o) * inv, (fp_ - o) * inv
+                near = np.maximum(np.maximum(t_n[..., 0], t_n[..., 1]), t_n[..., 2])
+                far = np.minimum(np.minimum(t_f[..., 0], t_f[..., 1]), t_f[..., 2])
+                near_c = near - (np.abs(near) * f(1e-4) + f(1e-6))
+                far_c = far + (np.abs(far) * f(1e-4) + f(1e-6))
+                hit = (far_c >= near_c) & (far_c > f(1e-6))
+                hit_any = hit.any(axis=0)
+                near_min = np.where(hit, near_c, f(INF)).min(axis=0)
+            crossed[b] |= hit_any
+            minnear[b] = np.minimum(minnear[b], near_min)
+    return crossed, minnear
+
+
+def _octant_rays(n, lo, hi, seed, special=False):
+    """(9, n) rays of all eight octants (direction signs drawn per ray),
+    every ninth with a zero component; with ``special`` some origins are NaN,
+    +inf or -inf in one or all components, some directions inf or huge."""
+    rays = _hard_rays(n, lo, hi, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    d = np.abs(rays[3:6]) + np.float32(0.05)
+    d *= np.where(rng.uniform(size=(3, n)) < 0.5, np.float32(-1.0), np.float32(1.0))
+    d[rng.integers(0, 3, n // 9), np.arange(0, n, 9)[: n // 9]] = 0.0
+    rays[3:6] = d
+    if special:
+        f = np.float32
+        for k, value in enumerate((np.nan, np.inf, -np.inf)):
+            rays[k % 3, k::13] = f(value)  # one origin component
+            rays[0:3, k + 6::41] = f(value)  # all three
+        rays[3, 4::37] = f(np.inf)
+        rays[5, 5::43] = f(3e38)
+    with np.errstate(invalid="ignore", over="ignore"):
+        rays[6:9] = np.cross(rays[0:3].T, rays[3:6].T).T
+    return rays
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["octants", "nan_inf"])
+@pytest.mark.parametrize("ray_block", [256, 100], ids=["block256", "block100"])
+def test_gate_cross_reference_equals_the_kernels_octant_order(special, ray_block):
+    """On rays of all eight octants mixed with zero-component rays (and, in
+    ``nan_inf``, NaN and infinite origins and infinite or huge directions),
+    ``gate_cross_reference`` equals bitwise both the NumPy ``block_union``
+    and the crossing kernel's evaluation order: octant groups, planes
+    picked once per octant, NaN-propagating max/min."""
+    lo, hi = _boxes(seed=3)
+    n = 4 * 256 + 61
+    rays = _octant_rays(n, lo, hi, seed=7, special=special)
+    lo[2, 0], hi[4, 1] = -np.inf, np.inf  # boxes unbounded along one axis
+    d = rays[3:6].T
+    zero = (np.abs(d) <= 1e-30).any(axis=1)
+    octants = ((d >= 0) * np.array([1, 2, 4])).sum(axis=1)[~zero]
+    assert set(octants) == set(range(8)) and 0 < zero.sum() < n
+    boxes = torch.from_numpy(np.concatenate([lo, hi], axis=1))
+    with np.errstate(invalid="ignore", over="ignore"):
+        want_c, want_m = _block_union_numpy(rays, lo, hi, ray_block)
+        oct_c, oct_m = _octant_cross_numpy(rays, lo, hi, ray_block)
+    crossed, minnear = gate_cross_reference(torch.from_numpy(rays), boxes, ray_block)
+    np.testing.assert_array_equal(crossed.numpy(), want_c)
+    np.testing.assert_array_equal(minnear.numpy(), want_m)
+    np.testing.assert_array_equal(oct_c, want_c)
+    np.testing.assert_array_equal(oct_m, want_m)
+    assert 0 < int(crossed.sum()) < crossed.numel()
+    assert not np.isnan(minnear.numpy()).any()
+
+
 @pytest.mark.parametrize("max_tiles", [8192, 6], ids=["per_tile", "two_level"])
 def test_gate_tables_from_the_crossing_equal_jax(monkeypatch, max_tiles):
     """``gate_cross_reference`` put through the rest of ``_gate_tables``
