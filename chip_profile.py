@@ -44,7 +44,11 @@ of a visit that ends at the block's vote. ``--splits`` instead times
 ungated kernel #1 on the leading blocks of the soup chunk at each triangle
 split it is built at, from 32 blocks to the chunk's 1,024, and the whole
 chunk in every output and mask variant: the measurement behind
-``trace_cuda.sweep_split``. ``--force-split N`` solves with every ungated
+``trace_cuda.sweep_split``. ``--variants`` instead times kernels #1
+(the soup chunk) and #2 (the soup8 round) in their matrix, any-only and
+matrix + any variants at the wrapper's split, beside each one's FP32 SASS
+instructions a pair: the sky's and the workflow's launches, and the A/B of
+a kernel change when run in two trees in one call. ``--force-split N`` solves with every ungated
 sweep at N threads a ray instead of the rule's choice. The card's name
 and power limit come first; one JSON line ends each solve's block.
 Imports nothing of JAX.
@@ -158,10 +162,10 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
 
     real_stage = {fn: getattr(*owner(fn)) for names in STAGES.values() for fn in names}
 
-    def counted(self, chunk):
+    def counted(self, chunk, **kwargs):
         chunks.append(chunk)
         chunk_rows.append(chunk * self.em_pack.n_rays_pad // RAY_BLOCK)
-        return dispatch(self, chunk)
+        return dispatch(self, chunk, **kwargs)
 
     def counted_round(*args, **kwargs):
         rounds.append(int(args[10].shape[0]))  # schedule rows
@@ -407,6 +411,74 @@ def profile_splits(card: str) -> None:
     print(json.dumps({"splits": rows, "variants": variants, "card": card, "sms": n_sms}))
 
 
+def profile_variants(card: str) -> None:
+    """Kernels #1 (the soup chunk, baked pack) and #2 (the soup8 round) in
+    their matrix, any-only and matrix + any variants at the split the
+    wrapper picks: best of 5 by CUDA events after a warm launch, beside
+    each instantiation's FP32 SASS instructions per pair. The sky launches
+    the any-only variants, the workflow the matrix + any ones; run in two
+    trees in one call, it compares two builds of the kernels."""
+    import chip_smoke
+    import raystrack_tpu_torch.solver as solver_mod
+    from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import build, trace_cuda
+    from raystrack_tpu_torch.ops import trace as trace_mod
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ops = chip_smoke.sass_pair_ops(chip_smoke.sass_functions(build.build().path))
+    cases = chip_smoke.solve_cases()
+    soup, params = cases["soup"]
+    scene, rays, m_any, m_mat, tpad, _ = chip_smoke.soup_inputs(
+        dev, PreparedSolver(soup), params.seed)
+    soup8, params8 = cases["soup8"]
+    captured = []
+    real_round = trace_mod.scheduled_trace
+    trace_mod.scheduled_trace = lambda *a, **k: captured.append((a, k)) or real_round(*a, **k)
+    solver_mod._log = lambda line: None
+    try:
+        view_factor_matrix(soup8, params8, prepared=PreparedSolver(soup8))
+    finally:
+        trace_mod.scheduled_trace = real_round
+    (scene8, pack8, tables, geom, cp, surf, emit, mins, once, plane, schedule, sel), kw = \
+        captured[0]
+    masks = trace_mod.combined_masks(scene8, surf, emit, mins, plane)
+    o, d, _ = trace_mod.scheduled_rays(tables, geom, cp, once, schedule, sel,
+                                       sched_block=kw["sched_block"])
+    rays8 = trace_mod.ray_pack(o, d)
+    emap = schedule[:, 0].repeat_interleave(kw["sched_block"] // chip_smoke.RAY_SUB)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for wm, wa in ((True, False), (False, True), (True, True)):
+        name = "matrix+any" if wm and wa else "matrix" if wm else "any"
+        flags = "".join(str(int(f)) for f in (wm, wa))
+        prim = m_any if wa else m_mat
+        pack = trace_cuda.build_tri_pack(scene, m_any, m_mat, bake=prim)
+        split1 = trace_cuda.sweep_split(rays.shape[1] // chip_smoke.RAY_SUB, False, n_sms)
+        split2 = trace_cuda.sweep_split(rays8.shape[1] // chip_smoke.RAY_SUB, False, n_sms)
+        sym1 = f"sweep_kernel<{','.join(flags)},1,0>" + (f"x{split1}" if split1 > 1 else "")
+        sym2 = f"sweep_sched_kernel<{','.join(flags)},0>" + (f"x{split2}" if split2 > 1 else "")
+        for label, sym, launch in (
+            ("kernel #1, soup chunk", sym1, lambda: trace_cuda.sweep_rays(  # noqa: E731
+                rays, pack, prim, tri_tile=PALLAS_TRI_TILE, want_matrix=wm,  # noqa: B023
+                want_any=wa, masks_baked=True)),  # noqa: B023
+            ("kernel #2, soup8 round", sym2, lambda: trace_cuda.sweep_rays_scheduled(  # noqa: E731
+                rays8, pack8, masks, emap, tri_tile=PALLAS_TRI_TILE, want_matrix=wm,  # noqa: B023
+                want_any=wa)),  # noqa: B023
+        ):
+            launch()
+            ms, (codes, any_hit) = chip_smoke.cuda_ms(launch, reps=5)
+            rows[f"{label}, {name}"] = dict(
+                ms=ms, instantiation=sym, fp32_per_pair=ops[sym][0],
+                all_per_pair=ops[sym][2], hits=int((codes >= 0).sum()),
+                blocked=int(any_hit.sum()))
+            print(f"[variants] {label}, {name} ({sym}): {ms:.3f} ms best of 5; "
+                  f"{ops[sym][0]:g} FP32 SASS instructions a pair ({ops[sym][2]:g} in all); "
+                  f"hits {rows[f'{label}, {name}']['hits']}, any-hits "
+                  f"{rows[f'{label}, {name}']['blocked']}")
+    print(json.dumps({"variants": rows, "card": card}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("solves", nargs="*",
@@ -418,6 +490,7 @@ def main() -> int:
     parser.add_argument("--slim", action="store_true")
     parser.add_argument("--timeline", action="store_true")
     parser.add_argument("--splits", action="store_true")
+    parser.add_argument("--variants", action="store_true")
     parser.add_argument("--force-split", type=int, default=None)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
@@ -449,6 +522,9 @@ def main() -> int:
         return 0
     if args.splits:
         profile_splits(card)
+        return 0
+    if args.variants:
+        profile_variants(card)
         return 0
     cases = chip_smoke.solve_cases()
     if "city10m" in args.solves:  # built only on request: 10M triangles on the host

@@ -8,8 +8,10 @@ Run from the repository root on a machine with one NVIDIA card:
 It builds the CUDA kernels from ``raystrack_tpu_torch/csrc`` (nvcc, at first
 use), checks each bitwise against its plain PyTorch version at the shapes
 the main path gives it, then drives ``view_factor_matrix`` / ``view_factor``
-on the card through seven scenes and checks each against its analytic or
-plain reference:
+on the card through seven scenes, and ``view_factor_to_tregenza_sky``,
+``view_factor_matrix_and_sky`` and ``view_factor_outside_workflow`` through
+the canyon and the 1M-triangle city, and checks each against its analytic
+or plain reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      where the library was built, nvcc build time, register/spill
@@ -22,9 +24,14 @@ plain reference:
               variant also at 4 threads a ray (== 1, timed)
 4. kernel #2  multi-emitter sweep vs its plain version on the soup8 round
               (100,352 padded triangles x 262,144 rays of 8 emitters), 3
-              variants, and vs kernel #1 per emitter on the same rays; then
-              the count kernel vs its plain version and torch.bincount on
-              the codes of phases 3-4, measured as a kernel: device time a
+              variants, and vs kernel #1 per emitter on the same rays; the
+              sky's any-only and the workflow's matrix + any variants of
+              both kernels (on the m_any-baked pack their solves build) beside
+              their bounds, the FP32 SASS instructions a pair of the
+              instantiation that launched; then the count kernel vs its plain
+              version and torch.bincount on the codes of phases 3-4 and on
+              a sky round's ids (the soup8 round's missed rays: 145 patch
+              bins and 1 upward bin), measured as a kernel: device time a
               launch (200 launches enqueued behind a spin kernel, by CUDA
               events), the wrapper's host enqueue a call, the launch floor
               (the library's empty kernel, the same way) beside the bound
@@ -90,6 +97,24 @@ plain reference:
               of 5 by CUDA events, FFMA/s and its share of the data sheet's
               33.5e12, the SM clock while it runs, every repeat against the
               plain version; the sweeps' share restated against it
+16. canyon sky validation 07's settings, merged and discrete: the road's Sky
+              within 1e-4 of 1 - sum(analytic F(road -> panels)), its 145
+              patches within 1e-4 of the merged value, the scheduled dict
+              == the per-emitter dict; warm walls of 5 on each route
+17. workflow  the canyon's outside workflow, shareable parameters: scene +
+              sky + Rest == 1 within 1e-9 per emitter; the shared-ray dicts
+              == the separate matrix and sky solves', and == its per-emitter
+              route's; warm walls of 3
+18. city sky  ``city_plates`` (ten plates and the 1M city's boxes, all
+              emitting), 6 iterations: merged and discrete sky gated ==
+              ``bvh="off"`` == the per-emitter route == slim (threshold
+              forced to 1, restored after); the shared-ray workflow gated ==
+              off == per-emitter; per solve one launch of kernel #2 a round
+              and of kernel #1 a chunk in the variant the dispatch asked for
+              (any-only, matrix + any), gated exactly when bvh is on, one
+              crossing-kernel launch a gated dispatch, one count launch an
+              output, all on card tensors; warm walls, rays/s, peak device
+              memory
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -347,8 +372,11 @@ def launch_times(raw, wrapper) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     empty = lambda: lib.raystrack_empty(stream)  # noqa: E731
     out = {}
-    for key, fn in (("device_ms", raw), ("floor_ms", empty),
-                    ("call_device_ms", lambda: wrapper() and 0)):
+    def call() -> int:
+        wrapper()
+        return 0
+
+    for key, fn in (("device_ms", raw), ("floor_ms", empty), ("call_device_ms", call)):
         check(fn() == 0, f"a launch was refused while timing {key}")
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -607,7 +635,8 @@ def phase_kernel(dev, soup_ps, seed: int):
             max_err = max(max_err, err)
             name = f"{'matrix+any' if wm and wa else 'matrix' if wm else 'any'}," \
                    f"{'baked' if baked else 'rows'}"
-            rows[(wm, wa, baked)] = (ms, plain_ms)
+            rows[(wm, wa, baked)] = (ms, plain_ms, n * int(tiles_on.sum()) * tile,
+                                     sweep_bytes(rays, pack, tiles_on))
             print(f"[kernel1] {name:17s} equal={same} hits={int((c >= 0).sum())} "
                   f"blocked={int(a.sum())} kernel {ms:.3f} ms "
                   f"({n * tpad / ms * 1e3:.4g} tests/s) plain {plain_ms:.3f} ms "
@@ -617,7 +646,7 @@ def phase_kernel(dev, soup_ps, seed: int):
     codes = sweep_rays(rays, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True,
                        want_any=False, masks_baked=True)[0]
     front = int((codes == 3).sum())
-    ms, plain_ms = rows[(True, False, True)]  # the solve's own variant
+    ms, plain_ms = rows[(True, False, True)][:2]  # the matrix solve's own variant
     with forced_launch(split=4):  # the same launch at the under-filled launches' split
         ms4, (c4, _) = cuda_ms(lambda: sweep_rays(
             rays, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
@@ -628,8 +657,11 @@ def phase_kernel(dev, soup_ps, seed: int):
     tiles_on = m_mat.reshape(-1, tile).any(dim=1)
     pairs = -(-n // 256) * 256 * int(tiles_on.sum()) * tile
     nbytes = sweep_bytes(rays, pack, tiles_on.to(torch.int32))
-    return (max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 2, None),
-            pairs, nbytes)
+    # the sky's and the workflow's variants: the m_any-baked pack they sweep
+    sky = {name: rows[key] for name, key in (("any", (False, True, True)),
+                                             ("matrix+any", (True, True, True)))}
+    return (max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 4, None),
+            pairs, nbytes, sky)
 
 
 def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
@@ -669,7 +701,8 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
         same = torch.equal(c, cr) and torch.equal(a, ar)
         max_err = max(max_err, int((c - cr).abs().max()), int((a - ar).abs().max()))
         name = "matrix+any" if wm and wa else "matrix" if wm else "any"
-        times[(wm, wa)] = (ms, plain_ms)
+        times[(wm, wa)] = (ms, plain_ms, int(tiles_on[emap.long()].sum()) * RAY_SUBBLOCK * tile,
+                           sweep_bytes(rays, tri_pack, masks, emap, tiles_on))
         outs[(wm, wa)] = (c, a)
         print(f"[kernel2] {name:10s} equal={same} hits={int((c >= 0).sum())} "
               f"blocked={int(a.sum())} kernel {ms:.3f} ms "
@@ -694,69 +727,73 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     ray_ok = torch.arange(sb, device=valid.device)[None, :] < valid[:, None]
     c = torch.where(ray_ok.reshape(-1), outs[(True, False)][0], -1)
     fronts = {int(sel[e]): int((c[ray_row == e] == 2 * 8 + 1).sum()) for e in range(n_emit)}
-    ms, plain_ms = times[(True, False)]  # the solve's own variant
+    ms, plain_ms, pairs, nbytes = times[(True, False)]  # the matrix solve's own variant
     codes_rows = outs[(True, False)][0].view(schedule.shape[0], sb)
-    tiles_on = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)
-    pairs = int(tiles_on[emap.long()].sum()) * RAY_SUBBLOCK * tile
-    nbytes = sweep_bytes(rays, tri_pack, masks, emap, tiles_on)
-    return (max_err, ms, plain_ms, fronts, (codes_rows, valid, surf.shape[1] - 1, None), pairs,
-            nbytes)
+    # the ids a sky round of these rays counts: a missed ray's Tregenza
+    # patch (145 bins) or its upward flag (1 bin)
+    miss = (outs[(False, True)][1] == 0).view(schedule.shape[0], sb)
+    patch = T.tregenza_patch_id(d[..., 0], d[..., 1], d[..., 2])
+    sky_ids = {
+        "sky_bins": torch.where(miss, patch, -1).contiguous(),
+        "upward": torch.where(miss & (d[..., 2] > 0.0), 0, -1).to(torch.int32).contiguous(),
+    }
+    sky = {name: times[key] for name, key in (("any", (False, True)),
+                                              ("matrix+any", (True, True)))}
+    return (max_err, ms, plain_ms, fronts, (codes_rows, valid, 2 * (surf.shape[1] - 1), None),
+            pairs, nbytes, sky, (sky_ids, valid))
 
 
 def phase_count(cases):
     """The count kernel vs its plain version and ``torch.bincount`` on the
-    codes the main path gives it: name -> (codes (rows, L), n_valid (rows,)
-    or None, n_surf, valid (rows, L) or None); the wrapper's one-call time
-    (``ms``) and the kernel measured as a kernel (:func:`launch_times`:
-    device time per launch, host enqueue per call, the launch floor) beside
-    the bytes bound."""
+    ids the main path gives it: name -> (ids (rows, L), n_valid (rows,) or
+    None, n_bins, valid (rows, L) or None): hit codes in 2 * n_surf bins,
+    a sky round's patch ids in 145, its upward flags in 1. The wrapper's
+    one-call time (``ms``) and the kernel measured as a kernel
+    (:func:`launch_times`: device time per launch, host enqueue per call,
+    the launch floor) beside the bytes bound."""
     from raystrack_tpu_torch.ops.build import load_library
-    from raystrack_tpu_torch.ops.count_cuda import _work, count_codes, count_codes_reference
+    from raystrack_tpu_torch.ops.count_cuda import _work, count_bins, count_bins_reference
 
     lib = load_library()
     max_err, times = 0, {}
-    for name, (codes, n_valid, n_surf, valid) in cases.items():
-        args = (codes, n_valid, n_surf)
-        rows, length = codes.shape
-        n_codes = 2 * n_surf
-        ms, (cf, cb) = cuda_ms(lambda: count_codes(*args, valid=valid))  # noqa: B023
-        out = torch.full((rows, n_codes), -7, dtype=torch.int32, device=codes.device)
+    for name, (ids, n_valid, n_bins, valid) in cases.items():
+        args = (ids, n_bins, n_valid)
+        rows, length = ids.shape
+        ms, got = cuda_ms(lambda: count_bins(*args, valid=valid))  # noqa: B023
+        out = torch.full((rows, n_bins), -7, dtype=torch.int32, device=ids.device)
         stream = torch.cuda.current_stream().cuda_stream
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        work = (_work(codes.device, stream, rows * (n_codes + 1))
+        work = (_work(ids.device, stream, rows * (n_bins + 1))
                 if length > lib.raystrack_count_per_cta() else None)
         launch = launch_times(
             lambda: lib.raystrack_count_codes(  # noqa: B023
-                codes.data_ptr(), ptr(n_valid), ptr(valid), rows, length,  # noqa: B023
-                n_codes, out.data_ptr(), ptr(work), stream),  # noqa: B023
-            lambda: count_codes(*args, valid=valid))  # noqa: B023
+                ids.data_ptr(), ptr(n_valid), ptr(valid), rows, length,  # noqa: B023
+                n_bins, out.data_ptr(), ptr(work), stream),  # noqa: B023
+            lambda: count_bins(*args, valid=valid))  # noqa: B023
         check(work is None or not bool(work.any()), f"count: the work buffer is not zero "
                                                     f"after the launches on {name}")
-        plain_ms, counts = timed_once(lambda: count_codes_reference(*args, valid))  # noqa: B023
+        plain_ms, counts = timed_once(lambda: count_bins_reference(*args, valid))  # noqa: B023
         # one launch writes every count: the raw launches' outputs, which
         # started as -7, are the counts
-        same = torch.equal(out, counts)
-        counts = counts.view(rows, n_surf, 2)
-        same = same and torch.equal(cf, counts[:, :, 1]) and torch.equal(cb, counts[:, :, 0])
-        max_err = max(max_err, int((cf - counts[:, :, 1]).abs().max()),
-                      int((cb - counts[:, :, 0]).abs().max()))
-        # the library yardstick: one torch.bincount over (row, code) keys,
-        # every ray that counts nowhere sent to one extra bin
-        ray = torch.arange(length, device=codes.device)
-        ok = (codes >= 0) & (codes < n_codes)
+        same = torch.equal(out, counts) and torch.equal(got, counts)
+        max_err = max(max_err, int((got - counts).abs().max()))
+        # the library yardstick: one torch.bincount over (row, id) keys,
+        # every entry that counts nowhere sent to one extra bin
+        pos = torch.arange(length, device=ids.device)
+        ok = (ids >= 0) & (ids < n_bins)
         if n_valid is not None:
-            ok &= ray[None, :] < n_valid[:, None]
+            ok &= pos[None, :] < n_valid[:, None]
         if valid is not None:
             ok &= valid
-        keys = torch.where(ok, torch.arange(rows, device=codes.device)[:, None] * n_codes
-                           + codes, rows * n_codes).reshape(-1)
-        lib_ms, hist = cuda_ms(lambda: torch.bincount(keys, minlength=rows * n_codes + 1))  # noqa: B023
-        same = same and torch.equal(hist[:-1].view(rows, n_surf, 2).to(torch.int32), counts)
-        nbytes = (codes.numel() + counts.numel()) * 4 + sum(
+        keys = torch.where(ok, torch.arange(rows, device=ids.device)[:, None] * n_bins
+                           + ids, rows * n_bins).reshape(-1)
+        lib_ms, hist = cuda_ms(lambda: torch.bincount(keys, minlength=rows * n_bins + 1))  # noqa: B023
+        same = same and torch.equal(hist[:-1].view(rows, n_bins).to(torch.int32), counts)
+        nbytes = (ids.numel() + counts.numel()) * 4 + sum(
             t.numel() * t.element_size() for t in (n_valid, valid) if t is not None)
         times[name] = (ms, plain_ms, lib_ms, bound(nbytes), launch)
-        print(f"[count] {name}: {rows} rows x {length} codes, {n_surf} surfaces: "
-              f"equal={same} hits={int(cf.sum() + cb.sum())} wrapper (one call) {ms:.4f} ms, "
+        print(f"[count] {name}: {rows} rows x {length} ids, {n_bins} bins: "
+              f"equal={same} counted={int(counts.sum())} wrapper (one call) {ms:.4f} ms, "
               f"kernel {launch['device_ms']:.4f} ms a launch on the card "
               f"({launch['call_device_ms']:.4f} ms a wrapper call), host enqueue "
               f"{launch['enqueue_ms']:.4f} ms a call ({launch['raw_enqueue_ms']:.4f} ms a raw "
@@ -1333,6 +1370,266 @@ def phase_fma_peak(dev, sass, sweep_rates):
             "tolerance": 2 * tol, "clocks": clocks}
 
 
+def sky_variants(sky1, sky2, pair_ops) -> dict:
+    """The any-only and matrix + any variants of kernels #1 (the soup chunk,
+    on the m_any-baked pack the sky's and the workflow's operands bake) and
+    #2 (the soup8 round), as phases 3-4 timed them at the split the
+    wrappers pick for those shapes, beside their bounds: the FP32 SASS
+    instructions a pair of the instantiation that launched times the pairs
+    it tests, over 33.5e12/s (or the bytes, if larger)."""
+    from raystrack_tpu_torch.ops.trace_cuda import sweep_split
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, rows, sym in (("kernel #1, soup chunk", sky1, "sweep_kernel<{},1,0>"),
+                             ("kernel #2, soup8 round", sky2, "sweep_sched_kernel<{},0>")):
+        split = sweep_split(SOUP_CHUNK * 65536 // RAY_SUB, False, n_sms)
+        for name, (ms_, plain, pairs, nbytes) in rows.items():
+            inst = sym.format("0,1" if name == "any" else "1,1") + (
+                f"x{split}" if split > 1 else "")
+            ops = pair_ops[inst][0]
+            bnd = bound(nbytes, pairs, ops)
+            out[f"{label}, {name}"] = dict(ms=ms_, plain_ms=plain, bound_ms=bnd[0],
+                                           bound_by=bnd[1], pairs=pairs, fp32_per_pair=ops,
+                                           instantiation=inst)
+            print(f"[sky] {label}, {name} ({inst}, {split} thread(s) a ray): {ms_:.3f} ms, "
+                  f"bitwise equal to its plain version ({plain:.3f} ms); {pairs:.4g} pair "
+                  f"tests x {ops:g} FP32 instructions = bound {bnd[0]:.3f} ms ({bnd[1]}): "
+                  f"{bnd[0] / ms_:.1%} of it reached")
+    return out
+
+
+def sky_base(**kw) -> dict:
+    """validation/validate_07_canyon_sky.py's settings, on the card."""
+    return dict(samples=8, rays=512, seed=17, bvh="builtin", device="gpu", tol=1e-4,
+                tol_mode="stderr", min_iters=40, max_iters=500, **kw)
+
+
+def phase_canyon_sky(route_solve) -> dict:
+    """16. The canyon's sky at validation 07's settings, merged and discrete,
+    on both routes: the road's merged Sky within 1e-4 of 1 - sum(analytic
+    F(road -> panels)), its 145 patches within 1e-4 of the merged value, the
+    scheduled dict == the per-emitter dict (``config.SCHEDULER`` forced to
+    ``grouped``, restored after); warm walls of 5."""
+    from analytic import canyon_ground_truth
+    from examples.ex00_street_canyon_geometry import build_street_canyon
+    from raystrack_tpu_torch import SkyParams, view_factor_to_tregenza_sky
+
+    canyon = build_street_canyon()
+    analytic = 1.0 - sum(canyon_ground_truth()["road"].values())
+    out = {}
+    for discrete in (False, True):
+        params = SkyParams(**sky_base(discrete=discrete))
+        solve = lambda: view_factor_to_tregenza_sky(canyon, params)  # noqa: E731, B023
+        sched, n_r, n_c = route_solve("auto", solve)
+        check(n_r > 0 and n_c == 0, f"canyon sky: {n_r} rounds, {n_c} chunks, not scheduled")
+        per_emitter, n_r2, n_c2 = route_solve("grouped", solve)
+        check(n_c2 > 0 and n_r2 == 0, f"canyon sky: {n_r2} rounds, {n_c2} chunks per emitter")
+        same = per_emitter == sched
+        warm, _, _ = route_solve("auto", lambda: wall_times(solve, 5))  # noqa: B023
+        warm_pe, _, _ = route_solve("grouped", lambda: wall_times(solve, 5))  # noqa: B023
+        kind = "discrete" if discrete else "merged"
+        print(f"[canyon sky] {kind}: scheduled {n_r} rounds, warm solve {spread(warm)}; "
+              f"per-emitter {n_c2} chunks, warm solve {spread(warm_pe)}; dicts identical: {same}")
+        check(same, f"canyon sky ({kind}): scheduled dict != per-emitter dict")
+        out[kind] = dict(result=sched, warm=warm, warm_per_emitter=warm_pe, rounds=n_r,
+                         chunks=n_c2)
+    merged = out["merged"]["result"]["road"]["Sky"]
+    patches = sum(out["discrete"]["result"]["road"].values())
+    diff, patch_diff = abs(merged - analytic), abs(patches - merged)
+    print(f"[canyon sky] road: merged Sky {merged!r} vs analytic {analytic!r}: |diff| "
+          f"{diff:.3e}; the 145 patches sum to {patches!r}: |diff| {patch_diff:.3e} "
+          f"(both within 1e-4: {diff <= 1e-4 and patch_diff <= 1e-4})")
+    check(diff <= 1e-4, f"canyon road Sky {merged} is {diff} from the analytic {analytic}")
+    check(patch_diff <= 1e-4, f"canyon road patches sum {patches}, {patch_diff} from merged")
+    out.update(road_sky=merged, analytic=analytic, diff=diff, patch_diff=patch_diff)
+    return out
+
+
+def phase_canyon_workflow(route_solve) -> dict:
+    """17. The canyon's outside workflow with shareable parameters
+    (validation 07's settings on both sides, the matrix with reciprocity):
+    scene + sky + Rest == 1 within 1e-9 per emitter; the shared-ray solve's
+    dicts == the separate ``view_factor_matrix`` and
+    ``view_factor_to_tregenza_sky`` solves, and == its per-emitter route;
+    warm walls of 3."""
+    from examples.ex00_street_canyon_geometry import build_street_canyon
+    from raystrack_tpu_torch import (
+        MatrixParams, SkyParams, outside_workflow_shareable, view_factor_matrix,
+        view_factor_matrix_and_sky, view_factor_outside_workflow, view_factor_to_tregenza_sky,
+    )
+
+    canyon = build_street_canyon()
+    mp, sp = MatrixParams(**sky_base()), SkyParams(**sky_base())
+    check(outside_workflow_shareable(mp, sp), "canyon workflow parameters are not shareable")
+    (scene, sky, rest), n_r, n_c = route_solve("auto", lambda: view_factor_outside_workflow(
+        canyon, matrix_params=mp, sky_params=sp))
+    worst = max(abs(sum(scene[n].values()) + sum(sky[n].values()) + rest[n]["Rest"] - 1.0)
+                for n, _, _ in canyon)
+    solve = lambda: view_factor_matrix_and_sky(canyon, matrix_params=mp, sky_params=sp)  # noqa: E731
+    shared, _, _ = route_solve("auto", solve)
+    separate = (route_solve("auto", lambda: view_factor_matrix(canyon, mp))[0],
+                route_solve("auto", lambda: view_factor_to_tregenza_sky(canyon, sp))[0])
+    per_emitter, n_r2, n_c2 = route_solve("grouped", solve)
+    warm, _, _ = route_solve("auto", lambda: wall_times(solve, 3))
+    print(f"[canyon workflow] outside workflow: {n_r} scheduled rounds, {n_c} chunks; worst "
+          f"|scene + sky + rest - 1| {worst:.3e}; shared-ray dicts == the separate solves': "
+          f"{shared == separate}; == the per-emitter route's ({n_c2} chunks): "
+          f"{per_emitter == shared}; warm shared-ray solve {spread(warm)}; road: scene "
+          f"{sum(scene['road'].values())!r}, sky {sky['road']['Sky']!r}, rest "
+          f"{rest['road']['Rest']!r}")
+    check(n_r > 0 and n_c == 0 and n_c2 > 0 and n_r2 == 0, "canyon workflow: wrong routes")
+    check(worst <= 1e-9, f"canyon workflow: a row's scene + sky + rest is {worst} from 1")
+    check(shared == separate, "canyon workflow: shared-ray dicts != the separate solves'")
+    check(per_emitter == shared, "canyon workflow: scheduled dicts != per-emitter dicts")
+    return dict(worst_row_error=worst, warm=warm, rounds=n_r)
+
+
+def phase_city_sky(route_solve, trace_log, dev, config) -> dict:
+    """18. The 1M-triangle city's sky and workflow: ``city_plates`` (ten
+    ground plates and the 999,996 box triangles, 1,001,472 padded = 489
+    tiles), samples=0, rays=256, 6 iterations, every mesh emitting, the
+    boxes included. Merged and discrete sky, gated (bvh="auto") == "off",
+    the scheduled route == the per-emitter route, slim == full; the
+    shared-ray workflow gated == off, scheduled == per-emitter. Per solve:
+    one launch of kernel #2 a round and of kernel #1 a chunk, in the
+    variant the dispatch asked for, gated exactly when bvh is on, one
+    crossing-kernel launch a gated dispatch, one count launch an output a
+    dispatch, all on card tensors; warm walls, rays/s and peak device
+    memory."""
+    from raystrack_tpu_torch import (
+        MatrixParams, PreparedSolver, SkyParams, view_factor_matrix_and_sky,
+        view_factor_to_tregenza_sky,
+    )
+    from raystrack_tpu_torch.ops import trace as trace_mod
+    from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
+
+    meshes = city_plates_meshes()
+    ps = PreparedSolver(meshes)
+    base = dict(samples=0, rays=256, min_iters=6, max_iters=6, device="gpu")
+    sweeps = []  # (kernel, want_matrix, want_any, gated, on the card) of each sweep call
+    real = trace_mod.sweep_rays, trace_mod.sweep_rays_scheduled
+
+    def spy(kernel, fn):
+        def call(rays, *args, **kwargs):
+            sweeps.append((kernel, kwargs["want_matrix"], kwargs["want_any"],
+                           kwargs.get("accel") is not None, rays.is_cuda))
+            return fn(rays, *args, **kwargs)
+        return call
+
+    trace_mod.sweep_rays, trace_mod.sweep_rays_scheduled = spy(1, real[0]), spy(2, real[1])
+    totals = dict(launches1=0, launches2=0, gated1=0, gated2=0, any_only=0, matrix_any=0)
+
+    def solve_once(label, route, fn, gated, slim=False):
+        """One solve through ``route`` with its launches checked."""
+        n0 = {k: len(v) for k, v in trace_log.items()}
+        s0 = len(sweeps)
+        c0 = (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays_scheduled.launches,
+              sweep_rays_scheduled.gated_launches, gate_cross.launches, count_bins.launches)
+        torch.cuda.reset_peak_memory_stats(dev)
+        result, n_r, n_c = route_solve(route, fn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        c1 = (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays_scheduled.launches,
+              sweep_rays_scheduled.gated_launches, gate_cross.launches, count_bins.launches)
+        d = [b - a for a, b in zip(c0, c1)]
+        kinds = trace_log["round_kinds"][n0["round_kinds"]:] + \
+            trace_log["chunk_kinds"][n0["chunk_kinds"]:]
+        calls = sweeps[s0:]
+        rays = sum(trace_log["round_rays"][n0["round_rays"]:]) + \
+            sum(trace_log["chunk_rays"][n0["chunk_rays"]:])
+        on_card = all(trace_log["rounds"][n0["rounds"]:]) and \
+            all(trace_log["dispatches"][n0["dispatches"]:]) and all(c[4] for c in calls)
+        check(d[2] == n_r and d[0] == n_c and len(calls) == n_r + n_c,
+              f"city {label}: kernel launches {d[2]} + {d[0]} for {n_r} rounds and {n_c} chunks")
+        check(d[3] == (n_r if gated else 0) and d[1] == (n_c if gated else 0)
+              and d[4] == (n_r + n_c if gated else 0),
+              f"city {label}: gated launches {d[3]} + {d[1]}, crossing {d[4]}, gated={gated}")
+        check([(c[1], c[2]) for c in calls] == kinds and all(c[3] == gated for c in calls),
+              f"city {label}: a sweep launched another variant than its dispatch asked for")
+        check(d[5] == sum(int(m) + int(a) for m, a in kinds),
+              f"city {label}: {d[5]} count launches for {len(kinds)} dispatches")
+        check(on_card, f"city {label}: a dispatch ran with a tensor off the card")
+        check(not slim or (n_r == 0 and n_c > 0), f"city {label}: a slim solve took a round")
+        totals["launches1"] += d[0]
+        totals["launches2"] += d[2]
+        totals["gated1"] += d[1]
+        totals["gated2"] += d[3]
+        totals["any_only"] += sum(1 for m, a in kinds if a and not m)
+        totals["matrix_any"] += sum(1 for m, a in kinds if a and m)
+        return result, dict(rounds=n_r, chunks=n_c, rays=rays, peak=peak, kinds=kinds)
+
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for discrete in (False, True):
+            kind = "discrete" if discrete else "merged"
+            sp = SkyParams(**base, discrete=discrete)
+            results = {}
+            for label, route, bvh in (("auto", "auto", "auto"), ("off", "auto", "off"),
+                                      ("per-emitter", "grouped", "auto")):
+                p = dataclasses.replace(sp, bvh=bvh)
+                fn = lambda: view_factor_to_tregenza_sky(meshes, p, prepared=ps)  # noqa: E731, B023
+                results[label], info = solve_once(f"sky {kind} {label}", route, fn,
+                                                  gated=bvh == "auto")
+                info["warm"], _, _ = route_solve(route, lambda: wall_times(fn, 3))  # noqa: B023
+                out[f"sky {kind}, {label}"] = info
+                if label == "auto" and discrete is False:
+                    print(f"[city sky] first solve with set-up {time.perf_counter() - t0:.2f} s")
+            with slim_threshold(config, 1):
+                slim_ps = PreparedSolver(meshes)
+                fn = lambda: view_factor_to_tregenza_sky(meshes, sp, prepared=slim_ps)  # noqa: E731, B023
+                results["slim"], info = solve_once(f"sky {kind} slim", "auto", fn, gated=True,
+                                                   slim=True)
+                info["warm"], _, _ = route_solve("auto", lambda: wall_times(fn, 3))  # noqa: B023
+                check(slim_ps.get_scene_pack(use_accel=True, device=dev).slim,
+                      "the city's slim sky solve packed full")
+                out[f"sky {kind}, slim"] = info
+                del slim_ps
+            same = {k: v == results["auto"] for k, v in results.items()}
+            # the boxes cover the ground about 50 times over: no ground ray
+            # reaches the sky, the roofs see it
+            print(f"[city sky] {kind}: == the gated scheduled dict: {same}; ground_00 sky "
+                  f"{sum(results['auto']['ground_00'].values())!r}, the boxes' "
+                  f"{sum(results['auto'][meshes[-1][0]].values())!r}")
+            check(all(same.values()), f"city sky {kind}: dicts differ: {same}")
+            check(sum(results["auto"][meshes[-1][0]].values()) > 0.0, "city sky: no sky seen")
+        mp = MatrixParams(**base)
+        sp = SkyParams(**base)
+        results = {}
+        for label, route, bvh in (("auto", "auto", "auto"), ("off", "auto", "off"),
+                                  ("per-emitter", "grouped", "auto")):
+            m, s = dataclasses.replace(mp, bvh=bvh), dataclasses.replace(sp, bvh=bvh)
+            fn = lambda: view_factor_matrix_and_sky(  # noqa: E731
+                meshes, matrix_params=m, sky_params=s, prepared=ps)  # noqa: B023
+            results[label], info = solve_once(f"workflow {label}", route, fn,
+                                              gated=bvh == "auto")
+            info["warm"], _, _ = route_solve(route, lambda: wall_times(fn, 3))  # noqa: B023
+            out[f"workflow, {label}"] = info
+        same = {k: v == results["auto"] for k, v in results.items()}
+        print(f"[city workflow] shared-ray matrix and sky == the gated scheduled dicts: {same}")
+        check(all(same.values()), f"city workflow: dicts differ: {same}")
+        check(sum(len(row) for row in results["auto"][0].values()) > 0, "city workflow: no hits")
+    finally:
+        trace_mod.sweep_rays, trace_mod.sweep_rays_scheduled = real
+    for name, info in out.items():
+        warm = info["warm"]
+        rate = (f", warm solve {spread(warm)} = {info['rays'] / float(np.median(warm)):.4g} "
+                f"rays/s at the median")
+        kinds = sorted(set(info["kinds"]))
+        print(f"[city] {name}: {info['rounds']} rounds, {info['chunks']} chunks, variants "
+              f"(matrix, any) {kinds}, {info['rays']} rays traced{rate}; peak device memory "
+              f"{info['peak'] / 2**20:.1f} MiB")
+    print(f"[launches] city sky and workflow: kernel #1 {totals['launches1']} "
+          f"({totals['gated1']} gated), kernel #2 {totals['launches2']} ({totals['gated2']} "
+          f"gated); dispatches any-only {totals['any_only']}, matrix + any "
+          f"{totals['matrix_any']}; every one on the card, in its dispatch's variant")
+    check(totals["any_only"] > 0 and totals["matrix_any"] > 0, "city: a variant never launched")
+    out["totals"] = totals
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -1344,7 +1641,7 @@ def main() -> int:
     from raystrack_tpu_torch import PreparedSolver, config, view_factor, view_factor_matrix
     from raystrack_tpu_torch.ops import build, trace_cuda
     from raystrack_tpu_torch.ops import trace as trace_mod
-    from raystrack_tpu_torch.ops.count_cuda import count_codes
+    from raystrack_tpu_torch.ops.count_cuda import count_bins
     from raystrack_tpu_torch.ops.trace_cuda import (
         gate_cross, sweep_rays, sweep_rays_scheduled,
     )
@@ -1379,7 +1676,7 @@ def main() -> int:
     cases = solve_cases()
     soup, soup_params = cases["soup"]
     soup_ps = PreparedSolver(soup)
-    max_err, ms, plain_ms, soup_front, soup_codes, pairs1, bytes1 = phase_kernel(
+    max_err, ms, plain_ms, soup_front, soup_codes, pairs1, bytes1, sky1 = phase_kernel(
         dev, soup_ps, soup_params.seed)
     bound1 = bound(bytes1, pairs1, pair_ops["sweep_kernel<1,0,1,0>"][0])
     print(f"[kernel1] matrix,baked: {pairs1:.4g} pair tests, bound {bound1[0]:.3f} ms "
@@ -1402,14 +1699,20 @@ def main() -> int:
     solver_mod._log = quiet
     trace_mod.scheduled_trace = real_round
     check(len(captured) == 1, f"soup8 took {len(captured)} scheduled rounds, not 1")
-    max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes, pairs2, bytes2 = phase_sched_kernel(
-        *captured[0], ms)
+    (max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes, pairs2, bytes2, sky2,
+     (sky_ids, sky_valid)) = phase_sched_kernel(*captured[0], ms)
     del captured
     bound2 = bound(bytes2, pairs2, pair_ops["sweep_sched_kernel<1,0,0>"][0])
     print(f"[kernel2] matrix: {pairs2:.4g} pair tests, bound {bound2[0]:.3f} ms "
           f"({bound2[1]}); the kernel at {bound2[0] / ms2:.1%} of it")
-    max_err3, count_times = phase_count({"soup chunk": soup_codes, "soup8 round": soup8_codes})
-    del soup_codes, soup8_codes
+    # the sky variants as the sky and workflow solves launch them, at the
+    # split the wrappers pick on these shapes, beside their bounds
+    variant_rows = sky_variants(sky1, sky2, pair_ops)
+    max_err3, count_times = phase_count({
+        "soup chunk": soup_codes, "soup8 round": soup8_codes,
+        "soup8 sky round, 145 patch bins": (sky_ids["sky_bins"], sky_valid, 145, None),
+        "soup8 sky round, 1 upward bin": (sky_ids["upward"], sky_valid, 1, None)})
+    del soup_codes, soup8_codes, sky_ids
     ms3, plain_ms3, lib_ms3, bound3, launch3 = count_times["soup8 round"]
 
     # 5. the gate on the 1M-triangle city: the first chunk of ground -> city
@@ -1436,7 +1739,7 @@ def main() -> int:
     (codes, n_valid, n_surf), kw, _ = count_calls[0]
     check(n_valid is None and kw.get("valid") is not None,
           "the gated chunk's count did not take the valid flags")
-    gated_err, gated_times = phase_count({"city chunk, gated": (codes, None, n_surf,
+    gated_err, gated_times = phase_count({"city chunk, gated": (codes, None, 2 * n_surf,
                                                                 kw["valid"])})
     max_err3 = max(max_err3, gated_err)
     count_times.update(gated_times)
@@ -1463,21 +1766,25 @@ def main() -> int:
     dispatch = solver_mod._EmitterRun.dispatch_chunk
 
     chunk_rays, round_rays = [], []
+    chunk_kinds, round_kinds = [], []  # (want_matrix, want_any) of each chunk and round
     resident = []  # per chunk of a slim scene: it swept the scene's resident pack
 
-    def counted(self, chunk):
-        harvest = dispatch(self, chunk)
+    def counted(self, chunk, **kwargs):
+        harvest = dispatch(self, chunk, **kwargs)
         chunk_rays.append(chunk * self.em_pack.n_rays_pad)
+        chunk_kinds.append((kwargs["want_matrix"], kwargs["want_any"]))
+        tri_pack, sweep_mask, _ = self.packs[kwargs["want_any"]]
         if self.scene_pack.slim:
-            resident.append(self.tri_pack is self.scene_pack.tri_pack)
+            resident.append(tri_pack is self.scene_pack.tri_pack)
         dispatches.append(on_card(
-            [self.tri_pack, self.sweep_mask]
+            [tri_pack, sweep_mask]
             + [getattr(self.scene_pack, f.name) for f in dataclasses.fields(self.scene_pack)]
             + [getattr(self.em_pack, f.name) for f in dataclasses.fields(EmitterPack)]))
         return harvest
 
     def counted_round(*args, **kwargs):
         rounds.append(on_card(args))
+        round_kinds.append((kwargs.get("want_matrix", True), kwargs.get("want_any", False)))
         round_rays.append(int(args[10].shape[0]) * kwargs["sched_block"])
         return real_round(*args, **kwargs)
 
@@ -1488,7 +1795,7 @@ def main() -> int:
     def reset_launches():
         sweep_rays.launches = sweep_rays.gated_launches = sweep_rays.code_launches = 0
         sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
-        count_codes.launches = gate_cross.launches = 0
+        count_bins.launches = gate_cross.launches = 0
 
     reset_launches()
 
@@ -1589,7 +1896,7 @@ def main() -> int:
 
     # 11. launches
     launches, launches2 = sweep_rays.launches, sweep_rays_scheduled.launches
-    launches3 = count_codes.launches
+    launches3 = count_bins.launches
     gated = sweep_rays.gated_launches + sweep_rays_scheduled.gated_launches
     parsed = [re.search(r"\[(.+?)\] (\d+) iter", line) for line in progress]
     print(f"[launches] {len(progress)} progress lines, e.g. {progress[0]!r}")
@@ -1655,13 +1962,13 @@ def main() -> int:
         city_dicts[name] = results[True]
     launches_city = (sweep_rays.launches, sweep_rays.gated_launches,
                      sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
-    count_city, cross_city = count_codes.launches, gate_cross.launches
+    count_city, cross_city = count_bins.launches, gate_cross.launches
     check(sweep_rays.code_launches == 0 and not resident,
           "a full-mode solve launched kernel #1 in code mode")
     print(f"[launches] city: kernel #1 {launches_city[0]} launches ({launches_city[1]} gated) "
           f"for {n_chunks[True]} gated and {n_chunks[False]} ungated chunks; kernel #2 "
           f"{launches_city[2]} ({launches_city[3]} gated) for {n_rounds[True]} gated and "
-          f"{n_rounds[False]} ungated rounds; count kernel {count_codes.launches}; the "
+          f"{n_rounds[False]} ungated rounds; count kernel {count_bins.launches}; the "
           f"gate's crossing kernel {cross_city}")
     check(cross_city == n_chunks[True] + n_rounds[True],
           "city: the crossing kernel did not launch once per gated chunk or round")
@@ -1718,7 +2025,7 @@ def main() -> int:
     for ps in (city_slim_ps, city_plates_slim_ps):
         check(ps.get_scene_pack(use_accel=True, device=dev).slim, "a slim solve's pack is full")
     launches_slim = (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays.code_launches)
-    count_slim, cross_slim = count_codes.launches, gate_cross.launches
+    count_slim, cross_slim = count_bins.launches, gate_cross.launches
     print(f"[slim] kernel #1: {launches_slim[0]} launches ({launches_slim[1]} gated, "
           f"{launches_slim[2]} in code mode) for {n_slim_chunks} chunks; kernel #2 "
           f"{sweep_rays_scheduled.launches}; count kernel {count_slim}; per-emitter packs "
@@ -1777,7 +2084,7 @@ def main() -> int:
           "city 1M: a fresh ten-plate solve != phase 12's dict")
     del big, boxes, meshes
     launches_big2 = (sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches)
-    count_big, cross_big = count_codes.launches, gate_cross.launches
+    count_big, cross_big = count_bins.launches, gate_cross.launches
     # the crossing kernel at the 10M city's shape: one chunk's rays over 4,883 boxes
     check(bool(cross_big_call), "the 10M city's solve built no gate tables")
     rays10, boxes10 = (t.to(dev) for t in cross_big_call[0])
@@ -1793,8 +2100,6 @@ def main() -> int:
     check(launches_big2[0] == launches_big2[1] > 0 and sweep_rays.launches == launches_big[0],
           f"phase 14: the plate solves launched kernel #2 {launches_big2} times, not all "
           f"gated, or took per-emitter chunks")
-    solver_mod._EmitterRun.dispatch_chunk = dispatch
-    trace_mod.scheduled_trace = real_round
     d_tri = foot["10M", True]["n_tri_pad"] - foot["1M", True]["n_tri_pad"]
     per_tri = {key: {k: (foot["10M", key][k] - foot["1M", key][k]) / d_tri
                      for k in ("first_peak", "warm_peak", "resident")}
@@ -1837,6 +2142,26 @@ def main() -> int:
             / (city_code["ungated_ms"] * 1e-3),
     })
 
+    # 16-18. the sky and the shared-ray workflow through their entry points:
+    # the canyon against its analytic sky, then the 1M-triangle city gated
+    reset_launches()
+    canyon_sky = phase_canyon_sky(route_solve)
+    canyon_workflow = phase_canyon_workflow(route_solve)
+    city_sky = phase_city_sky(route_solve, dict(
+        rounds=rounds, dispatches=dispatches, round_kinds=round_kinds, chunk_kinds=chunk_kinds,
+        round_rays=round_rays, chunk_rays=chunk_rays), dev, config)
+    launches_sky = (sweep_rays.launches, sweep_rays.gated_launches,
+                    sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches,
+                    count_bins.launches, gate_cross.launches)
+    sky_kinds = {"any": sum(1 for k in chunk_kinds + round_kinds if k == (False, True)),
+                 "matrix+any": sum(1 for k in chunk_kinds + round_kinds if k == (True, True))}
+    print(f"[launches] sky and workflow phases (16-18): kernel #1 {launches_sky[0]} "
+          f"({launches_sky[1]} gated), kernel #2 {launches_sky[2]} ({launches_sky[3]} gated), "
+          f"count {launches_sky[4]}, crossing {launches_sky[5]}; dispatches by variant "
+          f"{sky_kinds} of {len(chunk_kinds) + len(round_kinds)} since phase 6")
+    solver_mod._EmitterRun.dispatch_chunk = dispatch
+    trace_mod.scheduled_trace = real_round
+
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
@@ -1848,24 +2173,44 @@ def main() -> int:
 
     sweep_entry = kernel_entry(
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
-        launches + launches_city[0] + launches_slim[0] + launches_big[0],
-        launches_city[1] + launches_slim[1] + launches_big[1],
+        launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0],
+        launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1],
         max(max_err, city_code["max_abs_err"]), ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2]
     sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
+    sched_entry = kernel_entry(
+        "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
+        launches2 + launches_city[2] + launches_big2[0] + launches_sky[2],
+        launches_city[3] + launches_big2[1] + launches_sky[3], max_err2, ms2, plain_ms2,
+        bound2, city_k2)
+    # the sky's and the workflow's variants (phases 3-4) and their launches
+    # on the main path (phases 16-18)
+    for entry, label in ((sweep_entry, "kernel #1, soup chunk"),
+                         (sched_entry, "kernel #2, soup8 round")):
+        entry["sky_variants"] = {name: variant_rows[f"{label}, {name}"]
+                                 for name in ("any", "matrix+any")}
+    sweep_entry["sky_launches"] = launches_sky[0]
+    sched_entry["sky_launches"] = launches_sky[2]
+    sky_summary = dict(
+        canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
+        canyon_patch_sum_diff=canyon_sky["patch_diff"],
+        canyon_sky_warm_s=canyon_sky["merged"]["warm"],
+        canyon_workflow_row_error=canyon_workflow["worst_row_error"],
+        canyon_workflow_warm_s=canyon_workflow["warm"],
+        city={k: {kk: vv for kk, vv in v.items() if kk != "kinds"}
+              for k, v in city_sky.items() if k != "totals"},
+        dispatches_by_variant=sky_kinds)
+    print(f"[sky] summary: {json.dumps(sky_summary)}")
     print(json.dumps({"kernels": [
         sweep_entry,
-        kernel_entry("sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
-                     launches2 + launches_city[2] + launches_big2[0],
-                     launches_city[3] + launches_big2[1], max_err2, ms2, plain_ms2, bound2,
-                     city_k2),
+        sched_entry,
         {
             "name": "count_codes",
             "route": "cuda",
             "source": "raystrack_tpu_torch/csrc/count.cu",
             # not a Pallas kernel: the XLA compare-and-sum it stands in for
             "replaces": "raystrack_tpu/ops/trace.py:865",
-            "launches": launches3 + count_city + count_slim + count_big,
+            "launches": launches3 + count_city + count_slim + count_big + launches_sky[4],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -1884,7 +2229,7 @@ def main() -> int:
             "source": "raystrack_tpu_torch/csrc/gate.cu",
             # not a Pallas kernel: the XLA slab-and-reduce of the gate's tables
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
-            "launches": cross_city + cross_slim + cross_big,
+            "launches": cross_city + cross_slim + cross_big + launches_sky[5],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,

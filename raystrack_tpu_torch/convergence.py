@@ -1,8 +1,8 @@
-# Copied from raystrack_tpu/convergence.py: the chunk planner and the matrix monitor (host-only NumPy).
-"""Host-side convergence monitor and the iteration-chunk planner.
+# Copied from raystrack_tpu/convergence.py: the chunk planner and the matrix and sky monitors (host-only NumPy).
+"""Host-side convergence monitors and the iteration-chunk planner.
 
 The device solves fixed-size *chunks* of Monte-Carlo iterations and returns
-per-iteration count vectors; the monitor replays them one iteration at a
+per-iteration count vectors; the monitors replay them one iteration at a
 time in float64 NumPy (Welford mean/M2 per surface, stderr or delta
 tolerance, min_iters / convergence_interval / max_iters checkpointing). A
 chunk may overshoot the stopping iteration; the surplus iterations are
@@ -198,4 +198,99 @@ class MatrixMonitor:
         return int(np.ceil(self.iters_done * (worst / self.tol) ** 2))
 
 
-__all__ = ["convergence_checkpoint", "plan_chunk", "MatrixMonitor"]
+class SkyMonitor:
+    """Convergence state for one emitter's sky fraction (merged or 145-bin)."""
+
+    def __init__(
+        self,
+        *,
+        discrete: bool,
+        n_rays_once: int,
+        tol: float,
+        tol_mode: str,
+        min_iters: int,
+        interval: int,
+        max_iters: int,
+    ):
+        if tol_mode not in ("delta", "stderr"):
+            raise ValueError(f"Unknown tol_mode: {tol_mode}")
+        self.discrete = bool(discrete)
+        self.n_rays_once = int(n_rays_once)
+        self.tol = float(tol)
+        self.tol_mode = tol_mode
+        self.min_iters = int(min_iters)
+        self.interval = max(1, int(interval))
+        self.max_iters = int(max_iters)
+
+        self.counts_total = np.zeros(145, dtype=np.int64) if discrete else None
+        self.bins_w = _Welford(145) if discrete else None
+        self.upward_total = 0
+        self.sky_w = _Welford(())
+        self.prev: Optional[np.ndarray | float] = None
+        self.total_rays = 0
+        self.iters_done = 0
+        self.done = False
+
+    def consume_iteration(self, value) -> None:
+        """Fold in one iteration: (145,) bin counts if discrete else a scalar."""
+        if self.done:
+            return
+        self.total_rays += self.n_rays_once
+        self.iters_done += 1
+        check = convergence_checkpoint(
+            self.iters_done,
+            min_iters=self.min_iters,
+            interval=self.interval,
+            max_iters=self.max_iters,
+            needs_variance=(self.tol_mode == "stderr"),
+        )
+
+        if self.discrete:
+            counts = np.asarray(value, dtype=np.int64)
+            self.counts_total += counts
+            frac = counts.astype(np.float64) / float(self.n_rays_once)
+            self.bins_w.update(frac)
+            self.sky_w.update(float(frac.sum()))
+            if self.tol_mode == "delta":
+                if check:
+                    curr = self.counts_total.astype(np.float64) / float(self.total_rays)
+                    if self.prev is not None and np.all(np.abs(curr - self.prev) < self.tol):
+                        self.done = True
+                    if not self.done:
+                        self.prev = curr
+            else:
+                if check and np.all(self.bins_w.stderr() <= self.tol):
+                    self.done = True
+        else:
+            upward = int(value)
+            self.upward_total += upward
+            frac = upward / float(self.n_rays_once)
+            self.sky_w.update(frac)
+            if self.tol_mode == "delta":
+                if check:
+                    curr = self.upward_total / float(self.total_rays)
+                    if self.prev is not None and abs(curr - self.prev) < self.tol:
+                        self.done = True
+                    if not self.done:
+                        self.prev = curr
+            else:
+                if check and float(self.sky_w.stderr()) <= self.tol:
+                    self.done = True
+
+        if self.iters_done >= self.max_iters:
+            self.done = True
+
+    def projected_total(self) -> Optional[int]:
+        """Estimated iterations until stderr convergence (se ~ 1/sqrt(n))."""
+        if self.tol_mode != "stderr" or self.iters_done < 2:
+            return None
+        if self.discrete:
+            worst = float(np.max(self.bins_w.stderr()))
+        else:
+            worst = float(self.sky_w.stderr())
+        if worst <= self.tol:
+            return self.iters_done
+        return int(np.ceil(self.iters_done * (worst / self.tol) ** 2))
+
+
+__all__ = ["convergence_checkpoint", "plan_chunk", "MatrixMonitor", "SkyMonitor"]

@@ -2,7 +2,9 @@
 // `2*sid + front` (-1 on a miss) -> counts (rows, n_codes) i32. Ray i of a
 // row counts when i < n_valid[row] (every ray when n_valid is null) and
 // valid[row, i] (every ray when valid is null); codes outside 0..n_codes-1
-// count nowhere.
+// count nowhere. Nothing here is particular to hit codes: the sky solves
+// count a missed ray's Tregenza patch (145 bins) or its upward flag (one
+// bin) through the same entry (ops/count_cuda.py count_bins).
 //
 // Replaces the per-code compare-and-sum of the JAX package
 // (raystrack_tpu/ops/trace.py count_code, an XLA reduction on the TPU). What

@@ -21,12 +21,13 @@
 // rewritten per emitter, and only its 17 operand rows are staged.
 //
 // What bounds them: FP32 ALU work. Each ray-triangle pair costs 51 FP32
-// instructions in the SASS of the matrix instantiations and 57 in the
-// any-only ones (chip_smoke.py counts them from the library at every run); a
-// triangle's operands are 76 bytes, read once per block of rays. So each
-// block stages a tile of triangle operands in shared memory (coalesced loads
-// along the pack's triangle axis) and every thread loops over staged
-// triangles reading the operands as broadcast 16-byte loads. Kernel #2
+// instructions in the SASS of every instantiation (chip_smoke.py counts them
+// from the library at every run; the any-only ones held 57 while the
+// division below was hoisted out of its branch); a triangle's operands are
+// 76 bytes, read once per block of rays. So each block stages a tile of
+// triangle operands in shared memory (coalesced loads along the pack's
+// triangle axis) and every thread loops over staged triangles reading the
+// operands as broadcast 16-byte loads. Kernel #2
 // stages its emitter's mask row slice in the same stage, in the slot kernel
 // #1 leaves unused, so the per-pair mask test costs one shared load. The
 // t = t_num / det division runs only for pairs whose barycentric tests pass.
@@ -250,7 +251,12 @@ __device__ __forceinline__ bool pair_hit(const Ray& r, const Tri& tri, float& t,
   const float vn = v_num * sign;
   const float margin = pmin(pmin(abs_det - 1e-7f, un), pmin(vn, abs_det - (un + vn)));
   if (!(margin >= 0.0f)) return false;
-  t = t_num / det;
+  // t = t_num / det, the IEEE division a plain `/` compiles to, written as
+  // PTX: the compiler does not speculate an asm statement, so the division
+  // stays behind the margin test. As a `/`, it was hoisted above the test in
+  // the any-only instantiations, whose branch holds nothing else: every
+  // pair paid for it.
+  asm("div.rn.f32 %0, %1, %2;" : "=f"(t) : "f"(t_num), "f"(det));
   if (!(t > 1e-6f)) return false;
   front = det > 0.0f ? 1 : 0;
   return true;

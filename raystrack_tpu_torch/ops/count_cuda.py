@@ -1,13 +1,18 @@
-"""Exact per-row hit counts of the sweeps' codes: the CUDA kernel's wrapper
+"""Exact per-row histograms of small integer ids: the CUDA kernel's wrapper
 and its plain PyTorch version.
 
-Counterpart of the JAX package's per-code compare-and-sum
-(``raystrack_tpu/ops/trace.py`` ``count_code``). The kernel lives in
-``csrc/count.cu``: one launch that writes every count, bins in shared
-memory, a row per CTA or, for longer rows, per group of CTAs that meet in a
-work buffer the kernel leaves zero.
-Both routes count with it: rows are iterations on the per-emitter route and
-schedule rows on the scheduled route.
+Counterpart of the JAX package's per-value compare-and-sum
+(``raystrack_tpu/ops/trace.py`` ``count_code`` and ``count_bin``). The kernel
+lives in ``csrc/count.cu``: one launch that writes every count, bins in
+shared memory, a row per CTA or, for longer rows, per group of CTAs that
+meet in a work buffer the kernel leaves zero. It counts any number of bins,
+so it serves three uses on both routes (rows are iterations on the
+per-emitter route and schedule rows on the scheduled route):
+
+- the matrix: a ray's nearest-hit code ``2*sid + front`` in ``2*n_surf``
+  bins (:func:`count_codes`);
+- the discrete sky: a missed ray's Tregenza patch in 145 bins;
+- the merged sky: one bin for a missed upward ray.
 """
 from __future__ import annotations
 
@@ -15,39 +20,48 @@ from typing import Optional, Tuple
 
 import torch
 
-# (rows, codes, L) compare elements per step of the plain version: bounds its memory.
+# (rows, bins, L) compare elements per step of the plain version: bounds its memory.
 _COUNT_ELEMS = 1 << 27
+
+
+def count_bins_reference(ids: torch.Tensor, n_bins: int, n_valid: Optional[torch.Tensor] = None,
+                         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the count kernel: (rows, n_bins) int32 counts.
+
+    Entry i of a row counts when i < its ``n_valid`` (every entry when
+    ``n_valid`` is None) and ``valid[row, i]`` (every entry when ``valid``
+    is None). Each row's ids are compared with every bin 0..n_bins-1 at
+    once and summed along the row, in row steps that bound the (rows, bins,
+    L) compare to ``_COUNT_ELEMS`` elements. Entries that do not count and
+    ids outside that range (a miss is -1) count nowhere.
+    """
+    rows, length = ids.shape
+    if n_valid is not None:
+        pos = torch.arange(length, dtype=n_valid.dtype, device=ids.device)
+        keep = pos[None, :] < n_valid[:, None]
+        valid = keep if valid is None else keep & valid
+    if valid is not None:
+        ids = torch.where(valid, ids, -1)
+    targets = torch.arange(n_bins, dtype=ids.dtype, device=ids.device)[None, :, None]
+    step = max(1, _COUNT_ELEMS // max(1, n_bins * length))
+    parts = [
+        (ids[r0 : r0 + step, None, :] == targets).sum(dim=2, dtype=torch.int32)
+        for r0 in range(0, rows, step)
+    ]
+    if not parts:
+        return torch.zeros((0, n_bins), dtype=torch.int32, device=ids.device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def count_codes_reference(codes: torch.Tensor, n_valid: Optional[torch.Tensor],
                           n_surf: int, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of the count kernel: (rows, 2*n_surf) int32 counts.
-
-    Ray i of a row counts when i < its ``n_valid`` (every ray when
-    ``n_valid`` is None) and ``valid[row, i]`` (every ray when ``valid`` is
-    None). Each row's codes are compared with every code 0..2*n_surf-1 at
-    once and summed along the ray axis, in row steps that bound the (rows,
-    codes, L) compare to ``_COUNT_ELEMS`` elements. Rays that do not count,
-    misses and codes outside that range count nowhere.
-    """
-    rows, length = codes.shape
-    n_codes = 2 * n_surf
-    if n_valid is not None:
-        ray = torch.arange(length, dtype=n_valid.dtype, device=codes.device)
-        keep = ray[None, :] < n_valid[:, None]
-        valid = keep if valid is None else keep & valid
-    if valid is not None:
-        codes = torch.where(valid, codes, -1)
-    targets = torch.arange(n_codes, dtype=codes.dtype, device=codes.device)[None, :, None]
-    step = max(1, _COUNT_ELEMS // max(1, n_codes * length))
-    parts = [
-        (codes[r0 : r0 + step, None, :] == targets).sum(dim=2, dtype=torch.int32)
-        for r0 in range(0, rows, step)
-    ]
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    """:func:`count_bins_reference` of nearest-hit codes: (rows, 2*n_surf)
+    int32, the back count of surface s at column 2s and its front count at
+    2s + 1."""
+    return count_bins_reference(codes, 2 * n_surf, n_valid, valid)
 
 
-# (C entry, most codes a row's counts are written whole for, codes a CTA
+# (C entry, most bins a row's counts are written whole for, ids a CTA
 # counts), at first use
 _ENTRY = None
 # (device index, stream) -> the kernel's work buffer: int32, zero between launches
@@ -76,79 +90,96 @@ def _work(device: torch.device, stream: int, n_ints: int) -> torch.Tensor:
     return work
 
 
-def count_codes(codes: torch.Tensor, n_valid: Optional[torch.Tensor], n_surf: int, *,
-                valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row front/back hit counts: codes (rows, L) int32 ``2*sid + front``
-    (-1 on a miss) -> ``(counts_f, counts_b)`` (rows, n_surf) int32.
-
-    Ray i of a row counts when i < its ``n_valid`` ((rows,) int32, the
-    number of leading rays of each row that count; None: all of them) and
-    ``valid[row, i]`` ((rows, L) bool, after a coherence sort has moved the
-    real rays; None: all of them). Exact: rays that do not count, misses and
-    codes outside 0..2*n_surf-1 count nowhere. CUDA tensors go to the
-    kernel of ``csrc/count.cu`` (one launch on the current stream, not
-    synchronised, and no zero-fill unless a row has more codes than the
-    kernel's shared bins, or the stream's work buffer is allocated or grown;
-    ``count_codes.launches`` counts the launches); CPU tensors go to
-    :func:`count_codes_reference`.
-    """
-    if not isinstance(codes, torch.Tensor):
-        raise TypeError("codes must be a torch.Tensor")
-    if codes.dtype != torch.int32:
-        raise TypeError(f"codes must be torch.int32 (got {codes.dtype})")
-    if codes.dim() != 2:
-        raise ValueError(f"codes must be (rows, L) (got {tuple(codes.shape)})")
-    for name, t, dtype, shape in (("n_valid", n_valid, torch.int32, codes.shape[:1]),
-                                  ("valid", valid, torch.bool, codes.shape)):
+def _check_rows(ids, n_valid, valid, name: str) -> None:
+    """The checks of :func:`count_bins`' arguments, its ids called ``name``."""
+    if not isinstance(ids, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"{name} must be torch.int32 (got {ids.dtype})")
+    if ids.dim() != 2:
+        raise ValueError(f"{name} must be (rows, L) (got {tuple(ids.shape)})")
+    for arg, t, dtype, shape in (("n_valid", n_valid, torch.int32, ids.shape[:1]),
+                                 ("valid", valid, torch.bool, ids.shape)):
         if t is None:
             continue
         if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor or None")
+            raise TypeError(f"{arg} must be a torch.Tensor or None")
         if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} (got {t.dtype})")
+            raise TypeError(f"{arg} must be {dtype} (got {t.dtype})")
         if t.shape != shape:
-            raise ValueError(f"codes must be (rows, L) and {name} {tuple(shape)} "
-                             f"(got {tuple(codes.shape)} and {tuple(t.shape)})")
-        if t.device != codes.device:
-            raise ValueError(f"{name} is on {t.device}, codes are on {codes.device}")
+            raise ValueError(f"{name} must be (rows, L) and {arg} {tuple(shape)} "
+                             f"(got {tuple(ids.shape)} and {tuple(t.shape)})")
+        if t.device != ids.device:
+            raise ValueError(f"{arg} is on {t.device}, {name} are on {ids.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not codes.is_contiguous():
-        raise ValueError("codes must be contiguous")
-    device = codes.device
-    rows, length = codes.shape
-    n_codes = 2 * int(n_surf)
+            raise ValueError(f"{arg} must be contiguous")
+    if not ids.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def count_bins(ids: torch.Tensor, n_bins: int, n_valid: Optional[torch.Tensor] = None, *,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row histogram: ids (rows, L) int32 -> counts (rows, n_bins) int32.
+
+    Entry i of a row counts when i < its ``n_valid`` ((rows,) int32, the
+    number of leading entries of each row that count; None: all of them)
+    and ``valid[row, i]`` ((rows, L) bool, after a coherence sort has moved
+    the real rays; None: all of them). Exact: entries that do not count and
+    ids outside 0..n_bins-1 count nowhere. CUDA tensors go to the kernel of
+    ``csrc/count.cu`` (one launch on the current stream, not synchronised,
+    and no zero-fill unless a row has more bins than the kernel's shared
+    bins, or the stream's work buffer is allocated or grown;
+    ``count_bins.launches`` counts the launches); CPU tensors go to
+    :func:`count_bins_reference`.
+    """
+    _check_rows(ids, n_valid, valid, "ids")
+    n_bins = int(n_bins)
+    if n_bins < 0:
+        raise ValueError(f"n_bins must not be negative (got {n_bins})")
+    device = ids.device
+    rows, length = ids.shape
     if device.type == "cpu":
-        counts = count_codes_reference(codes, n_valid, n_surf, valid)
-    elif device.type == "cuda":
-        if rows * length >= 2**31 or n_codes >= 2**31:
-            raise ValueError("count_codes takes fewer than 2**31 codes and bins")
-        fn, smem_bins, per_cta = _entry()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        work = None
-        if n_codes > smem_bins:  # global bins: the kernel adds, so they start at zero
-            counts = torch.zeros((rows, n_codes), dtype=torch.int32, device=device)
-        else:  # every count written by the kernel
-            counts = torch.empty((rows, n_codes), dtype=torch.int32, device=device)
-            if length > per_cta:  # a row's CTAs meet in the work buffer
-                work = _work(device, stream, rows * (n_codes + 1)).data_ptr()
-        args = (codes.data_ptr(), n_valid.data_ptr() if n_valid is not None else None,
-                valid.data_ptr() if valid is not None else None, rows, length, n_codes,
-                counts.data_ptr(), work, stream)
-        if device.index == torch.cuda.current_device():
-            err = fn(*args)
-        else:
-            with torch.cuda.device(device):
-                err = fn(*args)
-        if err != 0:
-            raise RuntimeError(f"count kernel launch failed: CUDA error {err}")
-        count_codes.launches += 1
+        return count_bins_reference(ids, n_bins, n_valid, valid)
+    if device.type != "cuda":
+        raise ValueError(f"count_bins runs on cuda or cpu tensors (got {device})")
+    if rows * length >= 2**31 or n_bins >= 2**31:
+        raise ValueError("count_bins takes fewer than 2**31 ids and bins")
+    fn, smem_bins, per_cta = _entry()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    work = None
+    if n_bins > smem_bins:  # global bins: the kernel adds, so they start at zero
+        counts = torch.zeros((rows, n_bins), dtype=torch.int32, device=device)
+    else:  # every count written by the kernel
+        counts = torch.empty((rows, n_bins), dtype=torch.int32, device=device)
+        if length > per_cta:  # a row's CTAs meet in the work buffer
+            work = _work(device, stream, rows * (n_bins + 1)).data_ptr()
+    args = (ids.data_ptr(), n_valid.data_ptr() if n_valid is not None else None,
+            valid.data_ptr() if valid is not None else None, rows, length, n_bins,
+            counts.data_ptr(), work, stream)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
     else:
-        raise ValueError(f"count_codes runs on cuda or cpu tensors (got {device})")
-    counts = counts.view(rows, n_surf, 2)
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"count kernel launch failed: CUDA error {err}")
+    count_bins.launches += 1
+    return counts
+
+
+count_bins.launches = 0
+
+
+def count_codes(codes: torch.Tensor, n_valid: Optional[torch.Tensor], n_surf: int, *,
+                valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row front/back hit counts: codes (rows, L) int32 ``2*sid + front``
+    (-1 on a miss) -> ``(counts_f, counts_b)`` (rows, n_surf) int32 views of
+    one :func:`count_bins` over ``2 * n_surf`` bins (its one launch on a
+    CUDA tensor, counted in ``count_bins.launches``)."""
+    _check_rows(codes, n_valid, valid, "codes")
+    counts = count_bins(codes, 2 * int(n_surf), n_valid, valid=valid)
+    counts = counts.view(codes.shape[0], int(n_surf), 2)
     return counts[:, :, 1], counts[:, :, 0]
 
 
-count_codes.launches = 0
-
-__all__ = ["count_codes", "count_codes_reference"]
+__all__ = ["count_bins", "count_bins_reference", "count_codes", "count_codes_reference"]

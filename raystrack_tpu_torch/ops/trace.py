@@ -14,10 +14,17 @@ Both run
 
     rays   <- stratified Halton emission with Cranley-Patterson rotation
     sweep  <- all-pairs Möller–Trumbore against the scene (ops/trace_cuda.py)
-    reduce <- per-row front/back hit counts per surface (count_codes)
+    reduce <- per-row histograms (count_bins): front/back hits per surface
+              for the matrix, and for the sky the rays that miss every
+              eligible triangle, upward (merged) or per Tregenza patch
+              (discrete)
 
-and return only int32 count tensors. Everything here is plain PyTorch on
-the solve's device; the sweeps and the count are the kernels.
+and return only int32 count tensors. ``want_matrix`` / ``want_any`` /
+``discrete`` pick the outputs as in the JAX package: ``counts_f`` and
+``counts_b`` for the matrix, ``upward`` or ``sky_bins`` for the sky, both
+from one sweep of the same rays in the shared-ray workflow. Everything here
+is plain PyTorch on the solve's device; the sweeps and the count are the
+kernels.
 
 With the scene's acceleration boxes (``accel``) on a scene of more than
 one sweep tile, both first sort each iteration's (or schedule row's) rays
@@ -34,10 +41,11 @@ import numpy as np
 import torch
 
 from ..config import PALLAS_TRI_TILE
-from .count_cuda import count_codes
+from .count_cuda import count_bins, count_codes
 from .trace_cuda import (
     RAY_SUBBLOCK, build_tri_pack, gate_prunes, sweep_rays, sweep_rays_scheduled,
 )
+from .tregenza import TREGENZA_BINS, tregenza_patch_id
 
 TWO_PI = 6.283185307179586
 
@@ -216,12 +224,16 @@ def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
 
 
 def emitter_operands(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
-                     plane_vec=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sweep operands of one emitter, fixed for its whole solve: the
-    (24, Tpad) pack with the primary (matrix) mask baked in, and that mask
-    (Tpad,) bool, which decides the tiles the sweep skips."""
+                     plane_vec=None, *, want_any: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sweep operands of one emitter for one kind of dispatch: the
+    (24, Tpad) pack with the primary mask baked in (m_any when any-hits are
+    wanted, else m_mat, as the JAX package bakes it per dispatch), and that
+    mask (Tpad,) bool, which decides the tiles the sweep skips. With
+    any-hits wanted the sweep tests the pack's m_mat row for the matrix."""
     m_any, m_mat = compute_masks(scene, surf_active_ext, emit_sid, min_sid, plane_vec)
-    return build_tri_pack(scene, m_any, m_mat, bake=m_mat), m_mat
+    primary = m_any if want_any else m_mat
+    return build_tri_pack(scene, m_any, m_mat, bake=primary), primary
 
 
 def slim_operands(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_sid: int, *,
@@ -244,6 +256,38 @@ def _count_rows(codes: torch.Tensor, valid, n_valid: torch.Tensor, n_surf: int):
     return count_codes(codes, n_valid, n_surf)
 
 
+def _outputs(codes, any_hit, d, valid, n_valid, n_surf: int, *, want_matrix: bool,
+             want_any: bool, discrete: bool) -> Dict[str, torch.Tensor]:
+    """The per-row counts of one sweep's (rows, L) ``codes`` and ``any_hit``
+    flags, with the rays' (rows, L, 3) directions ``d`` in the sweep's
+    order (after the coherence sort, where there was one): ``counts_f`` /
+    ``counts_b`` (rows, n_surf) for the matrix; for the sky, of the rays
+    that hit no eligible triangle, ``sky_bins`` (rows, 145) per Tregenza
+    patch or ``upward`` (rows,) with ``dz > 0``. Each is one count kernel
+    over the rays ``valid`` (or the leading ``n_valid``) marks."""
+    out: Dict[str, torch.Tensor] = {}
+    if want_matrix:
+        out["counts_f"], out["counts_b"] = _count_rows(codes, valid, n_valid, n_surf)
+    if want_any:
+        miss = any_hit == 0
+        dz = d[..., 2]
+        if discrete:
+            ids = torch.where(miss, tregenza_patch_id(d[..., 0], d[..., 1], dz), -1)
+            n_bins = TREGENZA_BINS
+        else:
+            ids = torch.where(miss & (dz > 0.0), 0, -1).to(torch.int32)
+            n_bins = 1
+        if valid is not None:
+            counts = count_bins(ids, n_bins, valid=valid)
+        else:
+            counts = count_bins(ids, n_bins, n_valid)
+        if discrete:
+            out["sky_bins"] = counts
+        else:
+            out["upward"] = counts[:, 0]
+    return out
+
+
 def chunk_body(
     tri_pack: torch.Tensor,
     sweep_mask: torch.Tensor,
@@ -254,14 +298,20 @@ def chunk_body(
     n_rays_once: int,
     accel=None,
     code_bounds=None,
+    *,
+    want_matrix: bool = True,
+    want_any: bool = False,
+    discrete: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Trace ``chunk = cp.shape[0]`` iterations of one emitter.
 
-    Sweeps against the operands of :func:`emitter_operands` (gated by the
-    scene's ``accel`` boxes where :func:`gate_prunes`, after a coherence
-    sort of each iteration's rays), drops padded tail rays, and returns
-    per-iteration ``counts_f`` / ``counts_b`` (chunk, n_surf) int32 hit
-    counts, left on the solve's device.
+    Sweeps against the operands of :func:`emitter_operands` for this kind
+    of dispatch (gated by the scene's ``accel`` boxes where
+    :func:`gate_prunes`, after a coherence sort of each iteration's rays),
+    drops padded tail rays, and returns per-iteration counts left on the
+    solve's device: ``counts_f`` / ``counts_b`` (chunk, n_surf) int32 when
+    ``want_matrix``, ``upward`` (chunk,) or, ``discrete``, ``sky_bins``
+    (chunk, 145) int32 when ``want_any``.
 
     With ``code_bounds`` the operands are a slim scene's: its resident
     ``tri_pack`` and the mask and bounds of :func:`slim_operands`; the
@@ -278,15 +328,16 @@ def chunk_body(
     if accel is not None:
         valid = (torch.arange(n_local, device=device) < n_rays_once).expand(chunk, n_local)
         o, d, valid = _sorted_for_gate(o, d, valid, accel)
-    codes, _ = sweep_rays(
+    codes, any_hit = sweep_rays(
         ray_pack(o, d), tri_pack, sweep_mask, tri_tile=PALLAS_TRI_TILE,
-        want_matrix=True, want_any=False, masks_baked=code_bounds is None,
+        want_matrix=want_matrix, want_any=want_any, masks_baked=code_bounds is None,
         code_bounds=code_bounds, accel=accel,
     )
     n_valid = torch.full((chunk,), min(n_rays_once, n_local), dtype=torch.int32,
                          device=device)
-    counts_f, counts_b = _count_rows(codes.view(chunk, n_local), valid, n_valid, n_surf)
-    return {"counts_b": counts_b, "counts_f": counts_f}
+    return _outputs(codes.view(chunk, n_local), any_hit.view(chunk, n_local), d, valid,
+                    n_valid, n_surf, want_matrix=want_matrix, want_any=want_any,
+                    discrete=discrete)
 
 
 def scheduled_rays(tables_flat: Tuple, geom_stacked: Tuple, cp: torch.Tensor,
@@ -363,23 +414,27 @@ def scheduled_trace(
     sched_block: int,
     tri_tile: Optional[int] = None,
     accel=None,
+    want_matrix: bool = True,
+    want_any: bool = False,
+    discrete: bool = False,
 ) -> torch.Tensor:
     """Trace a block schedule spanning many emitters and iterations.
 
-    Counterpart of the JAX package's ``scheduled_trace_pallas`` (matrix
-    counts): the round's combined mask rows for all its E emitters
+    Counterpart of the JAX package's ``scheduled_trace_pallas``: the
+    round's combined mask rows for all its E emitters
     (:func:`combined_masks`), the rays of all nb schedule rows
     (:func:`scheduled_rays`; coherence-sorted within each row where the
     scene's ``accel`` boxes let the gate prune), one multi-emitter sweep
     over them (kernel #2) against ``tri_pack`` (the scene pack built once
     with zero mask rows: one pack serves every emitter), and the per-row
-    counts (the count kernel).
+    counts (the count kernel, once per output).
 
     Per-round inputs are indexed by emitter row: ``surf_active_ext`` (E,
     S+1), ``emit_sid``/``min_sid``/``n_rays_once`` (E,), ``plane_vec`` (E,
     8) and ``sel`` (E,), the emitter's row of the solve-wide geometry
-    stack. Returns :func:`pack_outputs` of ``counts_b``/``counts_f`` (nb,
-    S): one tensor, so the host fetches a round with one copy.
+    stack. Returns :func:`pack_outputs` of the outputs ``want_matrix`` /
+    ``want_any`` / ``discrete`` pick (those of :func:`chunk_body`, per
+    schedule row): one tensor, so the host fetches a round with one copy.
     """
     nb = schedule.shape[0]
     n_surf = surf_active_ext.shape[1] - 1
@@ -399,12 +454,13 @@ def scheduled_trace(
         ray = torch.arange(sched_block, dtype=n_valid.dtype, device=n_valid.device)
         o, d, valid = _sorted_for_gate(o, d, ray[None, :] < n_valid[:, None], accel)
     emap = schedule[:, 0].repeat_interleave(sched_block // RAY_SUBBLOCK)
-    codes, _ = sweep_rays_scheduled(
+    codes, any_hit = sweep_rays_scheduled(
         ray_pack(o, d), tri_pack, masks, emap, tri_tile=tri_tile,
-        want_matrix=True, want_any=False, accel=accel,
+        want_matrix=want_matrix, want_any=want_any, accel=accel,
     )
-    counts_f, counts_b = _count_rows(codes.view(nb, sched_block), valid, n_valid, n_surf)
-    return pack_outputs({"counts_b": counts_b, "counts_f": counts_f})
+    return pack_outputs(_outputs(
+        codes.view(nb, sched_block), any_hit.view(nb, sched_block), d, valid, n_valid,
+        n_surf, want_matrix=want_matrix, want_any=want_any, discrete=discrete))
 
 
 def pack_outputs(out: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -414,10 +470,19 @@ def pack_outputs(out: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.cat([out[k].reshape(-1) for k in sorted(out)])
 
 
-def unpack_outputs(flat: np.ndarray, nb: int, n_surf: int) -> Dict[str, np.ndarray]:
-    """Host-side inverse of :func:`pack_outputs` for the matrix counts
-    (NumPy views, no copy)."""
-    shapes = {"counts_b": (nb, n_surf), "counts_f": (nb, n_surf)}
+def unpack_outputs(flat: np.ndarray, nb: int, n_surf: int, *, want_matrix: bool = True,
+                   want_any: bool = False, discrete: bool = False) -> Dict[str, np.ndarray]:
+    """Host-side inverse of :func:`pack_outputs` for the outputs the three
+    flags pick (NumPy views, no copy)."""
+    shapes = {}
+    if want_matrix:
+        shapes["counts_b"] = (nb, n_surf)
+        shapes["counts_f"] = (nb, n_surf)
+    if want_any:
+        if discrete:
+            shapes["sky_bins"] = (nb, TREGENZA_BINS)
+        else:
+            shapes["upward"] = (nb,)
     host, off = {}, 0
     for k in sorted(shapes):
         n = int(np.prod(shapes[k]))

@@ -1,8 +1,8 @@
 """Solver parameters of the PyTorch port.
 
-Field for field the ``MatrixParams`` of ``raystrack_tpu.params``, so a
-parameter set moves between the two packages unchanged; ``device`` names a
-PyTorch backend instead of a JAX one.
+Field for field the ``MatrixParams`` and ``SkyParams`` of
+``raystrack_tpu.params``, so a parameter set moves between the two packages
+unchanged; ``device`` names a PyTorch backend instead of a JAX one.
 """
 from __future__ import annotations
 
@@ -78,10 +78,7 @@ class MatrixParams:
     flip_faces: bool = False
 
     def __post_init__(self) -> None:
-        if str(self.device).lower() not in DEVICES:
-            raise ValueError(
-                f"device must be 'auto', 'gpu', or 'cpu' (got {self.device!r})"
-            )
+        _check_device(self.device)
 
     def as_dict(self) -> Dict[str, Any]:
         return asdict(self)
@@ -91,4 +88,49 @@ class MatrixParams:
         return cls(**data)
 
 
-__all__ = ["MatrixParams"]
+@dataclass
+class SkyParams:
+    """Configuration for sky view-factor solves.
+
+    Shares the sampling and convergence fields of :class:`MatrixParams`;
+    see there.
+
+    Parameters
+    ----------
+    discrete : bool
+        If True, return the 145 Tregenza patches ``Sky_Patch_1`` ..
+        ``Sky_Patch_145``; if False, one merged ``Sky`` entry: the fraction
+        of rays that miss all geometry with an upward direction.
+    """
+
+    samples: int = 16
+    rays: int = 128
+    seed: int = 1
+    bvh: str = "auto"
+    device: str = "auto"
+    cuda_async: bool = True
+    gpu_raygen: bool = True
+    max_iters: int = 100
+    tol: float = 1e-4
+    tol_mode: str = "stderr"
+    min_iters: int = 5
+    convergence_interval: int = 1
+    discrete: bool = False
+
+    def __post_init__(self) -> None:
+        _check_device(self.device)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "SkyParams":
+        return cls(**data)
+
+
+def _check_device(device) -> None:
+    if str(device).lower() not in DEVICES:
+        raise ValueError(f"device must be 'auto', 'gpu', or 'cpu' (got {device!r})")
+
+
+__all__ = ["MatrixParams", "SkyParams"]

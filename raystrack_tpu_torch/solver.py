@@ -1,27 +1,34 @@
-"""View-factor matrix solve of the PyTorch port.
+"""View-factor solves of the PyTorch port: the matrix, the sky and both.
 
-Counterpart of ``raystrack_tpu/solver.py``'s ``view_factor_matrix`` and its
-two routes on an accelerator:
+Counterpart of ``raystrack_tpu/solver.py``'s ``view_factor_matrix``,
+``view_factor_to_tregenza_sky`` and ``view_factor_matrix_and_sky`` (the
+shared-ray workflow), and of their two routes on an accelerator:
 
-- the whole-scene scheduled driver (``_drive_matrix_scheduled`` ->
-  ``ops.trace.scheduled_trace`` -> sweep kernel #2): every pending
-  emitter's next iterations go into one dispatch per convergence round;
-  a CUDA solve of more than one emitter takes it;
-- the per-emitter pipelined driver (``_drive_matrix_pipelined`` ->
-  ``_EmitterRun`` -> ``ops.trace.chunk_body`` -> sweep kernel #1): single
-  emitters, emitters too big for a round, CPU solves by default, and
+- the whole-scene scheduled driver (``_drive_scheduled`` under
+  ``_drive_matrix_scheduled``, ``_drive_sky_scheduled`` and
+  ``_drive_combined_scheduled`` -> ``ops.trace.scheduled_trace`` -> sweep
+  kernel #2): every pending emitter's next iterations go into one dispatch
+  per convergence round; a CUDA solve of more than one emitter takes it;
+- the per-emitter pipelined driver (``_drive_pipelined`` under the matrix
+  and sky drivers, and ``_drive_combined_pipelined`` -> ``_EmitterRun`` ->
+  ``ops.trace.chunk_body`` -> sweep kernel #1): single emitters, emitters
+  too big for a round, CPU solves by default, and
   ``RAYSTRACK_TPU_SCHEDULER=grouped``.
 
-Both replay per-iteration counts through float64 monitors on the host, so
-stopping behaviour matches a strictly sequential solve and the two routes
-return equal dicts. Also as in the JAX package:
+The matrix sweeps want the nearest hit, the sky sweeps only whether a ray
+hits anything (any-only), and the workflow both at once (matrix + any)
+until one side converges. Both routes replay per-iteration counts through
+float64 monitors on the host, so stopping behaviour matches a strictly
+sequential solve and the two routes return equal dicts. Also as in the JAX
+package:
 
 - reciprocity half-matrix tracing (only receivers with id > emitter are
   intersected; the transpose is back-filled as F*Ai/Aj),
 - planar emitters cull receivers whose bounding box lies entirely behind the
   emission plane,
 - per-emitter progress lines keep the format
-  ``(i/n) [name] K iter, R rays -> T s (BVH=..., device=...)``,
+  ``(i/n) [name] K iter, R rays -> T s (BVH=..., device=...)`` (the
+  workflow's: ``[name] traced K iter, ... (scene=M iter, sky=S iter, ...)``),
 - solves without ``prepared=`` reuse an implicit, content-keyed LRU of
   ``PreparedSolver``s (``clear_prepared_cache`` empties it).
 
@@ -49,10 +56,10 @@ import torch
 
 from . import config as _cfg
 from .config import RAY_BLOCK
-from .convergence import MatrixMonitor, plan_chunk
+from .convergence import MatrixMonitor, SkyMonitor, plan_chunk
 from .ops import trace as _trace
 from .ops.trace_cuda import build_tri_pack
-from .params import MatrixParams
+from .params import MatrixParams, SkyParams
 from .prepared import (
     EmitterPack,
     LazyEmitterPack,
@@ -244,12 +251,16 @@ class _EmitterRun:
     """Dispatches chunked tracing for one emitter.
 
     The emitter's masks and baked operand pack (98 bytes per padded
-    triangle on the solve's device) are built at its first dispatch,
-    reused by every later chunk, and dropped by :meth:`release` when the
-    emitter finishes. An emitter the scheduled driver finishes never
-    builds them. On a slim scene pack no per-emitter pack exists: the
-    operands are the scene's resident ``tri_pack``, a sweep mask from the
-    surface ids and the emitter's two codes (``code_bounds``).
+    triangle on the solve's device) are built at its first dispatch of a
+    kind and reused by every later chunk of that kind. The pack bakes the
+    primary mask of the kind, as the JAX package bakes it per dispatch:
+    m_any when any-hits are wanted (the sky, and the workflow while its sky
+    is pending), else m_mat. So a run holds at most two packs, one per
+    kind, and :meth:`release` drops both when the emitter finishes. An
+    emitter the scheduled driver finishes never builds one. On a slim
+    scene pack no per-emitter pack exists: the operands are the scene's
+    resident ``tri_pack``, a sweep mask from the surface ids and the
+    emitter's two codes (``code_bounds``).
     """
 
     def __init__(
@@ -270,40 +281,47 @@ class _EmitterRun:
         self._surf_ext[:-1] = surf_active  # the padding sid n_surf stays inactive
         self.emit_sid = int(emit_sid)
         self.min_sid = int(min_sid)
-        self.tri_pack: Optional[torch.Tensor] = None
-        self.sweep_mask: Optional[torch.Tensor] = None
-        self.code_bounds: Optional[Tuple[float, float]] = None  # slim scenes only
+        # want_any -> (operand pack, sweep mask, code_bounds or None)
+        self.packs: Dict[bool, Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]] = {}
         self.seed = seed
         self.idx_emit = idx_emit
         self.itr_next = 0  # absolute iteration index (drives the RNG stream)
 
-    def operands(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The operand pack (baked, or a slim scene's resident one) and the
-        sweep mask, built on first use."""
-        if self.tri_pack is None:
+    def operands(self, want_any: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
+        """The operand pack (baked for this kind, or a slim scene's
+        resident one), the sweep mask and the slim ``code_bounds`` (None
+        for a baked pack) of a dispatch that does or does not want
+        any-hits, built on first use."""
+        ops = self.packs.get(want_any)
+        if ops is None:
             sp = self.scene_pack
             surf_ext = _upload([self._surf_ext], np.int32, self.device)[0]
             if sp.slim:
-                self.tri_pack = sp.tri_pack
-                self.sweep_mask, self.code_bounds = _trace.slim_operands(
-                    sp.sid, surf_ext, self.emit_sid, self.min_sid)
+                mask, bounds = _trace.slim_operands(
+                    sp.sid, surf_ext, self.emit_sid, self.min_sid, want_any=want_any)
+                ops = (sp.tri_pack, mask, bounds)
             else:
-                self.tri_pack, self.sweep_mask = _trace.emitter_operands(
+                pack, mask = _trace.emitter_operands(
                     (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid),
                     surf_ext, self.emit_sid, self.min_sid, self.em_pack.plane_vec,
+                    want_any=want_any,
                 )
-        return self.tri_pack, self.sweep_mask
+                ops = (pack, mask, None)
+            self.packs[want_any] = ops
+        return ops
 
     def release(self) -> None:
         """Drop the operands; a later dispatch would build them again. A
         slim scene's resident pack stays with its scene pack."""
-        self.tri_pack = self.sweep_mask = self.code_bounds = None
+        self.packs.clear()
 
-    def dispatch_chunk(self, chunk: int) -> Callable[[], Dict[str, np.ndarray]]:
-        """Queue ``chunk`` iterations without synchronising, so the driver
+    def dispatch_chunk(self, chunk: int, *, want_matrix: bool, want_any: bool,
+                       discrete: bool) -> Callable[[], Dict[str, np.ndarray]]:
+        """Queue ``chunk`` iterations of the outputs the three flags pick
+        (:func:`ops.trace.chunk_body`) without synchronising, so the driver
         can keep several emitters in flight; returns a function that waits
         for this chunk's counts only and hands them back as NumPy arrays."""
-        tri_pack, sweep_mask = self.operands()
+        tri_pack, sweep_mask, code_bounds = self.operands(want_any)
         cp = torch.from_numpy(_cp_rows(self.seed, self.idx_emit, self.itr_next, chunk))
         self.itr_next += chunk
         em = self.em_pack
@@ -316,7 +334,8 @@ class _EmitterRun:
             (em.cdf, em.tri_a, em.tri_e1, em.tri_e2,
              em.tri_u, em.tri_v, em.tri_n, em.tri_eps),
             cp, self.scene_pack.n_surf, em.n_rays_once, accel=self.scene_pack.accel,
-            code_bounds=self.code_bounds,
+            code_bounds=code_bounds, want_matrix=want_matrix, want_any=want_any,
+            discrete=discrete,
         )
         if not on_card:
             return lambda: {k: v.numpy() for k, v in out.items()}
@@ -333,9 +352,13 @@ class _EmitterRun:
         return harvest
 
 
-def _entry_monitors(entry) -> List[MatrixMonitor]:
-    """All monitors of an entry (the sky port adds a second kind)."""
-    return [entry["monitor"]]
+def _entry_monitors(entry) -> List:
+    """All live monitors of an entry: its ``monitor`` (a matrix or sky
+    solve), or the workflow's ``matrix_mon`` (None for an emitter with no
+    receivers) and ``sky_mon``."""
+    if "monitor" in entry:
+        return [entry["monitor"]]
+    return [m for m in (entry.get("matrix_mon"), entry.get("sky_mon")) if m is not None]
 
 
 def _entry_done(entry) -> None:
@@ -375,16 +398,19 @@ def _make_emitter_pack(prepared_solver: PreparedSolver, idx_emit: int, p: Dict,
     )
 
 
-def _drive_matrix_pipelined(entries, *, depth: int = 3) -> None:
-    """Round-robin per-emitter solves with pipelined dispatch.
+def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bool,
+                     consume, depth: int = 3) -> None:
+    """Round-robin single-output per-emitter solves with pipelined dispatch.
 
     Up to ``depth`` emitters have a chunk queued on the device at once, so
     the host-side float64 replay and RNG generation of one emitter overlap
     device work of the others. Results are identical to a sequential driver.
 
     ``entries`` is a list of dicts with keys ``run`` (_EmitterRun) and
-    ``monitor``; monitors still pending are driven to completion in place
-    and :func:`_entry_done` runs once per entry as it finishes.
+    ``monitor``; ``consume(monitor, host, k)`` folds iteration ``k`` of a
+    chunk's host counts into the monitor. Monitors still pending are driven
+    to completion in place and :func:`_entry_done` runs once per entry as it
+    finishes.
     """
     queue = deque(e for e in entries if not e["monitor"].done)
     inflight: deque = deque()
@@ -405,7 +431,9 @@ def _drive_matrix_pipelined(entries, *, depth: int = 3) -> None:
                 mon.done = True
                 _entry_done(entry)
                 continue
-            inflight.append((entry, entry["run"].dispatch_chunk(chunk), chunk))
+            harvest = entry["run"].dispatch_chunk(
+                chunk, want_matrix=want_matrix, want_any=want_any, discrete=discrete)
+            inflight.append((entry, harvest, chunk))
         if not inflight:
             break
         entry, harvest, chunk = inflight.popleft()
@@ -414,10 +442,112 @@ def _drive_matrix_pipelined(entries, *, depth: int = 3) -> None:
         for k in range(chunk):
             if mon.done:
                 break
-            mon.consume_iteration(host["counts_f"][k], host["counts_b"][k])
+            consume(mon, host, k)
         # rewind past discarded speculative iterations
         entry["run"].itr_next = mon.iters_done
         if mon.done:
+            _entry_done(entry)
+        else:
+            queue.append(entry)
+
+
+def _consume_sky(mon: SkyMonitor, host, rows, discrete: bool) -> None:
+    """Fold one iteration's sky counts (the sum of ``host``'s rows
+    ``rows``: one row per-emitter, an iteration's schedule rows on the
+    scheduled route) into ``mon``."""
+    if discrete:
+        mon.consume_iteration(host["sky_bins"][rows].sum(axis=0))
+    else:
+        mon.consume_iteration(int(host["upward"][rows].sum()))
+
+
+def _drive_matrix_pipelined(entries, *, depth: int = 3) -> None:
+    _drive_pipelined(
+        entries, want_matrix=True, want_any=False, discrete=False,
+        consume=lambda mon, host, k: mon.consume_iteration(
+            host["counts_f"][k], host["counts_b"][k]),
+        depth=depth,
+    )
+
+
+def _drive_sky_pipelined(entries, *, discrete: bool, depth: int = 3) -> None:
+    _drive_pipelined(
+        entries, want_matrix=False, want_any=True, discrete=discrete,
+        consume=lambda mon, host, k: _consume_sky(mon, host, slice(k, k + 1), discrete),
+        depth=depth,
+    )
+
+
+def _consume_both(entry, host, rows, discrete: bool, m_pending: bool = True,
+                  s_pending: bool = True) -> None:
+    """Fold one iteration of a shared-ray dispatch (``host``'s rows
+    ``rows``) into each of the entry's monitors that the dispatch served
+    and that is still pending, and advance ``trace_iters``, the iterations
+    the emitter's RNG stream has consumed."""
+    m, s = entry["matrix_mon"], entry["sky_mon"]
+    used = False
+    if m_pending and m is not None and not m.done:
+        m.consume_iteration(host["counts_f"][rows].sum(axis=0),
+                            host["counts_b"][rows].sum(axis=0))
+        used = True
+    if s_pending and not s.done:
+        _consume_sky(s, host, rows, discrete)
+        used = True
+    if used:
+        entry["trace_iters"] = max(entry["trace_iters"],
+                                   m.iters_done if m is not None else 0, s.iters_done)
+
+
+def _drive_combined_pipelined(entries, *, discrete: bool, depth: int = 3) -> None:
+    """Pipelined round-robin over emitters with dual (matrix, sky) monitors.
+
+    The shared-ray workflow's counterpart of :func:`_drive_pipelined`: each
+    emitter's dispatch kind follows its own state machine (matrix + any
+    while both outputs are pending, then only the pending one), and up to
+    ``depth`` emitters keep a chunk in flight. The replay rewinds the RNG
+    stream both outputs share to ``trace_iters``, past the iterations that
+    neither monitor used.
+
+    ``entries`` carry ``run``, ``matrix_mon`` (None without receivers),
+    ``sky_mon`` and ``trace_iters``, which the replay advances.
+    """
+    queue = deque(e for e in entries if any(not m.done for m in _entry_monitors(e)))
+    inflight: deque = deque()
+
+    while queue or inflight:
+        while queue and len(inflight) < depth:
+            entry = queue.popleft()
+            m, s = entry["matrix_mon"], entry["sky_mon"]
+            m_pending = m is not None and not m.done
+            s_pending = not s.done
+            chunk = 0
+            for mon in _entry_monitors(entry):
+                if mon.done:
+                    continue
+                chunk = max(chunk, plan_chunk(
+                    mon.iters_done,
+                    min_iters=mon.min_iters,
+                    interval=mon.interval,
+                    max_iters=mon.max_iters,
+                    rays_per_iter=entry["run"].em_pack.n_rays_pad,
+                    projected_total=mon.projected_total(),
+                ))
+            if chunk <= 0:
+                for mon in _entry_monitors(entry):
+                    mon.done = True
+                _entry_done(entry)
+                continue
+            harvest = entry["run"].dispatch_chunk(
+                chunk, want_matrix=m_pending, want_any=s_pending, discrete=discrete)
+            inflight.append((entry, harvest, chunk, m_pending, s_pending))
+        if not inflight:
+            break
+        entry, harvest, chunk, m_pending, s_pending = inflight.popleft()
+        host = harvest()
+        for k in range(chunk):
+            _consume_both(entry, host, slice(k, k + 1), discrete, m_pending, s_pending)
+        entry["run"].itr_next = entry["trace_iters"]
+        if all(m.done for m in _entry_monitors(entry)):
             _entry_done(entry)
         else:
             queue.append(entry)
@@ -449,13 +579,14 @@ def _upload(arrays: List[np.ndarray], dtype, device: torch.device) -> List[torch
 
 def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                      flip_faces: bool, align: int, scene_pack: ScenePack,
-                     device: torch.device, n_surf: int, *, consume) -> None:
+                     device: torch.device, n_surf: int, *, want_matrix: bool,
+                     want_any: bool, discrete: bool, consume) -> None:
     """Whole-scene scheduled solves: one dispatch per convergence round.
 
     Builds a block schedule spanning every pending emitter's next chunk and
-    runs it as one :func:`ops.trace.scheduled_trace` (one launch of sweep
-    kernel #2), then replays per-(emitter, iteration) sums of the rows'
-    counts through the monitors. The dispatch count becomes the number of
+    runs it as one :func:`ops.trace.scheduled_trace` of the outputs the
+    three flags pick (one launch of sweep kernel #2), then replays
+    per-(emitter, iteration) sums of the rows' counts through the monitors. The dispatch count becomes the number of
     convergence rounds of the slowest emitter instead of emitters x rounds.
 
     A round holds at most ``max(SCHED_MIN_BLOCKS, TARGET_CHUNK_RAYS //
@@ -605,7 +736,8 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         flat = _trace.scheduled_trace(
             scene_t, tri_pack, tables_flat, geom_stacked, cp_t, surf_t, emit_t,
             min_t, once_t, plane_t, schedule, sel_t, sched_block=RAY_BLOCK,
-            accel=scene_pack.accel,
+            accel=scene_pack.accel, want_matrix=want_matrix, want_any=want_any,
+            discrete=discrete,
         )
         if device.type != "cuda":
             return _Round(flat, None, plan, n_rows)
@@ -618,7 +750,9 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     def consume_round(round_: _Round) -> None:
         if round_.ready is not None:
             round_.ready.synchronize()
-        host = _trace.unpack_outputs(round_.host.numpy(), round_.n_rows, n_surf)
+        host = _trace.unpack_outputs(round_.host.numpy(), round_.n_rows, n_surf,
+                                     want_matrix=want_matrix, want_any=want_any,
+                                     discrete=discrete)
         for entry, start_row, bpi, chunk in round_.plan:
             consume(entry, host, start_row, bpi, chunk)
             if not entry_pending(entry):
@@ -671,8 +805,108 @@ def _drive_matrix_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
 
     _drive_scheduled(
         entries, prepared_solver, p, flip_faces, align, scene_pack, device,
-        n_surf, consume=consume,
+        n_surf, want_matrix=True, want_any=False, discrete=False, consume=consume,
     )
+
+
+def _drive_sky_scheduled(entries, prepared_solver: PreparedSolver, p: Dict, align: int,
+                         scene_pack: ScenePack, device: torch.device, n_surf: int, *,
+                         discrete: bool) -> None:
+    def consume(entry, host, start_row, bpi, chunk):
+        mon = entry["monitor"]
+        for c in range(chunk):
+            if mon.done:
+                break
+            r0 = start_row + c * bpi
+            _consume_sky(mon, host, slice(r0, r0 + bpi), discrete)
+        # never rewind (see _drive_matrix_scheduled.consume)
+        entry["run"].itr_next = max(entry["run"].itr_next, mon.iters_done)
+
+    _drive_scheduled(
+        entries, prepared_solver, p, False, align, scene_pack, device, n_surf,
+        want_matrix=False, want_any=True, discrete=discrete, consume=consume,
+    )
+
+
+def _drive_combined_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
+                              align: int, scene_pack: ScenePack, device: torch.device,
+                              n_surf: int, *, discrete: bool) -> None:
+    """Scheduled shared-ray workflow: both outputs for every block of every
+    round; each monitor consumes only while pending, the dual-monitor
+    replay of :func:`_drive_combined_pipelined`."""
+
+    def consume(entry, host, start_row, bpi, chunk):
+        for c in range(chunk):
+            r0 = start_row + c * bpi
+            _consume_both(entry, host, slice(r0, r0 + bpi), discrete)
+        # never rewind (see _drive_matrix_scheduled.consume)
+        entry["run"].itr_next = max(entry["run"].itr_next, entry["trace_iters"])
+
+    _drive_scheduled(
+        entries, prepared_solver, p, False, align, scene_pack, device, n_surf,
+        want_matrix=True, want_any=True, discrete=discrete, consume=consume,
+    )
+
+
+def _refuse_unported(**options) -> None:
+    """Raise ``NotImplementedError`` for a solve option the port does not
+    have yet, naming its ROADMAP item."""
+    items = {"mesh": "parallel/ (ray sharding with an NCCL sum of the counts)",
+             "checkpoint_dir": "checkpoints and row_sink",
+             "row_sink": "checkpoints and row_sink"}
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}= is not ported yet (ROADMAP port queue: {items[name]})"
+            )
+
+
+def _matrix_row(monitor: Optional[MatrixMonitor], receivers: List[int], meshes: List[Mesh],
+                idx_emit: int, reciprocity: bool, areas) -> Tuple[Dict, Dict, Dict]:
+    """One emitter's converged matrix row ``{receiver_front/back: F}``, its
+    stderr row, and the reciprocity back-fill ``{receiver: {emitter_front:
+    F * Ai / Aj}}`` (empty rows when the monitor traced nothing)."""
+    row: Dict[str, float] = {}
+    stats_row: Dict[str, float] = {}
+    backfill: Dict[str, Dict[str, float]] = {}
+    if monitor is None or monitor.total_rays <= 0:
+        return row, stats_row, backfill
+    name_e = meshes[idx_emit][0]
+    se_f = monitor.wf.stderr()
+    se_b = monitor.wb.stderr()
+    total = float(monitor.total_rays)
+    for j in receivers:
+        name_r = meshes[j][0]
+        f = monitor.hits_f[j] / total
+        b = monitor.hits_b[j] / total
+        if f > 0.0:
+            row[f"{name_r}_front"] = f
+            stats_row[f"{name_r}_front"] = float(se_f[j])
+            if reciprocity and areas is not None and areas[j] > 0.0:
+                back = f * (areas[idx_emit] / areas[j])
+                backfill.setdefault(name_r, {})[f"{name_e}_front"] = back
+        if b > 0.0:
+            row[f"{name_r}_back"] = b
+            stats_row[f"{name_r}_back"] = float(se_b[j])
+    return row, stats_row, backfill
+
+
+def _sky_keys(discrete: bool) -> List[str]:
+    return [f"Sky_Patch_{i}" for i in range(1, 146)] if discrete else ["Sky"]
+
+
+def _sky_row(monitor: SkyMonitor, discrete: bool) -> Tuple[Dict, Dict]:
+    """One emitter's converged sky row (``Sky``, or ``Sky_Patch_1`` ..
+    ``Sky_Patch_145``) and its stderr row."""
+    total = float(max(1, monitor.total_rays))
+    if discrete:
+        frac = monitor.counts_total.astype(np.float64) / total
+        se = monitor.bins_w.stderr()
+        keys = _sky_keys(True)
+        return ({k: float(frac[i]) for i, k in enumerate(keys)},
+                {k: float(se[i]) for i, k in enumerate(keys)})
+    return ({"Sky": float(monitor.upward_total / total)},
+            {"Sky": float(monitor.sky_w.stderr())})
 
 
 def view_factor_matrix(
@@ -700,15 +934,7 @@ def view_factor_matrix(
     """
     if not isinstance(params, MatrixParams):
         raise TypeError("params must be a MatrixParams instance")
-    for name, value, item in (
-        ("mesh", mesh, "parallel/ (ray sharding with an NCCL sum of the counts)"),
-        ("checkpoint_dir", checkpoint_dir, "checkpoints and row_sink"),
-        ("row_sink", row_sink, "checkpoints and row_sink"),
-    ):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP port queue: {item})"
-            )
+    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir, row_sink=row_sink)
     p = params.as_dict()
     device = _resolve_device(p["device"])
     # CPU solves check convergence every iteration; the interval only
@@ -775,30 +1001,8 @@ def view_factor_matrix(
 
     def _assemble(entry) -> None:
         """Build the emitter's row, back-fill and stats as it converges."""
-        idx_emit, name_e = entry["idx"], entry["name"]
-        monitor = entry["monitor"]
-        se_f = monitor.wf.stderr()
-        se_b = monitor.wb.stderr()
-        row: Dict[str, float] = {}
-        stats_row: Dict[str, float] = {}
-        backfill: Dict[str, Dict[str, float]] = {}
-        total = float(monitor.total_rays)
-        for j in entry["receivers"]:
-            name_r = meshes[j][0]
-            f = monitor.hits_f[j] / total
-            b = monitor.hits_b[j] / total
-            if f > 0.0:
-                row[f"{name_r}_front"] = f
-                stats_row[f"{name_r}_front"] = float(se_f[j])
-                if reciprocity and areas is not None and areas[j] > 0.0:
-                    back = f * (areas[idx_emit] / areas[j])
-                    backfill.setdefault(name_r, {})[f"{name_e}_front"] = back
-            if b > 0.0:
-                row[f"{name_r}_back"] = b
-                stats_row[f"{name_r}_back"] = float(se_b[j])
-        entry["row"] = row
-        entry["stats"] = stats_row
-        entry["backfill"] = backfill
+        entry["row"], entry["stats"], entry["backfill"] = _matrix_row(
+            entry["monitor"], entry["receivers"], meshes, entry["idx"], reciprocity, areas)
 
     # Phase 2: whole-scene scheduled dispatches when possible, then the
     # pipelined per-emitter driver for whatever is left (single emitters,
@@ -849,6 +1053,262 @@ def view_factor(
     return {name: vf_all.get(name, {}) for name in (s[0] for s in senders)}
 
 
+def view_factor_to_tregenza_sky(
+    meshes: List[Mesh],
+    params: SkyParams,
+    *,
+    prepared: Optional[PreparedSolver] = None,
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    return_stats: bool = False,
+):
+    """Sky view factor per emitter: merged ``Sky`` or 145 Tregenza patches.
+
+    Every mesh emits (outward, ``flip_faces=False``); a ray counts for the
+    sky when it hits no triangle of another active surface, and for the
+    merged ``Sky`` only when it also points up (``dz > 0``). A single mesh
+    has nothing to block its rays and traces nothing: its row is all zeros.
+
+    With ``return_stats=True`` also returns ``{emitter: {key: stderr}}``,
+    the standard error of each sky fraction (per patch when discrete).
+    Routed as :func:`view_factor_matrix`: a CUDA solve of more than one
+    emitter goes through the whole-scene scheduled driver (any-only
+    launches of kernel #2), the rest emitter by emitter (any-only launches
+    of kernel #1); both return equal dicts.
+    """
+    if not isinstance(params, SkyParams):
+        raise TypeError("params must be a SkyParams instance")
+    if len(meshes) == 0:
+        raise ValueError("meshes must not be empty")
+    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+
+    p = params.as_dict()
+    discrete = bool(p["discrete"])
+    device = _resolve_device(p["device"])
+    interval = 1 if device.type == "cpu" else p["convergence_interval"]
+    prepared_solver = _ensure_prepared(meshes, prepared)
+    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+    emitters = prepared_solver.get_emitters(
+        samples=p["samples"], rays=p["rays"], flip_faces=False
+    )
+    bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
+    align = RAY_BLOCK
+    scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+    # slim (pack-resident) scenes take the per-emitter driver only
+    use_scheduler = not scene_pack.slim and _use_scheduler(
+        device, emitters, p["rays"], align)
+
+    result: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
+    stats_result: VFDict = {}
+    n_surf = len(meshes)
+    entries: List[Dict] = []
+    if n_surf > 1:
+        for idx_emit, (name_e, _, _) in enumerate(meshes):
+            surf_active = _build_emitter_surface_mask(
+                idx_emit, emitters[idx_emit], bounds_center, bounds_extent
+            )
+            em_pack = _make_emitter_pack(
+                prepared_solver, idx_emit, p, False, align, device, lazy=use_scheduler,
+            )
+            run = _EmitterRun(
+                scene_pack, em_pack, surf_active, idx_emit, 0, p["seed"], idx_emit, device,
+            )
+            monitor = SkyMonitor(
+                discrete=discrete,
+                n_rays_once=em_pack.n_rays_once,
+                tol=p["tol"], tol_mode=p["tol_mode"],
+                min_iters=p["min_iters"], interval=interval,
+                max_iters=p["max_iters"],
+            )
+            entries.append(
+                dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
+                     surf_active=surf_active, emit_sid=idx_emit, min_sid=0)
+            )
+
+    def _assemble(entry) -> None:
+        entry["row"], entry["stats"] = _sky_row(entry["monitor"], discrete)
+
+    t_solve = time.time()
+    for entry in entries:
+        entry["started"] = t_solve
+        entry["on_done"] = _assemble
+    if len(entries) > 1 and use_scheduler:
+        _drive_sky_scheduled(
+            entries, prepared_solver, p, align, scene_pack, device, n_surf,
+            discrete=discrete,
+        )
+    _drive_sky_pipelined(entries, discrete=discrete)
+    solve_s = time.time() - t_solve
+
+    for entry in entries:
+        idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
+        result[name_e].update(entry["row"])
+        stats_result[name_e] = entry["stats"]
+        _log(
+            _progress_line(
+                idx_emit, n_surf, name_e, monitor.iters_done,
+                monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
+            )
+        )
+    if return_stats:
+        return result, stats_result
+    return result
+
+
+def outside_workflow_shareable(matrix_params: MatrixParams, sky_params: SkyParams) -> bool:
+    """True when one traced ray set can serve both the matrix and the sky.
+
+    Requires identical ray-generation and execution settings (samples, rays,
+    seed, bvh, device, cuda_async, gpu_raygen) and ``flip_faces=False`` on
+    the matrix side (the sky solve emits outward).
+    """
+    if bool(matrix_params.flip_faces):
+        return False
+    shared = ("samples", "rays", "seed", "bvh", "device", "cuda_async", "gpu_raygen")
+    return all(getattr(matrix_params, k) == getattr(sky_params, k) for k in shared)
+
+
+def view_factor_matrix_and_sky(
+    meshes: List[Mesh],
+    *,
+    matrix_params: MatrixParams,
+    sky_params: SkyParams,
+    prepared: Optional[PreparedSolver] = None,
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    return_stats: bool = False,
+):
+    """The scene matrix and the sky from one shared set of rays.
+
+    Per emitter and iteration one ray set is traced once: the nearest hits
+    feed the matrix, the rays that hit nothing feed the sky. The two
+    converge independently; once one side is done the emitter's later
+    chunks trace the other side alone (a matrix-only or any-only sweep),
+    on the same iteration stream. So each dict equals the one
+    :func:`view_factor_matrix` and :func:`view_factor_to_tregenza_sky`
+    return with the same parameters.
+
+    Returns ``(vf_scene, sky_vf)``, and with ``return_stats=True`` a third
+    ``{emitter: {key: stderr}}`` holding both outputs' keys in one row.
+    """
+    if not isinstance(matrix_params, MatrixParams):
+        raise TypeError("matrix_params must be a MatrixParams instance")
+    if not isinstance(sky_params, SkyParams):
+        raise TypeError("sky_params must be a SkyParams instance")
+    if not outside_workflow_shareable(matrix_params, sky_params):
+        raise ValueError("matrix_params and sky_params are not compatible for shared tracing")
+    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+
+    mp = matrix_params.as_dict()
+    sp = sky_params.as_dict()
+    discrete = bool(sp["discrete"])
+    reciprocity = bool(mp["reciprocity"])
+    device = _resolve_device(mp["device"])
+    on_cpu = device.type == "cpu"
+    prepared_solver = _ensure_prepared(meshes, prepared)
+    use_bvh = _select_bvh(mp["bvh"], prepared_solver.total_faces)
+    emitters = prepared_solver.get_emitters(
+        samples=mp["samples"], rays=mp["rays"], flip_faces=False
+    )
+    areas = [e.total_area for e in emitters] if reciprocity else None
+    bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
+    align = RAY_BLOCK
+    scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+    use_scheduler = not scene_pack.slim and _use_scheduler(
+        device, emitters, mp["rays"], align)
+
+    vf_scene: VFDict = {name: {} for name, _, _ in meshes}
+    sky_vf: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
+    stats_result: VFDict = {}
+    n_surf = len(meshes)
+    entries: List[Dict] = []
+    for idx_emit, (name_e, _, _) in enumerate(meshes):
+        surf_active = _build_emitter_surface_mask(
+            idx_emit, emitters[idx_emit], bounds_center, bounds_extent
+        )
+        receivers, recv_idx = _matrix_active_receivers(
+            idx_emit, n_surf, reciprocity, surf_active
+        )
+        emit_sid, matrix_min_sid = _matrix_skip(idx_emit, reciprocity)
+        em_pack = _make_emitter_pack(
+            prepared_solver, idx_emit, mp, False, align, device, lazy=use_scheduler,
+        )
+        run = _EmitterRun(
+            scene_pack, em_pack, surf_active, emit_sid, matrix_min_sid,
+            mp["seed"], idx_emit, device,
+        )
+        matrix_mon = (
+            MatrixMonitor(
+                n_surf, recv_idx,
+                n_rays_once=em_pack.n_rays_once,
+                tol=mp["tol"], tol_mode=mp["tol_mode"],
+                min_iters=mp["min_iters"],
+                interval=1 if on_cpu else mp["convergence_interval"],
+                max_iters=mp["max_iters"],
+            )
+            if receivers
+            else None
+        )
+        sky_mon = SkyMonitor(
+            discrete=discrete,
+            n_rays_once=em_pack.n_rays_once,
+            tol=sp["tol"], tol_mode=sp["tol_mode"],
+            min_iters=sp["min_iters"],
+            interval=1 if on_cpu else sp["convergence_interval"],
+            max_iters=sp["max_iters"],
+        )
+        entries.append(
+            dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon, trace_iters=0,
+                 idx=idx_emit, name=name_e, receivers=receivers,
+                 surf_active=surf_active, emit_sid=emit_sid, min_sid=matrix_min_sid)
+        )
+
+    def _assemble(entry) -> None:
+        """The emitter's matrix row, back-fill and sky row, and one stats
+        row over both outputs' keys."""
+        row, stats_row, backfill = _matrix_row(
+            entry["matrix_mon"], entry["receivers"], meshes, entry["idx"], reciprocity, areas)
+        sky_row: Dict[str, float] = {}
+        if entry["sky_mon"].total_rays > 0:
+            sky_row, sky_stats = _sky_row(entry["sky_mon"], discrete)
+            stats_row.update(sky_stats)
+        entry.update(row=row, stats=stats_row, backfill=backfill, sky_row=sky_row)
+
+    t_solve = time.time()
+    for entry in entries:
+        entry["started"] = t_solve
+        entry["on_done"] = _assemble
+    if len(entries) > 1 and use_scheduler:
+        _drive_combined_scheduled(
+            entries, prepared_solver, mp, align, scene_pack, device, n_surf,
+            discrete=discrete,
+        )
+    _drive_combined_pipelined(entries, discrete=discrete)
+    solve_s = time.time() - t_solve
+
+    for entry in entries:
+        idx_emit, name_e = entry["idx"], entry["name"]
+        matrix_mon, sky_mon = entry["matrix_mon"], entry["sky_mon"]
+        trace_iters = entry["trace_iters"]
+        vf_scene[name_e].update(entry["row"])
+        for name_r, back_entries in entry["backfill"].items():
+            vf_scene[name_r].update(back_entries)
+        sky_vf[name_e].update(entry["sky_row"])
+        stats_result[name_e] = entry["stats"]
+        matrix_iters = matrix_mon.iters_done if matrix_mon is not None else 0
+        _log(
+            f"({idx_emit + 1}/{n_surf}) [{name_e}] traced {trace_iters} iter, "
+            f"{trace_iters * entry['run'].em_pack.n_rays_once:,} rays -> "
+            f"{entry.get('elapsed', solve_s):0.3f}s  "
+            f"(scene={matrix_iters} iter, sky={sky_mon.iters_done} iter, "
+            f"BVH={'builtin' if use_bvh else 'off'}, device={_device_label(device)})"
+        )
+
+    if return_stats:
+        return vf_scene, sky_vf, stats_result
+    return vf_scene, sky_vf
+
+
 def _progress_line(
     idx_emit: int,
     n_surf: int,
@@ -866,4 +1326,8 @@ def _progress_line(
     )
 
 
-__all__ = ["view_factor_matrix", "view_factor", "clear_prepared_cache", "hash_meshes"]
+__all__ = [
+    "view_factor_matrix", "view_factor", "view_factor_to_tregenza_sky",
+    "view_factor_matrix_and_sky", "outside_workflow_shareable", "clear_prepared_cache",
+    "hash_meshes",
+]

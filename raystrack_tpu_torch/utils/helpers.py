@@ -7,6 +7,8 @@
   hits its target (area by default, or ``A * row_targets``), then map totals
   back onto the ``_front``/``_back`` key splits proportionally. Mutates the
   result dict in place and prunes keys whose adjusted value is non-positive.
+- ``enforce_reciprocity_only``: pairwise area-weighted averaging of F(i->j)
+  and F(j->i), without row scaling (the outside workflow's reciprocity).
 """
 from __future__ import annotations
 
@@ -161,4 +163,43 @@ def enforce_reciprocity_and_rowsum(
         result[sname] = row
 
 
-__all__ = ["grid_from_density", "mesh_areas", "enforce_reciprocity_and_rowsum"]
+def enforce_reciprocity_only(
+    result: VFDict,
+    meshes: List[Mesh],
+    tol: float = 1e-12,
+) -> None:
+    """In-place pairwise reciprocity averaging without row scaling.
+
+    For each unordered pair, replaces both totals with the area-weighted
+    average ``g = (A_i F_ij + A_j F_ji) / 2`` mapped back through each side's
+    area; pairs where both totals are ``<= tol`` are zeroed.
+    """
+    if tol <= 0.0:
+        tol = 1e-12
+
+    names = [m[0] for m in meshes]
+    n = len(names)
+    A = mesh_areas(meshes)
+    F = _totals_matrix(result, names)
+
+    F_new = F.copy()
+    for i in range(n):
+        for j in range(i + 1, n):
+            fij, fji = F[i, j], F[j, i]
+            if fij <= tol and fji <= tol:
+                F_new[i, j] = F_new[j, i] = 0.0
+                continue
+            g = 0.5 * (A[i] * fij + A[j] * fji)
+            F_new[i, j] = max(g / A[i], 0.0) if A[i] > 0.0 else 0.0
+            F_new[j, i] = max(g / A[j], 0.0) if A[j] > 0.0 else 0.0
+
+    for si, sname in enumerate(names):
+        row = result.get(sname, {})
+        if not isinstance(row, dict):
+            row = {}
+        _rescale_row_splits(row, names, si, F_new, prune_tol=tol, skip_diagonal=True)
+        result[sname] = row
+
+
+__all__ = ["grid_from_density", "mesh_areas", "enforce_reciprocity_and_rowsum",
+           "enforce_reciprocity_only"]

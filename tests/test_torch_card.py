@@ -19,13 +19,17 @@ They need one CUDA card and skip without one. On such a machine:
 (``--noconftest``: the suite's conftest configures JAX, which these tests
 do not use.)
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import raystrack_tpu_torch
 from raystrack_tpu_torch import config as tconfig
-from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
+from raystrack_tpu_torch.ops.count_cuda import (
+    count_bins, count_bins_reference, count_codes, count_codes_reference,
+)
 from raystrack_tpu_torch.ops.peak_cuda import (
     fma_peak, fma_peak_reference, fma_peak_tolerance,
 )
@@ -274,10 +278,10 @@ def test_count_kernel_equals_plain_version(card, rows, length, n_surf, with_vali
     valid = rng.uniform(size=(rows, length)) < 0.7
     c_t, v_t = torch.from_numpy(codes).to(card), torch.from_numpy(n_valid).to(card)
     f_t = torch.from_numpy(valid).to(card) if with_valid else None
-    before = count_codes.launches
+    before = count_bins.launches
     counts_f, counts_b = count_codes(c_t, v_t, n_surf, valid=f_t)
     torch.cuda.synchronize()
-    assert count_codes.launches == before + 1
+    assert count_bins.launches == before + 1
     plain = count_codes_reference(c_t, v_t, n_surf, f_t).view(rows, n_surf, 2)
     assert torch.equal(counts_f, plain[:, :, 1]) and torch.equal(counts_b, plain[:, :, 0])
     for r in range(rows):
@@ -831,3 +835,217 @@ def test_sweep_entries_take_the_split_and_the_timeline(street, monkeypatch):
             with pytest.raises(RuntimeError, match="CUDA error"):
                 sweep_rays_scheduled(rays, pack2, masks, emap, tri_tile=128, want_matrix=True,
                                      want_any=False, accel=accel)
+
+
+# ---------------------------------------------------------------------------
+# the sky and the workflow: the count's bin uses, and the any-only and
+# matrix + any variants as those solves launch them on a gated city
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_valid", [False, True], ids=["n_valid", "valid_flags"])
+@pytest.mark.parametrize(
+    "n_bins,rows,length",
+    [(145, 128, 2048), (145, 4, 262144), (1, 128, 2048), (1, 2, 262144)],
+    ids=["sky_bins_round", "sky_bins_chunk", "upward_round", "upward_chunk"],
+)
+def test_count_bins_kernel_equals_plain_version(card, n_bins, rows, length, with_valid):
+    """``count_bins`` at the sky's 145 bins (patch ids) and 1 bin (upward
+    flags), on a scheduled round's rows and a chunk's long rows (several
+    CTAs meeting in the work buffer), with misses (-1), out-of-range ids,
+    padded rays and a sorted row's valid flags: one launch, equal
+    (torch.equal) to the plain version and to numpy.bincount per row."""
+    rng = np.random.default_rng(n_bins + rows)
+    ids = rng.integers(-2, n_bins + 2, size=(rows, length)).astype(np.int32)
+    ids[:, : length // 3] = rng.integers(0, min(n_bins, 5), size=(rows, length // 3))  # hot bins
+    n_valid = rng.integers(0, length + 1, size=rows).astype(np.int32)
+    n_valid[-1] = length
+    valid = rng.uniform(size=(rows, length)) < 0.7
+    i_t, v_t = torch.from_numpy(ids).to(card), torch.from_numpy(n_valid).to(card)
+    f_t = torch.from_numpy(valid).to(card) if with_valid else None
+    before = count_bins.launches
+    got = count_bins(i_t, n_bins, v_t, valid=f_t)
+    torch.cuda.synchronize()
+    assert count_bins.launches == before + 1
+    assert torch.equal(got, count_bins_reference(i_t, n_bins, v_t, f_t))
+    for r in range(rows):
+        keep = np.arange(length) < n_valid[r]
+        if with_valid:
+            keep &= valid[r]
+        row = ids[r][keep]
+        np.testing.assert_array_equal(
+            got[r].cpu().numpy(), np.bincount(row[(row >= 0) & (row < n_bins)],
+                                              minlength=n_bins))
+    if with_valid:
+        assert torch.equal(count_bins(i_t, n_bins, None, valid=f_t),
+                           count_bins_reference(i_t, n_bins, None, f_t))
+
+
+def _box_city(n_boxes=4000, extent=60.0, seed=2):
+    """A ground under random boxes, near geometry occluding far (chip_smoke.py's
+    ``city_meshes`` at a card test's size): 48,002 triangles, 24 tiles of
+    2,048."""
+    V = np.array([[-extent, -extent, 0], [extent, -extent, 0],
+                  [extent, extent, 0], [-extent, extent, 0]], np.float32)
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(-extent, extent, (n_boxes, 2))
+    w = rng.uniform(1.0, 4.0, (n_boxes, 2))
+    h = rng.uniform(2.0, 25.0, n_boxes)
+    box_f = np.array([[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
+                      [1, 5, 6], [1, 6, 2], [2, 6, 7], [2, 7, 3], [3, 7, 4], [3, 4, 0]],
+                     np.int32)
+    vs = np.empty((n_boxes, 8, 3), np.float32)
+    x0, y0 = (cx - w).T
+    x1, y1 = (cx + w).T
+    vs[:, (0, 3, 4, 7), 0] = x0[:, None]
+    vs[:, (1, 2, 5, 6), 0] = x1[:, None]
+    vs[:, (0, 1, 4, 5), 1] = y0[:, None]
+    vs[:, (2, 3, 6, 7), 1] = y1[:, None]
+    vs[:, :4, 2] = 0.05
+    vs[:, 4:, 2] = h[:, None]
+    faces = box_f[None] + 8 * np.arange(n_boxes, dtype=np.int32)[:, None, None]
+    return [("ground", V, F), ("city", vs.reshape(-1, 3), faces.reshape(-1, 3))]
+
+
+@pytest.fixture(scope="module")
+def sky_city():
+    """The box city's accel pack on the card and one iteration of the
+    ground's rays (57,600 real, padded to whole blocks of 2,048),
+    coherence-sorted as chunk_body sorts them: the rays the sky and workflow
+    solves sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from raystrack_tpu_torch.ops.trace import _sorted_for_gate, generate_rays, ray_pack
+    from raystrack_tpu_torch.solver import _cp_rows
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ps = raystrack_tpu_torch.PreparedSolver(_box_city())
+    sp = ps.get_scene_pack(use_accel=True, device=dev)
+    em = ps.get_emitter_pack(0, samples=1, rays=4, flip_faces=False, device=dev)
+    o, d = generate_rays((em.u_cell, em.v_cell, em.h_tri, em.h_u, em.h_v, em.h_r1, em.h_r2),
+                         (em.cdf, em.tri_a, em.tri_e1, em.tri_e2, em.tri_u, em.tri_v,
+                          em.tri_n, em.tri_eps),
+                         torch.from_numpy(_cp_rows(3, 0, 0, 1)).to(dev))
+    n = o.shape[1]
+    valid = (torch.arange(n, device=dev) < em.n_rays_once)[None]
+    o, d, _ = _sorted_for_gate(o, d, valid, sp.accel)
+    return sp, em, ray_pack(o, d).contiguous()
+
+
+SKY_KINDS = {"any": (False, True, 0), "matrix_any": (True, True, 1)}
+
+
+@pytest.mark.parametrize("kind", sorted(SKY_KINDS))
+def test_sky_variants_of_kernel_1_on_a_gated_city_chunk(sky_city, kind):
+    """Kernel #1's any-only variant (the sky: min_sid 0) and matrix + any
+    variant (the workflow: reciprocity, min_sid 1) on the operands the solves
+    build (the m_any-baked pack, emitter_operands(want_any=True)): one gated
+    launch == the ungated kernel over the whole chunk, and == the plain gated
+    version (visits too) on the leading 16 blocks; the any-hit flags are not
+    all alike."""
+    from raystrack_tpu_torch.ops.trace import emitter_operands
+
+    sp, em, rays = sky_city
+    want_matrix, want_any, min_sid = SKY_KINDS[kind]
+    scene = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
+    ext = torch.tensor([0, 1, 0], dtype=torch.int32, device=rays.device)
+    pack, mask = emitter_operands(scene, ext, 0, min_sid, em.plane_vec, want_any=True)
+    kw = dict(want_matrix=want_matrix, want_any=want_any, masks_baked=True)
+    before = sweep_rays.gated_launches
+    codes, any_hit = sweep_rays(rays, pack, mask, tri_tile=2048, accel=sp.accel, **kw)
+    torch.cuda.synchronize()
+    assert sweep_rays.gated_launches == before + 1
+    ungated = sweep_rays(rays, pack, mask, tri_tile=2048, **kw)
+    assert torch.equal(codes, ungated[0]) and torch.equal(any_hit, ungated[1])
+    assert 0 < int(any_hit.sum()) < rays.shape[1]
+    sub = rays[:, : 16 * 256].contiguous()
+    tile = sweep_tile_width(sp.n_tri_pad, 2048)
+    tiles_on = mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+    visits = torch.full((16,), -1, dtype=torch.int32, device=rays.device)
+    plain_visits = torch.full_like(visits, -2)
+    got = sweep_rays(sub, pack, mask, tri_tile=2048, accel=sp.accel, visits=visits, **kw)
+    want = _gated_plain(sub, pack, tiles_on, tile, sp.accel, plain_visits, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(visits, plain_visits)
+
+
+@pytest.mark.parametrize("kind", sorted(SKY_KINDS))
+def test_sky_variants_of_kernel_2_on_a_gated_city_round(sky_city, kind):
+    """Kernel #2's any-only and matrix + any variants on a round of two
+    emitter rows (the ground's combined mask row as the sky or the workflow
+    sets it, and an all-zero row) over the city chunk's rays: one gated
+    launch == the ungated kernel, == the plain gated version on the leading
+    16 blocks (visits too), and == kernel #1 on the ground's blocks."""
+    from raystrack_tpu_torch.ops.trace import combined_masks, emitter_operands
+
+    sp, em, rays = sky_city
+    dev = rays.device
+    want_matrix, want_any, min_sid = SKY_KINDS[kind]
+    scene = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
+    ext = torch.tensor([[0, 1, 0], [0, 1, 0]], dtype=torch.int32, device=dev)
+    masks = combined_masks(scene, ext, torch.tensor([0, 0], dtype=torch.int32, device=dev),
+                           torch.tensor([min_sid, min_sid], dtype=torch.int32, device=dev),
+                           torch.stack([em.plane_vec, em.plane_vec]))
+    masks[1] = 0.0
+    n_blocks = rays.shape[1] // 256
+    emap = torch.from_numpy((np.arange(n_blocks) % 7 == 3).astype(np.int32)).to(dev)
+    zeros = torch.zeros_like(sp.sid, dtype=torch.bool)
+    pack = build_tri_pack(scene, zeros, zeros)
+    kw = dict(want_matrix=want_matrix, want_any=want_any)
+    before = sweep_rays_scheduled.gated_launches
+    codes, any_hit = sweep_rays_scheduled(rays, pack, masks, emap, tri_tile=2048,
+                                          accel=sp.accel, **kw)
+    torch.cuda.synchronize()
+    assert sweep_rays_scheduled.gated_launches == before + 1
+    ungated = sweep_rays_scheduled(rays, pack, masks, emap, tri_tile=2048, **kw)
+    assert torch.equal(codes, ungated[0]) and torch.equal(any_hit, ungated[1])
+    ground = (emap == 0).repeat_interleave(256)
+    pack1, mask1 = emitter_operands(scene, ext[0], 0, min_sid, em.plane_vec, want_any=True)
+    one = sweep_rays(rays[:, ground].contiguous(), pack1, mask1, masks_baked=True,
+                     tri_tile=2048, accel=sp.accel, **kw)
+    assert torch.equal(codes[ground], one[0]) and torch.equal(any_hit[ground], one[1])
+    assert not bool(any_hit[~ground].any()) and bool((codes[~ground] == -1).all())
+    sub = rays[:, : 16 * 256].contiguous()
+    tile = sweep_tile_width(sp.n_tri_pad, 2048)
+    n_tiles = sp.n_tri_pad // tile
+    visits = torch.full((16,), -1, dtype=torch.int32, device=dev)
+    got = sweep_rays_scheduled(sub, pack, masks, emap[:16].contiguous(), tri_tile=2048,
+                               accel=sp.accel, visits=visits, **kw)
+    gate = _gate_tables(sp.accel, sub, n_tiles, tile,
+                        window=_resolve_gate_window(gate_group_size(n_tiles)))
+    tiles_on = _gated_tiles_on(
+        scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
+    plain_visits = torch.full_like(visits, -2)
+    want = sweep_rays_scheduled_reference(sub, pack, masks, emap[:16].contiguous(), tiles_on,
+                                          tile, gate=gate, visits=plain_visits, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(visits, plain_visits)
+
+
+@pytest.mark.parametrize("discrete", [False, True], ids=["merged", "discrete"])
+def test_sky_and_workflow_solves_on_card(card, monkeypatch, discrete):
+    """On the box city, gated: the sky's and the workflow's scheduled dicts
+    == their per-emitter dicts == bvh="off", every sweep and count on the
+    card; the any-only and matrix + any launches are counted."""
+    meshes = _box_city(n_boxes=1500)
+    mp = raystrack_tpu_torch.MatrixParams(samples=0, rays=64, min_iters=3, max_iters=3,
+                                          device="gpu")
+    sp = raystrack_tpu_torch.SkyParams(samples=0, rays=64, min_iters=3, max_iters=3,
+                                       device="gpu", discrete=discrete)
+    out = {}
+    for route in ("scheduled", "grouped"):
+        for bvh in ("auto", "off"):
+            monkeypatch.setattr(tconfig, "SCHEDULER", route)
+            before = (sweep_rays.launches + sweep_rays_scheduled.launches, count_bins.launches)
+            m, s = dataclasses.replace(mp, bvh=bvh), dataclasses.replace(sp, bvh=bvh)
+            out[route, bvh] = (
+                raystrack_tpu_torch.view_factor_to_tregenza_sky(meshes, s),
+                raystrack_tpu_torch.view_factor_matrix_and_sky(meshes, matrix_params=m,
+                                                               sky_params=s))
+            torch.cuda.synchronize()
+            assert sweep_rays.launches + sweep_rays_scheduled.launches > before[0]
+            assert count_bins.launches > before[1]
+    first = out["scheduled", "auto"]
+    assert all(v == first for v in out.values())
+    assert sum(first[0]["ground"].values()) > 0.0 and first[1][0]["ground"]

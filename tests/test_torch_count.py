@@ -21,7 +21,7 @@ import pytest
 import torch
 
 import raystrack_tpu_torch.ops.trace as ttrace
-from raystrack_tpu_torch.ops.count_cuda import count_codes, count_codes_reference
+from raystrack_tpu_torch.ops.count_cuda import count_bins, count_codes, count_codes_reference
 
 
 def _jax_counts(codes, ray_valid, n_surf):
@@ -84,7 +84,7 @@ def test_count_codes_equals_the_jax_package_count(rows, length, n_surf):
         jf, jb = _jax_counts(codes, ray_valid, n_surf)
         np.testing.assert_array_equal(f.numpy(), jf)
         np.testing.assert_array_equal(b.numpy(), jb)
-    assert count_codes.launches == 0
+    assert count_bins.launches == 0
 
 
 @pytest.mark.parametrize("gated", [True, False], ids=["sorted", "leading"])

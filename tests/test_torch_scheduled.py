@@ -135,7 +135,7 @@ def test_count_codes_equals_bincount(monkeypatch, rows, length, n_surf, step_ele
         np.testing.assert_array_equal(counts_b[r].numpy(), want[:, 0])
         np.testing.assert_array_equal(counts_f[r].numpy(), want[:, 1])
     assert int(counts_f.sum() + counts_b.sum()) > 0
-    assert count_cuda.count_codes.launches == 0
+    assert count_cuda.count_bins.launches == 0
 
 
 def test_count_codes_rejects():
@@ -183,7 +183,7 @@ def test_emitter_operands_built_per_dispatch_and_dropped(monkeypatch, route):
     vf = raystrack_tpu_torch.view_factor_matrix(_three_squares(), params)
     assert len(runs) == 2 and vf["emitter"]  # top sees nothing above it
     assert len(built) == (0 if route == "scheduled" else len(runs))
-    assert all(r.tri_pack is None and r.sweep_mask is None for r in runs)
+    assert all(not r.packs for r in runs)
 
 
 # ---------------------------------------------------------------------------

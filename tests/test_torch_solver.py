@@ -160,7 +160,9 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import raystrack_tpu_torch, raystrack_tpu_torch.solver, "
         "raystrack_tpu_torch.interop, raystrack_tpu_torch.ops.trace, "
-        "raystrack_tpu_torch.ops.trace_cuda, raystrack_tpu_torch.ops.build\n"
+        "raystrack_tpu_torch.ops.trace_cuda, raystrack_tpu_torch.ops.build, "
+        "raystrack_tpu_torch.api, raystrack_tpu_torch.ops.tregenza, "
+        "raystrack_tpu_torch.ops.count_cuda\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'raystrack_tpu', 'triton'))\n"
         "print(bad)\n"
