@@ -115,6 +115,26 @@ or plain reference:
               crossing-kernel launch a gated dispatch, one count launch an
               output, all on card tensors; warm walls, rays/s, peak device
               memory
+19. resume    checkpoints, streaming, scene files and the CLI: ``city_plates``
+              written with ``save_meshes_obj`` (file size, load time); a child
+              ``python -m raystrack_tpu_torch matrix <file> --device gpu
+              --checkpoint-dir --stream-out`` of 4 scheduled rounds SIGKILLed
+              at its first progress snapshots (it fails the phase if it ends
+              on its own); the same command again, in this process through
+              the CLI's ``main``: it resumes from iteration 64, takes 3
+              rounds, each one gated launch of kernel #2, and its streamed
+              file == an uninterrupted ``view_factor_matrix`` of the file's
+              meshes; a third solve on the same directory restores all 11
+              emitters and launches nothing; the same kill for ground ->
+              city (``view_factor``'s solve, the per-emitter route: 2
+              chunks, then 1 on resume, gated kernel #1); the children load
+              the library as built; the canyon's
+              discrete sky and outside workflow crashed in ``_entry_done``
+              and resumed, both routes, == uninterrupted; a
+              ``RAYSTRACK_TPU_PROFILE`` trace naming kernel #2, one event a
+              launch; warm walls of 5 of a 3-round ``city_plates`` matrix
+              without ``checkpoint_dir``, with it, and with a snapshot after
+              every round, beside the card's name and power limit
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -131,6 +151,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import re
 import subprocess
@@ -1630,6 +1651,517 @@ def phase_city_sky(route_solve, trace_log, dev, config) -> dict:
     return out
 
 
+# phase 19's kill/resume runs: the (b) settings give the ten plates 194
+# iterations each (min_iters == max_iters: no convergence check stops a
+# plate early; with a tolerance alone, most plates' rows do not vary between
+# iterations and converge at the first check), in four scheduled rounds of
+# 64, 64, 64 and 2 (a round carries at most MAX_CHUNK = 64 iterations an
+# emitter); the per-emitter run (f) two chunks of one iteration of
+# 2,560,000 rays
+RESUME_ARGS = ["--samples", "0", "--rays", "256", "--min-iters", "194", "--max-iters", "194"]
+RESUME_ROUNDS = 4
+RESUME_ARGS_1 = ["--samples", "1", "--rays", "64", "--min-iters", "2", "--max-iters", "2"]
+# (h): the (b) settings cut to 130 iterations, three rounds (64, 64 and 2:
+# with CHECKPOINT_PROGRESS_S=0 a second set of snapshots), so that fifteen
+# solves fit the phase's budget
+COST_ITERS = dict(min_iters=130, max_iters=130)
+COST_ROUNDS = 3
+
+
+def cli_params(args):
+    """The MatrixParams the port's CLI builds from ``matrix <scene> args``."""
+    from raystrack_tpu_torch.cli import _matrix_params, build_parser
+
+    return _matrix_params(build_parser().parse_args(["matrix", "scene.obj", *args]))
+
+
+def same_fingerprint(ckpt: Path, params, meshes) -> bool:
+    """Whether the checkpoints in ``ckpt`` were written for ``params`` and
+    ``meshes`` (the store's fingerprint of both)."""
+    import tempfile
+
+    from raystrack_tpu_torch.solver import _CheckpointStore
+
+    with tempfile.TemporaryDirectory(dir=ckpt.parent) as tmp:
+        want = _CheckpointStore(tmp, params.as_dict(), meshes).fingerprint
+    found = {json.loads(p.read_text())["fingerprint"] for p in ckpt.glob("emitter_*.json")}
+    return found == {want}
+
+
+class SnapshotKiller:
+    """Start the port's CLI in child processes and SIGKILL each once its
+    first progress snapshots are in its checkpoint directory: the ``n``
+    snapshots of its first round or chunk, which one consume writes one
+    after the other (a kill between two of them would restart the rest from
+    iteration 0). A thread polls every 2 ms, so this process works on
+    meanwhile; ``join()`` waits for every child, fails if one exited before
+    its kill, and returns per child the seconds from its start to the kill
+    and the snapshots' names."""
+
+    def __init__(self, env: dict):
+        import threading
+
+        self.env = env
+        self.children = []  # (name, ckpt, n, log, Popen, t0)
+        self.result = {}  # written by the thread, read after join()
+        self.thread = threading.Thread(target=self._poll, daemon=True)
+
+    def start(self, name: str, cmd, ckpt: Path, n: int, log: Path) -> None:
+        out = open(log, "w")
+        child = subprocess.Popen(cmd, cwd=str(ckpt.parent), env=self.env, stdout=out,
+                                 stderr=subprocess.STDOUT)
+        out.close()
+        self.children.append((name, ckpt, n, log, child, time.perf_counter()))
+
+    def _poll(self) -> None:
+        pending = list(self.children)
+        while pending:
+            for item in list(pending):
+                name, ckpt, n, log, child, t0 = item
+                snaps = sorted(p.name for p in ckpt.glob("*.progress.json"))
+                if len(snaps) >= n:
+                    child.kill()
+                    self.result[name] = (time.perf_counter() - t0, snaps)
+                    pending.remove(item)
+                elif child.poll() is not None or time.perf_counter() - t0 > 300:
+                    child.kill()
+                    self.result[name] = None
+                    pending.remove(item)
+            time.sleep(0.002)
+
+    def join(self) -> dict:
+        self.thread.join()
+        for name, ckpt, n, log, child, t0 in self.children:
+            rc = child.wait()
+            if self.result.get(name) is None:
+                raise SystemExit(f"FAILED: the CLI solve {name} ended ({rc}) before its first "
+                                 f"progress snapshots landed:\n{log.read_text()[-4000:]}")
+            check(rc == -9, f"the CLI solve {name} ended with {rc}, not SIGKILL")
+        return self.result
+
+    def stop(self) -> None:
+        """Kill and reap every child still running (on any failure)."""
+        for *_, child, _t0 in self.children:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+
+
+def run_cli(argv) -> tuple:
+    """``raystrack_tpu_torch.cli.main(argv)`` in this process (the console
+    script's entry), with the solver's progress lines and the CLI's output
+    captured: (rc, lines, stdout)."""
+    import io as io_mod
+
+    from raystrack_tpu_torch import cli
+
+    buf = io_mod.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, lines = logged(lambda: cli.main(argv))
+    return rc, lines, buf.getvalue()
+
+
+def crash_and_resume(solve, dirs: Path):
+    """``solve(checkpoint_dir)`` stopped by a crash in ``_entry_done`` at the
+    first emitter that finishes, with a snapshot after every chunk or round,
+    then resumed in the same directory (tests/test_checkpoint.py's kill).
+    Returns the resumed result and whether a line said it resumed."""
+    import raystrack_tpu_torch.solver as solver_mod
+    from raystrack_tpu_torch import config
+
+    real_done = solver_mod._entry_done
+    snap = config.CHECKPOINT_PROGRESS_S
+
+    def crash(entry):
+        raise RuntimeError("killed mid-solve")
+
+    config.CHECKPOINT_PROGRESS_S = 0.0
+    solver_mod._entry_done = crash
+    try:
+        solve(str(dirs))
+        raise SystemExit("FAILED: the crash in _entry_done did not stop the solve")
+    except RuntimeError:
+        pass
+    finally:
+        solver_mod._entry_done = real_done
+        config.CHECKPOINT_PROGRESS_S = snap
+    check(bool(list(dirs.rglob("*.progress.json"))), f"no progress snapshot in {dirs}")
+    out, lines = logged(lambda: solve(str(dirs)))
+    return out, any("resuming from iteration" in line for line in lines)
+
+
+def stop_after_emitter_0(fn) -> list:
+    """``fn()`` stopped by a crash in ``_entry_done`` at the first emitter to
+    finish after emitter 0, with a snapshot after every round: emitter 0's
+    row is checkpointed and streamed into a stream not yet published.
+    Returns the emitters that finished, in order."""
+    import raystrack_tpu_torch.solver as solver_mod
+    from raystrack_tpu_torch import config
+
+    real_done, snap, finished = solver_mod._entry_done, config.CHECKPOINT_PROGRESS_S, []
+
+    def done_then_stop(entry):
+        if 0 in finished:
+            raise RuntimeError("killed mid-solve")
+        real_done(entry)
+        finished.append(entry["idx"])
+
+    config.CHECKPOINT_PROGRESS_S = 0.0
+    solver_mod._entry_done = done_then_stop
+    try:
+        fn()
+        raise SystemExit("FAILED: no emitter finished after emitter 0")
+    except RuntimeError:
+        pass
+    finally:
+        solver_mod._entry_done = real_done
+        config.CHECKPOINT_PROGRESS_S = snap
+    return finished
+
+
+def logged(fn):
+    """``fn()`` with the solver's progress lines captured: (result, lines)."""
+    import raystrack_tpu_torch.solver as solver_mod
+
+    lines, quiet = [], solver_mod._log
+    solver_mod._log = lines.append
+    try:
+        return fn(), lines
+    finally:
+        solver_mod._log = quiet
+
+
+def trace_kernels(trace_dir: Path) -> dict:
+    """{kernel name: launches} of the CUDA kernels in the Chrome traces
+    ``RAYSTRACK_TPU_PROFILE`` wrote into ``trace_dir``."""
+    counts = {}
+    for path in trace_dir.glob("matrix_solve.*.json"):
+        for ev in json.loads(path.read_text())["traceEvents"]:
+            if ev.get("cat") == "kernel":
+                counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    return counts
+
+
+def phase_resume(route_solve, trace_log, dev, config, lib_path: Path, city_plates,
+                 city) -> dict:
+    """19. Checkpoints, streaming, scene files and the CLI on the card: the
+    1M-triangle ``city_plates`` written as an OBJ file, a CLI solve of it
+    SIGKILLed at its first progress snapshots and resumed (the streamed
+    file == the uninterrupted solve, fewer rounds, every one gated kernel
+    #2), a third solve that restores everything and launches nothing; the
+    same kill for ground -> city on the per-emitter route; the canyon's sky
+    and workflow crashed and resumed on both routes; a profile trace; the
+    checkpoints' cost in warm walls. The two CLI children run while this
+    process solves the references (the timed walls of (h) come after
+    both are gone)."""
+    import os
+    import shutil
+    import tempfile
+
+    from examples.ex00_street_canyon_geometry import build_street_canyon
+    from raystrack_tpu_torch import (
+        MatrixParams, SkyParams, VFMatrixStreamWriter, cli, clear_prepared_cache,
+        load_vf_matrix_json, save_meshes_obj, view_factor, view_factor_matrix,
+        view_factor_outside_workflow, view_factor_to_tregenza_sky,
+    )
+    from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
+
+    def counts():
+        return dict(k1=sweep_rays.launches, k1_gated=sweep_rays.gated_launches,
+                    k2=sweep_rays_scheduled.launches,
+                    k2_gated=sweep_rays_scheduled.gated_launches,
+                    count=count_bins.launches, cross=gate_cross.launches,
+                    rounds=len(trace_log["rounds"]), chunks=len(trace_log["dispatches"]))
+
+    def since(c0):
+        return {k: v - c0[k] for k, v in counts().items()}
+
+    out = {}
+    c_start = counts()
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="smoke_resume_", dir=root))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), RAYSTRACK_TPU_CHECKPOINT_PROGRESS_S="0")
+    lib_stamp = (lib_path.stat().st_mtime_ns, sorted(p.name for p in lib_path.parent.iterdir()))
+    killer = SnapshotKiller(env)
+    t_phase = time.perf_counter()
+    try:
+        # (a) the scene files
+        t0 = time.perf_counter()
+        scene = Path(save_meshes_obj(city_plates, str(work / "city_plates.obj")))
+        pair = Path(save_meshes_obj(city, str(work / "ground_city.obj")))
+        write_s = time.perf_counter() - t0
+        print(f"[resume] (a) {scene.name}: {len(city_plates)} meshes, "
+              f"{sum(F.shape[0] for _, _, F in city_plates)} triangles, "
+              f"{scene.stat().st_size} bytes ({pair.name}, ground and city: "
+              f"{pair.stat().st_size}); both written by save_meshes_obj in {write_s:.2f} s")
+
+        # (b), (f): the CLI solves, each killed at its first progress snapshots
+        torch.cuda.empty_cache()
+        ckpt, stream = work / "ckpt", work / "vf_stream.json"
+        argv = ["matrix", str(scene), "--device", "gpu", "--checkpoint-dir", str(ckpt),
+                "--stream-out", "--out", str(stream), *RESUME_ARGS]
+        ckpt1 = work / "ckpt1"
+        argv1 = ["matrix", str(pair), "--device", "gpu", "--checkpoint-dir", str(ckpt1),
+                 "--stream-out", "--out", str(work / "vf1_killed.json"), *RESUME_ARGS_1]
+        killer.start("b", [sys.executable, "-m", "raystrack_tpu_torch", *argv], ckpt, 10,
+                     work / "child_b.log")
+        killer.start("f", [sys.executable, "-m", "raystrack_tpu_torch", *argv1], ckpt1, 1,
+                     work / "child_f.log")
+        killer.thread.start()
+
+        # meanwhile: the uninterrupted solves of the same meshes with the
+        # parameters the CLI builds (the children's checkpoints' fingerprint
+        # shows both below)
+        params, params1 = cli_params(RESUME_ARGS), cli_params(RESUME_ARGS_1)
+        c0 = counts()
+        t0 = time.perf_counter()
+        (plain, lines), n_r, n_c = route_solve("auto", lambda: logged(
+            lambda: view_factor_matrix(city_plates, params)))
+        first_s = time.perf_counter() - t0
+        d = since(c0)
+        # the drivers' time: an emitter's line gives the seconds from the
+        # start of the rounds to its completion (the set-up before excluded)
+        rounds_s = max(float(m.group(1)) for m in (
+            re.search(r"-> (\d+\.\d+)s", line) for line in lines) if m)
+        check(n_r == RESUME_ROUNDS and n_c == 0 and d["k2_gated"] == d["k2"] == n_r,
+              f"the uninterrupted solve: {n_r} rounds, {n_c} chunks, launches {d}")
+        check(rounds_s >= 2.0, f"the uninterrupted solve's rounds took {rounds_s:.2f} s, "
+              f"under 2 s")
+        print(f"[resume] uninterrupted view_factor_matrix of city_plates with the (b) "
+              f"settings: {n_r} scheduled rounds, each one gated kernel #2 launch; "
+              f"{first_s:.2f} s with set-up, {rounds_s:.3f} s from the first round to the "
+              f"last emitter's end (the two children sharing the card)")
+        c0 = counts()
+        vf1, n_r1, n_c1 = route_solve("auto", lambda: view_factor(city[0], city[1], params1))
+        d_plain = since(c0)
+        check(n_c1 == 2 and n_r1 == 0 and d_plain["k1_gated"] == 2,
+              f"the uninterrupted ground -> city: {n_r1} rounds, {n_c1} chunks, {d_plain}")
+
+        # (e) the canyon's sky and workflow, crashed and resumed, both routes
+        canyon = build_street_canyon()
+        sp = SkyParams(**sky_base(discrete=True))
+        mp, sp2 = MatrixParams(**sky_base()), SkyParams(**sky_base())
+        for route in ("auto", "grouped"):
+            want_sky, _, _ = route_solve(route, lambda: view_factor_to_tregenza_sky(canyon, sp))
+            (got_sky, said), n_r2, n_c2 = route_solve(route, lambda: crash_and_resume(
+                lambda ck: view_factor_to_tregenza_sky(canyon, sp, checkpoint_dir=ck),
+                work / f"sky_{route}"))
+            want_wf, _, _ = route_solve(route, lambda: view_factor_outside_workflow(
+                canyon, matrix_params=mp, sky_params=sp2))
+            (got_wf, said2), _, _ = route_solve(route, lambda: crash_and_resume(
+                lambda ck: view_factor_outside_workflow(canyon, matrix_params=mp,
+                                                        sky_params=sp2, checkpoint_dir=ck),
+                work / f"wf_{route}"))
+            check(said and said2, f"canyon ({route}): a resume did not resume mid-emitter")
+            check(got_sky == want_sky and got_wf == want_wf,
+                  f"canyon ({route}): a resumed sky or workflow != the uninterrupted one")
+            print(f"[resume] (e) canyon, {'scheduled' if route == 'auto' else 'per-emitter'}: "
+                  f"discrete sky and outside workflow crashed at the first emitter to finish "
+                  f"and resumed from their snapshots ({n_r2} rounds, {n_c2} chunks in the "
+                  f"sky's two runs): == the uninterrupted results")
+
+        # (g) the profile hook
+        trace_dir = work / "profile"
+        os.environ["RAYSTRACK_TPU_PROFILE"] = str(trace_dir)
+        try:
+            c0 = counts()
+            _, n_r3, _ = route_solve("auto", lambda: view_factor_matrix(
+                city_plates, dataclasses.replace(params, min_iters=6, max_iters=6)))
+            d = since(c0)
+        finally:
+            del os.environ["RAYSTRACK_TPU_PROFILE"]
+        kernels = trace_kernels(trace_dir)
+        named = {k: v for k, v in kernels.items() if "sweep_sched_kernel" in k}
+        check(bool(named) and sum(named.values()) == d["k2"] == n_r3,
+              f"the profile trace holds {named} for {d['k2']} kernel #2 launches")
+        print(f"[resume] (g) RAYSTRACK_TPU_PROFILE: {len(list(trace_dir.glob('*.json')))} "
+              f"trace file(s), {sum(kernels.values())} kernel events; the sweep: {named}")
+
+        # the children, killed
+        killed = killer.join()
+        (kill_s, snaps), (kill1_s, snaps1) = killed["b"], killed["f"]
+        check(not stream.exists(), "the killed solve published its streamed file")
+        # a copy of (b)'s directory for (c2), before (c) resumes it
+        ckpt2 = work / "ckpt2"
+        shutil.copytree(ckpt, ckpt2)
+        check(same_fingerprint(ckpt, params, city_plates)
+              and same_fingerprint(ckpt1, params1, city),
+              "the CLI's checkpoints were written for other parameters or meshes")
+        child_log = (work / "child_b.log").read_text()
+        print(f"[resume] (b) python -m raystrack_tpu_torch {' '.join(argv[:1] + argv[2:])}: "
+              f"SIGKILLed {kill_s:.2f} s after its start, with {len(snaps)} progress snapshots "
+              f"and {len(list(ckpt.glob('emitter_?????.json')))} finished checkpoint(s) on "
+              f"disk (the boxes', which trace nothing); its last line: "
+              f"{child_log.strip().splitlines()[-1]!r}")
+        new_stamp = (lib_path.stat().st_mtime_ns,
+                     sorted(p.name for p in lib_path.parent.iterdir()))
+        check(new_stamp == lib_stamp, "a child process rebuilt the kernels' library")
+        print(f"[resume] both children loaded {lib_path.name} as built: no nvcc run "
+              f"(the library's mtime and the build directory unchanged)")
+
+        # (c) the same command again, to completion
+        loads = []
+        real_load = cli._load_meshes
+
+        def timed_load(path):
+            t0 = time.perf_counter()
+            meshes = real_load(path)
+            loads.append((time.perf_counter() - t0, meshes))
+            return meshes
+
+        cli._load_meshes = timed_load
+        try:
+            c0 = counts()
+            rc, lines, text = run_cli(argv)
+            d = since(c0)
+        finally:
+            cli._load_meshes = real_load
+        load_s, loaded = loads[0]
+        check([m[0] for m in loaded] == [m[0] for m in city_plates]
+              and all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                      for a, b in zip(loaded, city_plates)),
+              "the OBJ file did not load back the city's arrays")
+        del loads, loaded
+        resumed = [line for line in lines if "resuming from iteration" in line]
+        streamed = load_vf_matrix_json(str(stream))
+        check(rc == 0 and len(resumed) == 10, f"the resumed CLI solve: rc {rc}, "
+              f"{len(resumed)} 'resuming from iteration' lines of 10")
+        check(streamed == plain, "the resumed solve's streamed file != the uninterrupted dict")
+        check(d["k2"] == d["k2_gated"] == d["rounds"] < n_r and d["k1"] == 0
+              and d["cross"] == d["rounds"] and d["count"] == d["rounds"],
+              f"the resumed solve's launches {d} against {n_r} uninterrupted rounds")
+        check(not list(ckpt.glob("*.progress.json")), "snapshots left after the resume")
+        print(f"[resume] (c) the same command again (the CLI's main in this process): "
+              f"load_meshes_obj {load_s:.2f} s, the arrays == the generated ones; "
+              f"{resumed[0]!r} (and 9 more); {d['rounds']} rounds against {n_r} "
+              f"uninterrupted, kernel #2 {d['k2']} launches, all gated, crossing "
+              f"{d['cross']}, count {d['count']}, kernel #1 {d['k1']}; the streamed file "
+              f"(load_vf_matrix_json) == the uninterrupted dict: True ({len(streamed)} rows)")
+        out.update(obj_bytes=scene.stat().st_size, obj_write_s=write_s, obj_load_s=load_s,
+                   rounds_uninterrupted=n_r, rounds_resumed=d["rounds"],
+                   uninterrupted_rounds_s=rounds_s, kill_s=kill_s, resumed_launches=d)
+
+        # (d) a third solve restores every emitter and launches nothing
+        c0 = counts()
+        third, lines = logged(lambda: view_factor_matrix(city_plates, params,
+                                                         checkpoint_dir=str(ckpt)))
+        d = since(c0)
+        check(any(line.startswith("11/11 emitters restored") for line in lines),
+              f"the third run: {lines[-1:]!r}")
+        check(all(v == 0 for v in d.values()), f"the third run launched {d}")
+        check(third == plain, "the third run's dict != the uninterrupted dict")
+        print(f"[resume] (d) a third solve (view_factor_matrix, the same checkpoint_dir): "
+              f"{lines[-1]!r}; no launch ({d}); its dict == the uninterrupted dict")
+
+        # (c2) the copy of (b)'s directory resumed by the same command, stopped
+        # once emitter 0 has finished in the last round (its row streamed,
+        # the stream unpublished), then the same command again: the
+        # restored rows stream again, and the file == the uninterrupted dict
+        stream2 = work / "vf_stream2.json"
+        argv2 = ["matrix", str(scene), "--device", "gpu", "--checkpoint-dir", str(ckpt2),
+                 "--stream-out", "--out", str(stream2), *RESUME_ARGS]
+        c0 = counts()
+        finished = stop_after_emitter_0(lambda: run_cli(argv2))
+        d_stop = since(c0)
+        check(finished[-1:] == [0] and (ckpt2 / "emitter_00000.json").exists()
+              and not stream2.exists(), f"the stopped run: finished {finished}")
+        c0 = counts()
+        rc, lines, _ = run_cli(argv2)
+        d = since(c0)
+        restored = [line for line in lines if "] restored from checkpoint (" in line]
+        check(rc == 0 and restored[:1] and restored[0].startswith("(1/"),
+              f"the run resumed after emitter 0 finished: rc {rc}, restored {restored}")
+        check(load_vf_matrix_json(str(stream2)) == plain,
+              "the run resumed after emitter 0 finished: its streamed file != the "
+              "uninterrupted dict")
+        print(f"[resume] (c2) the same command on a copy of (b)'s directory, stopped in "
+              f"round {d_stop['rounds']} of its resume once emitter 0 had finished "
+              f"({len(finished)} emitter(s) finished, the stream unpublished), then run "
+              f"again: {len(restored)} emitters restored ({restored[0]!r}), {d['rounds']} "
+              f"round(s); the streamed file == the uninterrupted dict: True")
+        out.update(stop_rounds=d_stop["rounds"], stop_restored=len(restored),
+                   stop_resumed_rounds=d["rounds"])
+
+        # (f) the per-emitter route: ground -> city
+        stream1 = work / "vf1.json"
+        c0 = counts()
+        with VFMatrixStreamWriter(str(stream1)) as writer:
+            got1, lines = logged(lambda: view_factor_matrix(
+                city, params1, checkpoint_dir=str(ckpt1), row_sink=writer.write_row))
+        d = since(c0)
+        check(any("resuming from iteration 1" in line for line in lines),
+              f"the per-emitter resume: {lines!r}")
+        check(got1["ground"] == vf1["ground"] and load_vf_matrix_json(str(stream1)) == got1,
+              "the per-emitter resume's row or streamed file != the uninterrupted solve's")
+        check(d["chunks"] == d["k1"] == d["k1_gated"] == 1 and d["k2"] == 0,
+              f"the per-emitter resume's launches {d}")
+        print(f"[resume] (f) ground -> city, the per-emitter route: the child "
+              f"(python -m raystrack_tpu_torch {' '.join(argv1[:1] + argv1[2:])}) SIGKILLed "
+              f"{kill1_s:.2f} s after its start with {snaps1}; resumed by "
+              f"view_factor_matrix(checkpoint_dir=, row_sink=VFMatrixStreamWriter): "
+              f"{d['chunks']} chunk, kernel #1 {d['k1']} launch, gated, against "
+              f"{n_c1} chunks of an uninterrupted view_factor(ground, city); its ground row == "
+              f"view_factor's, and the streamed file == the resumed dict: True")
+        out.update(chunks_uninterrupted=n_c1, chunks_resumed=d["chunks"], kill1_s=kill1_s)
+
+        # (h) what checkpoints cost: warm walls of the city_plates matrix
+        cost_params = dataclasses.replace(params, **COST_ITERS)
+        walls = {}
+        snap = config.CHECKPOINT_PROGRESS_S
+        for label, ck, every in (("no checkpoint_dir", False, snap),
+                                 (f"checkpoint_dir, CHECKPOINT_PROGRESS_S={snap:g}", True,
+                                  snap),
+                                 ("checkpoint_dir, CHECKPOINT_PROGRESS_S=0", True, 0.0)):
+            config.CHECKPOINT_PROGRESS_S = every
+            times = []
+            try:
+                for rep in range(5):
+                    d_ck = str(work / f"cost_{len(walls)}_{rep}") if ck else None
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, n_r4, _ = route_solve("auto", lambda: view_factor_matrix(
+                        city_plates, cost_params, checkpoint_dir=d_ck))  # noqa: B023
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    check(n_r4 == COST_ROUNDS, f"the cost solve took {n_r4} rounds")
+            finally:
+                config.CHECKPOINT_PROGRESS_S = snap
+            walls[label] = sorted(times)
+        # what the store's set-up costs on the host: the fingerprint hashes
+        # the meshes' bytes, as the prepared cache's key does
+        from raystrack_tpu_torch.solver import _CheckpointStore, hash_meshes
+
+        store_s, hash_s = [], []
+        for rep in range(5):
+            t0 = time.perf_counter()
+            _CheckpointStore(str(work / f"store_{rep}"), cost_params.as_dict(), city_plates)
+            store_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            hash_meshes(hashlib.sha256(), city_plates)
+            hash_s.append(time.perf_counter() - t0)
+        n_bytes = sum(V.nbytes + F.nbytes for _, V, F in city_plates)
+        card = card_line()
+        print(f"[resume] (h) _CheckpointStore(...) of city_plates on the host: "
+              f"{spread(sorted(store_s))}; of it hash_meshes over the {n_bytes} bytes of "
+              f"geometry: {spread(sorted(hash_s))}")
+        out.update(store_s=sorted(store_s), hash_s=sorted(hash_s))
+        for label, times in walls.items():
+            print(f"[resume] (h) city_plates matrix, {COST_ROUNDS} rounds "
+                  f"({cost_params.max_iters} iterations), {label}: warm solve "
+                  f"{spread(times)} [{card}]")
+        out["cost_walls"] = walls
+        out["launches"] = since(c_start)
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"[resume] phase 19 took {out['phase_s']:.1f} s")
+    finally:
+        killer.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        clear_prepared_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -2159,6 +2691,21 @@ def main() -> int:
           f"({launches_sky[1]} gated), kernel #2 {launches_sky[2]} ({launches_sky[3]} gated), "
           f"count {launches_sky[4]}, crossing {launches_sky[5]}; dispatches by variant "
           f"{sky_kinds} of {len(chunk_kinds) + len(round_kinds)} since phase 6")
+
+    # 19. checkpoints, streaming, scene files and the CLI: the 1M city's
+    # solve from an OBJ file, SIGKILLed mid-way and resumed
+    reset_launches()
+    resume = phase_resume(route_solve, dict(rounds=rounds, dispatches=dispatches), dev, config,
+                          b.path, city_plates, city)
+    launches_resume = resume["launches"]
+    print(f"[launches] phase 19 (this process): kernel #1 {launches_resume['k1']} "
+          f"({launches_resume['k1_gated']} gated), kernel #2 {launches_resume['k2']} "
+          f"({launches_resume['k2_gated']} gated), count {launches_resume['count']}, crossing "
+          f"{launches_resume['cross']}, for {launches_resume['chunks']} chunks and "
+          f"{launches_resume['rounds']} rounds")
+    check(launches_resume["k1"] == launches_resume["chunks"] > 0
+          and launches_resume["k2"] == launches_resume["rounds"] > 0,
+          "phase 19: launches != chunks and rounds")
     solver_mod._EmitterRun.dispatch_chunk = dispatch
     trace_mod.scheduled_trace = real_round
 
@@ -2173,16 +2720,19 @@ def main() -> int:
 
     sweep_entry = kernel_entry(
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
-        launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0],
-        launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1],
+        launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0]
+        + launches_resume["k1"],
+        launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1]
+        + launches_resume["k1_gated"],
         max(max_err, city_code["max_abs_err"]), ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2]
     sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
     sched_entry = kernel_entry(
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
-        launches2 + launches_city[2] + launches_big2[0] + launches_sky[2],
-        launches_city[3] + launches_big2[1] + launches_sky[3], max_err2, ms2, plain_ms2,
-        bound2, city_k2)
+        launches2 + launches_city[2] + launches_big2[0] + launches_sky[2]
+        + launches_resume["k2"],
+        launches_city[3] + launches_big2[1] + launches_sky[3] + launches_resume["k2_gated"],
+        max_err2, ms2, plain_ms2, bound2, city_k2)
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
     for entry, label in ((sweep_entry, "kernel #1, soup chunk"),
@@ -2191,6 +2741,9 @@ def main() -> int:
                                  for name in ("any", "matrix+any")}
     sweep_entry["sky_launches"] = launches_sky[0]
     sched_entry["sky_launches"] = launches_sky[2]
+    # phase 19's, in this process: the resumed solves' and their references'
+    sweep_entry["resume_launches"] = launches_resume["k1"]
+    sched_entry["resume_launches"] = launches_resume["k2"]
     sky_summary = dict(
         canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
         canyon_patch_sum_diff=canyon_sky["patch_diff"],
@@ -2201,6 +2754,7 @@ def main() -> int:
               for k, v in city_sky.items() if k != "totals"},
         dispatches_by_variant=sky_kinds)
     print(f"[sky] summary: {json.dumps(sky_summary)}")
+    print(f"[resume] summary: {json.dumps({k: v for k, v in resume.items() if k != 'launches'})}")
     print(json.dumps({"kernels": [
         sweep_entry,
         sched_entry,
@@ -2210,7 +2764,8 @@ def main() -> int:
             "source": "raystrack_tpu_torch/csrc/count.cu",
             # not a Pallas kernel: the XLA compare-and-sum it stands in for
             "replaces": "raystrack_tpu/ops/trace.py:865",
-            "launches": launches3 + count_city + count_slim + count_big + launches_sky[4],
+            "launches": launches3 + count_city + count_slim + count_big + launches_sky[4]
+            + launches_resume["count"],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -2229,7 +2784,8 @@ def main() -> int:
             "source": "raystrack_tpu_torch/csrc/gate.cu",
             # not a Pallas kernel: the XLA slab-and-reduce of the gate's tables
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
-            "launches": cross_city + cross_slim + cross_big + launches_sky[5],
+            "launches": cross_city + cross_slim + cross_big + launches_sky[5]
+            + launches_resume["cross"],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,

@@ -7,11 +7,24 @@ generation, the Tregenza binning and the per-surface histograms' set-up are
 PyTorch tensor code; the Möller–Trumbore sweeps (one emitter, and one
 convergence round of many emitters) and the histograms are hand-written
 CUDA kernels (``csrc/``) on an NVIDIA card and their plain PyTorch versions
-on the CPU. The public surface follows ``raystrack_tpu``'s solver names;
-the JAX package stays the reference.
+on the CPU. The public surface is ``raystrack_tpu``'s 20 names: the
+solvers, resumable through ``checkpoint_dir=`` and streamed through
+``row_sink=`` / :class:`VFMatrixStreamWriter`, and the mesh and matrix
+files (JSON, OBJ, PLY); ``python -m raystrack_tpu_torch`` is its command
+line. The JAX package stays the reference.
 """
 from .api import view_factor_outside_workflow
+from .io import (
+    VFMatrixStreamWriter,
+    load_meshes_json,
+    load_vf_matrix_json,
+    merge_vf_matrix,
+    save_meshes_json,
+    save_vf_matrix_json,
+)
+from .obj import load_meshes_obj, save_meshes_obj
 from .params import MatrixParams, SkyParams
+from .ply import load_meshes_ply, save_mesh_ply
 from .prepared import PreparedSolver
 from .solver import (
     clear_prepared_cache,
@@ -23,7 +36,24 @@ from .solver import (
 )
 
 __all__ = [
-    "MatrixParams", "SkyParams", "PreparedSolver", "view_factor_matrix", "view_factor",
-    "view_factor_to_tregenza_sky", "view_factor_matrix_and_sky",
-    "view_factor_outside_workflow", "outside_workflow_shareable", "clear_prepared_cache",
+    "view_factor_matrix",
+    "view_factor",
+    "view_factor_to_tregenza_sky",
+    "view_factor_matrix_and_sky",
+    "view_factor_outside_workflow",
+    "outside_workflow_shareable",
+    "MatrixParams",
+    "SkyParams",
+    "PreparedSolver",
+    "clear_prepared_cache",
+    "save_vf_matrix_json",
+    "VFMatrixStreamWriter",
+    "load_vf_matrix_json",
+    "save_meshes_json",
+    "load_meshes_json",
+    "load_meshes_obj",
+    "save_meshes_obj",
+    "load_meshes_ply",
+    "save_mesh_ply",
+    "merge_vf_matrix",
 ]

@@ -1,0 +1,5 @@
+# Copied from raystrack_tpu/__main__.py.
+from .cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

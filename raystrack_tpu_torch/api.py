@@ -9,6 +9,7 @@ execution, else the two solvers separately; the sky clamped so scene + sky
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -75,12 +76,18 @@ def view_factor_outside_workflow(
     merged ``{emitter: {key: stderr}}`` rows (receiver keys and sky keys).
     They describe the raw converged estimates: clamping and enforcement
     rescale values, not their sampling stderr.
+
+    ``checkpoint_dir`` makes the solve resumable per emitter: the shared-ray
+    path checkpoints each emitter's matrix and sky outputs together; the
+    separate-solver fallback uses ``<dir>/matrix`` and ``<dir>/sky``.
+    Post-processing (clamping, enforcement, residuals) is cheap and re-runs
+    on every call.
     """
     if not isinstance(matrix_params, MatrixParams):
         raise TypeError("matrix_params must be a MatrixParams instance")
     if not isinstance(sky_params, SkyParams):
         raise TypeError("sky_params must be a SkyParams instance")
-    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+    _refuse_unported(mesh)
 
     threshold = 1e-6
     enforce_scene = bool(matrix_params.enforce_reciprocity_rowsum)
@@ -96,14 +103,18 @@ def view_factor_outside_workflow(
     if outside_workflow_shareable(matrix_defaults, sky_params):
         vf_scene, sky_vf, stats = view_factor_matrix_and_sky(
             meshes, matrix_params=matrix_defaults, sky_params=sky_params,
-            prepared=prepared, return_stats=True,
+            prepared=prepared, checkpoint_dir=checkpoint_dir, return_stats=True,
         )
     else:
         vf_scene, m_stats = view_factor_matrix(
-            meshes, params=matrix_defaults, prepared=prepared, return_stats=True,
+            meshes, params=matrix_defaults, prepared=prepared,
+            checkpoint_dir=os.path.join(checkpoint_dir, "matrix") if checkpoint_dir else None,
+            return_stats=True,
         )
         sky_vf, s_stats = view_factor_to_tregenza_sky(
-            meshes, params=sky_params, prepared=prepared, return_stats=True,
+            meshes, params=sky_params, prepared=prepared,
+            checkpoint_dir=os.path.join(checkpoint_dir, "sky") if checkpoint_dir else None,
+            return_stats=True,
         )
         for name, _, _ in meshes:
             stats[name] = {**m_stats.get(name, {}), **s_stats.get(name, {})}

@@ -2,7 +2,7 @@
 variables (and with the same defaults) as ``raystrack_tpu.config``, but for
 ``SLIM_PACK_MIN_TRIS``, whose default is reckoned from the card's memory.
 
-Only the knobs the matrix solve reads are carried over. They are read
+Only the knobs the port's solves read are carried over. They are read
 once, at import; the solver reads them through this module at call time,
 so a test or a harness may set them on the module.
 """
@@ -19,6 +19,16 @@ def _env_int(name: str, default: int, *, minimum: int = 1) -> int:
         return max(minimum, int(raw))
     except ValueError:
         return max(minimum, int(default))
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None:
+        return float(default)
+    try:
+        return float(raw)
+    except Exception:
+        return float(default)
 
 
 # Ray-count alignment unit: per-emitter ray batches are zero-padded to a
@@ -139,6 +149,14 @@ SCHED_FUSE_ROUNDS = _env_int("RAYSTRACK_TPU_SCHED_FUSE_ROUNDS", 0, minimum=0)
 # tables) alive. Set to 0 to disable; clear_prepared_cache() drops them.
 PREPARED_CACHE = _env_int("RAYSTRACK_TPU_PREPARED_CACHE", 1, minimum=0)
 
+# Mid-emitter progress checkpoints: while an emitter is still converging,
+# its exact monitor state snapshots to
+# <checkpoint_dir>/emitter_NNNNN.progress.json at most every this many
+# seconds, so very long single-emitter solves resume mid-stream (the
+# iteration RNG is absolute-indexed, so a resumed solve is bit-identical).
+# 0 = snapshot after every chunk or round; negative disables snapshots.
+CHECKPOINT_PROGRESS_S = _env_float("RAYSTRACK_TPU_CHECKPOINT_PROGRESS_S", 60.0)
+
 __all__ = [
     "RAY_BLOCK",
     "RAY_BUCKETING",
@@ -159,4 +177,5 @@ __all__ = [
     "SCHED_PIPELINE",
     "SCHED_FUSE_ROUNDS",
     "PREPARED_CACHE",
+    "CHECKPOINT_PROGRESS_S",
 ]

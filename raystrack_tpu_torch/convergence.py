@@ -1,4 +1,4 @@
-# Copied from raystrack_tpu/convergence.py: the chunk planner and the matrix and sky monitors (host-only NumPy).
+# Copied from raystrack_tpu/convergence.py: the chunk planner and the matrix and sky monitors with their checkpoint state (host-only NumPy).
 """Host-side convergence monitors and the iteration-chunk planner.
 
 The device solves fixed-size *chunks* of Monte-Carlo iterations and returns
@@ -91,6 +91,20 @@ class _Welford:
         self.mean = np.zeros(shape, dtype=np.float64)
         self.m2 = np.zeros(shape, dtype=np.float64)
         self.count = 0
+
+    def state_dict(self) -> dict:
+        return {
+            "mean": self.mean.tolist(),
+            "m2": self.m2.tolist(),
+            "count": int(self.count),
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.mean = np.asarray(state["mean"], dtype=np.float64).reshape(
+            self.mean.shape
+        )
+        self.m2 = np.asarray(state["m2"], dtype=np.float64).reshape(self.m2.shape)
+        self.count = int(state["count"])
 
     def update(self, x: np.ndarray) -> None:
         self.count += 1
@@ -197,6 +211,41 @@ class MatrixMonitor:
             return self.iters_done
         return int(np.ceil(self.iters_done * (worst / self.tol) ** 2))
 
+    def state_dict(self) -> dict:
+        """JSON-serializable exact mid-solve state (float64 loses nothing:
+        counts are integers and the Welford accumulators ARE float64)."""
+        return {
+            "iters_done": self.iters_done,
+            "total_rays": self.total_rays,
+            "done": self.done,
+            "hits_f": self.hits_f.tolist(),
+            "hits_b": self.hits_b.tolist(),
+            "wf": self.wf.state_dict(),
+            "wb": self.wb.state_dict(),
+            "prev_f": None if self.prev_f is None else self.prev_f.tolist(),
+            "prev_b": None if self.prev_b is None else self.prev_b.tolist(),
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Restore :meth:`state_dict` output; resuming the iteration stream
+        at ``iters_done`` then replays bit-identically to an uninterrupted
+        solve (the per-iteration RNG is indexed by absolute iteration)."""
+        self.iters_done = int(state["iters_done"])
+        self.total_rays = int(state["total_rays"])
+        self.done = bool(state["done"])
+        self.hits_f = np.asarray(state["hits_f"], dtype=np.int64)
+        self.hits_b = np.asarray(state["hits_b"], dtype=np.int64)
+        self.wf.load_state(state["wf"])
+        self.wb.load_state(state["wb"])
+        self.prev_f = (
+            None if state["prev_f"] is None
+            else np.asarray(state["prev_f"], dtype=np.float64)
+        )
+        self.prev_b = (
+            None if state["prev_b"] is None
+            else np.asarray(state["prev_b"], dtype=np.float64)
+        )
+
 
 class SkyMonitor:
     """Convergence state for one emitter's sky fraction (merged or 145-bin)."""
@@ -291,6 +340,39 @@ class SkyMonitor:
         if worst <= self.tol:
             return self.iters_done
         return int(np.ceil(self.iters_done * (worst / self.tol) ** 2))
+
+    def state_dict(self) -> dict:
+        """JSON-serializable exact mid-solve state."""
+        prev = self.prev
+        if isinstance(prev, np.ndarray):
+            prev = prev.tolist()
+        return {
+            "iters_done": self.iters_done,
+            "total_rays": self.total_rays,
+            "done": self.done,
+            "upward_total": int(self.upward_total),
+            "counts_total": (
+                None if self.counts_total is None else self.counts_total.tolist()
+            ),
+            "bins_w": None if self.bins_w is None else self.bins_w.state_dict(),
+            "sky_w": self.sky_w.state_dict(),
+            "prev": prev,
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.iters_done = int(state["iters_done"])
+        self.total_rays = int(state["total_rays"])
+        self.done = bool(state["done"])
+        self.upward_total = int(state["upward_total"])
+        if self.counts_total is not None and state["counts_total"] is not None:
+            self.counts_total = np.asarray(state["counts_total"], dtype=np.int64)
+        if self.bins_w is not None and state["bins_w"] is not None:
+            self.bins_w.load_state(state["bins_w"])
+        self.sky_w.load_state(state["sky_w"])
+        prev = state["prev"]
+        if isinstance(prev, list):
+            prev = np.asarray(prev, dtype=np.float64)
+        self.prev = prev
 
 
 __all__ = ["convergence_checkpoint", "plan_chunk", "MatrixMonitor", "SkyMonitor"]

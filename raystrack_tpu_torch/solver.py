@@ -30,7 +30,13 @@ package:
   ``(i/n) [name] K iter, R rays -> T s (BVH=..., device=...)`` (the
   workflow's: ``[name] traced K iter, ... (scene=M iter, sky=S iter, ...)``),
 - solves without ``prepared=`` reuse an implicit, content-keyed LRU of
-  ``PreparedSolver``s (``clear_prepared_cache`` empties it).
+  ``PreparedSolver``s (``clear_prepared_cache`` empties it),
+- ``checkpoint_dir=`` resumes a stopped solve (``_CheckpointStore``: one
+  JSON file per finished emitter and, every ``CHECKPOINT_PROGRESS_S``
+  seconds, a snapshot of each pending one's monitors; the JAX package's
+  layout and fingerprint), ``row_sink=`` streams the matrix's rows as they
+  complete (``_OrderedRowSink``), and ``RAYSTRACK_TPU_PROFILE=<dir>``
+  writes a ``torch.profiler`` trace of the matrix solve.
 
 A scene of ``SLIM_PACK_MIN_TRIS`` padded triangles or more is packed slim
 (``prepared.pack_scene``): the device holds one operand pack for the whole
@@ -45,10 +51,14 @@ the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import json
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -197,6 +207,73 @@ def _matrix_receivers(idx_emit: int, n_surf: int, reciprocity: bool) -> List[int
 def _matrix_skip(idx_emit: int, reciprocity: bool) -> Tuple[int, int]:
     """(emitter sid to exclude, minimum sid eligible for matrix hits)."""
     return (idx_emit, idx_emit + 1) if reciprocity else (idx_emit, 0)
+
+
+class _OrderedRowSink:
+    """Stream COMPLETE rows to ``row_sink`` under the reciprocity half-solve.
+
+    With ``reciprocity=True`` the transpose back-fill
+    F(i->j) = F(j->i) * Aj / Ai lands in row i the moment emitter j < i
+    converges, and no emitter j > i ever contributes to row i — so row i is
+    complete exactly when emitters 0..i have all finished. This coordinator
+    collects per-emitter results in completion order (the schedulers finish
+    emitters in any order) and sinks rows in EMITTER order as the finished
+    prefix grows, each merged with every back-fill contribution directed at
+    it, making the streamed output equal the returned matrix. A resumed
+    solve finishes its restored rows here too, so they stream again.
+    """
+
+    def __init__(self, sink, names: List[str]):
+        self._sink = sink
+        self._names = names
+        self._pending_backfill: Dict[str, Dict[str, float]] = {}
+        self._finished: Dict[int, Dict[str, float]] = {}
+        self._next = 0
+
+    def finish(self, idx: int, row: Dict[str, float],
+               backfill: Dict[str, Dict[str, float]]) -> None:
+        for name_r, entries in backfill.items():
+            self._pending_backfill.setdefault(name_r, {}).update(entries)
+        self._finished[idx] = row
+        while self._next in self._finished:
+            complete = dict(self._finished.pop(self._next))
+            name = self._names[self._next]
+            contrib = self._pending_backfill.pop(name, None)
+            if contrib:
+                complete.update(contrib)
+            self._sink(name, complete)
+            self._next += 1
+
+
+def _maybe_profiler():
+    """Optional ``torch.profiler`` capture, enabled by
+    ``RAYSTRACK_TPU_PROFILE=<dir>``.
+
+    Returns a callable producing a context manager: while it is open the
+    profiler records CPU and (with a card) CUDA activity under
+    ``record_function(name)``, and on exit it writes a Chrome trace
+    ``<dir>/<name>.<pid>.<ns>.json``. Unset, the context manager does
+    nothing.
+    """
+    trace_dir = os.environ.get("RAYSTRACK_TPU_PROFILE")
+    if not trace_dir:
+        return lambda name: contextlib.nullcontext()
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    @contextlib.contextmanager
+    def annotated(name: str):
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            with record_function(name):
+                yield
+        out = Path(trace_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"{name}.{os.getpid()}.{time.time_ns()}.json"))
+
+    return annotated
 
 
 def _build_emitter_surface_mask(
@@ -361,6 +438,22 @@ def _entry_monitors(entry) -> List:
     return [m for m in (entry.get("matrix_mon"), entry.get("sky_mon")) if m is not None]
 
 
+def _entry_progress(entry) -> None:
+    """Rate-limited mid-emitter snapshot hook, fired by every driver after an
+    entry's chunk or round replay while it stays pending. No-op unless the
+    solve attached ``on_progress``, and never after :func:`_entry_done`."""
+    callback = entry.get("on_progress")
+    if callback is None or entry.get("_finished"):
+        return
+    if _cfg.CHECKPOINT_PROGRESS_S < 0:
+        return
+    now = time.time()
+    if now - entry.get("_progress_ts", 0.0) < _cfg.CHECKPOINT_PROGRESS_S:
+        return
+    entry["_progress_ts"] = now
+    callback(entry)
+
+
 def _entry_done(entry) -> None:
     """Completion hook, once per entry: drop the run's operands, stamp the
     emitter's wall time and fire the entry's ``on_done`` callback."""
@@ -448,6 +541,7 @@ def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bo
         if mon.done:
             _entry_done(entry)
         else:
+            _entry_progress(entry)
             queue.append(entry)
 
 
@@ -550,6 +644,7 @@ def _drive_combined_pipelined(entries, *, discrete: bool, depth: int = 3) -> Non
         if all(m.done for m in _entry_monitors(entry)):
             _entry_done(entry)
         else:
+            _entry_progress(entry)
             queue.append(entry)
 
 
@@ -757,6 +852,8 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
             consume(entry, host, start_row, bpi, chunk)
             if not entry_pending(entry):
                 _entry_done(entry)
+            else:
+                _entry_progress(entry)
 
     pipeline = _cfg.SCHED_PIPELINE > 0
     inflight: Optional[_Round] = None
@@ -848,17 +945,162 @@ def _drive_combined_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     )
 
 
-def _refuse_unported(**options) -> None:
-    """Raise ``NotImplementedError`` for a solve option the port does not
-    have yet, naming its ROADMAP item."""
-    items = {"mesh": "parallel/ (ray sharding with an NCCL sum of the counts)",
-             "checkpoint_dir": "checkpoints and row_sink",
-             "row_sink": "checkpoints and row_sink"}
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP port queue: {items[name]})"
+def _refuse_unported(mesh) -> None:
+    """Raise ``NotImplementedError`` for ``mesh=``, the one solve option the
+    port does not have yet, naming its ROADMAP item."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP port queue 1, parallel/: ray sharding "
+            "with an NCCL sum of the counts)"
+        )
+
+
+class _CheckpointStore:
+    """Per-emitter JSON checkpoints for resumable solves.
+
+    One file per emitter under ``dir/``, written atomically (tmp + rename).
+    A config fingerprint (solver params + mesh names and content) guards
+    against resuming with a different setup. The layout, payload keys and
+    fingerprint are the JAX package's, so either package resumes the
+    other's directory.
+    """
+
+    def __init__(self, directory: str, params_dict: Dict, meshes: List[Mesh]):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        hasher = hashlib.sha256(
+            json.dumps(
+                {"params": {k: params_dict[k] for k in sorted(params_dict)}},
+                sort_keys=True,
+            ).encode()
+        )
+        # geometry content, not just shape: edited vertices must invalidate
+        hash_meshes(hasher, meshes)
+        self.fingerprint = hasher.hexdigest()[:16]
+        self._mismatch_logged = False
+
+    def _path(self, idx: int) -> Path:
+        return self.dir / f"emitter_{idx:05d}.json"
+
+    def _note_mismatch(self, path: Path) -> None:
+        # A stale fingerprint silently re-solves from zero (params, mesh
+        # content, or the fingerprint stream itself changed); say so ONCE
+        # per store so a long resumed solve's restart isn't a mystery.
+        if not self._mismatch_logged:
+            self._mismatch_logged = True
+            _log(
+                f"checkpoint dir {self.dir} holds entries with a different "
+                "config/geometry fingerprint; ignoring them and re-solving "
+                f"(first: {path.name})"
             )
+
+    def _read(self, path: Path):
+        """The payload at ``path``, or None when it is missing, torn or of
+        another fingerprint."""
+        try:
+            data = json.loads(path.read_text(encoding="utf-8"))
+        except (OSError, ValueError):  # missing, or a torn or foreign file
+            return None
+        if not isinstance(data, dict):
+            return None
+        if data.get("fingerprint") != self.fingerprint:
+            self._note_mismatch(path)
+            return None
+        return data
+
+    def load(self, idx: int):
+        """An emitter's finished checkpoint, or None."""
+        return self._read(self._path(idx))
+
+    def save(self, idx: int, name: str, row, backfill, stats, **extra) -> None:
+        """``extra`` lands as additional top-level keys (e.g. the shared-ray
+        workflow's ``sky=`` row); ``stats`` is reserved for stderr dicts."""
+        payload = {
+            "fingerprint": self.fingerprint,
+            "emitter": name,
+            "row": row,
+            "backfill": backfill,
+            "stats": stats,
+            **extra,
+        }
+        self._write(self._path(idx), payload)
+        self.clear_progress(idx)
+
+    def _write(self, path: Path, payload) -> None:
+        # per-process tmp name: two resuming solves sharing a checkpoint dir
+        # must not interleave writes before the atomic publish
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(payload, sort_keys=True), encoding="utf-8")
+        tmp.replace(path)
+
+    # -- mid-emitter progress snapshots -----------------------------------
+
+    def _progress_path(self, idx: int) -> Path:
+        return self.dir / f"emitter_{idx:05d}.progress.json"
+
+    def load_progress(self, idx: int):
+        """Monitor-state snapshot of a partially converged emitter, or None."""
+        return self._read(self._progress_path(idx))
+
+    def save_progress(self, idx: int, state: Dict) -> None:
+        self._write(self._progress_path(idx), {"fingerprint": self.fingerprint, **state})
+
+    def clear_progress(self, idx: int) -> None:
+        self._progress_path(idx).unlink(missing_ok=True)
+
+    def resume(self, entry: Dict, n_surf: int, load: Callable[[Dict, Dict], None],
+               state: Callable[[Dict], Dict]) -> None:
+        """Resume ``entry`` from its emitter's progress snapshot, if there is
+        one, and snapshot it from now on.
+
+        ``load(entry, snapshot)`` restores its monitors. A snapshot holds
+        only consumed iterations, so the ray stream resumes at the first one
+        no monitor has seen. ``state(entry)`` is the snapshot to save."""
+        idx = entry["idx"]
+        progress = self.load_progress(idx)
+        if progress is not None:
+            load(entry, progress)
+            run = entry["run"]
+            run.itr_next = max(m.iters_done for m in _entry_monitors(entry))
+            _log(f"({idx + 1}/{n_surf}) [{entry['name']}] resuming from "
+                 f"iteration {run.itr_next}")
+        entry["on_progress"] = lambda e: self.save_progress(e["idx"], state(e))
+
+
+def _monitor_state(entry: Dict) -> Dict:
+    """Progress snapshot of a matrix or sky entry."""
+    return {"monitor": entry["monitor"].state_dict()}
+
+
+def _load_monitor_state(entry: Dict, snapshot: Dict) -> None:
+    entry["monitor"].load_state(snapshot["monitor"])
+
+
+def _combined_state(entry: Dict) -> Dict:
+    """Progress snapshot of a shared-ray workflow entry: both monitors
+    (``matrix`` None for an emitter with no receivers)."""
+    m = entry["matrix_mon"]
+    return {"matrix": None if m is None else m.state_dict(),
+            "sky": entry["sky_mon"].state_dict()}
+
+
+def _load_combined_state(entry: Dict, snapshot: Dict) -> None:
+    if entry["matrix_mon"] is not None and snapshot.get("matrix") is not None:
+        entry["matrix_mon"].load_state(snapshot["matrix"])
+    entry["sky_mon"].load_state(snapshot["sky"])
+
+
+def _start_entries(entries: List[Dict], on_done: Callable[[Dict], None]) -> float:
+    """Stamp each entry's start and attach its ``on_done``. An entry that a
+    snapshot restored converged (its full checkpoint not yet written) is
+    assembled now and traces nothing. Returns the start time."""
+    t_solve = time.time()
+    for entry in entries:
+        entry["started"] = t_solve
+        entry["on_done"] = on_done
+        if all(m.done for m in _entry_monitors(entry)):
+            _entry_done(entry)
+    return t_solve
 
 
 def _matrix_row(monitor: Optional[MatrixMonitor], receivers: List[int], meshes: List[Mesh],
@@ -923,18 +1165,44 @@ def view_factor_matrix(
 
     With ``return_stats=True`` also returns ``{emitter: {receiver_key:
     stderr}}`` — the per-receiver standard error of the converged estimate.
-    ``prepared`` reuses a :class:`PreparedSolver`'s geometry, tables and
-    device packs across solves; without it an implicit content-keyed cache
-    does the same (``RAYSTRACK_TPU_PREPARED_CACHE=0`` turns it off).
+    Emitters restored from ``checkpoint_dir`` report the stats their
+    checkpoint recorded (``{}`` for skipped emitters). ``prepared`` reuses a
+    :class:`PreparedSolver`'s geometry, tables and device packs across
+    solves; without it an implicit content-keyed cache does the same
+    (``RAYSTRACK_TPU_PREPARED_CACHE=0`` turns it off). Set
+    ``RAYSTRACK_TPU_PROFILE=<dir>`` to write a ``torch.profiler`` Chrome
+    trace of the solve into ``<dir>``.
 
     A CUDA solve of more than one emitter goes through the whole-scene
     scheduled driver; ``RAYSTRACK_TPU_SCHEDULER=grouped`` sends it emitter
     by emitter instead and ``scheduled`` forces the scheduler on the CPU.
     Both routes return equal dicts.
+
+    ``row_sink(name, row)`` is called as rows COMPLETE (pair it with
+    :class:`~raystrack_tpu_torch.io.VFMatrixStreamWriter` to stream a large
+    matrix to disk). With ``reciprocity=False`` a row is complete the moment
+    its emitter converges and rows stream in completion order. With
+    ``reciprocity=True`` row i also carries the transpose back-fill from
+    every earlier emitter, so rows stream in emitter order, each once
+    emitters 0..i have all converged: the streamed rows equal the returned
+    matrix (before ``enforce_reciprocity_rowsum``, which the sink never
+    sees). A resumed solve sinks every row, restored ones too: a stream
+    that :class:`~raystrack_tpu_torch.io.VFMatrixStreamWriter` had not yet
+    closed is lost with the stopped solve. (The JAX package does not re-sink
+    restored rows.)
+
+    ``checkpoint_dir`` makes long solves resumable: each emitter's finished
+    row (with its reciprocity back-fill and stats) is written atomically as
+    JSON the moment it converges, and, every ``CHECKPOINT_PROGRESS_S``
+    seconds while it converges, its exact monitor state. A restarted solve
+    restores finished emitters from disk and resumes the others from their
+    snapshots (the iteration RNG is indexed by absolute iteration, so the
+    result is bit-identical). Checkpoints are keyed by the parameters and
+    the geometry: a changed seed or mesh invalidates them.
     """
     if not isinstance(params, MatrixParams):
         raise TypeError("params must be a MatrixParams instance")
-    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir, row_sink=row_sink)
+    _refuse_unported(mesh)
     p = params.as_dict()
     device = _resolve_device(p["device"])
     # CPU solves check convergence every iteration; the interval only
@@ -947,6 +1215,8 @@ def view_factor_matrix(
 
     result: VFDict = {name: {} for name, _, _ in meshes}
     stats_result: VFDict = {}
+    profiler = _maybe_profiler()
+    store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
     emitters = prepared_solver.get_emitters(
         samples=p["samples"], rays=p["rays"], flip_faces=flip_faces
     )
@@ -962,9 +1232,35 @@ def view_factor_matrix(
         device, emitters, p["rays"], align)
 
     n_surf = len(meshes)
-    # Phase 1: skip emitters with no receivers, build the work list
+    n_restored = 0
+    # Reciprocity lands back-fill in other emitters' rows; the ordered
+    # coordinator defers each sink until its row's back-fill is complete.
+    ordered_sink = (
+        _OrderedRowSink(row_sink, [name for name, _, _ in meshes])
+        if (row_sink is not None and reciprocity)
+        else None
+    )
+    # Phase 1: restore checkpoints, skip emitters with no receivers, build
+    # the work list
     entries: List[Dict] = []
     for idx_emit, (name_e, _, _) in enumerate(meshes):
+        saved = store.load(idx_emit) if store is not None else None
+        if saved is not None:
+            result[name_e].update(saved["row"])
+            for other, back_entries in saved.get("backfill", {}).items():
+                result[other].update(back_entries)
+            stats_result[name_e] = saved.get("stats", {})
+            n_restored += 1
+            # re-sunk: the stream of the stopped solve did not outlive it
+            if ordered_sink is not None:
+                ordered_sink.finish(idx_emit, saved["row"], saved.get("backfill", {}))
+            elif row_sink is not None:
+                row_sink(name_e, saved["row"])
+            _log(
+                f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from "
+                f"checkpoint ({len(saved['row'])} receivers)"
+            )
+            continue
         emitter = emitters[idx_emit]
         surf_active = _build_emitter_surface_mask(
             idx_emit, emitter, bounds_center, bounds_extent
@@ -975,6 +1271,13 @@ def view_factor_matrix(
         if not receivers:
             _log(_progress_line(idx_emit, n_surf, name_e, 0, 0, 0.0, use_bvh, device))
             stats_result[name_e] = {}
+            if store is not None:
+                store.save(idx_emit, name_e, {}, {}, {})
+            if ordered_sink is not None:
+                # traces nothing itself, but its row still collects earlier
+                # emitters' back-fill (e.g. the LAST emitter under
+                # reciprocity, whose whole row is back-fill)
+                ordered_sink.finish(idx_emit, {}, {})
             continue
 
         emit_sid, min_sid = _matrix_skip(idx_emit, reciprocity)
@@ -993,29 +1296,39 @@ def view_factor_matrix(
             min_iters=p["min_iters"], interval=interval,
             max_iters=p["max_iters"],
         )
-        entries.append(
-            dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
-                 receivers=receivers, surf_active=surf_active,
-                 emit_sid=emit_sid, min_sid=min_sid)
-        )
+        entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
+                     receivers=receivers, surf_active=surf_active,
+                     emit_sid=emit_sid, min_sid=min_sid)
+        if store is not None:
+            store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
+        entries.append(entry)
 
     def _assemble(entry) -> None:
-        """Build the emitter's row, back-fill and stats as it converges."""
-        entry["row"], entry["stats"], entry["backfill"] = _matrix_row(
-            entry["monitor"], entry["receivers"], meshes, entry["idx"], reciprocity, areas)
+        """Build the emitter's row, back-fill and stats as it converges,
+        checkpoint it and sink its row, so a solve stopped later keeps every
+        finished emitter."""
+        idx_emit, name_e = entry["idx"], entry["name"]
+        row, stats_row, backfill = _matrix_row(
+            entry["monitor"], entry["receivers"], meshes, idx_emit, reciprocity, areas)
+        entry.update(row=row, stats=stats_row, backfill=backfill)
+        if store is not None:
+            store.save(idx_emit, name_e, row, backfill, stats_row)
+        if ordered_sink is not None:
+            ordered_sink.finish(idx_emit, row, backfill)
+        elif row_sink is not None:
+            row_sink(name_e, row)
+
+    t_solve = _start_entries(entries, _assemble)
 
     # Phase 2: whole-scene scheduled dispatches when possible, then the
     # pipelined per-emitter driver for whatever is left (single emitters,
     # emitters too big for a round)
-    t_solve = time.time()
-    for entry in entries:
-        entry["started"] = t_solve
-        entry["on_done"] = _assemble
-    if len(entries) > 1 and use_scheduler:
-        _drive_matrix_scheduled(
-            entries, prepared_solver, p, flip_faces, align, scene_pack, device, n_surf,
-        )
-    _drive_matrix_pipelined(entries)
+    with profiler("matrix_solve"):
+        if len(entries) > 1 and use_scheduler:
+            _drive_matrix_scheduled(
+                entries, prepared_solver, p, flip_faces, align, scene_pack, device, n_surf,
+            )
+        _drive_matrix_pipelined(entries)
     solve_s = time.time() - t_solve
 
     # Phase 3: merge rows into the result in emitter order
@@ -1031,6 +1344,8 @@ def view_factor_matrix(
                 monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
             )
         )
+    if n_restored:
+        _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
 
     if p["enforce_reciprocity_rowsum"]:
         _enforce_reciprocity_and_rowsum(result, meshes, areas)
@@ -1075,12 +1390,17 @@ def view_factor_to_tregenza_sky(
     emitter goes through the whole-scene scheduled driver (any-only
     launches of kernel #2), the rest emitter by emitter (any-only launches
     of kernel #1); both return equal dicts.
+
+    ``checkpoint_dir`` makes the solve resumable as in
+    :func:`view_factor_matrix`: each emitter's converged sky row (and its
+    stats) is written atomically the moment it finishes, and its monitor
+    state while it converges.
     """
     if not isinstance(params, SkyParams):
         raise TypeError("params must be a SkyParams instance")
     if len(meshes) == 0:
         raise ValueError("meshes must not be empty")
-    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+    _refuse_unported(mesh)
 
     p = params.as_dict()
     discrete = bool(p["discrete"])
@@ -1100,10 +1420,19 @@ def view_factor_to_tregenza_sky(
 
     result: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
     stats_result: VFDict = {}
+    store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
     n_surf = len(meshes)
+    n_restored = 0
     entries: List[Dict] = []
     if n_surf > 1:
         for idx_emit, (name_e, _, _) in enumerate(meshes):
+            saved = store.load(idx_emit) if store is not None else None
+            if saved is not None:
+                result[name_e].update(saved["row"])
+                stats_result[name_e] = saved.get("stats", {})
+                n_restored += 1
+                _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
+                continue
             surf_active = _build_emitter_surface_mask(
                 idx_emit, emitters[idx_emit], bounds_center, bounds_extent
             )
@@ -1120,18 +1449,18 @@ def view_factor_to_tregenza_sky(
                 min_iters=p["min_iters"], interval=interval,
                 max_iters=p["max_iters"],
             )
-            entries.append(
-                dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
-                     surf_active=surf_active, emit_sid=idx_emit, min_sid=0)
-            )
+            entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
+                         surf_active=surf_active, emit_sid=idx_emit, min_sid=0)
+            if store is not None:
+                store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
+            entries.append(entry)
 
     def _assemble(entry) -> None:
         entry["row"], entry["stats"] = _sky_row(entry["monitor"], discrete)
+        if store is not None:
+            store.save(entry["idx"], entry["name"], entry["row"], {}, entry["stats"])
 
-    t_solve = time.time()
-    for entry in entries:
-        entry["started"] = t_solve
-        entry["on_done"] = _assemble
+    t_solve = _start_entries(entries, _assemble)
     if len(entries) > 1 and use_scheduler:
         _drive_sky_scheduled(
             entries, prepared_solver, p, align, scene_pack, device, n_surf,
@@ -1150,6 +1479,8 @@ def view_factor_to_tregenza_sky(
                 monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
             )
         )
+    if n_restored:
+        _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
     if return_stats:
         return result, stats_result
     return result
@@ -1190,6 +1521,14 @@ def view_factor_matrix_and_sky(
 
     Returns ``(vf_scene, sky_vf)``, and with ``return_stats=True`` a third
     ``{emitter: {key: stderr}}`` holding both outputs' keys in one row.
+
+    ``checkpoint_dir`` makes the solve resumable as in
+    :func:`view_factor_matrix`: each emitter's matrix row, back-fill and sky
+    row are written atomically once both outputs finish (the sky row under
+    its own ``sky`` key, and for older readers also inside ``stats``),
+    keyed by both parameter sets and the geometry; while it converges, both
+    monitors' states. Checkpoints that carry the sky row only inside
+    ``stats`` (the older layout) still restore.
     """
     if not isinstance(matrix_params, MatrixParams):
         raise TypeError("matrix_params must be a MatrixParams instance")
@@ -1197,10 +1536,20 @@ def view_factor_matrix_and_sky(
         raise TypeError("sky_params must be a SkyParams instance")
     if not outside_workflow_shareable(matrix_params, sky_params):
         raise ValueError("matrix_params and sky_params are not compatible for shared tracing")
-    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+    _refuse_unported(mesh)
 
     mp = matrix_params.as_dict()
     sp = sky_params.as_dict()
+    store = (
+        _CheckpointStore(
+            checkpoint_dir,
+            {**{f"m.{k}": v for k, v in mp.items()},
+             **{f"s.{k}": v for k, v in sp.items()}},
+            meshes,
+        )
+        if checkpoint_dir
+        else None
+    )
     discrete = bool(sp["discrete"])
     reciprocity = bool(mp["reciprocity"])
     device = _resolve_device(mp["device"])
@@ -1221,8 +1570,28 @@ def view_factor_matrix_and_sky(
     sky_vf: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
     stats_result: VFDict = {}
     n_surf = len(meshes)
+    n_restored = 0
     entries: List[Dict] = []
     for idx_emit, (name_e, _, _) in enumerate(meshes):
+        saved = store.load(idx_emit) if store is not None else None
+        if saved is not None:
+            vf_scene[name_e].update(saved["row"])
+            for other, back_entries in saved.get("backfill", {}).items():
+                vf_scene[other].update(back_entries)
+            if "sky" in saved:
+                sky_vf[name_e].update(saved["sky"])
+                # the stats slot carries a duplicate of the sky row under
+                # "sky" for readers of the older layout; strip it
+                stats_result[name_e] = {
+                    k: v for k, v in saved.get("stats", {}).items() if k != "sky"
+                }
+            else:
+                # the older layout parked the sky row in the stats slot
+                sky_vf[name_e].update(saved.get("stats", {}).get("sky", {}))
+                stats_result[name_e] = {}
+            n_restored += 1
+            _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
+            continue
         surf_active = _build_emitter_surface_mask(
             idx_emit, emitters[idx_emit], bounds_center, bounds_extent
         )
@@ -1257,11 +1626,14 @@ def view_factor_matrix_and_sky(
             interval=1 if on_cpu else sp["convergence_interval"],
             max_iters=sp["max_iters"],
         )
-        entries.append(
-            dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon, trace_iters=0,
-                 idx=idx_emit, name=name_e, receivers=receivers,
-                 surf_active=surf_active, emit_sid=emit_sid, min_sid=matrix_min_sid)
-        )
+        entry = dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon,
+                     idx=idx_emit, name=name_e, receivers=receivers,
+                     surf_active=surf_active, emit_sid=emit_sid, min_sid=matrix_min_sid)
+        if store is not None:
+            store.resume(entry, n_surf, _load_combined_state, _combined_state)
+        # the shared stream resumes past the iterations either monitor used
+        entry["trace_iters"] = run.itr_next
+        entries.append(entry)
 
     def _assemble(entry) -> None:
         """The emitter's matrix row, back-fill and sky row, and one stats
@@ -1273,11 +1645,13 @@ def view_factor_matrix_and_sky(
             sky_row, sky_stats = _sky_row(entry["sky_mon"], discrete)
             stats_row.update(sky_stats)
         entry.update(row=row, stats=stats_row, backfill=backfill, sky_row=sky_row)
+        if store is not None:
+            # the top-level "sky" is the layout; the duplicate inside stats
+            # keeps the file readable by readers of the older layout
+            store.save(entry["idx"], entry["name"], row, backfill,
+                       {**stats_row, "sky": sky_row}, sky=sky_row)
 
-    t_solve = time.time()
-    for entry in entries:
-        entry["started"] = t_solve
-        entry["on_done"] = _assemble
+    t_solve = _start_entries(entries, _assemble)
     if len(entries) > 1 and use_scheduler:
         _drive_combined_scheduled(
             entries, prepared_solver, mp, align, scene_pack, device, n_surf,
@@ -1303,6 +1677,8 @@ def view_factor_matrix_and_sky(
             f"(scene={matrix_iters} iter, sky={sky_mon.iters_done} iter, "
             f"BVH={'builtin' if use_bvh else 'off'}, device={_device_label(device)})"
         )
+    if n_restored:
+        _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
 
     if return_stats:
         return vf_scene, sky_vf, stats_result

@@ -12,6 +12,8 @@
 """
 from __future__ import annotations
 
+import os
+import sys
 from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
@@ -201,5 +203,27 @@ def enforce_reciprocity_only(
         result[sname] = row
 
 
+def hold_console_open(prompt: str = "Press Enter to close...") -> None:
+    """Keep an interactive console window open after a script finishes.
+
+    Same env-gated contract as the reference helper (reference:
+    helpers.py:260-275): ``RAYSTRACK_HOLD_CONSOLE=0|false|no`` disables it,
+    and non-interactive runs (no TTY on stdin, or no stdin at all) never
+    block.
+    """
+    if os.environ.get("RAYSTRACK_HOLD_CONSOLE", "1").lower() in (
+        "0", "false", "no",
+    ):
+        return
+    stdin = getattr(sys, "stdin", None)
+    interactive = stdin is not None and stdin.isatty()
+    if not interactive:
+        return
+    try:
+        input(prompt)
+    except EOFError:
+        pass  # closed stdin mid-prompt: nothing to hold open
+
+
 __all__ = ["grid_from_density", "mesh_areas", "enforce_reciprocity_and_rowsum",
-           "enforce_reciprocity_only"]
+           "enforce_reciprocity_only", "hold_console_open"]

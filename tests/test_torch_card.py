@@ -9,8 +9,10 @@ card, solves on the card against the CPU and across the two routes, kernel
 #1's code_bounds mode against its plain version and the baked kernel, a slim
 (pack-resident) solve against the full-mode one, the FMA-peak probe
 against its plain version, the gate's crossing kernel against its plain
-version, and every triangle split the sweep kernels are built at against
-the one-thread-a-ray kernel and their plain ``split=`` versions.
+version, every triangle split the sweep kernels are built at against
+the one-thread-a-ray kernel and their plain ``split=`` versions, checkpointed
+solves stopped mid-way and resumed on both routes, and the command line on
+the card against the in-process solve.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1049,3 +1051,105 @@ def test_sky_and_workflow_solves_on_card(card, monkeypatch, discrete):
     first = out["scheduled", "auto"]
     assert all(v == first for v in out.values())
     assert sum(first[0]["ground"].values()) > 0.0 and first[1][0]["ground"]
+
+
+RESUME_KINDS = ("matrix", "sky", "workflow")
+
+
+def _resume_solve(kind, meshes, ckpt=None):
+    """The box city's solve of ``kind`` on the card, 2 then 6 iterations
+    against a tolerance it cannot reach (two scheduled rounds)."""
+    kw = dict(samples=0, rays=64, min_iters=2, max_iters=8, tol=1e-12, device="gpu")
+    mp = raystrack_tpu_torch.MatrixParams(reciprocity=False, **kw)
+    sp = raystrack_tpu_torch.SkyParams(discrete=True, **kw)
+    if kind == "matrix":
+        return raystrack_tpu_torch.view_factor_matrix(meshes, mp, checkpoint_dir=ckpt)
+    if kind == "sky":
+        return raystrack_tpu_torch.view_factor_to_tregenza_sky(meshes, sp, checkpoint_dir=ckpt)
+    return raystrack_tpu_torch.view_factor_outside_workflow(
+        meshes, matrix_params=dataclasses.replace(mp, reciprocity=True), sky_params=sp,
+        checkpoint_dir=ckpt)
+
+
+@pytest.mark.parametrize("route", ["scheduled", "grouped"])
+@pytest.mark.parametrize("kind", RESUME_KINDS)
+def test_checkpointed_solve_killed_and_resumed_on_card(card, monkeypatch, tmp_path, kind,
+                                                       route):
+    """A checkpointed solve on the card, stopped by a crash in
+    ``_entry_done`` at the first emitter that finishes (a snapshot after
+    every round or chunk), resumes from its snapshots: the result == the
+    uninterrupted solve's, and the resume launched the route's gated
+    kernel on the card."""
+    import raystrack_tpu_torch.solver as tsolver
+
+    meshes = _box_city(n_boxes=1500)
+    monkeypatch.setattr(tconfig, "SCHEDULER", route)
+    plain = _resume_solve(kind, meshes)
+    monkeypatch.setattr(tconfig, "CHECKPOINT_PROGRESS_S", 0.0)
+    real_done = tsolver._entry_done
+
+    def crash(entry):
+        raise RuntimeError("killed mid-solve")
+
+    monkeypatch.setattr(tsolver, "_entry_done", crash)
+    with pytest.raises(RuntimeError, match="killed mid-solve"):
+        _resume_solve(kind, meshes, str(tmp_path / "ckpt"))
+    monkeypatch.setattr(tsolver, "_entry_done", real_done)
+    assert list((tmp_path / "ckpt").glob("*.progress.json"))
+    lines = []
+    monkeypatch.setattr(tsolver, "_log", lines.append)
+    kernel = sweep_rays_scheduled if route == "scheduled" else sweep_rays
+    before = kernel.gated_launches
+    got = _resume_solve(kind, meshes, str(tmp_path / "ckpt"))
+    assert kernel.gated_launches > before
+    assert any("resuming from iteration" in line for line in lines)
+    assert got == plain
+
+
+@pytest.mark.parametrize("command", RESUME_KINDS)
+def test_cli_on_card_writes_the_in_process_json(card, tmp_path, command):
+    """``python -m raystrack_tpu_torch <command> <file.obj>``, no
+    ``--device`` (the card), writes the JSON the in-process solve of the
+    file's meshes saves; the matrix's ``--stream-out --checkpoint-dir`` run
+    too."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from raystrack_tpu_torch import load_meshes_obj, load_vf_matrix_json, save_meshes_obj
+    from raystrack_tpu_torch.io import save_vf_matrix_json
+
+    root = Path(__file__).resolve().parents[1]
+    scene = save_meshes_obj(_box_city(n_boxes=1500), str(tmp_path / "city.obj"))
+    flags = ["--samples", "0", "--rays", "64", "--min-iters", "3", "--max-iters", "3"]
+    outs = {"matrix": ["--out", str(tmp_path / "m.json")],
+            "sky": ["--out", str(tmp_path / "s.json"), "--discrete"],
+            "workflow": ["--out-prefix", str(tmp_path / "w_")]}[command]
+    runs = [outs]
+    if command == "matrix":
+        runs.append(["--out", str(tmp_path / "streamed.json"), "--stream-out",
+                     "--checkpoint-dir", str(tmp_path / "ckpt")])
+    env = dict(os.environ, PYTHONPATH=str(root))
+    for extra in runs:
+        proc = subprocess.run([sys.executable, "-m", "raystrack_tpu_torch", command, scene,
+                               *flags, *extra], cwd=tmp_path, env=env, capture_output=True,
+                              text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+    meshes = load_meshes_obj(scene)
+    kw = dict(samples=0, rays=64, min_iters=3, max_iters=3, device="gpu")
+    if command == "matrix":
+        want = {"m.json": raystrack_tpu_torch.view_factor_matrix(
+            meshes, raystrack_tpu_torch.MatrixParams(**kw))}
+        want["streamed.json"] = want["m.json"]
+    elif command == "sky":
+        want = {"s.json": raystrack_tpu_torch.view_factor_to_tregenza_sky(
+            meshes, raystrack_tpu_torch.SkyParams(discrete=True, **kw))}
+    else:
+        scene_vf, sky_vf, rest_vf = raystrack_tpu_torch.view_factor_outside_workflow(
+            meshes, matrix_params=raystrack_tpu_torch.MatrixParams(**kw),
+            sky_params=raystrack_tpu_torch.SkyParams(**kw))
+        want = {"w_vf_scene.json": scene_vf, "w_sky_vf.json": sky_vf, "w_rest_vf.json": rest_vf}
+    for name, vf in want.items():
+        ref = save_vf_matrix_json(vf, str(tmp_path / "ref" / name))
+        assert load_vf_matrix_json(str(tmp_path / name)) == load_vf_matrix_json(ref), name

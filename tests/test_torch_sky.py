@@ -554,15 +554,27 @@ def test_sky_single_mesh_all_zero_and_logs_nothing(monkeypatch):
          TypeError),
         (lambda f: f(_three_squares(), raystrack_tpu.SkyParams()), TypeError),
         (lambda f: f(_three_squares(), raystrack_tpu_torch.SkyParams(device="cpu"),
-                     checkpoint_dir="ckpt"), NotImplementedError),
-        (lambda f: f(_three_squares(), raystrack_tpu_torch.SkyParams(device="cpu"),
                      mesh=object()), NotImplementedError),
     ],
-    ids=["empty", "matrix_params", "jax_params", "checkpoint_dir", "mesh"],
+    ids=["empty", "matrix_params", "jax_params", "mesh"],
 )
 def test_sky_rejects(call, error):
     with pytest.raises(error):
         call(raystrack_tpu_torch.view_factor_to_tregenza_sky)
+
+
+def test_sky_checkpoint_dir_works(tmp_path):
+    """``checkpoint_dir=`` no longer raises: the sky with it equals the sky
+    without, and a second solve restores every emitter
+    (tests/test_torch_checkpoint.py holds the resume cases)."""
+    params = raystrack_tpu_torch.SkyParams(samples=4, rays=16, min_iters=2, max_iters=2,
+                                           device="cpu")
+    plain = raystrack_tpu_torch.view_factor_to_tregenza_sky(_three_squares(), params)
+    for _ in range(2):
+        got = raystrack_tpu_torch.view_factor_to_tregenza_sky(
+            _three_squares(), params, checkpoint_dir=str(tmp_path / "ckpt"))
+        assert got == plain
+    assert len(list((tmp_path / "ckpt").glob("emitter_*.json"))) == 3
 
 
 def test_sky_params_round_trip_and_refuse_tpu():

@@ -122,8 +122,6 @@ def test_solve_launches_no_kernel_on_cpu():
     "kwargs,error",
     [
         (dict(mesh=object()), NotImplementedError),
-        (dict(checkpoint_dir="ckpt"), NotImplementedError),
-        (dict(row_sink=print), NotImplementedError),
         (dict(prepared=object()), TypeError),
     ],
 )
@@ -131,6 +129,31 @@ def test_unported_options_raise(kwargs, error):
     params = raystrack_tpu_torch.MatrixParams(device="cpu")
     with pytest.raises(error):
         raystrack_tpu_torch.view_factor_matrix(_three_squares(), params, **kwargs)
+
+
+def test_mesh_refusal_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP port queue 1, parallel/"):
+        raystrack_tpu_torch.view_factor_matrix(
+            _three_squares(), raystrack_tpu_torch.MatrixParams(device="cpu"), mesh=object())
+
+
+@pytest.mark.parametrize("option", ["checkpoint_dir", "row_sink"])
+def test_retired_refusals_now_work(tmp_path, option):
+    """``checkpoint_dir=`` and ``row_sink=`` no longer raise: the solve with
+    either equals the plain solve (tests/test_torch_checkpoint.py holds the
+    resume and the streaming against the JAX package's cases)."""
+    meshes = _three_squares()
+    params = raystrack_tpu_torch.MatrixParams(samples=4, rays=16, min_iters=2, max_iters=2,
+                                              device="cpu")
+    plain = raystrack_tpu_torch.view_factor_matrix(meshes, params)
+    rows = {}
+    kwargs = {"checkpoint_dir": dict(checkpoint_dir=str(tmp_path / "ckpt")),
+              "row_sink": dict(row_sink=rows.__setitem__)}[option]
+    assert raystrack_tpu_torch.view_factor_matrix(meshes, params, **kwargs) == plain
+    if option == "row_sink":
+        assert rows == plain
+    else:
+        assert len(list((tmp_path / "ckpt").glob("emitter_*.json"))) == 3
 
 
 def test_params_reject_bad_values():
@@ -156,13 +179,21 @@ def test_gpu_device_without_a_card_raises():
 
 
 def test_import_pulls_in_no_jax():
+    # jax, jaxlib and the JAX package are blocked: importing one would fail
     code = (
         "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'raystrack_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import raystrack_tpu_torch, raystrack_tpu_torch.solver, "
         "raystrack_tpu_torch.interop, raystrack_tpu_torch.ops.trace, "
         "raystrack_tpu_torch.ops.trace_cuda, raystrack_tpu_torch.ops.build, "
         "raystrack_tpu_torch.api, raystrack_tpu_torch.ops.tregenza, "
-        "raystrack_tpu_torch.ops.count_cuda\n"
+        "raystrack_tpu_torch.ops.count_cuda, raystrack_tpu_torch.cli, "
+        "raystrack_tpu_torch.io, raystrack_tpu_torch.obj, raystrack_tpu_torch.ply, "
+        "raystrack_tpu_torch.utils.geometry, raystrack_tpu_torch.__main__\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'raystrack_tpu', 'triton'))\n"
         "print(bad)\n"

@@ -251,23 +251,33 @@ def test_enforce_reciprocity_only_equals_jax():
                                     _params(raystrack_tpu_torch, m_seed=2)))), ValueError),
         (lambda: raystrack_tpu_torch.view_factor_matrix_and_sky(
             MESHES, **dict(zip(("matrix_params", "sky_params"), _params(raystrack_tpu_torch))),
-            checkpoint_dir="ckpt"), NotImplementedError),
-        (lambda: raystrack_tpu_torch.view_factor_matrix_and_sky(
-            MESHES, **dict(zip(("matrix_params", "sky_params"), _params(raystrack_tpu_torch))),
             mesh=object()), NotImplementedError),
-        (lambda: raystrack_tpu_torch.view_factor_outside_workflow(
-            MESHES, **dict(zip(("matrix_params", "sky_params"), _params(raystrack_tpu_torch))),
-            checkpoint_dir="ckpt"), NotImplementedError),
         (lambda: raystrack_tpu_torch.view_factor_outside_workflow(
             MESHES, matrix_params=_params(raystrack_tpu_torch)[0],
             sky_params=_params(raystrack_tpu_torch)[0]), TypeError),
     ],
-    ids=["matrix_params", "sky_params", "not_shareable", "checkpoint_dir", "mesh",
-         "workflow_checkpoint_dir", "workflow_sky_params"],
+    ids=["matrix_params", "sky_params", "not_shareable", "mesh", "workflow_sky_params"],
 )
 def test_workflow_rejects(call, error):
     with pytest.raises(error):
         call()
+
+
+@pytest.mark.parametrize("solve", ["checkpoint_dir", "workflow_checkpoint_dir"])
+def test_workflow_checkpoint_dir_works(tmp_path, solve):
+    """``checkpoint_dir=`` no longer raises in the shared-ray solve or the
+    outside workflow: each equals its plain solve, first and on a resume
+    that restores every emitter (tests/test_torch_checkpoint.py holds the
+    resume cases)."""
+    mp, sp = _params(raystrack_tpu_torch, m_max_iters=3, s_max_iters=3)
+    fn = {"checkpoint_dir": raystrack_tpu_torch.view_factor_matrix_and_sky,
+          "workflow_checkpoint_dir": raystrack_tpu_torch.view_factor_outside_workflow}[solve]
+    plain = fn(MESHES, matrix_params=mp, sky_params=sp)
+    for _ in range(2):
+        got = fn(MESHES, matrix_params=mp, sky_params=sp,
+                 checkpoint_dir=str(tmp_path / "ckpt"))
+        assert got == plain
+    assert len(list((tmp_path / "ckpt").glob("emitter_*.json"))) == len(MESHES)
 
 
 def test_workflow_launches_no_kernel_on_cpu():
@@ -278,13 +288,16 @@ def test_workflow_launches_no_kernel_on_cpu():
 
 
 def test_exports_the_solver_names():
-    """The port exports the JAX package's ten solver names; its I/O names
-    come with the I/O port."""
+    """The port exports the JAX package's 20 public names: the solvers and,
+    since the I/O port, the mesh and matrix files and the stream writer."""
     names = {"MatrixParams", "SkyParams", "PreparedSolver", "view_factor_matrix",
              "view_factor", "view_factor_to_tregenza_sky", "view_factor_matrix_and_sky",
              "view_factor_outside_workflow", "outside_workflow_shareable",
-             "clear_prepared_cache"}
-    assert set(raystrack_tpu_torch.__all__) == names
-    assert names <= set(raystrack_tpu.__all__)
+             "clear_prepared_cache", "save_vf_matrix_json", "VFMatrixStreamWriter",
+             "load_vf_matrix_json", "save_meshes_json", "load_meshes_json",
+             "load_meshes_obj", "save_meshes_obj", "load_meshes_ply", "save_mesh_ply",
+             "merge_vf_matrix"}
+    assert set(raystrack_tpu_torch.__all__) == names == set(raystrack_tpu.__all__)
+    assert len(raystrack_tpu_torch.__all__) == 20
     for name in names:
         assert getattr(raystrack_tpu_torch, name).__module__.startswith("raystrack_tpu_torch")
