@@ -10,8 +10,9 @@ use), checks each bitwise against its plain PyTorch version at the shapes
 the main path gives it, then drives ``view_factor_matrix`` / ``view_factor``
 on the card through seven scenes, and ``view_factor_to_tregenza_sky``,
 ``view_factor_matrix_and_sky`` and ``view_factor_outside_workflow`` through
-the canyon and the 1M-triangle city, and checks each against its analytic
-or plain reference:
+the canyon and the 1M-triangle city, then the ray mesh and the
+multi-process solve (``raystrack_tpu_torch.parallel``) on the city and the
+district, and checks each against its analytic or plain reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      where the library was built, nvcc build time, register/spill
@@ -135,6 +136,20 @@ or plain reference:
               launch; warm walls of 5 of a 3-round ``city_plates`` matrix
               without ``checkpoint_dir``, with it, and with a snapshot after
               every round, beside the card's name and power limit
+20. parallel  the ray mesh and the multi-process solve: ground -> city
+              (per-emitter, gated kernel #1) and ``city_plates`` (one
+              scheduled round, gated kernel #2) through
+              ``view_factor_matrix(mesh=)`` on no mesh, ``ray_mesh()`` and
+              logical meshes of 2 and 4 shards on this card, phase 12's
+              ``PreparedSolver``s reused: dicts == unsharded == phase 12's,
+              launches of #1, #2, the count and the crossing == shards x
+              chunks or rounds, warm walls of 5, peak device bytes of a warm
+              solve (4 shards within 5% of none: no replica multiplies);
+              the district by two ``view_factor_matrix_multihost`` children
+              (this script run as ``chip_smoke.py --multihost-child``) on
+              gloo over localhost sharing the card, against one process:
+              both merged dicts == ``view_factor_matrix``'s; on a node of
+              several cards ``ray_mesh()`` spans them all
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -2162,6 +2177,233 @@ def phase_resume(route_solve, trace_log, dev, config, lib_path: Path, city_plate
     return out
 
 
+MULTIHOST_CHILD = "--multihost-child"  # phase 20's child processes: chip_smoke.py <this> ...
+MESH_SHARDS = (None, "card", 2, 4)  # phase 20's meshes: none, ray_mesh(), logical 2 and 4
+
+
+def multihost_child(coordinator: str, n_procs: str, rank: str, go: str, out: str) -> int:
+    """Phase 20's child: process ``rank`` of ``n_procs`` on gloo. Once the
+    parent creates ``go`` it solves the district with
+    ``view_factor_matrix_multihost`` four times (the first with set-up) and
+    writes the merged dict, the walls and its kernel launches to ``out``."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    import raystrack_tpu_torch.solver as solver_mod
+    from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.trace_cuda import sweep_rays, sweep_rays_scheduled
+    from raystrack_tpu_torch import PreparedSolver
+    from raystrack_tpu_torch.parallel import initialize, view_factor_matrix_multihost
+
+    solver_mod._log = lambda line: None
+    joined = initialize(coordinator, int(n_procs), int(rank))
+    district, params = solve_cases()["district"]
+    prepared = PreparedSolver(district)
+    t0 = time.perf_counter()
+    while not Path(go).exists():
+        if time.perf_counter() - t0 > 600:
+            raise SystemExit("the parent never started the solves")
+        time.sleep(0.02)
+    walls = []
+    try:
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            merged = view_factor_matrix_multihost(district, params, prepared=prepared)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps({
+        "process": list(joined), "device": torch.cuda.current_device(), "walls": walls,
+        "launches": [sweep_rays.launches, sweep_rays_scheduled.launches, count_bins.launches],
+        "matrix": merged}))
+    return 0
+
+
+def phase_parallel(dev, city_ps, city_plates_ps, city, city_plates, cases, city_dicts):
+    """20. The parallel layer on the card: the 1M city's ground -> city
+    (per-emitter route, gated kernel #1) and ``city_plates`` (one scheduled
+    round, gated kernel #2) on four meshes (none, ``ray_mesh()``, a logical
+    mesh of 2 and of 4 shards on this card), through ``view_factor_matrix``:
+    every dict == the unsharded one (and == phase 12's), the kernels'
+    launches == shards x chunks or rounds, warm walls of 5, peak device
+    bytes of a warm solve; then the district solved by two
+    ``view_factor_matrix_multihost`` processes on gloo sharing this card
+    (started at the phase's start, solving once this process is idle)
+    against one process, dicts == ``view_factor_matrix``."""
+    import os
+    import tempfile
+
+    import raystrack_tpu_torch.parallel.sharding as sharding_mod
+    import raystrack_tpu_torch.solver as solver_mod
+    from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
+    from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
+    from raystrack_tpu_torch.parallel import ray_mesh, view_factor_matrix_multihost
+
+    t_phase = time.perf_counter()
+    quiet = solver_mod._log
+    solver_mod._log = lambda line: None
+    district, district_params = cases["district"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_parallel_", dir=ROOT / "build"))
+    go = tmp / "go"
+    with __import__("socket").socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(key, None)
+    children = []
+    for rank in range(2):
+        with open(tmp / f"proc{rank}.log", "w") as log:
+            children.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), MULTIHOST_CHILD, coordinator,
+                 "2", str(rank), str(go), str(tmp / f"proc{rank}.json")],
+                cwd=str(tmp), env=env, stdout=log, stderr=subprocess.STDOUT))
+    out = {"solves": {}}
+    try:
+        chunks, rounds = [], []
+        dispatch = solver_mod._EmitterRun.dispatch_chunk
+        real_sharded = sharding_mod.scheduled_trace_sharded
+
+        def counted_chunk(self, chunk, **kwargs):
+            chunks.append(chunk)
+            return dispatch(self, chunk, **kwargs)
+
+        def counted_sharded(*args, **kwargs):
+            rounds.append(1)
+            return real_sharded(*args, **kwargs)
+
+        solver_mod._EmitterRun.dispatch_chunk = counted_chunk
+        sharding_mod.scheduled_trace_sharded = counted_sharded
+
+        def counts():
+            return dict(k1=sweep_rays.launches, k1_gated=sweep_rays.gated_launches,
+                        k2=sweep_rays_scheduled.launches,
+                        k2_gated=sweep_rays_scheduled.gated_launches,
+                        count=count_bins.launches, cross=gate_cross.launches)
+
+        # (meshes, params, prepared, phase 12's dict, the rows it holds): the
+        # ground's row is what view_factor(ground, city) returns
+        solves = {
+            "ground -> city (per-emitter, gated #1)": (
+                city, cases["city"][1], city_ps, city_dicts["view_factor ground -> city"],
+                ["ground"]),
+            "city_plates (scheduled, gated #2)": (
+                city_plates, cases["city_plates"][1], city_plates_ps,
+                city_dicts["view_factor_matrix, ten plates"], [n for n, _, _ in city_plates]),
+        }
+        for label, (meshes, params, ps, phase12, rows) in solves.items():
+            base = None
+            for shards in MESH_SHARDS:
+                mesh = (None if shards is None else ray_mesh() if shards == "card"
+                        else ray_mesh([dev] * shards))
+                n_shards = 1 if mesh is None else mesh.size
+                name = "none" if mesh is None else f"{shards} shards" if shards != "card" \
+                    else f"ray_mesh() ({n_shards} card)"
+                solve = lambda: view_factor_matrix(meshes, params, prepared=ps,  # noqa: E731
+                                                   mesh=mesh)  # noqa: B023
+                del chunks[:], rounds[:]
+                c0 = counts()
+                got = solve()
+                torch.cuda.synchronize()
+                d = {k: v - c0[k] for k, v in counts().items()}
+                n_rounds, n_chunks = len(rounds), len(chunks)
+                if base is None:
+                    base = got
+                check(got == base, f"parallel {label}, mesh {name}: dict != the unsharded dict")
+                check({r: got[r] for r in rows} == phase12,
+                      f"parallel {label}, mesh {name}: dict != phase 12's")
+                per_emitter = n_rounds == 0
+                check((n_chunks > 0) if per_emitter else (n_chunks == 0 and n_rounds > 0),
+                      f"parallel {label}, mesh {name}: {n_chunks} chunks, {n_rounds} rounds")
+                n_disp = n_chunks or n_rounds
+                want = dict(k1=n_shards * n_chunks, k1_gated=n_shards * n_chunks,
+                            k2=n_shards * n_rounds, k2_gated=n_shards * n_rounds,
+                            count=n_shards * n_disp, cross=n_shards * n_disp)
+                check(d == want, f"parallel {label}, mesh {name}: launches {d}, want {want} "
+                      f"({n_shards} shards x {n_disp} dispatches)")
+                walls = wall_times(solve, 5)
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats(dev)
+                resident = torch.cuda.memory_allocated(dev)
+                solve()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev)
+                out["solves"][f"{label}, {name}"] = dict(
+                    shards=n_shards, chunks=n_chunks, rounds=n_rounds, launches=d,
+                    warm_s=walls, peak_bytes=peak, resident_bytes=resident)
+                print(f"[parallel] {label}, mesh {name}: {n_chunks} chunks, {n_rounds} rounds; "
+                      f"launches #1 {d['k1']} ({d['k1_gated']} gated), #2 {d['k2']} "
+                      f"({d['k2_gated']} gated), count {d['count']}, crossing {d['cross']}; "
+                      f"dict == unsharded == phase 12's; warm solve {spread(walls)}; peak "
+                      f"device memory of a warm solve {peak / 2**20:.1f} MiB "
+                      f"({resident / 2**20:.1f} MiB resident before it)")
+            none = out["solves"][f"{label}, none"]["peak_bytes"]
+            four = out["solves"][f"{label}, 4 shards"]["peak_bytes"]
+            print(f"[parallel] {label}: peak device bytes, 4 shards / none = "
+                  f"{four / none:.4f} ({four} / {none})")
+            check(four <= 1.05 * none, f"parallel {label}: the 4-shard solve's peak "
+                  f"{four} B is more than 5% over the unsharded {none} B: replicas multiply")
+        n_cards = len(ray_mesh().distinct)
+        check(len(city_ps._scene_pack_cache) == len(city_plates_ps._scene_pack_cache) == n_cards,
+              f"not one scene pack a card ({n_cards}): a logical mesh built a second copy")
+        solver_mod._EmitterRun.dispatch_chunk = dispatch
+        sharding_mod.scheduled_trace_sharded = real_sharded
+
+        # the district: one process, then the two children on gloo
+        single = view_factor_matrix(district, district_params)
+        district_ps = PreparedSolver(district)
+        one_walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alone = view_factor_matrix_multihost(district, district_params,
+                                                 prepared=district_ps)
+            torch.cuda.synchronize()
+            one_walls.append(time.perf_counter() - t0)
+        check(alone == single, "parallel district: one process's multihost dict != "
+              "view_factor_matrix's")
+        go.touch()
+        t0 = time.perf_counter()
+        for child in children:
+            child.wait(timeout=300)
+        two_s = time.perf_counter() - t0
+        for rank, child in enumerate(children):
+            check(child.returncode == 0, f"multihost child {rank} failed ({child.returncode}):"
+                  f"\n{(tmp / f'proc{rank}.log').read_text()[-4000:]}")
+        procs = [json.loads((tmp / f"proc{rank}.json").read_text()) for rank in range(2)]
+        same = procs[0]["matrix"] == procs[1]["matrix"] == json.loads(json.dumps(single))
+        print(f"[parallel] district ({len(district)} emitters), view_factor_matrix_multihost: "
+              f"one process {spread(sorted(one_walls[1:]))} (set-up solve "
+              f"{one_walls[0]:.3f} s); two processes on gloo: "
+              + "; ".join(f"rank {p['process'][0]} of {p['process'][1]} on cuda:{p['device']}: "
+                          f"warm {spread(sorted(p['walls'][1:]))}, set-up solve "
+                          f"{p['walls'][0]:.3f} s, launches #1 {p['launches'][0]}"
+                          for p in procs)
+              + f"; both done {two_s:.2f} s after the start signal; the two merged dicts == "
+              f"each other == view_factor_matrix's: {same}")
+        check(same, "parallel district: the two processes' merged dicts differ from each "
+              "other or from the single-process solve")
+        out["district"] = dict(one_process_s=one_walls, two_process_s=[p["walls"] for p in procs],
+                               two_process_wall_s=two_s,
+                               child_launches=[p["launches"] for p in procs])
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+        solver_mod._log = quiet
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase 20 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -2305,7 +2547,7 @@ def main() -> int:
         harvest = dispatch(self, chunk, **kwargs)
         chunk_rays.append(chunk * self.em_pack.n_rays_pad)
         chunk_kinds.append((kwargs["want_matrix"], kwargs["want_any"]))
-        tri_pack, sweep_mask, _ = self.packs[kwargs["want_any"]]
+        tri_pack, sweep_mask, _ = self.packs[kwargs["want_any"], self.device]
         if self.scene_pack.slim:
             resident.append(tri_pack is self.scene_pack.tri_pack)
         dispatches.append(on_card(
@@ -2569,7 +2811,10 @@ def main() -> int:
     check(not built, f"slim: {len(built)} per-emitter packs were built")
     check(len(resident) == n_slim_chunks and all(resident),
           "slim: a chunk did not sweep the scene's resident pack")
-    del city_slim_ps, city_plates_slim_ps, city_ps, city_plates_ps
+    del city_slim_ps, city_plates_slim_ps
+    # phase 20 solves these again: their host prep stays, their packs go
+    city_ps.clear_device_cache()
+    city_plates_ps.clear_device_cache()
 
     # 14. slim where it matters: the 10M-triangle city in both modes, and the
     # 1M city measured the same way, for the bytes per triangle of each; then
@@ -2709,6 +2954,22 @@ def main() -> int:
     solver_mod._EmitterRun.dispatch_chunk = dispatch
     trace_mod.scheduled_trace = real_round
 
+    # 20. the parallel layer: ray meshes on the city, multi-process district
+    reset_launches()
+    parallel = phase_parallel(dev, city_ps, city_plates_ps, city, city_plates, cases, city_dicts)
+    launches_par = dict(k1=sweep_rays.launches, k1_gated=sweep_rays.gated_launches,
+                        k2=sweep_rays_scheduled.launches,
+                        k2_gated=sweep_rays_scheduled.gated_launches,
+                        count=count_bins.launches, cross=gate_cross.launches)
+    print(f"[launches] phase 20 (this process): kernel #1 {launches_par['k1']} "
+          f"({launches_par['k1_gated']} gated), kernel #2 {launches_par['k2']} "
+          f"({launches_par['k2_gated']} gated), count {launches_par['count']}, crossing "
+          f"{launches_par['cross']}")
+    check(launches_par["k1_gated"] > 0 and launches_par["k2_gated"] > 0
+          and launches_par["cross"] > 0 and launches_par["count"] > 0,
+          "phase 20 launched no gated kernel #1 or #2, crossing or count")
+    del city_ps, city_plates_ps
+
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
@@ -2721,17 +2982,18 @@ def main() -> int:
     sweep_entry = kernel_entry(
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
         launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0]
-        + launches_resume["k1"],
+        + launches_resume["k1"] + launches_par["k1"],
         launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1]
-        + launches_resume["k1_gated"],
+        + launches_resume["k1_gated"] + launches_par["k1_gated"],
         max(max_err, city_code["max_abs_err"]), ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2]
     sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
     sched_entry = kernel_entry(
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
         launches2 + launches_city[2] + launches_big2[0] + launches_sky[2]
-        + launches_resume["k2"],
-        launches_city[3] + launches_big2[1] + launches_sky[3] + launches_resume["k2_gated"],
+        + launches_resume["k2"] + launches_par["k2"],
+        launches_city[3] + launches_big2[1] + launches_sky[3] + launches_resume["k2_gated"]
+        + launches_par["k2_gated"],
         max_err2, ms2, plain_ms2, bound2, city_k2)
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
@@ -2744,6 +3006,9 @@ def main() -> int:
     # phase 19's, in this process: the resumed solves' and their references'
     sweep_entry["resume_launches"] = launches_resume["k1"]
     sched_entry["resume_launches"] = launches_resume["k2"]
+    # phase 20's: the ray meshes' shards and the one-process district
+    sweep_entry["parallel_launches"] = launches_par["k1"]
+    sched_entry["parallel_launches"] = launches_par["k2"]
     sky_summary = dict(
         canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
         canyon_patch_sum_diff=canyon_sky["patch_diff"],
@@ -2755,6 +3020,7 @@ def main() -> int:
         dispatches_by_variant=sky_kinds)
     print(f"[sky] summary: {json.dumps(sky_summary)}")
     print(f"[resume] summary: {json.dumps({k: v for k, v in resume.items() if k != 'launches'})}")
+    print(f"[parallel] summary: {json.dumps(parallel)}")
     print(json.dumps({"kernels": [
         sweep_entry,
         sched_entry,
@@ -2765,7 +3031,7 @@ def main() -> int:
             # not a Pallas kernel: the XLA compare-and-sum it stands in for
             "replaces": "raystrack_tpu/ops/trace.py:865",
             "launches": launches3 + count_city + count_slim + count_big + launches_sky[4]
-            + launches_resume["count"],
+            + launches_resume["count"] + launches_par["count"],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -2785,7 +3051,7 @@ def main() -> int:
             # not a Pallas kernel: the XLA slab-and-reduce of the gate's tables
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
             "launches": cross_city + cross_slim + cross_big + launches_sky[5]
-            + launches_resume["cross"],
+            + launches_resume["cross"] + launches_par["cross"],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,
@@ -2802,4 +3068,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [MULTIHOST_CHILD]:
+        sys.exit(multihost_child(*sys.argv[2:]))
     sys.exit(main())

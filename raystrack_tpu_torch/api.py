@@ -17,7 +17,7 @@ import numpy as np
 from .params import MatrixParams, SkyParams
 from .prepared import PreparedSolver
 from .solver import (
-    _refuse_unported,
+    _check_mesh,
     outside_workflow_shareable,
     view_factor_matrix,
     view_factor_matrix_and_sky,
@@ -81,13 +81,14 @@ def view_factor_outside_workflow(
     path checkpoints each emitter's matrix and sky outputs together; the
     separate-solver fallback uses ``<dir>/matrix`` and ``<dir>/sky``.
     Post-processing (clamping, enforcement, residuals) is cheap and re-runs
-    on every call.
+    on every call. ``mesh`` (``parallel.ray_mesh``) shards every trace of
+    the solves; the dicts are the unsharded ones.
     """
     if not isinstance(matrix_params, MatrixParams):
         raise TypeError("matrix_params must be a MatrixParams instance")
     if not isinstance(sky_params, SkyParams):
         raise TypeError("sky_params must be a SkyParams instance")
-    _refuse_unported(mesh)
+    _check_mesh(mesh)
 
     threshold = 1e-6
     enforce_scene = bool(matrix_params.enforce_reciprocity_rowsum)
@@ -103,16 +104,16 @@ def view_factor_outside_workflow(
     if outside_workflow_shareable(matrix_defaults, sky_params):
         vf_scene, sky_vf, stats = view_factor_matrix_and_sky(
             meshes, matrix_params=matrix_defaults, sky_params=sky_params,
-            prepared=prepared, checkpoint_dir=checkpoint_dir, return_stats=True,
+            prepared=prepared, mesh=mesh, checkpoint_dir=checkpoint_dir, return_stats=True,
         )
     else:
         vf_scene, m_stats = view_factor_matrix(
-            meshes, params=matrix_defaults, prepared=prepared,
+            meshes, params=matrix_defaults, prepared=prepared, mesh=mesh,
             checkpoint_dir=os.path.join(checkpoint_dir, "matrix") if checkpoint_dir else None,
             return_stats=True,
         )
         sky_vf, s_stats = view_factor_to_tregenza_sky(
-            meshes, params=sky_params, prepared=prepared,
+            meshes, params=sky_params, prepared=prepared, mesh=mesh,
             checkpoint_dir=os.path.join(checkpoint_dir, "sky") if checkpoint_dir else None,
             return_stats=True,
         )

@@ -299,6 +299,7 @@ def chunk_body(
     accel=None,
     code_bounds=None,
     *,
+    ray_index_base: int = 0,
     want_matrix: bool = True,
     want_any: bool = False,
     discrete: bool = False,
@@ -317,6 +318,12 @@ def chunk_body(
     ``tri_pack`` and the mask and bounds of :func:`slim_operands`; the
     sweep then takes eligibility from the pack's code row instead of a
     baked pack. The counts are the same.
+
+    ``tables`` may be one shard's contiguous slice of the padded per-ray
+    tables (``parallel.sharding.trace_chunk_sharded``): ``ray_index_base``
+    is the index of its first ray, so the rays at or past ``n_rays_once``,
+    the padding, count nowhere. A shard's real rays are still a prefix of
+    its slice, and a shard of padding only counts zero.
     """
     chunk = cp.shape[0]
     n_local = tables[0].shape[0]
@@ -326,15 +333,16 @@ def chunk_body(
     valid = None
     accel = _gate_accel(accel, tri_pack.shape[1], PALLAS_TRI_TILE)
     if accel is not None:
-        valid = (torch.arange(n_local, device=device) < n_rays_once).expand(chunk, n_local)
+        ray = torch.arange(n_local, device=device) + ray_index_base
+        valid = (ray < n_rays_once).expand(chunk, n_local)
         o, d, valid = _sorted_for_gate(o, d, valid, accel)
     codes, any_hit = sweep_rays(
         ray_pack(o, d), tri_pack, sweep_mask, tri_tile=PALLAS_TRI_TILE,
         want_matrix=want_matrix, want_any=want_any, masks_baked=code_bounds is None,
         code_bounds=code_bounds, accel=accel,
     )
-    n_valid = torch.full((chunk,), min(n_rays_once, n_local), dtype=torch.int32,
-                         device=device)
+    n_valid = torch.full((chunk,), min(max(n_rays_once - ray_index_base, 0), n_local),
+                         dtype=torch.int32, device=device)
     return _outputs(codes.view(chunk, n_local), any_hit.view(chunk, n_local), d, valid,
                     n_valid, n_surf, want_matrix=want_matrix, want_any=want_any,
                     discrete=discrete)
@@ -417,7 +425,8 @@ def scheduled_trace(
     want_matrix: bool = True,
     want_any: bool = False,
     discrete: bool = False,
-) -> torch.Tensor:
+    pack_out: bool = True,
+):
     """Trace a block schedule spanning many emitters and iterations.
 
     Counterpart of the JAX package's ``scheduled_trace_pallas``: the
@@ -434,7 +443,9 @@ def scheduled_trace(
     8) and ``sel`` (E,), the emitter's row of the solve-wide geometry
     stack. Returns :func:`pack_outputs` of the outputs ``want_matrix`` /
     ``want_any`` / ``discrete`` pick (those of :func:`chunk_body`, per
-    schedule row): one tensor, so the host fetches a round with one copy.
+    schedule row): one tensor, so the host fetches a round with one copy;
+    with ``pack_out=False`` the dict itself (a sharded round joins its
+    shards' rows before it packs them).
     """
     nb = schedule.shape[0]
     n_surf = surf_active_ext.shape[1] - 1
@@ -458,9 +469,10 @@ def scheduled_trace(
         ray_pack(o, d), tri_pack, masks, emap, tri_tile=tri_tile,
         want_matrix=want_matrix, want_any=want_any, accel=accel,
     )
-    return pack_outputs(_outputs(
+    out = _outputs(
         codes.view(nb, sched_block), any_hit.view(nb, sched_block), d, valid, n_valid,
-        n_surf, want_matrix=want_matrix, want_any=want_any, discrete=discrete))
+        n_surf, want_matrix=want_matrix, want_any=want_any, discrete=discrete)
+    return pack_outputs(out) if pack_out else out
 
 
 def pack_outputs(out: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -31,6 +31,10 @@ package:
   workflow's: ``[name] traced K iter, ... (scene=M iter, sky=S iter, ...)``),
 - solves without ``prepared=`` reuse an implicit, content-keyed LRU of
   ``PreparedSolver``s (``clear_prepared_cache`` empties it),
+- ``mesh=`` (a ``parallel.sharding.RayMesh``) splits every trace over several
+  devices, a chunk's rays or a round's rows, with dicts bitwise equal to
+  the unsharded solve's (``parallel/sharding.py``); with no mesh a solve
+  runs the same path on the one-shard mesh of ``params.device``,
 - ``checkpoint_dir=`` resumes a stopped solve (``_CheckpointStore``: one
   JSON file per finished emitter and, every ``CHECKPOINT_PROGRESS_S``
   seconds, a snapshot of each pending one's monitors; the JAX package's
@@ -70,6 +74,7 @@ from .convergence import MatrixMonitor, SkyMonitor, plan_chunk
 from .ops import trace as _trace
 from .ops.trace_cuda import build_tri_pack
 from .params import MatrixParams, SkyParams
+from .parallel import sharding as _sharding
 from .prepared import (
     EmitterPack,
     LazyEmitterPack,
@@ -115,6 +120,33 @@ def _resolve_device(device: Optional[str]) -> torch.device:
     if dev == "gpu":
         raise RuntimeError("device='gpu' requested but no CUDA device is available")
     return torch.device("cpu")
+
+
+def _check_mesh(mesh) -> None:
+    """``mesh`` must be None or a :class:`parallel.sharding.RayMesh`."""
+    if mesh is not None and not isinstance(mesh, _sharding.RayMesh):
+        raise TypeError("mesh must be a RayMesh from raystrack_tpu_torch.parallel.ray_mesh() "
+                        f"(got {type(mesh).__name__})")
+
+
+def _placements(mesh, device: Optional[str]) -> Tuple[torch.device, _sharding.RayMesh]:
+    """``(home, mesh)``: the device a solve's packs live on and its counts
+    gather on, and the ray mesh it traces over. No mesh is the one-shard
+    mesh of ``device`` resolved, so every solve takes the one sharded path.
+    Under a caller's mesh its devices, not ``device``, decide the platform,
+    and each distinct device of the mesh holds one copy of the packs (the
+    JAX package's replicated placement), fetched through the
+    ``PreparedSolver``'s per-device caches."""
+    _check_mesh(mesh)
+    if mesh is None:
+        mesh = _sharding.RayMesh((_resolve_device(device),))
+    return mesh.devices[0], mesh
+
+
+def _ray_align(mesh: _sharding.RayMesh) -> int:
+    """Per-emitter ray padding: ``RAY_BLOCK`` times the mesh's shard count,
+    so every shard of a chunk traces whole blocks."""
+    return RAY_BLOCK * mesh.size
 
 
 def _device_label(device: torch.device) -> str:
@@ -338,6 +370,13 @@ class _EmitterRun:
     scene pack no per-emitter pack exists: the operands are the scene's
     resident ``tri_pack``, a sweep mask from the surface ids and the
     emitter's two codes (``code_bounds``).
+
+    Every chunk is split over the shards of the run's ray ``mesh``
+    (``parallel.sharding.trace_chunk_sharded``; a solve without a mesh
+    passes the one-shard mesh of ``device``): the run's packs stay on
+    ``device`` (``mesh.devices[0]``), ``replica(d)`` gives the scene and
+    emitter packs on each other distinct device ``d`` of the mesh, and the
+    operands are built once a kind and a distinct device.
     """
 
     def __init__(
@@ -350,29 +389,44 @@ class _EmitterRun:
         seed: int,
         idx_emit: int,
         device: torch.device,
+        *,
+        mesh: _sharding.RayMesh,
+        replica: Optional[Callable[[torch.device], Tuple[ScenePack, EmitterPack]]] = None,
     ):
         self.scene_pack = scene_pack
         self.em_pack = em_pack  # EmitterPack or LazyEmitterPack
         self.device = device
+        self.mesh = mesh
+        self._replica = replica
         self._surf_ext = np.zeros(surf_active.shape[0] + 1, dtype=np.int32)
         self._surf_ext[:-1] = surf_active  # the padding sid n_surf stays inactive
         self.emit_sid = int(emit_sid)
         self.min_sid = int(min_sid)
-        # want_any -> (operand pack, sweep mask, code_bounds or None)
-        self.packs: Dict[bool, Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]] = {}
+        # (want_any, device) -> (operand pack, sweep mask, code_bounds or None)
+        self.packs: Dict[Tuple[bool, torch.device],
+                         Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]] = {}
         self.seed = seed
         self.idx_emit = idx_emit
         self.itr_next = 0  # absolute iteration index (drives the RNG stream)
 
-    def operands(self, want_any: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
+    def _packs_on(self, device: torch.device) -> Tuple[ScenePack, EmitterPack]:
+        """The scene and emitter packs on ``device``: the run's own, or a
+        mesh device's replicas."""
+        if device == self.device:
+            return self.scene_pack, self.em_pack
+        return self._replica(device)
+
+    def operands(self, want_any: bool, device: Optional[torch.device] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
         """The operand pack (baked for this kind, or a slim scene's
         resident one), the sweep mask and the slim ``code_bounds`` (None
         for a baked pack) of a dispatch that does or does not want
-        any-hits, built on first use."""
-        ops = self.packs.get(want_any)
+        any-hits, on ``device`` (default: the run's), built on first use."""
+        device = self.device if device is None else device
+        ops = self.packs.get((want_any, device))
         if ops is None:
-            sp = self.scene_pack
-            surf_ext = _upload([self._surf_ext], np.int32, self.device)[0]
+            sp, em = self._packs_on(device)
+            surf_ext = _upload([self._surf_ext], np.int32, device)[0]
             if sp.slim:
                 mask, bounds = _trace.slim_operands(
                     sp.sid, surf_ext, self.emit_sid, self.min_sid, want_any=want_any)
@@ -380,11 +434,11 @@ class _EmitterRun:
             else:
                 pack, mask = _trace.emitter_operands(
                     (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid),
-                    surf_ext, self.emit_sid, self.min_sid, self.em_pack.plane_vec,
+                    surf_ext, self.emit_sid, self.min_sid, em.plane_vec,
                     want_any=want_any,
                 )
                 ops = (pack, mask, None)
-            self.packs[want_any] = ops
+            self.packs[want_any, device] = ops
         return ops
 
     def release(self) -> None:
@@ -397,23 +451,25 @@ class _EmitterRun:
         """Queue ``chunk`` iterations of the outputs the three flags pick
         (:func:`ops.trace.chunk_body`) without synchronising, so the driver
         can keep several emitters in flight; returns a function that waits
-        for this chunk's counts only and hands them back as NumPy arrays."""
-        tri_pack, sweep_mask, code_bounds = self.operands(want_any)
+        for this chunk's counts only and hands them back as NumPy arrays.
+        The counts are the mesh's shards' sum, gathered on the run's device
+        behind one copy."""
         cp = torch.from_numpy(_cp_rows(self.seed, self.idx_emit, self.itr_next, chunk))
         self.itr_next += chunk
-        em = self.em_pack
         on_card = self.device.type == "cuda"
         if on_card:  # a pageable upload would wait for all queued work
-            cp = cp.pin_memory().to(self.device, non_blocking=True)
-        out = _trace.chunk_body(
-            tri_pack, sweep_mask,
-            (em.u_cell, em.v_cell, em.h_tri, em.h_u, em.h_v, em.h_r1, em.h_r2),
-            (em.cdf, em.tri_a, em.tri_e1, em.tri_e2,
-             em.tri_u, em.tri_v, em.tri_n, em.tri_eps),
-            cp, self.scene_pack.n_surf, em.n_rays_once, accel=self.scene_pack.accel,
-            code_bounds=code_bounds, want_matrix=want_matrix, want_any=want_any,
-            discrete=discrete,
-        )
+            cp = cp.pin_memory()
+        flags = dict(want_matrix=want_matrix, want_any=want_any, discrete=discrete)
+        n_surf, n_once = self.scene_pack.n_surf, self.em_pack.n_rays_once
+        devices = self.mesh.distinct
+        ops = {d: self.operands(want_any, d) for d in devices}
+        packs = {d: self._packs_on(d) for d in devices}
+        out = _sharding.trace_chunk_sharded(
+            self.mesh, {d: o[0] for d, o in ops.items()}, {d: o[1] for d, o in ops.items()},
+            {d: _ray_tables(em) for d, (_, em) in packs.items()},
+            {d: _emission_geometry(em) for d, (_, em) in packs.items()}, cp, n_surf,
+            n_once, accel={d: sp.accel for d, (sp, _) in packs.items()},
+            code_bounds=ops[self.device][2], **flags)
         if not on_card:
             return lambda: {k: v.numpy() for k, v in out.items()}
         # copy now, behind this chunk's work only: waiting on the event
@@ -427,6 +483,16 @@ class _EmitterRun:
             return {k: v.numpy() for k, v in host.items()}
 
         return harvest
+
+
+def _ray_tables(em) -> Tuple[torch.Tensor, ...]:
+    """An emitter pack's seven per-ray tables, in ``chunk_body``'s order."""
+    return (em.u_cell, em.v_cell, em.h_tri, em.h_u, em.h_v, em.h_r1, em.h_r2)
+
+
+def _emission_geometry(em) -> Tuple[torch.Tensor, ...]:
+    """An emitter pack's emission geometry, in ``chunk_body``'s order."""
+    return (em.cdf, em.tri_a, em.tri_e1, em.tri_e2, em.tri_u, em.tri_v, em.tri_n, em.tri_eps)
 
 
 def _entry_monitors(entry) -> List:
@@ -489,6 +555,30 @@ def _make_emitter_pack(prepared_solver: PreparedSolver, idx_emit: int, p: Dict,
         factory, n_rays_once=n_once, n_rays_pad=_pad_rays(n_once, align),
         plane_host=emitter_plane_vec(emitter),
     )
+
+
+def _emitter_run(prepared_solver: PreparedSolver, p: Dict, idx_emit: int,
+                 surf_active: np.ndarray, emit_sid: int, min_sid: int, *, flip_faces: bool,
+                 scene_pack: ScenePack, device: torch.device, mesh: _sharding.RayMesh,
+                 lazy: bool) -> _EmitterRun:
+    """One emitter's run on ``device`` (``mesh.devices[0]``), its rays
+    padded to :func:`_ray_align`; its emitter pack lazy when the scheduled
+    driver will read rays from the flat tables instead. The packs on the
+    mesh's other devices come from the ``PreparedSolver``'s per-device
+    caches, one copy a distinct device, at the first chunk that needs
+    them."""
+    align = _ray_align(mesh)
+    em_pack = _make_emitter_pack(prepared_solver, idx_emit, p, flip_faces, align, device,
+                                 lazy=lazy)
+    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+
+    def replica(dev: torch.device) -> Tuple[ScenePack, EmitterPack]:
+        return (prepared_solver.get_scene_pack(use_accel=use_bvh, device=dev),
+                _make_emitter_pack(prepared_solver, idx_emit, p, flip_faces, align, dev,
+                                   lazy=False))
+
+    return _EmitterRun(scene_pack, em_pack, surf_active, emit_sid, min_sid, p["seed"],
+                       idx_emit, device, mesh=mesh, replica=replica)
 
 
 def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bool,
@@ -675,7 +765,8 @@ def _upload(arrays: List[np.ndarray], dtype, device: torch.device) -> List[torch
 def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                      flip_faces: bool, align: int, scene_pack: ScenePack,
                      device: torch.device, n_surf: int, *, want_matrix: bool,
-                     want_any: bool, discrete: bool, consume) -> None:
+                     want_any: bool, discrete: bool, consume,
+                     mesh: _sharding.RayMesh) -> None:
     """Whole-scene scheduled solves: one dispatch per convergence round.
 
     Builds a block schedule spanning every pending emitter's next chunk and
@@ -701,6 +792,12 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     With ``SCHED_PIPELINE`` (default on) round k+1 is planned and dispatched
     before round k's counts are fetched; a round whose emitters all
     converged while it was in flight is dropped without the fetch.
+
+    Each round's rows are split over the shards of the ray ``mesh``
+    (``parallel.sharding.scheduled_trace_sharded``; ``mesh.devices[0]`` is
+    ``device``): the scene pack, the flat tables and the geometry stack are
+    held once a distinct device of the mesh, and the round's CP and emitter
+    rows copied to each once.
     """
     # Every flat-table offset must be a RAY_BLOCK multiple: scheduled_trace
     # takes the tables as (-1, RAY_BLOCK) rows. Offsets are align-multiples.
@@ -709,18 +806,23 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
             f"scheduled driver requires align ({align}) to be a multiple of "
             f"RAY_BLOCK ({RAY_BLOCK})"
         )
-    tables_flat, geom_stacked, offsets, n_pad = prepared_solver.get_flat_tables(
-        samples=p["samples"], rays=p["rays"], flip_faces=flip_faces,
-        align=align, device=device,
-    )
-    scene_t = (
-        scene_pack.v0, scene_pack.e1, scene_pack.e2, scene_pack.cross_e,
-        scene_pack.w_u, scene_pack.w_v, scene_pack.d0, scene_pack.sid,
-    )
-    # one pack with zero mask rows serves every emitter of every round:
-    # kernel #2 takes eligibility from the per-round combined mask rows
-    no_mask = torch.zeros_like(scene_pack.sid, dtype=torch.bool)
-    tri_pack = build_tri_pack(scene_t, no_mask, no_mask)
+    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+    # device -> (scene operands, tri_pack, flat tables, geometry stack, accel)
+    replicas: Dict[torch.device, Tuple] = {}
+    for dev in mesh.distinct:
+        sp = (scene_pack if dev == device
+              else prepared_solver.get_scene_pack(use_accel=use_bvh, device=dev))
+        # offsets and n_pad: host arrays, the same on every device
+        tables_flat, geom_stacked, offsets, n_pad = prepared_solver.get_flat_tables(
+            samples=p["samples"], rays=p["rays"], flip_faces=flip_faces,
+            align=align, device=dev,
+        )
+        scene_t = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
+        # one pack with zero mask rows serves every emitter of every round:
+        # kernel #2 takes eligibility from the per-round combined mask rows
+        no_mask = torch.zeros_like(sp.sid, dtype=torch.bool)
+        replicas[dev] = (scene_t, build_tri_pack(scene_t, no_mask, no_mask), tables_flat,
+                         geom_stacked, sp.accel)
 
     def entry_pending(entry) -> bool:
         return any(not m.done for m in _entry_monitors(entry))
@@ -828,12 +930,12 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
             np.int32, device,
         )
         cp_t, plane_t = _upload([np.concatenate(cp_chunks), plane_b], np.float32, device)
-        flat = _trace.scheduled_trace(
-            scene_t, tri_pack, tables_flat, geom_stacked, cp_t, surf_t, emit_t,
-            min_t, once_t, plane_t, schedule, sel_t, sched_block=RAY_BLOCK,
-            accel=scene_pack.accel, want_matrix=want_matrix, want_any=want_any,
-            discrete=discrete,
-        )
+        flags = dict(sched_block=RAY_BLOCK, want_matrix=want_matrix, want_any=want_any,
+                     discrete=discrete)
+        round_rows = (cp_t, surf_t, emit_t, min_t, once_t, plane_t, schedule, sel_t)
+        per_dev = [{d: r[i] for d, r in replicas.items()} for i in range(5)]
+        flat = _sharding.scheduled_trace_sharded(mesh, *per_dev[:4], *round_rows,
+                                                 accel=per_dev[4], **flags)
         if device.type != "cuda":
             return _Round(flat, None, plan, n_rows)
         # one packed copy, behind this round's work only
@@ -885,7 +987,8 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
 
 def _drive_matrix_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                             flip_faces: bool, align: int, scene_pack: ScenePack,
-                            device: torch.device, n_surf: int) -> None:
+                            device: torch.device, n_surf: int, *,
+                            mesh: _sharding.RayMesh) -> None:
     def consume(entry, host, start_row, bpi, chunk):
         mon = entry["monitor"]
         for c in range(chunk):
@@ -903,12 +1006,13 @@ def _drive_matrix_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     _drive_scheduled(
         entries, prepared_solver, p, flip_faces, align, scene_pack, device,
         n_surf, want_matrix=True, want_any=False, discrete=False, consume=consume,
+        mesh=mesh,
     )
 
 
 def _drive_sky_scheduled(entries, prepared_solver: PreparedSolver, p: Dict, align: int,
                          scene_pack: ScenePack, device: torch.device, n_surf: int, *,
-                         discrete: bool) -> None:
+                         discrete: bool, mesh: _sharding.RayMesh) -> None:
     def consume(entry, host, start_row, bpi, chunk):
         mon = entry["monitor"]
         for c in range(chunk):
@@ -921,13 +1025,14 @@ def _drive_sky_scheduled(entries, prepared_solver: PreparedSolver, p: Dict, alig
 
     _drive_scheduled(
         entries, prepared_solver, p, False, align, scene_pack, device, n_surf,
-        want_matrix=False, want_any=True, discrete=discrete, consume=consume,
+        want_matrix=False, want_any=True, discrete=discrete, consume=consume, mesh=mesh,
     )
 
 
 def _drive_combined_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                               align: int, scene_pack: ScenePack, device: torch.device,
-                              n_surf: int, *, discrete: bool) -> None:
+                              n_surf: int, *, discrete: bool,
+                              mesh: _sharding.RayMesh) -> None:
     """Scheduled shared-ray workflow: both outputs for every block of every
     round; each monitor consumes only while pending, the dual-monitor
     replay of :func:`_drive_combined_pipelined`."""
@@ -941,18 +1046,25 @@ def _drive_combined_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
 
     _drive_scheduled(
         entries, prepared_solver, p, False, align, scene_pack, device, n_surf,
-        want_matrix=True, want_any=True, discrete=discrete, consume=consume,
+        want_matrix=True, want_any=True, discrete=discrete, consume=consume, mesh=mesh,
     )
 
 
-def _refuse_unported(mesh) -> None:
-    """Raise ``NotImplementedError`` for ``mesh=``, the one solve option the
-    port does not have yet, naming its ROADMAP item."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP port queue 1, parallel/: ray sharding "
-            "with an NCCL sum of the counts)"
-        )
+def _drive_monitors(run: _EmitterRun, matrix_mon: Optional[MatrixMonitor],
+                    sky_mon: Optional[SkyMonitor], *, discrete: bool) -> int:
+    """Drive one emitter's monitors to the end on the per-emitter route;
+    returns the iterations traced. The single-emitter state machine of
+    ``parallel/distribute.py``: without a sky monitor the matrix alone
+    (:func:`_drive_matrix_pipelined`), else the shared-ray one of
+    :func:`_drive_combined_pipelined` (matrix + any while both are pending,
+    then the pending side alone; sky only when ``matrix_mon`` is None), so
+    each monitor ends where the full solves' would."""
+    if sky_mon is None:
+        _drive_matrix_pipelined([dict(run=run, monitor=matrix_mon)])
+        return matrix_mon.iters_done
+    entry = dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon, trace_iters=run.itr_next)
+    _drive_combined_pipelined([entry], discrete=discrete)
+    return entry["trace_iters"]
 
 
 class _CheckpointStore:
@@ -1199,12 +1311,21 @@ def view_factor_matrix(
     snapshots (the iteration RNG is indexed by absolute iteration, so the
     result is bit-identical). Checkpoints are keyed by the parameters and
     the geometry: a changed seed or mesh invalidates them.
+
+    ``mesh``, a :class:`~raystrack_tpu_torch.parallel.sharding.RayMesh` from
+    :func:`~raystrack_tpu_torch.parallel.ray_mesh`, splits every trace over
+    its devices: a per-emitter chunk's rays, a scheduled round's rows. The
+    counts are exact integers, so the dict equals the unsharded one bitwise
+    for any shard count. The packs live on ``mesh.devices[0]``, one copy a
+    distinct device, and the mesh's devices, not ``params.device``, decide
+    where the solve runs; with no mesh it is the one-shard mesh of
+    ``params.device``. The checkpoint fingerprint leaves the mesh out: a
+    solve stopped at one shard count resumes at another.
     """
     if not isinstance(params, MatrixParams):
         raise TypeError("params must be a MatrixParams instance")
-    _refuse_unported(mesh)
     p = params.as_dict()
-    device = _resolve_device(p["device"])
+    device, mesh = _placements(mesh, p["device"])
     # CPU solves check convergence every iteration; the interval only
     # batches checks on the card
     interval = 1 if device.type == "cpu" else p["convergence_interval"]
@@ -1222,7 +1343,7 @@ def view_factor_matrix(
     )
     areas = [e.total_area for e in emitters] if reciprocity else None
     bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-    align = RAY_BLOCK
+    align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
     scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
     # a slim (pack-resident) scene goes emitter by emitter: that driver
     # sweeps the resident pack as it is, where the scheduled one would
@@ -1281,17 +1402,12 @@ def view_factor_matrix(
             continue
 
         emit_sid, min_sid = _matrix_skip(idx_emit, reciprocity)
-        em_pack = _make_emitter_pack(
-            prepared_solver, idx_emit, p, flip_faces, align, device,
-            lazy=use_scheduler,
-        )
-        run = _EmitterRun(
-            scene_pack, em_pack, surf_active, emit_sid, min_sid,
-            p["seed"], idx_emit, device,
-        )
+        run = _emitter_run(prepared_solver, p, idx_emit, surf_active, emit_sid, min_sid,
+                           flip_faces=flip_faces, scene_pack=scene_pack, device=device,
+                           mesh=mesh, lazy=use_scheduler)
         monitor = MatrixMonitor(
             n_surf, recv_idx,
-            n_rays_once=em_pack.n_rays_once,
+            n_rays_once=run.em_pack.n_rays_once,
             tol=p["tol"], tol_mode=p["tol_mode"],
             min_iters=p["min_iters"], interval=interval,
             max_iters=p["max_iters"],
@@ -1327,6 +1443,7 @@ def view_factor_matrix(
         if len(entries) > 1 and use_scheduler:
             _drive_matrix_scheduled(
                 entries, prepared_solver, p, flip_faces, align, scene_pack, device, n_surf,
+                mesh=mesh,
             )
         _drive_matrix_pipelined(entries)
     solve_s = time.time() - t_solve
@@ -1394,17 +1511,17 @@ def view_factor_to_tregenza_sky(
     ``checkpoint_dir`` makes the solve resumable as in
     :func:`view_factor_matrix`: each emitter's converged sky row (and its
     stats) is written atomically the moment it finishes, and its monitor
-    state while it converges.
+    state while it converges. ``mesh`` shards every trace as in
+    :func:`view_factor_matrix`; the dict is the unsharded one.
     """
     if not isinstance(params, SkyParams):
         raise TypeError("params must be a SkyParams instance")
     if len(meshes) == 0:
         raise ValueError("meshes must not be empty")
-    _refuse_unported(mesh)
 
     p = params.as_dict()
     discrete = bool(p["discrete"])
-    device = _resolve_device(p["device"])
+    device, mesh = _placements(mesh, p["device"])
     interval = 1 if device.type == "cpu" else p["convergence_interval"]
     prepared_solver = _ensure_prepared(meshes, prepared)
     use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
@@ -1412,7 +1529,7 @@ def view_factor_to_tregenza_sky(
         samples=p["samples"], rays=p["rays"], flip_faces=False
     )
     bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-    align = RAY_BLOCK
+    align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
     scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
     # slim (pack-resident) scenes take the per-emitter driver only
     use_scheduler = not scene_pack.slim and _use_scheduler(
@@ -1436,15 +1553,12 @@ def view_factor_to_tregenza_sky(
             surf_active = _build_emitter_surface_mask(
                 idx_emit, emitters[idx_emit], bounds_center, bounds_extent
             )
-            em_pack = _make_emitter_pack(
-                prepared_solver, idx_emit, p, False, align, device, lazy=use_scheduler,
-            )
-            run = _EmitterRun(
-                scene_pack, em_pack, surf_active, idx_emit, 0, p["seed"], idx_emit, device,
-            )
+            run = _emitter_run(prepared_solver, p, idx_emit, surf_active, idx_emit, 0,
+                               flip_faces=False, scene_pack=scene_pack, device=device,
+                               mesh=mesh, lazy=use_scheduler)
             monitor = SkyMonitor(
                 discrete=discrete,
-                n_rays_once=em_pack.n_rays_once,
+                n_rays_once=run.em_pack.n_rays_once,
                 tol=p["tol"], tol_mode=p["tol_mode"],
                 min_iters=p["min_iters"], interval=interval,
                 max_iters=p["max_iters"],
@@ -1464,7 +1578,7 @@ def view_factor_to_tregenza_sky(
     if len(entries) > 1 and use_scheduler:
         _drive_sky_scheduled(
             entries, prepared_solver, p, align, scene_pack, device, n_surf,
-            discrete=discrete,
+            discrete=discrete, mesh=mesh,
         )
     _drive_sky_pipelined(entries, discrete=discrete)
     solve_s = time.time() - t_solve
@@ -1528,7 +1642,8 @@ def view_factor_matrix_and_sky(
     its own ``sky`` key, and for older readers also inside ``stats``),
     keyed by both parameter sets and the geometry; while it converges, both
     monitors' states. Checkpoints that carry the sky row only inside
-    ``stats`` (the older layout) still restore.
+    ``stats`` (the older layout) still restore. ``mesh`` shards every trace
+    as in :func:`view_factor_matrix`; both dicts are the unsharded ones.
     """
     if not isinstance(matrix_params, MatrixParams):
         raise TypeError("matrix_params must be a MatrixParams instance")
@@ -1536,7 +1651,6 @@ def view_factor_matrix_and_sky(
         raise TypeError("sky_params must be a SkyParams instance")
     if not outside_workflow_shareable(matrix_params, sky_params):
         raise ValueError("matrix_params and sky_params are not compatible for shared tracing")
-    _refuse_unported(mesh)
 
     mp = matrix_params.as_dict()
     sp = sky_params.as_dict()
@@ -1552,7 +1666,7 @@ def view_factor_matrix_and_sky(
     )
     discrete = bool(sp["discrete"])
     reciprocity = bool(mp["reciprocity"])
-    device = _resolve_device(mp["device"])
+    device, mesh = _placements(mesh, mp["device"])
     on_cpu = device.type == "cpu"
     prepared_solver = _ensure_prepared(meshes, prepared)
     use_bvh = _select_bvh(mp["bvh"], prepared_solver.total_faces)
@@ -1561,7 +1675,7 @@ def view_factor_matrix_and_sky(
     )
     areas = [e.total_area for e in emitters] if reciprocity else None
     bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-    align = RAY_BLOCK
+    align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
     scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
     use_scheduler = not scene_pack.slim and _use_scheduler(
         device, emitters, mp["rays"], align)
@@ -1599,13 +1713,10 @@ def view_factor_matrix_and_sky(
             idx_emit, n_surf, reciprocity, surf_active
         )
         emit_sid, matrix_min_sid = _matrix_skip(idx_emit, reciprocity)
-        em_pack = _make_emitter_pack(
-            prepared_solver, idx_emit, mp, False, align, device, lazy=use_scheduler,
-        )
-        run = _EmitterRun(
-            scene_pack, em_pack, surf_active, emit_sid, matrix_min_sid,
-            mp["seed"], idx_emit, device,
-        )
+        run = _emitter_run(prepared_solver, mp, idx_emit, surf_active, emit_sid,
+                           matrix_min_sid, flip_faces=False, scene_pack=scene_pack,
+                           device=device, mesh=mesh, lazy=use_scheduler)
+        em_pack = run.em_pack
         matrix_mon = (
             MatrixMonitor(
                 n_surf, recv_idx,
@@ -1655,7 +1766,7 @@ def view_factor_matrix_and_sky(
     if len(entries) > 1 and use_scheduler:
         _drive_combined_scheduled(
             entries, prepared_solver, mp, align, scene_pack, device, n_surf,
-            discrete=discrete,
+            discrete=discrete, mesh=mesh,
         )
     _drive_combined_pipelined(entries, discrete=discrete)
     solve_s = time.time() - t_solve

@@ -11,8 +11,10 @@ card, solves on the card against the CPU and across the two routes, kernel
 against its plain version, the gate's crossing kernel against its plain
 version, every triangle split the sweep kernels are built at against
 the one-thread-a-ray kernel and their plain ``split=`` versions, checkpointed
-solves stopped mid-way and resumed on both routes, and the command line on
-the card against the in-process solve.
+solves stopped mid-way and resumed on both routes, the command line on
+the card against the in-process solve, and sharded chunks, rounds and
+solves on a ray mesh (a logical mesh of 4 shards on the card, and every
+card) against unsharded ones.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1153,3 +1155,180 @@ def test_cli_on_card_writes_the_in_process_json(card, tmp_path, command):
     for name, vf in want.items():
         ref = save_vf_matrix_json(vf, str(tmp_path / "ref" / name))
         assert load_vf_matrix_json(str(tmp_path / name)) == load_vf_matrix_json(ref), name
+
+
+# ---------------------------------------------------------------------------
+# the ray mesh on the card: a logical mesh of 4 shards on one card
+# ---------------------------------------------------------------------------
+
+MESH_KINDS = {"matrix": (True, False, False), "any": (False, True, False),
+              "any_discrete": (False, True, True), "matrix_any": (True, True, False)}
+
+
+@pytest.fixture(scope="module")
+def mesh_city():
+    """The box city's prepared solver and its accel scene pack on the card,
+    full and slim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ps = raystrack_tpu_torch.PreparedSolver(_box_city())
+    full = ps.get_scene_pack(use_accel=True, device=dev)
+    slim = pack_scene(ps.get_scene(use_accel=True), 2, device=dev, slim=True)
+    return ps, full, slim, dev
+
+
+def _mesh(kind, dev):
+    """A logical mesh of 4 shards on ``dev``, or ``ray_mesh()``: one shard
+    a visible card (one on a one-card machine)."""
+    from raystrack_tpu_torch.parallel import ray_mesh
+
+    return ray_mesh([dev] * 4) if kind == "logical4" else ray_mesh()
+
+
+def _launch_counts():
+    return (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays.code_launches,
+            sweep_rays_scheduled.launches, sweep_rays_scheduled.gated_launches,
+            count_bins.launches, gate_cross.launches)
+
+
+@pytest.mark.parametrize("mesh_kind", ["logical4", "every_card"])
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize("mode", ["baked", "code"])
+@pytest.mark.parametrize("kind", sorted(MESH_KINDS))
+def test_sharded_chunk_on_a_mesh_equals_unsharded(mesh_city, kind, mode, gated, mesh_kind):
+    """trace_chunk_sharded over ray_mesh([card] * 4), and over ray_mesh()
+    (every card), == chunk_body on the whole chunk (2 iterations of the
+    ground's 57,600 rays), every output bitwise and gathered on the card,
+    in each variant of kernel #1 (baked pack, and the slim pack's code
+    mode): a sweep launch a shard, a count launch a shard and output, a
+    crossing launch a shard gated."""
+    from raystrack_tpu_torch.ops.trace import chunk_body, emitter_operands
+    from raystrack_tpu_torch.parallel import trace_chunk_sharded
+    from raystrack_tpu_torch.solver import _cp_rows
+
+    ps, full, slim, dev = mesh_city
+    mesh = _mesh(mesh_kind, dev)
+    n = mesh.size
+    want_matrix, want_any, discrete = MESH_KINDS[kind]
+    flags = dict(want_matrix=want_matrix, want_any=want_any, discrete=discrete)
+    ext = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    ems = [ps.get_emitter_pack(0, samples=1, rays=4, flip_faces=False, align=align,
+                               device=dev)
+           for align in (tconfig.RAY_BLOCK, n * tconfig.RAY_BLOCK)]
+    if mode == "baked":
+        scene = (full.v0, full.e1, full.e2, full.cross_e, full.w_u, full.w_v, full.d0,
+                 full.sid)
+        pack, mask = emitter_operands(scene, ext, 0, 1, ems[0].plane_vec, want_any=want_any)
+        bounds = None
+    else:
+        mask, bounds = slim_operands(slim.sid, ext, 0, 1, want_any=want_any)
+        pack = slim.tri_pack
+    accel = full.accel if gated else None
+    cp = torch.from_numpy(_cp_rows(3, 0, 0, 2)).to(dev)
+
+    def args(em):
+        return (pack, mask, (em.u_cell, em.v_cell, em.h_tri, em.h_u, em.h_v, em.h_r1, em.h_r2),
+                (em.cdf, em.tri_a, em.tri_e1, em.tri_e2, em.tri_u, em.tri_v, em.tri_n,
+                 em.tri_eps), cp, 2, em.n_rays_once, accel, bounds)
+
+    single = chunk_body(*args(ems[0]), **flags)
+    before = _launch_counts()
+    sharded = trace_chunk_sharded(mesh, *args(ems[1]), **flags)
+    for card_dev in mesh.distinct:
+        torch.cuda.synchronize(card_dev)
+    d = [b - a for a, b in zip(before, _launch_counts())]
+    n_out = int(want_matrix) + int(want_any)
+    assert d == [n, n * gated, n * (mode == "code"), 0, 0, n * n_out, n * gated]
+    assert sorted(sharded) == sorted(single)
+    for key in single:
+        assert sharded[key].device == dev and torch.equal(sharded[key], single[key]), key
+    assert sum(int(v.sum()) for v in single.values()) > 0
+
+
+@pytest.mark.parametrize("mesh_kind", ["logical4", "every_card"])
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize("kind", sorted(MESH_KINDS))
+def test_sharded_round_on_a_mesh_equals_unsharded(mesh_city, kind, gated, mesh_kind):
+    """scheduled_trace_sharded over ray_mesh([card] * 4), and over
+    ray_mesh(), == scheduled_trace on a round of 67 rows (3 iterations of
+    the ground, 1 of the city, each 16 blocks, and 3 of the ground again:
+    not a multiple of 4), packed counts bitwise, in each variant of kernel
+    #2: a launch a shard."""
+    from raystrack_tpu_torch.ops.trace import scheduled_trace
+    from raystrack_tpu_torch.parallel.sharding import scheduled_trace_sharded
+    from raystrack_tpu_torch.prepared import emitter_plane_vec
+    from raystrack_tpu_torch.solver import _build_emitter_surface_mask, _cp_rows
+
+    ps, full, _, dev = mesh_city
+    want_matrix, want_any, discrete = MESH_KINDS[kind]
+    tt, tg, offsets, n_pad = ps.get_flat_tables(samples=0, rays=256, flip_faces=False,
+                                                device=dev)
+    emitters = ps.get_emitters(samples=0, rays=256, flip_faces=False)
+    rows = []
+    for e, it in ((0, 0), (0, 1), (0, 2), (1, 3)):
+        rows += [[e, it, int(offsets[e]) + b * 256, b * 256]
+                 for b in range(int(n_pad[e]) // 256)]
+    rows += [[0, 4, int(offsets[0]) + b * 256, b * 256] for b in range(3)]
+    ext = np.zeros((2, 3), np.int32)
+    for e in range(2):
+        ext[e, :2] = _build_emitter_surface_mask(e, emitters[e], *ps.get_mesh_bounds())
+    scene = (full.v0, full.e1, full.e2, full.cross_e, full.w_u, full.w_v, full.d0, full.sid)
+    zeros = torch.zeros_like(full.sid, dtype=torch.bool)
+    put = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt).to(dev)  # noqa: E731
+    args = (scene, build_tri_pack(scene, zeros, zeros), tt, tg,
+            put(np.concatenate([_cp_rows(3, 0, 0, 3), _cp_rows(3, 1, 0, 1),
+                                _cp_rows(3, 0, 3, 1)]), torch.float32),
+            put(ext, torch.int32), put([0, 1], torch.int32), put([1, 0], torch.int32),
+            put([em.n_cells * 256 for em in emitters], torch.int32),
+            put(np.stack([emitter_plane_vec(em) for em in emitters]), torch.float32),
+            put(rows, torch.int32), put([0, 1], torch.int32))
+    assert args[10].shape[0] == 67
+    kw = dict(sched_block=256, accel=full.accel if gated else None, want_matrix=want_matrix,
+              want_any=want_any, discrete=discrete)
+    single = scheduled_trace(*args, **kw)
+    mesh = _mesh(mesh_kind, dev)
+    n = mesh.size
+    before = _launch_counts()
+    sharded = scheduled_trace_sharded(mesh, *args, **kw)
+    for card_dev in mesh.distinct:
+        torch.cuda.synchronize(card_dev)
+    d = [b - a for a, b in zip(before, _launch_counts())]
+    n_out = int(want_matrix) + int(want_any)
+    assert d == [0, 0, 0, n, n * gated, n * n_out, n * gated]
+    assert torch.equal(sharded, single)
+    assert int(single.sum()) > 0
+
+
+@pytest.mark.parametrize("route", ["scheduled", "grouped"])
+def test_sharded_solves_on_card_equal_unsharded(card, monkeypatch, route):
+    """On the box city, gated: the matrix, the discrete sky and the outside
+    workflow on ray_mesh() (every card) and on a logical mesh of 4 shards
+    == mesh=None, on each route; a mesh mixing the card and the CPU raises
+    ValueError."""
+    from raystrack_tpu_torch.parallel import ray_mesh
+
+    meshes = _box_city(n_boxes=1500)
+    monkeypatch.setattr(tconfig, "SCHEDULER", route)
+    kw = dict(samples=0, rays=64, min_iters=3, max_iters=3, device="gpu")
+    mp = raystrack_tpu_torch.MatrixParams(reciprocity=False, **kw)
+    sp = raystrack_tpu_torch.SkyParams(discrete=True, **kw)
+    ps = raystrack_tpu_torch.PreparedSolver(meshes)
+
+    def solves(mesh):
+        return (raystrack_tpu_torch.view_factor_matrix(meshes, mp, prepared=ps, mesh=mesh),
+                raystrack_tpu_torch.view_factor_to_tregenza_sky(meshes, sp, prepared=ps,
+                                                                mesh=mesh),
+                raystrack_tpu_torch.view_factor_outside_workflow(
+                    meshes, matrix_params=mp, sky_params=sp, prepared=ps, mesh=mesh))
+
+    base = solves(None)
+    for mesh in (ray_mesh(), ray_mesh([card] * 4)):
+        before = _launch_counts()
+        assert solves(mesh) == base
+        torch.cuda.synchronize()
+        d = [b - a for a, b in zip(before, _launch_counts())]
+        assert (d[0] if route == "grouped" else d[3]) > 0
+    assert len(ps._scene_pack_cache) == len(ray_mesh().distinct)  # one copy a card
+    with pytest.raises(ValueError, match="cannot mix"):
+        ray_mesh([card, torch.device("cpu")])

@@ -30,6 +30,7 @@ import raystrack_tpu_torch.solver as tsolver
 from raystrack_tpu_torch import config as tconfig
 from raystrack_tpu_torch.convergence import SkyMonitor
 from raystrack_tpu_torch.interop import emitter_pack_from_arrays, scene_pack_from_arrays
+from raystrack_tpu_torch.parallel import ray_mesh
 from raystrack_tpu_torch.ops.count_cuda import (
     count_bins, count_bins_reference, count_codes, count_codes_reference,
 )
@@ -436,7 +437,8 @@ def _run(scene_pack, ps, idx, reciprocity):
     em = ps.get_emitter_pack(idx, samples=8, rays=32, flip_faces=False, device=CPU)
     surf = _build_emitter_surface_mask(idx, emitter, *ps.get_mesh_bounds())
     emit_sid, min_sid = _matrix_skip(idx, reciprocity)
-    return tsolver._EmitterRun(scene_pack, em, surf, emit_sid, min_sid, 9, idx, CPU)
+    return tsolver._EmitterRun(scene_pack, em, surf, emit_sid, min_sid, 9, idx, CPU,
+                               mesh=ray_mesh([CPU]))
 
 
 @pytest.mark.parametrize("discrete", [False, True], ids=["merged", "discrete"])
@@ -554,7 +556,7 @@ def test_sky_single_mesh_all_zero_and_logs_nothing(monkeypatch):
          TypeError),
         (lambda f: f(_three_squares(), raystrack_tpu.SkyParams()), TypeError),
         (lambda f: f(_three_squares(), raystrack_tpu_torch.SkyParams(device="cpu"),
-                     mesh=object()), NotImplementedError),
+                     mesh=object()), TypeError),
     ],
     ids=["empty", "matrix_params", "jax_params", "mesh"],
 )

@@ -121,7 +121,7 @@ def test_solve_launches_no_kernel_on_cpu():
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        (dict(mesh=object()), NotImplementedError),
+        (dict(mesh=object()), TypeError),
         (dict(prepared=object()), TypeError),
     ],
 )
@@ -132,7 +132,9 @@ def test_unported_options_raise(kwargs, error):
 
 
 def test_mesh_refusal_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP port queue 1, parallel/"):
+    """A mesh that is not a RayMesh raises TypeError naming the function
+    that makes one (``mesh=`` itself is ported: tests/test_torch_sharding.py)."""
+    with pytest.raises(TypeError, match=r"parallel\.ray_mesh\(\)"):
         raystrack_tpu_torch.view_factor_matrix(
             _three_squares(), raystrack_tpu_torch.MatrixParams(device="cpu"), mesh=object())
 
@@ -193,7 +195,9 @@ def test_import_pulls_in_no_jax():
         "raystrack_tpu_torch.api, raystrack_tpu_torch.ops.tregenza, "
         "raystrack_tpu_torch.ops.count_cuda, raystrack_tpu_torch.cli, "
         "raystrack_tpu_torch.io, raystrack_tpu_torch.obj, raystrack_tpu_torch.ply, "
-        "raystrack_tpu_torch.utils.geometry, raystrack_tpu_torch.__main__\n"
+        "raystrack_tpu_torch.utils.geometry, raystrack_tpu_torch.__main__, "
+        "raystrack_tpu_torch.parallel.sharding, raystrack_tpu_torch.parallel.distribute, "
+        "raystrack_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'raystrack_tpu', 'triton'))\n"
         "print(bad)\n"

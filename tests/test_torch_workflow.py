@@ -251,7 +251,7 @@ def test_enforce_reciprocity_only_equals_jax():
                                     _params(raystrack_tpu_torch, m_seed=2)))), ValueError),
         (lambda: raystrack_tpu_torch.view_factor_matrix_and_sky(
             MESHES, **dict(zip(("matrix_params", "sky_params"), _params(raystrack_tpu_torch))),
-            mesh=object()), NotImplementedError),
+            mesh=object()), TypeError),
         (lambda: raystrack_tpu_torch.view_factor_outside_workflow(
             MESHES, matrix_params=_params(raystrack_tpu_torch)[0],
             sky_params=_params(raystrack_tpu_torch)[0]), TypeError),
