@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_profile.py [--reps 5] [--traced 3] [--route auto|scheduled|grouped]
                             [--count kernel|plain] [--bvh auto|off] [--slim] [--timeline]
-                            [--splits] [--force-split 1|4]
+                            [--splits] [--variants] [--halton] [--force-split 1|4]
                             [plates canyon district soup soup8 city city_matrix city_plates
                              city10m]
 
@@ -48,7 +48,10 @@ chunk in every output and mask variant: the measurement behind
 (the soup chunk) and #2 (the soup8 round) in their matrix, any-only and
 matrix + any variants at the wrapper's split, beside each one's FP32 SASS
 instructions a pair: the sky's and the workflow's launches, and the A/B of
-a kernel change when run in two trees in one call. ``--force-split N`` solves with every ungated
+a kernel change when run in two trees in one call. ``--halton`` instead measures the
+set-up of ex02's matrix (the canyon and its 89M-ray ground) and of ``city_plates``
+at one sample per m², with the Halton tables built on the card and on the host
+(``RAYSTRACK_TPU_DEVICE_HALTON=0``). ``--force-split N`` solves with every ungated
 sweep at N threads a ray instead of the rule's choice. The card's name
 and power limit come first; one JSON line ends each solve's block.
 Imports nothing of JAX.
@@ -479,6 +482,38 @@ def profile_variants(card: str) -> None:
     print(json.dumps({"variants": rows, "card": card}))
 
 
+def profile_halton(card: str) -> None:
+    """Set-up (first solve minus warm solve, fresh ``PreparedSolver``) of
+    ex02's matrix at its own settings and of ``city_plates`` at one sample
+    per m² and one ray (the boxes' 26.6M cells), each with the Halton
+    tables built on the card and on the host (``RAYSTRACK_TPU_DEVICE_HALTON=0``),
+    device path first: the walls, the Halton builds' share, peak device
+    memory. One JSON line a solve."""
+    import chip_smoke
+    from raystrack_tpu_torch import MatrixParams, config
+
+    ex02, ex02_params = chip_smoke.ex02_case()
+    cases = [("ex02", ex02, ex02_params),
+             ("city_plates, samples=1 rays=1", chip_smoke.city_plates_meshes(), MatrixParams(
+                 samples=1, rays=1, min_iters=2, max_iters=2, reciprocity=True,
+                 device="gpu"))]
+    for label, meshes, params in cases:
+        for on in (True, False):
+            path = "device" if on else "host"
+            stats, _ = chip_smoke.setup_and_warm(meshes, params, on)
+            builds = stats.pop("halton_builds")
+            big = [b for b in builds if b[0] >= config.DEVICE_MIN_LENGTH]
+            stats.update(solve=label, path=path, card=card, big_tables=len(big),
+                         big_tables_s=sum(b[3] for b in big),
+                         big_where=sorted({b[2] for b in big}))
+            print(f"[halton] {label}, {path} path: first solve {stats['first_s']:.2f} s, warm "
+                  f"{stats['warm_s']:.2f} s, set-up {stats['setup_s']:.2f} s, of it Halton "
+                  f"builds {stats['halton_s']:.3f} s ({len(big)} tables and grids of "
+                  f"{config.DEVICE_MIN_LENGTH:,} entries or more: {stats['big_tables_s']:.3f} "
+                  f"s, {stats['big_where']}); peak {stats['peak_bytes'] / 2**20:.1f} MiB")
+            print(json.dumps(stats))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("solves", nargs="*",
@@ -491,6 +526,7 @@ def main() -> int:
     parser.add_argument("--timeline", action="store_true")
     parser.add_argument("--splits", action="store_true")
     parser.add_argument("--variants", action="store_true")
+    parser.add_argument("--halton", action="store_true")
     parser.add_argument("--force-split", type=int, default=None)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
@@ -525,6 +561,9 @@ def main() -> int:
         return 0
     if args.variants:
         profile_variants(card)
+        return 0
+    if args.halton:
+        profile_halton(card)
         return 0
     cases = chip_smoke.solve_cases()
     if "city10m" in args.solves:  # built only on request: 10M triangles on the host

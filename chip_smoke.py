@@ -12,7 +12,9 @@ on the card through seven scenes, and ``view_factor_to_tregenza_sky``,
 ``view_factor_matrix_and_sky`` and ``view_factor_outside_workflow`` through
 the canyon and the 1M-triangle city, then the ray mesh and the
 multi-process solve (``raystrack_tpu_torch.parallel``) on the city and the
-district, and checks each against its analytic or plain reference:
+district, the Halton tables built on the card for ex02's 89M-ray ground,
+and the validation suite, and checks each against its analytic or plain
+reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      where the library was built, nvcc build time, register/spill
@@ -150,6 +152,22 @@ district, and checks each against its analytic or plain reference:
               gloo over localhost sharing the card, against one process:
               both merged dicts == ``view_factor_matrix``'s; on a node of
               several cards ``ray_mesh()`` spans them all
+21. halton    the Halton device builder: 4,194,304 entries of each base, and
+              the (u, v) grid of 2048 x 2048 cells, built on the card == the
+              host build bitwise; the 89,458,688-entry
+              tables of ex02's ground (examples/ex02_compare_sky_vf.py: the
+              canyon and a ground plane, samples=16, rays=128) built on the
+              card, timed, and == the exact radical inverse at >= 10,000
+              indices (the first and last, every chunk seam, base**j - 1 and
+              base**j, random ones); ex02's matrix at its own settings (the
+              per-emitter route) from a fresh PreparedSolver: set-up (first
+              - warm solve), the Halton builds' share, warm wall, peak device
+              memory, and no host table of the ground's length built; at
+              samples=1 (5,591,168 ground rays, the scheduled route) the
+              dict with the device builder == with RAYSTRACK_TPU_DEVICE_HALTON=0
+22. validation the nine cases of validation/ through the port
+              (validate_torch.py) at their full settings, each within its
+              own tolerance, beside the committed TPU values
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -2404,6 +2422,306 @@ def phase_parallel(dev, city_ps, city_plates_ps, city, city_plates, cases, city_
     return out
 
 
+# Copied from examples/ex02_compare_sky_vf.py (GROUND_NAME, GROUND_MARGIN,
+# ground_plane), which imports the JAX package at module level.
+GROUND_NAME = "infinite_ground"
+GROUND_MARGIN = 100.0  # extra extent beyond the scene bounds
+
+
+def ground_plane(meshes):
+    """A large ground quad sized from the scene bounds, slightly below the
+    lowest z so it never lies coplanar with scene geometry."""
+    all_v = np.concatenate([V for _, V, _ in meshes], axis=0)
+    lo = all_v.min(axis=0)
+    hi = all_v.max(axis=0)
+    x0, x1 = float(lo[0] - GROUND_MARGIN), float(hi[0] + GROUND_MARGIN)
+    y0, y1 = float(lo[1] - GROUND_MARGIN), float(hi[1] + GROUND_MARGIN)
+    z = float(lo[2]) - 1e-3
+    V = np.array([[x0, y0, z], [x1, y0, z], [x1, y1, z], [x0, y1, z]], np.float32)
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return GROUND_NAME, V, F
+
+
+EX02_GROUND_RAYS = 89_458_688  # 836 x 836 cells x 128 rays: past SCHED_MAX_FLAT_RAYS
+HALTON_CHECK_LENGTH = 4_194_304  # phase 21's whole tables, against the host build
+HALTON_GRID_SIDE = 2048  # and its (u, v) grid of as many cells
+HALTON_SAMPLED = 10_000  # random indices of the ground's tables checked exactly
+
+
+def ex02_case(samples=16):
+    """ex02's matrix (examples/ex02_compare_sky_vf.py): the canyon and its
+    ground plane at ex02's own MatrixParams, on the card."""
+    from raystrack_tpu_torch import MatrixParams
+    from examples.ex00_street_canyon_geometry import build_street_canyon
+
+    canyon = build_street_canyon()
+    return canyon + [ground_plane(canyon)], MatrixParams(
+        samples=samples, rays=128, seed=20, bvh="auto", device="gpu", min_iters=1,
+        tol=1e-4, tol_mode="stderr", max_iters=50, reciprocity=False)
+
+
+@contextlib.contextmanager
+def halton_builds(records: list):
+    """Inside the block each Halton table build appends ``(length, base,
+    where, seconds)`` to ``records`` (a (u, v) grid of g*g cells as
+    ``(g*g, "grid", ...)``): ``where`` is "device", "host" or "disk", the
+    seconds from a drained card to a drained card."""
+    from raystrack_tpu_torch.ops import halton
+
+    names = ("_halton_dim", "_halton_dim_device", "_halton_dim_host",
+             "_halton_grid_device", "_halton_grid_host")
+    real = {name: getattr(halton, name) for name in names}
+    where = []
+
+    def timed(build, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            where.clear()
+            t0 = time.perf_counter()
+            out = build(*args)
+            torch.cuda.synchronize()
+            records.append(key(*args) + (where[0] if where else "disk",
+                                         time.perf_counter() - t0))
+            return out
+        return run
+
+    def at(label, build):
+        def run(*args):
+            where.append(label)
+            return build(*args)
+        return run
+
+    halton._halton_dim = timed(real["_halton_dim"], lambda length, base, dev=None: (length, base))
+    halton._halton_dim_device = at("device", real["_halton_dim_device"])
+    halton._halton_dim_host = at("host", real["_halton_dim_host"])
+    halton._halton_grid_device = timed(at("device", real["_halton_grid_device"]),
+                                       lambda g, dev: (g * g, "grid"))
+    halton._halton_grid_host = timed(at("host", real["_halton_grid_host"]),
+                                     lambda g: (g * g, "grid"))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(halton, name, fn)
+
+
+@contextlib.contextmanager
+def device_halton(on: bool):
+    """``RAYSTRACK_TPU_DEVICE_HALTON`` at auto (``on``) or 0 inside the block,
+    the dims and grid caches empty before and after."""
+    import os
+
+    from raystrack_tpu_torch import config
+    from raystrack_tpu_torch.ops import halton
+
+    previous = os.environ.pop(config.DEVICE_HALTON_ENV, None)
+    if not on:
+        os.environ[config.DEVICE_HALTON_ENV] = "0"
+    halton.cached_halton_dims.cache_clear()
+    halton.cached_halton.cache_clear()
+    try:
+        yield
+    finally:
+        os.environ.pop(config.DEVICE_HALTON_ENV, None)
+        if previous is not None:
+            os.environ[config.DEVICE_HALTON_ENV] = previous
+        halton.cached_halton_dims.cache_clear()
+        halton.cached_halton.cache_clear()
+
+
+def setup_and_warm(meshes, params, on: bool) -> tuple:
+    """A fresh PreparedSolver's first solve (its set-up included) and one
+    warm solve, with the device builder on (auto) or off: ``(stats, dict)``.
+    ``stats``: both walls, set-up = first - warm, the Halton builds of both
+    solves and their seconds, the peak device bytes from the first solve on."""
+    from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    builds = []
+    with device_halton(on), halton_builds(builds):
+        ps = PreparedSolver(meshes)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vf = view_factor_matrix(meshes, params, prepared=ps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del ps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(first_s=walls[0], warm_s=walls[1], setup_s=walls[0] - walls[1],
+                halton_s=sum(b[3] for b in builds), halton_builds=builds,
+                peak_bytes=peak), vf
+
+
+def check_ex02_rows(vf, meshes, label: str) -> None:
+    """ex02's rows: every mesh emits, every value finite and in [0, 1], each
+    row's sum at most 1 (the rest is sky), the ground sees the canyon."""
+    check(set(vf) == {name for name, _, _ in meshes}, f"{label}: rows {sorted(vf)}")
+    for name, row in vf.items():
+        values = np.array(list(row.values()), dtype=np.float64)
+        check(bool(np.all(np.isfinite(values)) and np.all(values >= 0.0)
+                   and values.sum() <= 1.0 + 1e-6), f"{label}: row {name} out of range")
+    check(sum(vf[GROUND_NAME].values()) > 0.0, f"{label}: the ground sees nothing")
+
+
+def phase_halton(dev, launches) -> dict:
+    """Phase 21: the device Halton builder bitwise against the host build,
+    ex02's matrix at full settings without a host table of the ground's
+    length, and the device path against the host path."""
+    from raystrack_tpu_torch import PreparedSolver
+    from raystrack_tpu_torch.ops import halton
+
+    t_phase = time.perf_counter()
+    out = {"bitwise_4m": {}}
+    n4 = HALTON_CHECK_LENGTH
+    for base in halton.BASES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = halton._halton_dim_device(n4, base, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = halton._halton_dim_host(n4, base)
+        t2 = time.perf_counter()
+        check(table.device == dev and torch.equal(table.cpu(), torch.from_numpy(host)),
+              f"halton base {base}: the card's {n4} entries != the host build")
+        out["bitwise_4m"][base] = dict(device_s=t1 - t0, host_s=t2 - t1)
+    del table, host
+    g = HALTON_GRID_SIDE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = halton._halton_grid_device(g, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host_grid = halton._halton_grid_host(g)
+    t2 = time.perf_counter()
+    check(all(torch.equal(a.cpu(), torch.from_numpy(b)) for a, b in zip(grid, host_grid)),
+          f"halton grid: the card's {g} x {g} (u, v) grid != the host build")
+    out["grid"] = dict(side=g, device_s=t1 - t0, host_s=t2 - t1)
+    del grid, host_grid
+    print(f"[halton] {n4:,} entries built on the card == the host build bitwise, bases "
+          f"{halton.BASES}; device s " + ", ".join(
+              f"{v['device_s']:.4f}" for v in out["bitwise_4m"].values())
+          + "; host s " + ", ".join(f"{v['host_s']:.3f}" for v in out["bitwise_4m"].values())
+          + f"; the {g} x {g} (u, v) grid too: device {t1 - t0:.4f} s, host {t2 - t1:.3f} s")
+
+    meshes, params = ex02_case()
+    ground = PreparedSolver(meshes).get_emitter(
+        len(meshes) - 1, samples=params.samples, rays=params.rays, flip_faces=False)
+    n = ground.n_cells * params.rays
+    check(n == EX02_GROUND_RAYS, f"ex02's ground has {n} rays an iteration, "
+          f"not {EX02_GROUND_RAYS}")
+    rng = np.random.default_rng(21)
+    boundaries = np.arange(halton.DEVICE_CHUNK, n, halton.DEVICE_CHUNK)
+    device_s = []
+    n_checked = 0
+    for base in halton.BASES:
+        powers = [base**j for j in range(1, 32) if base**j <= n]
+        idx = np.unique(np.concatenate([
+            rng.integers(1, n + 1, HALTON_SAMPLED), [1, n], boundaries, boundaries + 1,
+            np.array(powers) - 1, powers]))
+        idx = idx[(idx >= 1) & (idx <= n)].astype(np.int64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = halton._halton_dim_device(n, base, dev)
+        torch.cuda.synchronize()
+        device_s.append(time.perf_counter() - t0)
+        got = table[torch.from_numpy(idx - 1).to(dev)].cpu().numpy()
+        del table
+        # idx holds n, so radical_inverse takes the table's own digit count
+        want = halton.radical_inverse(idx, base).astype(np.float32)
+        check(np.array_equal(got, want), f"halton base {base}: the card's {n}-entry table "
+              f"differs from the exact radical inverse at {int((got != want).sum())} of "
+              f"{idx.size} indices")
+        n_checked += idx.size
+    out["ground"] = dict(length=n, device_s=device_s, indices_checked=n_checked)
+    print(f"[halton] ex02's ground: {n:,} entries a table built on the card in "
+          + ", ".join(f"{s:.4f}" for s in device_s) + f" s (bases {halton.BASES}, "
+          f"{sum(device_s):.4f} s in all), exact at {n_checked:,} indices (the first and "
+          f"last, every chunk seam, base**j - 1 and base**j, {HALTON_SAMPLED:,} random)")
+
+    # ex02's matrix at its own settings: the per-emitter route (the ground
+    # alone passes SCHED_MAX_FLAT_RAYS), the ground's tables built on the card
+    k0 = launches()
+    full, vf = setup_and_warm(meshes, params, on=True)
+    k1 = launches()
+    check_ex02_rows(vf, meshes, "ex02")
+    ground_builds = [b for b in full["halton_builds"] if b[0] == n]
+    check(sorted(b[1] for b in ground_builds) == sorted(halton.BASES)
+          and all(b[2] == "device" for b in ground_builds),
+          f"ex02: the ground's tables were built as {ground_builds}, not once each on the "
+          "card")
+    check(not any(b[0] >= n and b[2] == "host" for b in full["halton_builds"]),
+          "ex02: a host table of the ground's length was built")
+    check(k1[0] > k0[0] and k1[2] == k0[2],
+          f"ex02 did not take the per-emitter route: launches {k0} -> {k1}")
+    out["ex02"] = dict({k: v for k, v in full.items() if k != "halton_builds"},
+                       ground_halton_s=sum(b[3] for b in ground_builds),
+                       k1_launches=k1[0] - k0[0])
+    print(f"[halton] ex02 matrix (12 emitters, ground {n:,} rays an iteration, per-emitter "
+          f"route, {k1[0] - k0[0]} launches of kernel #1): first solve {full['first_s']:.2f} s, "
+          f"warm {full['warm_s']:.2f} s, set-up {full['setup_s']:.2f} s, of it the Halton "
+          f"builds {full['halton_s']:.3f} s (the ground's {out['ex02']['ground_halton_s']:.3f} "
+          f"s); peak {full['peak_bytes'] / 2**20:.1f} MiB; no host table of the ground's "
+          f"length")
+    del vf
+
+    # the device path against the host path at samples=1: the ground's 5.6M
+    # rays are one scheduled solve's flat tables, concatenated on the card
+    meshes1, params1 = ex02_case(samples=1)
+    n1 = PreparedSolver(meshes1).get_emitter(
+        len(meshes1) - 1, samples=params1.samples, rays=params1.rays,
+        flip_faces=False).n_cells * params1.rays
+    k0 = launches()
+    on, vf_on = setup_and_warm(meshes1, params1, on=True)
+    k1 = launches()
+    off, vf_off = setup_and_warm(meshes1, params1, on=False)
+    k2 = launches()
+    check(vf_on == vf_off, "ex02 at samples=1: device tables' dict != host tables' dict")
+    check_ex02_rows(vf_on, meshes1, "ex02 at samples=1")
+    check({b[2] for b in on["halton_builds"] if b[0] == n1} == {"device"}
+          and {b[2] for b in off["halton_builds"] if b[0] == n1} == {"host"},
+          "ex02 at samples=1: the ground's tables were not built on the card with the "
+          "builder on and on the host with it off")
+    check(k1[2] > k0[2] and k2[2] > k1[2],
+          f"ex02 at samples=1 did not take the scheduled route: launches {k0}, {k1}, {k2}")
+    out["samples1"] = {label: {k: v for k, v in s.items() if k != "halton_builds"}
+                       for label, s in (("device", on), ("host", off))}
+    out["samples1"]["ground_length"] = n1
+    print(f"[halton] ex02 at samples=1 (ground {n1:,} rays, scheduled route): dicts == with "
+          f"the builder on and off; set-up {on['setup_s']:.2f} s (Halton {on['halton_s']:.3f} "
+          f"s) against {off['setup_s']:.2f} s (Halton {off['halton_s']:.3f} s); warm "
+          f"{on['warm_s']:.3f} / {off['warm_s']:.3f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[halton] phase 21 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_validation() -> dict:
+    """Phase 22: validation cases 01-09 through the port on the card, at
+    their full settings (validate_torch.py), each within its own tolerance."""
+    import validate_torch
+
+    t0 = time.perf_counter()
+    results = validate_torch.run_cases(list(validate_torch.CASES), "gpu",
+                                       log=lambda line: print(f"[validation] {line}"))
+    failed = [r.case for r in results if not r.passed]
+    check(not failed, f"validation cases outside their tolerances: {failed}")
+    out = {"phase_s": time.perf_counter() - t0, "cases": {
+        r.case: dict(value=r.value, reference=r.reference, err=r.err, tol=r.tol,
+                     iterations=r.iterations, seconds=r.extra["seconds"],
+                     committed=validate_torch.read_committed(r.case)["value"],
+                     value_as_committed=r.value_as_committed)
+        for r in results}}
+    print(f"[validation] phase 22: {len(results)} of {len(results)} cases within their own "
+          f"tolerances in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -2970,6 +3288,29 @@ def main() -> int:
           "phase 20 launched no gated kernel #1 or #2, crossing or count")
     del city_ps, city_plates_ps
 
+    def launches_now():
+        return (sweep_rays.launches, sweep_rays.gated_launches, sweep_rays_scheduled.launches,
+                sweep_rays_scheduled.gated_launches, count_bins.launches, gate_cross.launches)
+
+    # 21. the Halton device builder: bitwise on the card, ex02's matrix at
+    # full settings with its ground's tables built there, device == host path
+    reset_launches()
+    halton_out = phase_halton(dev, launches_now)
+    launches_halton = launches_now()
+    print(f"[launches] phase 21: kernel #1 {launches_halton[0]} ({launches_halton[1]} gated), "
+          f"kernel #2 {launches_halton[2]} ({launches_halton[3]} gated), count "
+          f"{launches_halton[4]}, crossing {launches_halton[5]}")
+
+    # 22. the validation suite through the port, at full settings
+    reset_launches()
+    validation = phase_validation()
+    launches_val = launches_now()
+    print(f"[launches] phase 22: kernel #1 {launches_val[0]} ({launches_val[1]} gated), "
+          f"kernel #2 {launches_val[2]} ({launches_val[3]} gated), count {launches_val[4]}, "
+          f"crossing {launches_val[5]}")
+    check(launches_val[2] > 0 and launches_val[4] > 0,
+          "phase 22 launched no kernel #2 or count")
+
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
@@ -2982,18 +3323,19 @@ def main() -> int:
     sweep_entry = kernel_entry(
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
         launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0]
-        + launches_resume["k1"] + launches_par["k1"],
+        + launches_resume["k1"] + launches_par["k1"] + launches_halton[0] + launches_val[0],
         launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1]
-        + launches_resume["k1_gated"] + launches_par["k1_gated"],
+        + launches_resume["k1_gated"] + launches_par["k1_gated"] + launches_halton[1]
+        + launches_val[1],
         max(max_err, city_code["max_abs_err"]), ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2]
     sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
     sched_entry = kernel_entry(
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
         launches2 + launches_city[2] + launches_big2[0] + launches_sky[2]
-        + launches_resume["k2"] + launches_par["k2"],
+        + launches_resume["k2"] + launches_par["k2"] + launches_halton[2] + launches_val[2],
         launches_city[3] + launches_big2[1] + launches_sky[3] + launches_resume["k2_gated"]
-        + launches_par["k2_gated"],
+        + launches_par["k2_gated"] + launches_halton[3] + launches_val[3],
         max_err2, ms2, plain_ms2, bound2, city_k2)
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
@@ -3009,6 +3351,11 @@ def main() -> int:
     # phase 20's: the ray meshes' shards and the one-process district
     sweep_entry["parallel_launches"] = launches_par["k1"]
     sched_entry["parallel_launches"] = launches_par["k2"]
+    # phases 21 and 22: ex02's solves and the validation cases
+    sweep_entry["halton_launches"] = launches_halton[0]
+    sched_entry["halton_launches"] = launches_halton[2]
+    sweep_entry["validation_launches"] = launches_val[0]
+    sched_entry["validation_launches"] = launches_val[2]
     sky_summary = dict(
         canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
         canyon_patch_sum_diff=canyon_sky["patch_diff"],
@@ -3021,6 +3368,8 @@ def main() -> int:
     print(f"[sky] summary: {json.dumps(sky_summary)}")
     print(f"[resume] summary: {json.dumps({k: v for k, v in resume.items() if k != 'launches'})}")
     print(f"[parallel] summary: {json.dumps(parallel)}")
+    print(f"[halton] summary: {json.dumps(halton_out)}")
+    print(f"[validation] summary: {json.dumps(validation)}")
     print(json.dumps({"kernels": [
         sweep_entry,
         sched_entry,
@@ -3031,7 +3380,8 @@ def main() -> int:
             # not a Pallas kernel: the XLA compare-and-sum it stands in for
             "replaces": "raystrack_tpu/ops/trace.py:865",
             "launches": launches3 + count_city + count_slim + count_big + launches_sky[4]
-            + launches_resume["count"] + launches_par["count"],
+            + launches_resume["count"] + launches_par["count"] + launches_halton[4]
+            + launches_val[4],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -3051,7 +3401,8 @@ def main() -> int:
             # not a Pallas kernel: the XLA slab-and-reduce of the gate's tables
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
             "launches": cross_city + cross_slim + cross_big + launches_sky[5]
-            + launches_resume["cross"] + launches_par["cross"],
+            + launches_resume["cross"] + launches_par["cross"] + launches_halton[5]
+            + launches_val[5],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,

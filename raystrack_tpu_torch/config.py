@@ -157,6 +157,23 @@ PREPARED_CACHE = _env_int("RAYSTRACK_TPU_PREPARED_CACHE", 1, minimum=0)
 # 0 = snapshot after every chunk or round; negative disables snapshots.
 CHECKPOINT_PROGRESS_S = _env_float("RAYSTRACK_TPU_CHECKPOINT_PROGRESS_S", 60.0)
 
+# Halton tables (ops/halton.py), under the JAX package's names and values.
+# A table of DEVICE_MIN_LENGTH entries or more asked for on a CUDA device is
+# built on it and stays there (the emitter packs and flat tables pad and
+# concatenate it there); RAYSTRACK_TPU_DEVICE_HALTON, read at each build,
+# forces the device builder off (0/off/false) or on (1/on/true) at any
+# length; "auto" (the default) keeps the threshold. The CPU always builds
+# on the host.
+DEVICE_MIN_LENGTH = 2_000_000
+DEVICE_HALTON_ENV = "RAYSTRACK_TPU_DEVICE_HALTON"
+
+# A directory named by RAYSTRACK_TPU_TABLE_CACHE (read at each build)
+# memoizes tables of DISK_CACHE_MIN_LENGTH entries or more as
+# halton_b{base}_n{length}.npy, the JAX package's files: either package reads
+# the tables the other wrote. Unset: no table touches the disk.
+DISK_CACHE_MIN_LENGTH = 4_000_000
+TABLE_CACHE_ENV = "RAYSTRACK_TPU_TABLE_CACHE"
+
 __all__ = [
     "RAY_BLOCK",
     "RAY_BUCKETING",
@@ -178,4 +195,8 @@ __all__ = [
     "SCHED_FUSE_ROUNDS",
     "PREPARED_CACHE",
     "CHECKPOINT_PROGRESS_S",
+    "DEVICE_MIN_LENGTH",
+    "DEVICE_HALTON_ENV",
+    "DISK_CACHE_MIN_LENGTH",
+    "TABLE_CACHE_ENV",
 ]

@@ -47,7 +47,7 @@ import torch
 
 from . import config as _cfg
 from .config import ACCEL_GRAIN, RAY_BLOCK
-from .ops.halton import cached_halton, cached_halton_dims
+from .ops.halton import Table, cached_halton, cached_halton_dims
 from .ops.trace_cuda import TRI_ROWS
 from .utils.helpers import grid_from_density
 
@@ -145,6 +145,23 @@ class PreparedEmitter:
     @property
     def halton_r2(self) -> np.ndarray:
         return self._dims[4]
+
+    def dims_on(self, device) -> Tuple[Table, ...]:
+        """The five per-ray dimensions for a pack on ``device``: tensors built
+        on a CUDA device where the device builder takes their length (see
+        ``ops.halton._halton_dim``), else the host arrays of ``halton_*``.
+        Not kept on the emitter: the dims cache bounds what device tables
+        stay alive."""
+        if self.zero_area:
+            return self._dims
+        return cached_halton_dims(self.n_cells * self.rays, device)
+
+    def grids_on(self, device) -> Tuple[Table, Table]:
+        """``(u_grid, v_grid)`` for a pack on ``device``, as ``dims_on``
+        gives the dimensions (the grid's ``g*g`` cells decide)."""
+        if self.zero_area:
+            return self._grids
+        return cached_halton(self.g, device)
 
 
 def _safe_unit(v: np.ndarray) -> np.ndarray:
@@ -624,6 +641,12 @@ def pack_scene(scene: PreparedScene, n_surf: int, *, device: torch.device,
     )
 
 
+def _on(a: Table, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``: a device-built table as it is, a host array
+    uploaded unpadded."""
+    return a if isinstance(a, torch.Tensor) else _put(a, device)
+
+
 def pack_emitter(
     emitter: PreparedEmitter,
     rays: int,
@@ -632,24 +655,31 @@ def pack_emitter(
     device: torch.device,
 ) -> EmitterPack:
     """Pad the per-ray tables to ``_pad_rays(n_cells * rays, align)`` and
-    upload them with the emission geometry to ``device``."""
+    upload them with the emission geometry to ``device``.
+
+    Every table is padded on ``device``, and the per-ray cell jitter is
+    repeated there from the (g*g,) grids. Tables built on ``device`` (a big
+    emitter on a card: ``PreparedEmitter.dims_on``, ``grids_on``) stay
+    there; host ones are uploaded unpadded. Either way the pack is bitwise
+    the same."""
     n_rays_once = emitter.n_cells * rays
     n_rays_pad = _pad_rays(n_rays_once, align)
+    put = lambda a: _put(a, device)  # noqa: E731
 
-    def ray_table(a: np.ndarray) -> torch.Tensor:
-        out = np.zeros(n_rays_pad, dtype=np.float32)
-        out[: a.shape[0]] = a
-        return _put(out, device)
+    def ray_table(a: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.pad(a, (0, n_rays_pad - a.shape[0]))
 
-    put = lambda a: _put(a, device)
+    u_cell, v_cell = (ray_table(torch.repeat_interleave(_on(grid, device), rays))
+                      for grid in emitter.grids_on(device))
+    h_tri, h_u, h_v, h_r1, h_r2 = (ray_table(_on(d, device)) for d in emitter.dims_on(device))
     return EmitterPack(
-        u_cell=ray_table(np.repeat(emitter.u_grid, rays)),
-        v_cell=ray_table(np.repeat(emitter.v_grid, rays)),
-        h_tri=ray_table(emitter.halton_tri),
-        h_u=ray_table(emitter.halton_u),
-        h_v=ray_table(emitter.halton_v),
-        h_r1=ray_table(emitter.halton_r1),
-        h_r2=ray_table(emitter.halton_r2),
+        u_cell=u_cell,
+        v_cell=v_cell,
+        h_tri=h_tri,
+        h_u=h_u,
+        h_v=h_v,
+        h_r1=h_r1,
+        h_r2=h_r2,
         cdf=put(emitter.cdf),
         tri_a=put(emitter.tri_a),
         tri_e1=put(emitter.tri_e1),
@@ -666,8 +696,9 @@ def pack_emitter(
 
 class LazyEmitterPack:
     """Deferred EmitterPack: the ray counts and the host plane vector are
-    there at once; the per-ray device tables are uploaded only if a
-    per-emitter dispatch touches them.
+    there at once; the per-ray device tables are built (``pack_emitter``:
+    on the device where its Halton tables are) only if a per-emitter
+    dispatch touches them.
 
     The scheduled driver reads rays from the scene-wide flat tables, so
     with this wrapper a scheduled solve never holds a second device copy of
@@ -811,8 +842,10 @@ class PreparedSolver:
         left CDF search never selects past the last real face). Returns
         ``(tables_flat, geom_stacked, offsets, n_rays_pad)``: ``offsets[e]``
         is emitter e's first row in the flat tables, both NumPy int64.
-        Built on the host, as the JAX package builds tables below its
-        device-Halton threshold.
+        Built on the host, and uploaded once, unless some emitter's Halton
+        tables were built on the device (``PreparedEmitter.dims_on``): then
+        every table is padded and concatenated there, as the JAX package
+        does past its device-Halton threshold. Bitwise the same either way.
         """
         dev = _device_key(device)
         key = (dev, int(samples), int(rays), bool(flip_faces), int(align))
@@ -825,24 +858,32 @@ class PreparedSolver:
             [_pad_rays(e.n_cells * rays, align) for e in emitters], dtype=np.int64
         )
         offsets = np.concatenate([[0], np.cumsum(n_pad)[:-1]]).astype(np.int64)
-        put = lambda a: _put(a, torch.device(dev))  # noqa: E731
+        dev_t = torch.device(dev)
+        # per emitter: its u and v grids, then its five dimensions
+        tables = [em.grids_on(dev_t) + em.dims_on(dev_t) for em in emitters]
 
-        def flat(per_emitter_fn) -> torch.Tensor:
-            out = np.zeros(int(n_pad.sum()), dtype=np.float32)
-            for e_idx, em in enumerate(emitters):
-                arr = np.asarray(per_emitter_fn(em))
-                out[offsets[e_idx] : offsets[e_idx] + arr.shape[0]] = arr
-            return put(out)
+        if any(isinstance(t, torch.Tensor) for em_tables in tables for t in em_tables):
+            def flat(c: int) -> torch.Tensor:
+                parts = []
+                for e_idx, em_tables in enumerate(tables):
+                    arr = _on(em_tables[c], dev_t)
+                    if c < 2:
+                        arr = torch.repeat_interleave(arr, rays)
+                    parts.append(torch.nn.functional.pad(
+                        arr, (0, int(n_pad[e_idx]) - arr.shape[0])))
+                return torch.cat(parts)
+        else:
+            # all host tables: filled on the host and uploaded once a table,
+            # not once an emitter (a district's 97 emitters: 7 uploads, not 679)
+            def flat(c: int) -> torch.Tensor:
+                out = np.zeros(int(n_pad.sum()), dtype=np.float32)
+                for e_idx, em_tables in enumerate(tables):
+                    arr = np.repeat(em_tables[c], rays) if c < 2 else em_tables[c]
+                    out[offsets[e_idx] : offsets[e_idx] + arr.shape[0]] = arr
+                return _put(out, dev_t)
 
-        tables_flat = (
-            flat(lambda em: np.repeat(em.u_grid, rays)),
-            flat(lambda em: np.repeat(em.v_grid, rays)),
-            flat(lambda em: em.halton_tri),
-            flat(lambda em: em.halton_u),
-            flat(lambda em: em.halton_v),
-            flat(lambda em: em.halton_r1),
-            flat(lambda em: em.halton_r2),
-        )
+        tables_flat = tuple(flat(c) for c in range(7))
+        del tables
 
         f_max = max(em.cdf.shape[0] for em in emitters)
 
@@ -851,7 +892,7 @@ class PreparedSolver:
             for e_idx, em in enumerate(emitters):
                 arr = get(em)
                 out[e_idx, : arr.shape[0]] = arr
-            return put(out)
+            return _put(out, dev_t)
 
         geom_stacked = (
             stack(lambda em: em.cdf, fill=1.0),

@@ -14,7 +14,9 @@ the one-thread-a-ray kernel and their plain ``split=`` versions, checkpointed
 solves stopped mid-way and resumed on both routes, the command line on
 the card against the in-process solve, and sharded chunks, rounds and
 solves on a ray mesh (a logical mesh of 4 shards on the card, and every
-card) against unsharded ones.
+card) against unsharded ones, and the Halton tables built on the card
+against the host build, with the packs, flat tables and solves made from
+them.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1332,3 +1334,95 @@ def test_sharded_solves_on_card_equal_unsharded(card, monkeypatch, route):
     assert len(ps._scene_pack_cache) == len(ray_mesh().distinct)  # one copy a card
     with pytest.raises(ValueError, match="cannot mix"):
         ray_mesh([card, torch.device("cpu")])
+
+
+# ---------------------------------------------------------------------------
+# The Halton device builder on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def halton_clean(monkeypatch):
+    import raystrack_tpu_torch.ops.halton as thalton
+
+    monkeypatch.delenv(tconfig.TABLE_CACHE_ENV, raising=False)
+    monkeypatch.delenv(tconfig.DEVICE_HALTON_ENV, raising=False)
+    thalton.cached_halton_dims.cache_clear()
+    thalton.cached_halton.cache_clear()
+    yield thalton
+    thalton.cached_halton_dims.cache_clear()
+    thalton.cached_halton.cache_clear()
+
+
+@pytest.mark.parametrize("base", [5, 2, 3, 7, 11])
+def test_device_halton_bitwise_equals_host_on_card(card, halton_clean, base):
+    """4,194,304 entries (the smoke's phase 21 size) built on the card are
+    the host build, bit for bit: the exact float64 division included."""
+    thalton = halton_clean
+    n = 4_194_304
+    table = thalton._halton_dim_device(n, base, card)
+    assert table.device.type == "cuda" and table.dtype == torch.float32
+    assert torch.equal(table.cpu(), torch.from_numpy(thalton._halton_dim_host(n, base)))
+
+
+@pytest.mark.parametrize("base,length", [(2, 40_000), (3, 4096 * 2 + 3_000), (11, 4097)])
+def test_device_halton_chunk_stitching_on_card(card, halton_clean, monkeypatch, base, length):
+    thalton = halton_clean
+    monkeypatch.setattr(thalton, "DEVICE_CHUNK", 4096)
+    table = thalton._halton_dim_device(length, base, card)
+    assert torch.equal(table.cpu(), torch.from_numpy(thalton._halton_dim_host(length, base)))
+
+
+@pytest.mark.parametrize("g,chunk", [(2048, None), (91, 4096)])
+def test_device_halton_grid_bitwise_on_card(card, halton_clean, monkeypatch, g, chunk):
+    """The (u, v) grid built on the card (2048 x 2048 cells, and chunk
+    seams) is the host grid bit for bit: the float64 sum and division too."""
+    thalton = halton_clean
+    if chunk is not None:
+        monkeypatch.setattr(thalton, "DEVICE_CHUNK", chunk)
+    for got, want in zip(thalton._halton_grid_device(g, card), thalton._halton_grid_host(g)):
+        assert got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def test_device_tables_pack_and_solve_on_card(card, halton_clean, monkeypatch):
+    """With the threshold lowered so every emitter's tables and grid are
+    built on the card: the emitter packs and the flat tables stay on the
+    card and equal the host-built ones, and solves on both routes give the
+    dicts of the host tables (RAYSTRACK_TPU_DEVICE_HALTON=0)."""
+    import raystrack_tpu_torch.prepared as tprep
+
+    thalton = halton_clean
+    meshes = [("a", *_quad(0.0, 1)), ("b", *_quad(1.0, -1)), ("c", *_quad(2.0, 1))]
+    monkeypatch.setattr(tconfig, "DEVICE_MIN_LENGTH", 50)  # the 64-cell grids too
+
+    def run():
+        ps = raystrack_tpu_torch.PreparedSolver(meshes)
+        pack = ps.get_emitter_pack(0, samples=64, rays=64, flip_faces=False, device=card)
+        flat = ps.get_flat_tables(samples=64, rays=64, flip_faces=False, device=card)[0]
+        out = {}
+        for route in ("scheduled", "grouped"):
+            monkeypatch.setattr(tconfig, "SCHEDULER", route)
+            out[route] = raystrack_tpu_torch.view_factor_matrix(
+                meshes, raystrack_tpu_torch.MatrixParams(
+                    samples=64, rays=64, min_iters=3, max_iters=3, reciprocity=False,
+                    device="gpu"), prepared=ps)
+        return pack, flat, out
+
+    dev_pack, dev_flat, dev_vf = run()
+    assert isinstance(thalton.cached_halton_dims(64 * 64, card)[0], torch.Tensor)
+    assert isinstance(thalton.cached_halton(8, card)[0], torch.Tensor)
+    monkeypatch.setenv(tconfig.DEVICE_HALTON_ENV, "0")
+    thalton.cached_halton_dims.cache_clear()
+    thalton.cached_halton.cache_clear()
+    host_pack, host_flat, host_vf = run()
+    for field in ("u_cell", "v_cell", "h_tri", "h_u", "h_v", "h_r1", "h_r2"):
+        a, b = getattr(dev_pack, field), getattr(host_pack, field)
+        assert a.is_cuda and torch.equal(a, b), field
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(dev_flat, host_flat))
+    assert dev_vf == host_vf and dev_vf["scheduled"] == dev_vf["grouped"]
+
+
+def _quad(z, normal):
+    V = np.array([[0, 0, z], [1, 0, z], [1, 1, z], [0, 1, z]], np.float32)
+    F = np.array([[0, 1, 2], [0, 2, 3]] if normal > 0 else [[0, 2, 1], [0, 3, 2]], np.int32)
+    return V, F
