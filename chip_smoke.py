@@ -13,8 +13,8 @@ on the card through seven scenes, and ``view_factor_to_tregenza_sky``,
 the canyon and the 1M-triangle city, then the ray mesh and the
 multi-process solve (``raystrack_tpu_torch.parallel``) on the city and the
 district, the Halton tables built on the card for ex02's 89M-ray ground,
-and the validation suite, and checks each against its analytic or plain
-reference:
+the validation suite and a 30M-triangle city through the slim pack and the
+two-level gate, and checks each against its analytic or plain reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      where the library was built, nvcc build time, register/spill
@@ -168,6 +168,20 @@ reference:
 22. validation the nine cases of validation/ through the port
               (validate_torch.py) at their full settings, each within its
               own tolerance, beside the committed TPU values
+23. range     city_100m_torch.py's steps on the 30,000,000-triangle city
+              (29,999,990 triangles, 30,001,152 padded, 14,649 tiles), cut
+              from the JAX package's documented 10^8 to keep this script's
+              time: packed slim by the default config; the two-level gate
+              (groups of 2 over 7,325 boxes, the last one real tile and one
+              phantom, no early-exit window); the r05 sweep cases gated ==
+              ungated on the 24-block subset and the full ray set; kernel #1
+              in code mode, gated, on the full chunk == ungated and, on its
+              first 24 blocks, == its plain gated version (codes, flags,
+              visits), timed beside its bound; the bounded solve (3
+              iterations) per-emitter on the resident pack, every kernel #1
+              launch gated and in code mode, one crossing and count launch a
+              chunk, == ``bvh="off"``; set-up split by step, host peak RSS,
+              device peak per padded triangle beside phase 14's slim slope
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -195,6 +209,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from city_100m_torch import city_meshes, slim_threshold
+
 ROOT = Path(__file__).resolve().parent
 PLATES_EXACT = 0.1998249
 PLATES_TPU = 0.1998818169
@@ -203,6 +219,8 @@ SOUP_CHUNK = 4
 SOUP8_RAYS = 8 * 4 * 8192  # emitters x iterations x rays per iteration
 CITY_TRIS = 1_000_000
 BIG_CITY_TRIS = 10_000_000  # bench.py's largest gated city: 4,883 tiles of 2048
+# phase 23: city_100m_torch.py's steps; 14,649 tiles, slim by default, groups of 2
+RANGE_CITY_TRIS = 30_000_000
 CITY_PLAIN_BLOCKS = 64  # leading 256-ray blocks the plain gated versions run
 RAY_SUB = 256  # rays per kernel block (trace_cuda.RAY_SUBBLOCK)
 # H100 SXM data sheet: HBM3 bytes/s, and FP32 instructions/s: the sheet's
@@ -254,37 +272,6 @@ def soup8_meshes():
                           [x0, y0 + 8, 0]], np.float32)
             plates.append((f"plate_{i}{j}", V, F.copy()))
     return plates + [soup_meshes()[1]]
-
-
-def city_meshes(n_tri: int = CITY_TRIS, extent: float = 100.0, seed: int = 0):
-    """Ground emitter + dense random boxes, near geometry occluding far: the
-    JAX package's bench.py ``_city`` (occluded_city), copied. At 1M
-    triangles: a 200 x 200 ground and 83,333 boxes, 999,998 triangles."""
-    V = np.array([[-extent, -extent, 0], [extent, -extent, 0],
-                  [extent, extent, 0], [-extent, extent, 0]], np.float32)
-    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    n_boxes = max(1, (n_tri - 2) // 12)
-    rng = np.random.default_rng(seed)
-    cx = rng.uniform(-extent, extent, (n_boxes, 2))
-    w = rng.uniform(1.0, 4.0, (n_boxes, 2))
-    h = rng.uniform(2.0, 25.0, n_boxes)
-    box_f = np.array([[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6],
-                      [0, 4, 5], [0, 5, 1], [1, 5, 6], [1, 6, 2],
-                      [2, 6, 7], [2, 7, 3], [3, 7, 4], [3, 4, 0]], np.int32)
-    x0, y0 = (cx - w).T.astype(np.float32)
-    x1, y1 = (cx + w).T.astype(np.float32)
-    h32 = h.astype(np.float32)
-    vs = np.empty((n_boxes, 8, 3), np.float32)
-    vs[:, (0, 3, 4, 7), 0] = x0[:, None]
-    vs[:, (1, 2, 5, 6), 0] = x1[:, None]
-    vs[:, (0, 1, 4, 5), 1] = y0[:, None]
-    vs[:, (2, 3, 6, 7), 1] = y1[:, None]
-    vs[:, :4, 2] = np.float32(0.05)
-    vs[:, 4:, 2] = h32[:, None]
-    faces = (box_f[None, :, :]
-             + 8 * np.arange(n_boxes, dtype=np.int32)[:, None, None])
-    return [("ground", V, F),
-            ("city", vs.reshape(-1, 3), faces.reshape(-1, 3))]
 
 
 def city_plates_meshes(boxes=None, nx: int = 5):
@@ -1314,17 +1301,6 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
           f"kernel stages 17 pack rows, the baked one 19")
     k["ungated_plain_ms"], k["ungated_kernel_ms_on_plain_blocks"] = plain_ms, ms_sub
     return k
-
-
-@contextlib.contextmanager
-def slim_threshold(config, n_tris: int):
-    """The port's slim threshold set to ``n_tris`` for the block, then restored."""
-    default = config.SLIM_PACK_MIN_TRIS
-    config.SLIM_PACK_MIN_TRIS = n_tris
-    try:
-        yield
-    finally:
-        config.SLIM_PACK_MIN_TRIS = default
 
 
 def mode_footprint(label, meshes, solve_with, slim: bool, dev, repeats: int = 3):
@@ -2722,6 +2698,69 @@ def phase_validation() -> dict:
     return out
 
 
+def phase_range(dev, pair_ops, slim_slope: dict) -> dict:
+    """Phase 23: city_100m_torch.py's steps at RANGE_CITY_TRIS triangles,
+    with the default config: the scene packs slim, its 14,649 tiles take the
+    two-level gate (groups of 2 over 7,325 boxes, the last group one real
+    tile and one phantom, no early-exit window); the r05 sweep cases gated
+    == ungated (the 24-block subset and the full ray set); kernel #1's gated
+    code-mode launch on the full chunk == the ungated one and, on its first
+    24 blocks, == its plain gated version (codes, flags, visits); the
+    bounded solve per-emitter on the resident pack, every kernel #1 launch
+    gated and in code mode, == its ``bvh="off"`` twin; the device peak per
+    padded triangle beside phase 14's slim slope (``slim_slope``: its first
+    and warm solves' B per padded triangle). Bounds from the SASS counts of
+    the instantiations that launched."""
+    import city_100m_torch as city
+    from raystrack_tpu_torch import PreparedSolver
+    from raystrack_tpu_torch.ops.trace_cuda import GATED_SPLIT, sweep_split
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    meshes = city_meshes(RANGE_CITY_TRIS)
+    gen_s = time.perf_counter() - t0
+    ps = PreparedSolver(meshes)
+    out = city.mode_run(meshes, ps, dev, city.DeviceMemory(dev), reps=3)
+    del ps
+    shape = out["gate"]
+    got = (out["n_tri"], out["n_tri_pad"], shape["group"], shape["n_boxes"])
+    check(out["slim"], f"the {RANGE_CITY_TRIS}-triangle city packed full by default")
+    check(got == city.EXPECTED[RANGE_CITY_TRIS] and shape["window"] == 0
+          and shape["phantoms"] == 1,
+          f"range city: (triangles, padded, group, boxes) {got}, window {shape['window']}, "
+          f"{shape['phantoms']} phantoms")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = out["sweeps"]["n_full"] // RAY_SUB
+    for row in out["kernels"]:
+        gated = not row["launch"].endswith("ungated")
+        split = GATED_SPLIT if gated else sweep_split(n_blocks, False, n_sms)
+        name = f"sweep_code_kernel<1,0,{int(gated)}>" + (f"x{split}" if split > 1 else "")
+        row["fp32_per_pair"] = pair_ops[name][0]
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["pairs"], pair_ops[name][0])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print(f"[range] {row['launch']} ({name}): {row['ms']:.3f} ms, {row['pairs']:.4g} pair "
+              f"tests, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+              f"{pair_ops[name][0]:g} FP32 instructions a pair): {row['share_of_bound']:.1%}")
+    per_tri = out["peak_bytes_per_tri"]
+    print(f"[range] device peak over the pack, sweeps and gated solve {out['peak_bytes'] / 2**30:.3f} "
+          f"GiB = {per_tri:.1f} B per padded triangle; phase 14's slim slope "
+          f"{slim_slope['first_peak']:.1f} B (first solve), {slim_slope['warm_peak']:.1f} B "
+          f"(warm), {slim_slope['resident']:.1f} B resident (here {out['resident_bytes_per_tri']:.1f})")
+    sw = out["sweeps"]
+    result = dict(
+        n_tri=out["n_tri"], n_tri_pad=out["n_tri_pad"], gate=shape, generate_s=gen_s,
+        setup_s=out["setup_s"], emitter_pack_s=out["emitter_pack_s"],
+        host_peak_rss_bytes=out["host_peak_rss_bytes"],
+        resident_bytes_per_tri=out["resident_bytes_per_tri"], peak_bytes_per_tri=per_tri,
+        slim_slope=slim_slope, hits=sw["hits"], sweep_best_s=sw["best_s"],
+        kernels=out["kernels"], solve_s=out["solve"]["seconds"],
+        off_solve_s=out["solve_off"]["seconds"], solve_chunks=out["solve"]["chunks"],
+        ground_to_city=out["solve"]["ground_to_city"])
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"[range] phase 23 took {result['phase_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -2740,9 +2779,9 @@ def main() -> int:
     from raystrack_tpu_torch.prepared import EmitterPack
     from analytic import canyon_ground_truth
 
-    check(config.SLIM_PACK_MIN_TRIS > BIG_CITY_TRIS + 2048,
-          "SLIM_PACK_MIN_TRIS is set below this script's scenes: unset "
-          "RAYSTRACK_TPU_SLIM_PACK_MIN_TRIS")
+    check(BIG_CITY_TRIS + 2048 < config.SLIM_PACK_MIN_TRIS <= RANGE_CITY_TRIS,
+          "SLIM_PACK_MIN_TRIS is not between the 10M city, packed full by default, and "
+          "phase 23's city, packed slim: unset RAYSTRACK_TPU_SLIM_PACK_MIN_TRIS")
 
     # 1. card
     card = card_line()
@@ -3311,6 +3350,20 @@ def main() -> int:
     check(launches_val[2] > 0 and launches_val[4] > 0,
           "phase 22 launched no kernel #2 or count")
 
+    # 23. the JAX package's documented range, cut to 3e7: city_100m_torch.py's
+    # steps, slim by default and the two-level gate
+    reset_launches()
+    range_out = phase_range(dev, pair_ops, per_tri[True])
+    launches_range = launches_now()
+    code_range = sweep_rays.code_launches
+    print(f"[launches] phase 23: kernel #1 {launches_range[0]} ({launches_range[1]} gated, "
+          f"{code_range} in code mode), kernel #2 {launches_range[2]}, count "
+          f"{launches_range[4]}, crossing {launches_range[5]}")
+    check(launches_range[0] == code_range > launches_range[1] > 0 and launches_range[2] == 0
+          and launches_range[4] > 0 and launches_range[5] > 0,
+          "phase 23: kernel #1 not all in code mode, or no gated launch, crossing or count, "
+          "or a kernel #2 launch")
+
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
@@ -3323,12 +3376,14 @@ def main() -> int:
     sweep_entry = kernel_entry(
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
         launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0]
-        + launches_resume["k1"] + launches_par["k1"] + launches_halton[0] + launches_val[0],
+        + launches_resume["k1"] + launches_par["k1"] + launches_halton[0] + launches_val[0]
+        + launches_range[0],
         launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1]
         + launches_resume["k1_gated"] + launches_par["k1_gated"] + launches_halton[1]
-        + launches_val[1],
-        max(max_err, city_code["max_abs_err"]), ms, plain_ms, bound1, city_k1)
-    sweep_entry["code_launches"] = launches_slim[2] + launches_big[2]
+        + launches_val[1] + launches_range[1],
+        max(max_err, city_code["max_abs_err"], range_out["kernels"][0]["max_abs_err"]),
+        ms, plain_ms, bound1, city_k1)
+    sweep_entry["code_launches"] = launches_slim[2] + launches_big[2] + code_range
     sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
     sched_entry = kernel_entry(
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
@@ -3356,6 +3411,9 @@ def main() -> int:
     sched_entry["halton_launches"] = launches_halton[2]
     sweep_entry["validation_launches"] = launches_val[0]
     sched_entry["validation_launches"] = launches_val[2]
+    # phase 23's: the 3e7 city's sweeps, kernel launches and solves
+    sweep_entry["range_launches"] = launches_range[0]
+    sweep_entry["range_kernels"] = range_out["kernels"]
     sky_summary = dict(
         canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
         canyon_patch_sum_diff=canyon_sky["patch_diff"],
@@ -3370,6 +3428,7 @@ def main() -> int:
     print(f"[parallel] summary: {json.dumps(parallel)}")
     print(f"[halton] summary: {json.dumps(halton_out)}")
     print(f"[validation] summary: {json.dumps(validation)}")
+    print(f"[range] summary: {json.dumps(range_out)}")
     print(json.dumps({"kernels": [
         sweep_entry,
         sched_entry,
@@ -3381,7 +3440,7 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace.py:865",
             "launches": launches3 + count_city + count_slim + count_big + launches_sky[4]
             + launches_resume["count"] + launches_par["count"] + launches_halton[4]
-            + launches_val[4],
+            + launches_val[4] + launches_range[4],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -3402,7 +3461,7 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
             "launches": cross_city + cross_slim + cross_big + launches_sky[5]
             + launches_resume["cross"] + launches_par["cross"] + launches_halton[5]
-            + launches_val[5],
+            + launches_val[5] + launches_range[5],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,

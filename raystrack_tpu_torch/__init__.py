@@ -35,6 +35,8 @@ from .solver import (
     view_factor_to_tregenza_sky,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "view_factor_matrix",
     "view_factor",

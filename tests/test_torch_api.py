@@ -11,6 +11,7 @@
   package's.
 - ``MatrixParams.from_dict`` takes the dict the JAX package's takes, field
   for field, and refuses an unknown key the same way.
+- ``__version__`` is the JAX package's.
 """
 import dataclasses
 import fnmatch
@@ -21,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+import raystrack_tpu
 import raystrack_tpu.prepared as jprep
 from raystrack_tpu.params import MatrixParams as JMatrixParams
 
+import raystrack_tpu_torch
 import raystrack_tpu_torch.prepared as tprep
 from raystrack_tpu_torch.ops import build as tbuild
 from raystrack_tpu_torch.params import MatrixParams as TMatrixParams
@@ -203,3 +206,7 @@ def test_matrix_params_from_dict_refuses_what_the_jax_package_refuses():
     with pytest.raises(ValueError, match="device"):  # the port's own device check
         TMatrixParams.from_dict({"device": "tpu"})
 
+
+
+def test_version_equals_the_jax_packages():
+    assert raystrack_tpu_torch.__version__ == raystrack_tpu.__version__ == "0.1.0"

@@ -14,9 +14,10 @@ the one-thread-a-ray kernel and their plain ``split=`` versions, checkpointed
 solves stopped mid-way and resumed on both routes, the command line on
 the card against the in-process solve, and sharded chunks, rounds and
 solves on a ray mesh (a logical mesh of 4 shards on the card, and every
-card) against unsharded ones, and the Halton tables built on the card
+card) against unsharded ones, the Halton tables built on the card
 against the host build, with the packs, flat tables and solves made from
-them.
+them, and kernel #1 in code mode behind the two-level gate with a ragged
+last group on a 2M-triangle slim city against its plain version.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1339,6 +1340,86 @@ def test_sharded_solves_on_card_equal_unsharded(card, monkeypatch, route):
 # ---------------------------------------------------------------------------
 # The Halton device builder on the card
 # ---------------------------------------------------------------------------
+
+
+MID_CITY_TRIS = 2_000_000  # 1,999,994 triangles, 2,000,896 padded: 977 tiles of 2,048
+MID_MAX_TILES = 400  # 977 tiles -> groups of 3 over 326 boxes; the last 2 real tiles, 1 phantom
+
+
+@pytest.fixture(scope="module")
+def mid_city():
+    """The 2M-triangle occluded city (``city_100m_torch.city_meshes``)
+    packed slim on the card, and the ground's first iteration of rays at
+    samples=1 (49,152, 192 blocks), coherence-sorted as ``chunk_body``
+    sorts them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from city_100m_torch import city_meshes
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.solver import _cp_rows, _emission_geometry, _ray_tables
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = city_meshes(MID_CITY_TRIS)
+    ps = raystrack_tpu_torch.PreparedSolver(meshes)
+    slim = pack_scene(ps.get_scene(use_accel=True), len(meshes), device=dev, slim=True)
+    em = ps.get_emitter_pack(0, samples=1, rays=1, flip_faces=False, device=dev)
+    o, d = T.generate_rays(_ray_tables(em), _emission_geometry(em),
+                           torch.from_numpy(_cp_rows(0, 0, 0, 1)).to(dev))
+    valid = (torch.arange(em.n_rays_pad, device=dev) < em.n_rays_once)[None]
+    o, d, _ = T._sorted_for_gate(o, d, valid, slim.accel)
+    return slim, T.ray_pack(o, d)
+
+
+@pytest.mark.parametrize("n", [49152, 5000], ids=["chunk", "ragged"])
+@pytest.mark.parametrize(
+    "want_matrix,want_any", [(True, False), (False, True), (True, True)],
+    ids=["matrix", "any", "both"],
+)
+def test_two_level_code_kernel_on_a_slim_city_equals_plain(mid_city, monkeypatch, want_matrix,
+                                                           want_any, n):
+    """Kernel #1 in code mode behind the two-level gate with a ragged last
+    group (groups of 3 tiles, one phantom) on the 2M city's slim pack: ==
+    its plain gated version on the leading blocks (codes, flags, visits:
+    the kernel's own tables, their rows of those blocks) and == the
+    ungated kernel over all ``n`` rays; one gated code-mode launch."""
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", MID_MAX_TILES)
+    slim, rays_all = mid_city
+    rays = rays_all[:, :n].contiguous()
+    dev = rays.device
+    tile = sweep_tile_width(slim.n_tri_pad, 2048)
+    n_tiles = slim.n_tri_pad // tile
+    assert (n_tiles, gate_group_size(n_tiles)) == (977, 3) and -(-n_tiles // 3) * 3 - n_tiles == 1
+    ext = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    mask, bounds = slim_operands(slim.sid, ext, 0, 0, want_any=want_any)
+    kw = dict(want_matrix=want_matrix, want_any=want_any)
+    nb = -(-n // 256)
+    gate = _gate_tables(slim.accel, rays, n_tiles, tile, window=_resolve_gate_window(3))
+    assert gate.group == 3 and gate.window == 0 and gate.boxes.shape[0] == 326
+    monkeypatch.setattr(tcuda, "_gate_for", lambda accel, *args: None if accel is None else gate)
+    visits = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+    before = (sweep_rays.gated_launches, sweep_rays.code_launches)
+    codes, any_hit = sweep_rays(rays, slim.tri_pack, mask, tri_tile=2048, accel=slim.accel,
+                                code_bounds=bounds, visits=visits, **kw)
+    torch.cuda.synchronize()
+    assert (sweep_rays.gated_launches, sweep_rays.code_launches) == (before[0] + 1, before[1] + 1)
+    k = min(nb, 20)
+    lead = slice(0, min(n, k * 256))
+    tiles_on = _gated_tiles_on(mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
+    plain_visits = torch.full((k,), -2, dtype=torch.int32, device=dev)
+    want = sweep_rays_reference(rays[:, lead].contiguous(), slim.tri_pack, tiles_on, tile,
+                                code_bounds=bounds, gate=gate.blocks(torch.arange(k, device=dev)),
+                                visits=plain_visits, split=tcuda.GATED_SPLIT, **kw)
+    assert torch.equal(codes[lead], want[0]) and torch.equal(any_hit[lead], want[1])
+    assert torch.equal(visits[:k], plain_visits)
+    full = torch.zeros_like(visits)
+    ungated = sweep_rays(rays, slim.tri_pack, mask, tri_tile=2048, code_bounds=bounds,
+                         visits=full, **kw)
+    assert torch.equal(codes, ungated[0]) and torch.equal(any_hit, ungated[1])
+    assert int(visits.sum()) < int(full.sum())  # the gate skipped tiles
+    if want_matrix:
+        assert int((codes >= 0).sum()) > n // 2
+    if want_any:
+        assert int(any_hit.sum()) > n // 2
 
 
 @pytest.fixture
