@@ -13,8 +13,9 @@ on the card through seven scenes, and ``view_factor_to_tregenza_sky``,
 the canyon and the 1M-triangle city, then the ray mesh and the
 multi-process solve (``raystrack_tpu_torch.parallel``) on the city and the
 district, the Halton tables built on the card for ex02's 89M-ray ground,
-the validation suite and a 30M-triangle city through the slim pack and the
-two-level gate, and checks each against its analytic or plain reference:
+the validation suite, a 30M-triangle city through the slim pack and the
+two-level gate, and the examples (``examples_torch/``) at their own
+settings, and checks each against its analytic or plain reference:
 
 1. card       name, power limit, torch and CUDA versions
 2. build      where the library was built, nvcc build time, register/spill
@@ -182,6 +183,23 @@ two-level gate, and checks each against its analytic or plain reference:
               launch gated and in code mode, one crossing and count launch a
               chunk, == ``bvh="off"``; set-up split by step, host peak RSS,
               device peak per padded triangle beside phase 14's slim slope
+24. examples  each ``examples_torch`` script's ``main`` at its own default
+              settings (device="gpu"), twice (the second warm), output into a
+              temporary directory under build/: wall, device peak, launches
+              and progress lines of each; ex00's JSON == the committed one;
+              ex01, ex03, ex04 and ex07's files against the JAX examples'
+              committed outputs (same keys, max |dF| <= 3 x the example's
+              tol), rows summing to [0, 1], ex03's scene + sky + rest == 1
+              within 1e-9, ex04's rows to 1 within 3e-3, ex07's second run
+              restoring every emitter (no launch) into an identical file;
+              ex05's later seeds reusing every prepared object; ex08's
+              scatter within 4 sigma and stats keyed as the values; ex02's
+              direct sky against 1 - sum(scene) per canyon emitter; each
+              example's route (kernel #1, #2 launches); ex06's row (the
+              JAX package's XLA-sweep case: 252 triangles) launch by launch,
+              each replayed behind the spin kernel == the solve's own, beside
+              the empty kernel's floor and its FP32 bound, its warm walls,
+              and == the full matrix's row (kernel #2)
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -407,41 +425,59 @@ def launch_times(raw, wrapper) -> dict:
     - ``raw_enqueue_ms``: the same for the raw launches, which must stay
       well inside the spin for ``device_ms`` to hold no host time.
     """
-    from raystrack_tpu_torch.ops.build import load_library
-
-    lib = load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    empty = lambda: lib.raystrack_empty(stream)  # noqa: E731
     out = {}
     def call() -> int:
         wrapper()
         return 0
 
-    for key, fn in (("device_ms", raw), ("floor_ms", empty), ("call_device_ms", call)):
-        check(fn() == 0, f"a launch was refused while timing {key}")
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        check(lib.raystrack_spin(SPIN_NS, stream) == 0, "the spin kernel was refused")
-        start.record()
-        t0 = time.perf_counter()
-        errs = sum(fn() != 0 for _ in range(LAUNCHES))
-        enqueued = time.perf_counter() - t0
-        end.record()
-        end.synchronize()
-        check(errs == 0, f"{errs} launches refused while timing {key}")
-        out[key] = start.elapsed_time(end) / LAUNCHES
+    for key, fn in (("device_ms", raw), ("floor_ms", empty_launch()), ("call_device_ms", call)):
+        out[key], enqueued = queued_ms(fn, LAUNCHES, key)
         if key == "device_ms":
             out["raw_enqueue_ms"] = enqueued / LAUNCHES * 1e3
-        check(enqueued * 1e9 < 0.5 * SPIN_NS, f"the launches took longer to enqueue than "
-              f"half the spin: {key} would hold host time")
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(LAUNCHES):
         wrapper()
     out["enqueue_ms"] = (time.perf_counter() - t0) / LAUNCHES * 1e3
     torch.cuda.synchronize()
     return out
+
+
+def empty_launch():
+    """A launch of the library's empty kernel on the current stream (0 if
+    it was taken): the launch floor's yardstick."""
+    from raystrack_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.raystrack_empty(stream)
+
+
+def queued_ms(fn, n: int, label: str) -> tuple:
+    """``n`` back-to-back calls of ``fn()`` (each 0 when its launch was
+    taken) enqueued behind the library's spin kernel: (device ms a call by
+    CUDA events, host seconds to enqueue them all). Behind the spin they run
+    back to back on the card whatever the host's rate; the enqueue must stay
+    inside half the spin for the time to hold no host time."""
+    from raystrack_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    check(fn() == 0, f"a launch was refused while timing {label}")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    check(lib.raystrack_spin(SPIN_NS, stream) == 0, "the spin kernel was refused")
+    start.record()
+    t0 = time.perf_counter()
+    errs = sum(fn() != 0 for _ in range(n))
+    enqueued = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    check(errs == 0, f"{errs} launches refused while timing {label}")
+    check(enqueued * 1e9 < 0.5 * SPIN_NS, f"the launches took longer to enqueue than "
+          f"half the spin: {label} would hold host time")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, enqueued
 
 
 def cuda_ms(fn, reps: int = 3):
@@ -2398,26 +2434,6 @@ def phase_parallel(dev, city_ps, city_plates_ps, city, city_plates, cases, city_
     return out
 
 
-# Copied from examples/ex02_compare_sky_vf.py (GROUND_NAME, GROUND_MARGIN,
-# ground_plane), which imports the JAX package at module level.
-GROUND_NAME = "infinite_ground"
-GROUND_MARGIN = 100.0  # extra extent beyond the scene bounds
-
-
-def ground_plane(meshes):
-    """A large ground quad sized from the scene bounds, slightly below the
-    lowest z so it never lies coplanar with scene geometry."""
-    all_v = np.concatenate([V for _, V, _ in meshes], axis=0)
-    lo = all_v.min(axis=0)
-    hi = all_v.max(axis=0)
-    x0, x1 = float(lo[0] - GROUND_MARGIN), float(hi[0] + GROUND_MARGIN)
-    y0, y1 = float(lo[1] - GROUND_MARGIN), float(hi[1] + GROUND_MARGIN)
-    z = float(lo[2]) - 1e-3
-    V = np.array([[x0, y0, z], [x1, y0, z], [x1, y1, z], [x0, y1, z]], np.float32)
-    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    return GROUND_NAME, V, F
-
-
 EX02_GROUND_RAYS = 89_458_688  # 836 x 836 cells x 128 rays: past SCHED_MAX_FLAT_RAYS
 HALTON_CHECK_LENGTH = 4_194_304  # phase 21's whole tables, against the host build
 HALTON_GRID_SIDE = 2048  # and its (u, v) grid of as many cells
@@ -2425,15 +2441,13 @@ HALTON_SAMPLED = 10_000  # random indices of the ground's tables checked exactly
 
 
 def ex02_case(samples=16):
-    """ex02's matrix (examples/ex02_compare_sky_vf.py): the canyon and its
+    """ex02's matrix (examples_torch/ex02_compare_sky_vf.py): the canyon and its
     ground plane at ex02's own MatrixParams, on the card."""
-    from raystrack_tpu_torch import MatrixParams
     from examples.ex00_street_canyon_geometry import build_street_canyon
+    from examples_torch.ex02_compare_sky_vf import ground_plane, matrix_params
 
     canyon = build_street_canyon()
-    return canyon + [ground_plane(canyon)], MatrixParams(
-        samples=samples, rays=128, seed=20, bvh="auto", device="gpu", min_iters=1,
-        tol=1e-4, tol_mode="stderr", max_iters=50, reciprocity=False)
+    return canyon + [ground_plane(canyon)], matrix_params(samples=samples)
 
 
 @contextlib.contextmanager
@@ -2542,6 +2556,8 @@ def check_ex02_rows(vf, meshes, label: str) -> None:
         values = np.array(list(row.values()), dtype=np.float64)
         check(bool(np.all(np.isfinite(values)) and np.all(values >= 0.0)
                    and values.sum() <= 1.0 + 1e-6), f"{label}: row {name} out of range")
+    from examples_torch.ex02_compare_sky_vf import GROUND_NAME
+
     check(sum(vf[GROUND_NAME].values()) > 0.0, f"{label}: the ground sees nothing")
 
 
@@ -2759,6 +2775,353 @@ def phase_range(dev, pair_ops, slim_slope: dict) -> dict:
     result["phase_s"] = time.perf_counter() - t_phase
     print(f"[range] phase 23 took {result['phase_s']:.1f} s")
     return result
+
+
+# phase 24: the examples through the port (examples_torch/), each at its own
+# default settings, in the order they were ported
+EXAMPLES = ("ex00_street_canyon_geometry", "ex01_compute_vf", "ex03_workflow",
+            "ex04_inside_enclosure", "ex05_prepared_seed_compare", "ex08_uncertainty",
+            "ex07_resumable_pipeline", "ex06_city_block", "ex02_compare_sky_vf")
+# the JAX examples' committed outputs (from TPU runs; the JAX package on the
+# CPU reproduces each within 1.5e-7), and each example's own tol: the port's
+# files are held to 3x it, the bound PERF.md section 2 holds the plates to
+COMMITTED = {"ex01_compute_vf": (("vf_matrix.json",), 1e-4),
+             "ex03_workflow": (("vf_scene_workflow.json", "sky_vf_workflow.json"), 1e-4),
+             "ex04_inside_enclosure": (("inside_vf_matrix.json",), 1e-3),
+             "ex07_resumable_pipeline": (("vf_streamed.json",), 1e-3)}
+# ex02: 1 - sum(scene) counts the rays that hit nothing, the direct sky only
+# the upward ones; the gap is the downward rays that pass beyond the finite
+# ground. An emitter facing up sends none: its gap is the two solves' Monte
+# Carlo difference, held to 2x the worst measured (5.1e-5, the road, this
+# phase on an NVIDIA H100 80GB HBM3 at 700 W)
+EX02_UP_BOUND = 1.02e-4
+EX06_REPLAYS = 20  # queued replays of each kernel #1 launch of ex06's row
+
+
+def vf_diff(got: dict, want: dict) -> tuple:
+    """(the same (sender, key) pairs, max |dF| over their union, an absent
+    entry 0)."""
+    keys_got = {(s, k) for s, row in got.items() for k in row}
+    keys_want = {(s, k) for s, row in want.items() for k in row}
+    diff = max((abs(got.get(s, {}).get(k, 0.0) - want.get(s, {}).get(k, 0.0))
+                for s, k in keys_got | keys_want), default=0.0)
+    return keys_got == keys_want, diff
+
+
+LAUNCH_KEYS = ("k1", "k1_gated", "k2", "k2_gated", "count", "cross")
+
+
+def ground_gap_bound(V: np.ndarray, F: np.ndarray, margin: float) -> float:
+    """The largest share of a planar emitter's cosine-weighted rays that can
+    pass below ex02's ground plane (``margin`` beyond the scene's bounds, 1e-3
+    below its lowest point): 0 for an emitter facing up; for a vertical one,
+    the rays less than alpha = atan((z_top + 1e-3) / margin) below the
+    horizon, (alpha + sin(2 alpha) / 2) / pi of them (a ray deeper than that
+    meets the ground before its edge)."""
+    n = np.cross(V[F[0, 1]] - V[F[0, 0]], V[F[0, 2]] - V[F[0, 0]]).astype(np.float64)
+    n /= np.linalg.norm(n)
+    if n[2] > 1.0 - 1e-6:
+        return 0.0
+    check(abs(n[2]) < 1e-6, "ex02: an emitter neither vertical nor facing up")
+    alpha = float(np.arctan((float(V[:, 2].max()) + 1e-3) / margin))
+    return (alpha + np.sin(2.0 * alpha) / 2.0) / np.pi
+
+
+def run_example(label: str, fn, launches) -> tuple:
+    """One call of ``fn()``, an example's ``main``, from a drained card to a
+    drained card: (its result, dict(wall_s, peak_mib over the bytes held
+    before, the launches it made by LAUNCH_KEYS (``launches()`` reads the
+    counts in that order), its progress lines and the rays they report)).
+    The lines the example prints are echoed after it, each behind
+    ``[examples] <label> |``."""
+    import io
+
+    import raystrack_tpu_torch.solver as solver_mod
+
+    buf, progress, quiet = io.StringIO(), [], solver_mod._log
+    solver_mod._log = progress.append
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k0 = launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        solver_mod._log = quiet
+    wall = time.perf_counter() - t0
+    k1 = launches()
+    made = {key: b - a for key, a, b in zip(LAUNCH_KEYS, k0, k1)}
+    rays = sum(int(m.group(1).replace(",", "")) for line in progress
+               for m in [re.search(r" iter, ([\d,]+) rays", line)] if m)
+    stats = dict(wall_s=wall, peak_mib=(torch.cuda.max_memory_allocated() - held) / 2**20,
+                 launches=made, progress=len(progress), rays=rays)
+    for line in buf.getvalue().splitlines():
+        print(f"[examples] {label} | {line}")
+    print(f"[examples] {label}: wall {wall:.3f} s, device peak {stats['peak_mib']:.1f} MiB over "
+          f"the {held / 2**20:.1f} MiB held before; launches of kernel #1 {made['k1']} "
+          f"({made['k1_gated']} gated), #2 {made['k2']} ({made['k2_gated']} gated), count "
+          f"{made['count']}, crossing {made['cross']}; {len(progress)} progress lines, "
+          f"{rays:,} rays traced")
+    return out, stats
+
+
+def sweep_replay(args, kwargs) -> tuple:
+    """Kernel #1's C launch as ``trace_cuda.sweep_rays(*args, **kwargs)``
+    makes it, ungated, on its own outputs: (launch closure, pair tests, bytes
+    it must move, the instantiation's SASS name (:func:`kernel_name`),
+    (codes, any-hit))."""
+    from raystrack_tpu_torch.ops import trace_cuda as tc
+    from raystrack_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    rays, tri_pack, sweep_mask = args
+    wm, wa, tri_tile = kwargs["want_matrix"], kwargs["want_any"], kwargs["tri_tile"]
+    device, n, n_tri_pad, tile = tc._check_common(rays, tri_pack, wm, wa, tri_tile,
+                                                  "sweep_rays", sweep_mask=sweep_mask)
+    mode = tc._mask_mode(kwargs.get("masks_baked", False), kwargs.get("code_bounds"))
+    check(mode != "code" and tc._gate_for(kwargs.get("accel"), rays, n_tri_pad, tile, tri_tile,
+                                          device) is None,
+          "a kernel #1 launch to replay is gated or in code mode")
+    tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+    split = tc.sweep_split(-(-n // RAY_SUB), False, tc._sm_count(device))
+    codes = torch.empty((n,), dtype=torch.int32, device=device)
+    any_hit = torch.empty((n,), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch() -> int:
+        return lib.raystrack_sweep_rays(
+            rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad, tiles_on.data_ptr(), tile,
+            int(wm), int(wa), tc._MASK_MODES.index(mode), 0.0, 0.0, *tc._gate_args(None, split),
+            codes.data_ptr(), any_hit.data_ptr(), None, None, stream)
+
+    pairs = -(-n // RAY_SUB) * RAY_SUB * int(tiles_on.sum()) * tile
+    name = (f"sweep_kernel<{int(wm)},{int(wa)},{int(mode == 'baked')},0>"
+            + (f"x{split}" if split > 1 else ""))
+    return launch, pairs, sweep_bytes(rays, tri_pack, tiles_on), name, (codes, any_hit)
+
+
+def ex06_row(ex06, pair_ops) -> dict:
+    """ex06's partition row, the solve the JAX package sends down its XLA
+    sweep on an accelerator (252 triangles, below PALLAS_MIN_TRIS = 512):
+    its kernel #1 launches recorded, each replayed EX06_REPLAYS times behind
+    the spin kernel (device ms a launch, == the solve's own outputs) beside
+    the empty kernel's floor and the launch's FP32 bound; the row's warm
+    wall as the example calls it (a fresh PreparedSolver each call) and on
+    one warm PreparedSolver; the row == the same emitter's row of the full
+    matrix (reciprocity off, the scheduled route: kernel #2 a round)."""
+    from examples.ex06_city_block import build_city
+    from raystrack_tpu_torch import (
+        MatrixParams, PreparedSolver, SkyParams, view_factor_matrix, view_factor_to_tregenza_sky,
+    )
+    from raystrack_tpu_torch.ops import trace as trace_mod
+    from raystrack_tpu_torch.ops.trace_cuda import sweep_rays, sweep_rays_scheduled
+    from raystrack_tpu_torch.parallel.distribute import view_factor_matrix_partition
+
+    meshes = build_city()
+    target = ex06.target_name()
+    part = [name for name, _, _ in meshes].index(target)
+    params = MatrixParams(**ex06.SETTINGS, reciprocity=False)
+    row_of = lambda **kw: view_factor_matrix_partition(  # noqa: E731
+        meshes, params, n_parts=len(meshes), part=part, **kw)[target]
+
+    calls = []  # every kernel #1 sweep of the row: (args, kwargs, outputs)
+    real = trace_mod.sweep_rays
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    k0 = sweep_rays.launches
+    trace_mod.sweep_rays = record
+    try:
+        row = row_of()
+    finally:
+        trace_mod.sweep_rays = real
+    n_launches = sweep_rays.launches - k0
+    check(n_launches == len(calls) > 0, f"ex06's row: {n_launches} kernel #1 launches for "
+          f"{len(calls)} sweeps")
+    floor_ms, _ = queued_ms(empty_launch(), LAUNCHES, "the empty kernel")
+    launches = []
+    for args, kwargs, (codes, any_hit) in calls:
+        launch, pairs, nbytes, name, outs = sweep_replay(args, kwargs)
+        ms, _ = queued_ms(launch, EX06_REPLAYS, f"ex06's row, {name}")
+        check(torch.equal(outs[0], codes) and torch.equal(outs[1], any_hit),
+              "ex06's row: a replayed kernel #1 launch != the solve's own")
+        bnd = bound(nbytes, pairs, pair_ops[name][0])
+        launches.append(dict(rays=int(args[0].shape[1]), pairs=pairs, name=name, ms=ms,
+                             bound_ms=bnd[0], bound_by=bnd[1]))
+    del calls
+    device_ms = sum(x["ms"] for x in launches)
+    bound_total = sum(x["bound_ms"] for x in launches)
+    per = sorted(x["ms"] for x in launches)
+    walls = wall_times(row_of, 5)
+    ps = PreparedSolver(meshes)
+    row_of(prepared=ps)
+    walls_prepared = wall_times(lambda: row_of(prepared=ps), 5)
+    sky_params = SkyParams(**ex06.SETTINGS)
+    view_factor_to_tregenza_sky(meshes, params=sky_params)
+    walls_sky = wall_times(lambda: view_factor_to_tregenza_sky(meshes, params=sky_params), 5)
+    k2 = sweep_rays_scheduled.launches
+    full = view_factor_matrix(meshes, params)
+    k2 = sweep_rays_scheduled.launches - k2
+    check(k2 > 0, "ex06's full matrix launched no kernel #2")
+    check(full[target] == row, "ex06: the partition row (kernel #1 per emitter) != the "
+          "full matrix's row (kernel #2 per round)")
+    print(f"[examples] ex06 row {target}: {n_launches} launches of kernel #1 "
+          f"({sorted({x['name'] for x in launches})}), {sum(x['rays'] for x in launches):,} rays, "
+          f"device ms a launch min {per[0]:.4f} median {float(np.median(per)):.4f} max "
+          f"{per[-1]:.4f} (replayed {EX06_REPLAYS} times each behind the spin kernel, each == "
+          f"the solve's own outputs); {device_ms:.3f} ms in all against the FP32 bound's "
+          f"{bound_total:.3f} ms ({bound_total / device_ms:.1%}); the empty kernel's floor "
+          f"{floor_ms * 1e3:.2f} us a launch")
+    print(f"[examples] ex06 row warm wall, as the example calls it (a fresh PreparedSolver "
+          f"each call): {spread(walls)}; on one warm PreparedSolver: {spread(walls_prepared)}; "
+          f"kernel #1's device time {device_ms / 1e3 / float(np.median(walls_prepared)):.1%} of "
+          f"the latter's median")
+    print(f"[examples] ex06 row == the full matrix's {target} row (reciprocity off, "
+          f"{k2} kernel #2 launches)")
+    print(f"[examples] ex06 sky of all {len(meshes)} emitters, warm: {spread(walls_sky)}")
+    return dict(target=target, launches=launches, n_launches=n_launches, device_ms=device_ms,
+                bound_ms=bound_total, floor_ms=floor_ms, walls_s=walls,
+                walls_prepared_s=walls_prepared, full_matrix_k2_launches=k2,
+                sky_walls_s=walls_sky)
+
+
+def phase_examples(pair_ops, launches) -> dict:
+    """Phase 24: each examples_torch script's ``main`` at its own default
+    settings on the card, output into a temporary directory under
+    ``build/``, twice (the second run warm: the implicit PreparedSolver
+    cache, ex07's checkpoints), with its route's launches and its checks;
+    then ex06's row measured (:func:`ex06_row`)."""
+    import importlib
+    import tempfile
+
+    from examples.ex00_street_canyon_geometry import build_street_canyon
+    from raystrack_tpu_torch import clear_prepared_cache
+
+    t_phase = time.perf_counter()
+    mods = {name: importlib.import_module(f"examples_torch.{name}") for name in EXAMPLES}
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke_examples_", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        for name, mod in mods.items():
+            label = name[:4]
+            kwargs = {"out_dir": str(tmp / label)}
+            snapshots = []
+            if name == "ex05_prepared_seed_compare":
+                real_solve = mod.solve
+
+                def solve(meshes, prepared, seed, **overrides):
+                    result = real_solve(meshes, prepared, seed, **overrides)
+                    snapshots.append({key: {k: id(v) for k, v in getattr(prepared, key).items()}
+                                      for key in ("_scene_cache", "_emitter_cache",
+                                                  "_scene_pack_cache", "_emitter_pack_cache",
+                                                  "_flat_cache")})
+                    return result
+
+                mod.solve = solve
+            clear_prepared_cache()
+            try:
+                first, s1 = run_example(label, lambda: mod.main(**kwargs), launches)
+                files = {f: (tmp / label / f).read_bytes()
+                         for f in (COMMITTED[name][0] if name in COMMITTED else ())}
+                second, s2 = run_example(f"{label} again", lambda: mod.main(**kwargs), launches)
+            finally:
+                if name == "ex05_prepared_seed_compare":
+                    mod.solve = real_solve
+            out[name] = dict(first=s1, second=s2)
+            k1, k2 = s1["launches"]["k1"], s1["launches"]["k2"]
+            if name == "ex00_street_canyon_geometry":
+                same = (json.loads(Path(first).read_text())
+                        == json.loads((ROOT / "examples" / "street_canyon.json").read_text()))
+                check(same, "ex00: the written JSON != examples/street_canyon.json")
+                print("[examples] ex00: the written JSON == examples/street_canyon.json")
+            elif name == "ex06_city_block":
+                check(k1 > 0 and k2 > 0, f"ex06 launched kernel #1 {k1} and #2 {k2} times: not "
+                      "its row per emitter and its sky scheduled")
+                _, row, sky = first
+                check(all(0.0 <= v["Sky"] <= 1.0 for v in sky.values()) and len(sky) == 126,
+                      "ex06: a sky value outside [0, 1], or not 126 rows")
+                out[name]["row"] = ex06_row(mod, pair_ops)
+            elif name == "ex02_compare_sky_vf":
+                check(k1 > 0 and k2 > 0, f"ex02 launched kernel #1 {k1} and #2 {k2} times: not "
+                      "its matrix per emitter and its sky scheduled")
+                derived, sky, scene = first
+                gaps = {}
+                for n, V, F in build_street_canyon():
+                    gap = derived[n] - sky[n]["Sky"]  # the rays past the ground's edge
+                    bnd = ground_gap_bound(V, F, mod.GROUND_MARGIN) or EX02_UP_BOUND
+                    gaps[n] = dict(gap=gap, bound=bnd)
+                    print(f"[examples] ex02 {n}: (1 - sum scene) - direct sky = {gap:.7f}, "
+                          f"bound {bnd:.7f}")
+                    check(-EX02_UP_BOUND <= gap <= bnd, f"ex02 {n}: (1 - sum scene) - direct "
+                          f"sky = {gap}, outside [{-EX02_UP_BOUND}, {bnd}]")
+                out[name]["gaps"] = gaps
+                worst = max(gaps, key=lambda n: abs(gaps[n]["gap"]))
+                print(f"[examples] ex02: worst |direct sky - (1 - sum scene)| "
+                      f"{abs(gaps[worst]['gap']):.7f} at {worst}")
+                check(all(0.0 <= sum(r.values()) <= 1.0 + 1e-6 for r in scene.values()),
+                      "ex02: a matrix row sums outside [0, 1]")
+            else:
+                check(k1 == 0 and k2 > 0, f"{label} launched kernel #1 {k1} and #2 {k2} times: "
+                      "not the scheduled route")
+            if name in COMMITTED:
+                names, tol = COMMITTED[name]
+                for f in names:
+                    got = json.loads(files[f])
+                    same, diff = vf_diff(got, json.loads((ROOT / "examples" / f).read_text()))
+                    out[name].setdefault("committed", {})[f] = dict(same_keys=same, max_abs=diff)
+                    print(f"[examples] {label} {f}: key sets == the committed file's: {same}; "
+                          f"max |dF| {diff:.3e} (bound 3 x tol = {3 * tol:g})")
+                    check(same and diff <= 3 * tol, f"{label}: {f} differs from the committed "
+                          f"file: keys equal {same}, max |dF| {diff}")
+                    check(all(0.0 <= sum(r.values()) <= 1.0 + 1e-6 for r in got.values()),
+                          f"{label}: a row of {f} sums outside [0, 1]")
+            if name == "ex03_workflow":
+                scene, sky, rest = first
+                worst = max(abs(sum(scene.get(n, {}).values()) + sum(sky.get(n, {}).values())
+                                + rest[n]["Rest"] - 1.0) for n in rest)
+                check(worst <= 1e-9, f"ex03: scene + sky + rest is {worst} from 1")
+                print(f"[examples] ex03: scene + sky + rest within {worst:.2e} of 1 per row")
+            elif name == "ex04_inside_enclosure":
+                sums = {n: sum(r.values()) for n, r in first.items()}
+                check(len(sums) == 6 and all(abs(v - 1.0) <= 3e-3 for v in sums.values()),
+                      f"ex04: row sums {sums}")
+            elif name == "ex05_prepared_seed_compare":
+                check(len(snapshots) == 6 and all(
+                    snapshots[i] == snapshots[i + 1] == snapshots[i + 2]
+                    and snapshots[i]["_scene_pack_cache"]
+                    and (snapshots[i]["_flat_cache"] or snapshots[i]["_emitter_pack_cache"])
+                    for i in (0, 3)),
+                      "ex05: the second or third seed built a scene or emitter pack or table")
+                print(f"[examples] ex05: seeds 2 and 3 reused every prepared object of seed 1 "
+                      f"({sum(len(v) for v in snapshots[0].values())} cached)")
+            elif name == "ex08_uncertainty":
+                flags = first["flags"]
+                check(set(flags.values()) == {"ok"}, f"ex08: scatter flags {flags}")
+                vf_s, sky, _, wstats = first["workflow"]
+                for vf, stats in (first["matrix"], first["matrix_seed12"]):
+                    check(all(set(stats[s]) == set(vf[s]) for s in vf) and set(stats) == set(vf),
+                          "ex08: a matrix row's stats keys != its values'")
+                check(all(set(wstats[s]) == set(vf_s[s]) | set(sky[s]) for s in vf_s),
+                      "ex08: a workflow row's stats keys != its values'")
+            elif name == "ex07_resumable_pipeline":
+                again = Path(second).read_bytes()
+                check(not any(s2["launches"].values()) and again == files["vf_streamed.json"],
+                      f"ex07's second run launched {s2['launches']} or wrote another file")
+                print("[examples] ex07: the second run restored every emitter (no launch) and "
+                      "wrote an identical file")
+    clear_prepared_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[examples] phase 24 took {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3364,6 +3727,17 @@ def main() -> int:
           "phase 23: kernel #1 not all in code mode, or no gated launch, crossing or count, "
           "or a kernel #2 launch")
 
+    # 24. the examples through the port, each at its own default settings,
+    # and ex06's row (the JAX package's XLA-sweep case) measured
+    reset_launches()
+    examples_out = phase_examples(pair_ops, launches_now)
+    launches_ex = launches_now()
+    print(f"[launches] phase 24: kernel #1 {launches_ex[0]} ({launches_ex[1]} gated), kernel #2 "
+          f"{launches_ex[2]} ({launches_ex[3]} gated), count {launches_ex[4]}, crossing "
+          f"{launches_ex[5]}")
+    check(launches_ex[0] > 0 and launches_ex[2] > 0 and launches_ex[4] > 0,
+          "phase 24 launched no kernel #1, kernel #2 or count")
+
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
@@ -3377,10 +3751,10 @@ def main() -> int:
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
         launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0]
         + launches_resume["k1"] + launches_par["k1"] + launches_halton[0] + launches_val[0]
-        + launches_range[0],
+        + launches_range[0] + launches_ex[0],
         launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1]
         + launches_resume["k1_gated"] + launches_par["k1_gated"] + launches_halton[1]
-        + launches_val[1] + launches_range[1],
+        + launches_val[1] + launches_range[1] + launches_ex[1],
         max(max_err, city_code["max_abs_err"], range_out["kernels"][0]["max_abs_err"]),
         ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2] + code_range
@@ -3388,9 +3762,10 @@ def main() -> int:
     sched_entry = kernel_entry(
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
         launches2 + launches_city[2] + launches_big2[0] + launches_sky[2]
-        + launches_resume["k2"] + launches_par["k2"] + launches_halton[2] + launches_val[2],
+        + launches_resume["k2"] + launches_par["k2"] + launches_halton[2] + launches_val[2]
+        + launches_ex[2],
         launches_city[3] + launches_big2[1] + launches_sky[3] + launches_resume["k2_gated"]
-        + launches_par["k2_gated"] + launches_halton[3] + launches_val[3],
+        + launches_par["k2_gated"] + launches_halton[3] + launches_val[3] + launches_ex[3],
         max_err2, ms2, plain_ms2, bound2, city_k2)
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
@@ -3414,6 +3789,11 @@ def main() -> int:
     # phase 23's: the 3e7 city's sweeps, kernel launches and solves
     sweep_entry["range_launches"] = launches_range[0]
     sweep_entry["range_kernels"] = range_out["kernels"]
+    # phase 24's: the examples, and ex06's row launch by launch
+    sweep_entry["examples_launches"] = launches_ex[0]
+    sched_entry["examples_launches"] = launches_ex[2]
+    sweep_entry["ex06_row"] = {k: v for k, v in examples_out["ex06_city_block"]["row"].items()
+                               if k != "launches"}
     sky_summary = dict(
         canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
         canyon_patch_sum_diff=canyon_sky["patch_diff"],
@@ -3429,6 +3809,7 @@ def main() -> int:
     print(f"[halton] summary: {json.dumps(halton_out)}")
     print(f"[validation] summary: {json.dumps(validation)}")
     print(f"[range] summary: {json.dumps(range_out)}")
+    print(f"[examples] summary: {json.dumps(examples_out)}")
     print(json.dumps({"kernels": [
         sweep_entry,
         sched_entry,
@@ -3440,7 +3821,7 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace.py:865",
             "launches": launches3 + count_city + count_slim + count_big + launches_sky[4]
             + launches_resume["count"] + launches_par["count"] + launches_halton[4]
-            + launches_val[4] + launches_range[4],
+            + launches_val[4] + launches_range[4] + launches_ex[4],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -3461,7 +3842,7 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
             "launches": cross_city + cross_slim + cross_big + launches_sky[5]
             + launches_resume["cross"] + launches_par["cross"] + launches_halton[5]
-            + launches_val[5] + launches_range[5],
+            + launches_val[5] + launches_range[5] + launches_ex[5],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,

@@ -5,6 +5,17 @@ variables (and with the same defaults) as ``raystrack_tpu.config``, but for
 Only the knobs the port's solves read are carried over. They are read
 once, at import; the solver reads them through this module at call time,
 so a test or a harness may set them on the module.
+
+The JAX package's choice between its Pallas and XLA sweeps and its grouped
+vmap driver is not carried over, and with it go the variables that steer
+them: ``RAYSTRACK_TPU_KERNEL``, ``RAYSTRACK_TPU_PALLAS_MIN_TRIS`` and
+``RAYSTRACK_TPU_GROUPED_MIN_ACTIVE``, which the port does not read. Every
+sweep is kernel #1 or #2 (``ops/trace_cuda.py``). On the JAX package's XLA
+case, a scene below 512 triangles, kernel #1 is near its bound and far
+above its launch floor: ex06's 252-triangle city, whose row takes three
+launches of 0.95 ms at 64.5% of their FP32 bound against an empty launch's
+1.6 us, on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 24;
+ROADMAP, "Not carried over").
 """
 from __future__ import annotations
 
@@ -117,9 +128,10 @@ SLIM_PACK_MIN_TRIS = _env_int("RAYSTRACK_TPU_SLIM_PACK_MIN_TRIS", 25_000_000)
 # Multi-emitter route: "scheduled" packs every pending emitter's next
 # iterations into one dispatch per convergence round (the whole-scene
 # scheduled driver and the multi-emitter sweep kernel); "grouped" solves
-# emitter by emitter (the per-emitter pipelined driver: the JAX package's
-# grouped vmap driver is not ported, ROADMAP port queue 1); "auto" picks
-# "scheduled" on a CUDA card and "grouped" on the CPU.
+# emitter by emitter (the per-emitter pipelined driver, which stands where
+# the JAX package's grouped vmap driver stands: that driver is not carried
+# over, see above); "auto" picks "scheduled" on a CUDA card and "grouped"
+# on the CPU.
 SCHEDULER = os.environ.get("RAYSTRACK_TPU_SCHEDULER", "auto").lower()
 
 # Scheduled-driver flat-table budget: the scheduler keeps 7 f32 per-ray

@@ -15,6 +15,13 @@ shared-ray workflow), and of their two routes on an accelerator:
   too big for a round, CPU solves by default, and
   ``RAYSTRACK_TPU_SCHEDULER=grouped``.
 
+The JAX package's third route, its grouped vmap driver (``_drive_grouped``,
+``_batched_step``) and its XLA sweep (``_resolve_kernel`` picks it below
+``PALLAS_MIN_TRIS`` = 512 triangles and on the CPU), is not carried over:
+the per-emitter driver and kernel #1 take those solves, with the same
+dicts, and on the card kernel #1 runs such a scene (ex06's 252-triangle
+city) near its FP32 bound (``config.py``'s docstring).
+
 The matrix sweeps want the nearest hit, the sky sweeps only whether a ray
 hits anything (any-only), and the workflow both at once (matrix + any)
 until one side converges. Both routes replay per-iteration counts through

@@ -23,8 +23,9 @@ limit. Writes ``results.json`` into ``--out`` (default
 any case fails its own tolerance, 2 if ``--device gpu`` finds no card.
 
 Imports nothing of JAX or of the JAX package: only ``validation/analytic.py``,
-the NumPy helpers of ``validation/common.py`` and
-``examples/ex00_street_canyon_geometry.py``.
+the NumPy helpers of ``validation/common.py``,
+``examples/ex00_street_canyon_geometry.py`` and the port's copy of ex04's
+cube, ``examples_torch/ex04_inside_enclosure.py``.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from examples.ex00_street_canyon_geometry import build_street_canyon  # noqa: E402
+from examples_torch.ex04_inside_enclosure import make_box_unit_cube  # noqa: E402
 from validation import analytic  # noqa: E402
 from validation.common import (  # noqa: E402
     aggregate_per_face_rows, base_matrix, disk_xy, max_abs_pair_diff, rectangle_xy,
@@ -236,30 +238,6 @@ def case_07(device, overrides) -> CaseResult:
     return CaseResult("07_canyon_sky", "merged Sky of the road", got, sky_analytic, diff,
                       1.0e-4, diff <= 1.0e-4 and patch_diff <= 1.0e-4, [merged, discrete],
                       extra={"patch_vs_merged": patch_diff}, value_as_committed=got)
-
-
-# Copied from examples/ex04_inside_enclosure.py (make_box_unit_cube), which
-# imports the JAX package at module level.
-def make_box_unit_cube():
-    """Six quads forming the closed unit cube [0,1]^3, outward normals."""
-
-    def face(name, p0, p1, p2, p3, outward):
-        V = np.array([p0, p1, p2, p3], dtype=np.float32)
-        F = np.array([[0, 1, 2], [0, 2, 3]], dtype=np.int32)
-        n = np.cross(V[1] - V[0], V[2] - V[0])
-        if np.dot(n, np.asarray(outward, np.float64)) < 0.0:
-            F = F[:, [0, 2, 1]].copy()
-        return name, V, F
-
-    c = lambda x, y, z: (float(x), float(y), float(z))  # noqa: E731
-    return [
-        face("Bottom", c(0, 0, 0), c(1, 0, 0), c(1, 1, 0), c(0, 1, 0), (0, 0, -1)),
-        face("Top", c(0, 0, 1), c(1, 0, 1), c(1, 1, 1), c(0, 1, 1), (0, 0, +1)),
-        face("Front", c(0, 0, 0), c(1, 0, 0), c(1, 0, 1), c(0, 0, 1), (0, -1, 0)),
-        face("Back", c(0, 1, 0), c(1, 1, 0), c(1, 1, 1), c(0, 1, 1), (0, +1, 0)),
-        face("Left", c(0, 0, 0), c(0, 1, 0), c(0, 1, 1), c(0, 0, 1), (-1, 0, 0)),
-        face("Right", c(1, 0, 0), c(1, 1, 0), c(1, 1, 1), c(1, 0, 1), (+1, 0, 0)),
-    ]
 
 
 OPPOSITE = {"Bottom": "Top", "Top": "Bottom", "Front": "Back",
