@@ -200,6 +200,16 @@ settings, and checks each against its analytic or plain reference:
               each replayed behind the spin kernel == the solve's own, beside
               the empty kernel's floor and its FP32 bound, its warm walls,
               and == the full matrix's row (kernel #2)
+25. bench     the JAX package's two measurement entry points through the
+              port, each in a child process: ``bench_torch.py`` under a cut
+              budget (every stage run: the headline line first, the district
+              with >= 90 rows, the city curve with brute == gated at 1e4-1e6
+              and the 1e7 gated checksum == ``bench_expected_torch.json``'s
+              for this card, the canyon, the plates within 3e-4; exit 0, the
+              card's name and power limit in ``device``), then
+              ``head_to_head_torch.py --sizes 10000,100000,1000000`` (hits
+              within 1e-3 of the C++ BVH's at every size); the children's
+              launches, read from their own counters, join the kernels line
 
 Kernel times are CUDA events: the kernel's best of 3, the plain version's
 one comparison run; the count and crossing kernels' ``ms`` is their device
@@ -218,6 +228,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -227,12 +238,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bench_torch import district_meshes, plates_meshes, soup_meshes
 from city_100m_torch import city_meshes, slim_threshold
 
 ROOT = Path(__file__).resolve().parent
 PLATES_EXACT = 0.1998249
 PLATES_TPU = 0.1998818169
-SOUP_TRIS = 98304
+SOUP_TRIS = 98304  # bench_torch.N_TRI
 SOUP_CHUNK = 4
 SOUP8_RAYS = 8 * 4 * 8192  # emitters x iterations x rays per iteration
 CITY_TRIS = 1_000_000
@@ -259,23 +271,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def soup_meshes():
-    """Emitter plate plus a 98,302-triangle cloud above it (the JAX
-    package's bench.py headline scene)."""
-    h = 8.0
-    V = np.array([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]], np.float32)
-    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    rng = np.random.default_rng(0)
-    n_cloud = SOUP_TRIS - 2
-    centers = rng.uniform([-8, -8, 2], [8, 8, 30], size=(n_cloud, 3))
-    spans = rng.normal(scale=0.4, size=(n_cloud, 2, 3))
-    Vc = np.concatenate(
-        [centers, centers + spans[:, 0], centers + spans[:, 1]], axis=1
-    ).reshape(-1, 3).astype(np.float32)
-    Fc = np.arange(n_cloud * 3, dtype=np.int32).reshape(-1, 3)
-    return [("emitter", V, F), ("cloud", Vc, Fc)]
 
 
 def soup8_meshes():
@@ -312,36 +307,6 @@ def city_plates_meshes(boxes=None, nx: int = 5):
     return plates + [city_meshes()[1] if boxes is None else boxes]
 
 
-def district_meshes(n_buildings: int = 96, extent: float = 60.0, seed: int = 3):
-    """Ground plus one 12-triangle mesh per building (bench.py district)."""
-    rng = np.random.default_rng(seed)
-    V = np.array([[-extent, -extent, 0], [extent, -extent, 0],
-                  [extent, extent, 0], [-extent, extent, 0]], np.float32)
-    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    box_f = np.array([[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6],
-                      [0, 4, 5], [0, 5, 1], [1, 5, 6], [1, 6, 2],
-                      [2, 6, 7], [2, 7, 3], [3, 7, 4], [3, 4, 0]], np.int32)
-    meshes = [("ground", V, F)]
-    cx = rng.uniform(-extent * 0.9, extent * 0.9, (n_buildings, 2))
-    w = rng.uniform(1.5, 5.0, (n_buildings, 2))
-    h = rng.uniform(4.0, 30.0, n_buildings)
-    for i in range(n_buildings):
-        x0, y0 = cx[i] - w[i]
-        x1, y1 = cx[i] + w[i]
-        vs = np.array([[x0, y0, 0.05], [x1, y0, 0.05], [x1, y1, 0.05],
-                       [x0, y1, 0.05], [x0, y0, h[i]], [x1, y0, h[i]],
-                       [x1, y1, h[i]], [x0, y1, h[i]]], np.float32)
-        meshes.append((f"bld_{i:03d}", vs, box_f.copy()))
-    return meshes
-
-
-def square(name: str, z: float, flip: bool):
-    V = np.array([[-0.5, -0.5, z], [0.5, -0.5, z], [0.5, 0.5, z], [-0.5, 0.5, z]],
-                 np.float32)
-    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    return name, V, (F[:, [0, 2, 1]].copy() if flip else F)
-
-
 def solve_cases():
     """The solves of phases 5-9 (also timed by chip_profile.py): name ->
     (meshes, MatrixParams), all on the card."""
@@ -349,7 +314,7 @@ def solve_cases():
     from examples.ex00_street_canyon_geometry import build_street_canyon
 
     return {
-        "plates": ([square("bottom", 0.0, False), square("top", 1.0, True)], MatrixParams(
+        "plates": (plates_meshes(), MatrixParams(
             samples=32, rays=1024, seed=11, tol=1e-4, tol_mode="stderr",
             min_iters=40, max_iters=500, reciprocity=False, device="gpu")),
         # validation/validate_06_canyon_analytic_compare.py and common.py settings
@@ -3124,6 +3089,102 @@ def phase_examples(pair_ops, launches) -> dict:
     return out
 
 
+# phase 25: the JAX package's two measurement entry points through the port
+BENCH_BUDGET_S = 90  # the cut budget of the bench_torch.py child (its default: 420)
+BENCH_H2H_SIZES = (10_000, 100_000, 1_000_000)  # the 1e7 point is the script's own run
+PLATES_BOUND = 3e-4  # PERF.md section 2: 3x the plates' stderr tolerance
+
+
+def run_child(label: str, argv: list, timeout: float, **env) -> tuple:
+    """``python3 <argv>`` from the repository root, waited for (killed at
+    ``timeout``): (exit code, its stdout lines, seconds). Its stderr's last
+    lines are echoed when it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=dict(os.environ, **env),
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        for line in proc.stderr.splitlines()[-30:]:
+            print(f"[bench] {label} stderr | {line}")
+    return proc.returncode, proc.stdout.splitlines(), seconds
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 25: ``bench_torch.py`` with the budget cut to BENCH_BUDGET_S,
+    then ``head_to_head_torch.py`` at BENCH_H2H_SIZES, each in a child
+    process; every honesty check of both held here again from their
+    output, and their launches of the port's kernels (their own counters,
+    which start at 0 in each child) summed by LAUNCH_KEYS."""
+    from bench_torch import CALIBRATED_TRIS, load_expected
+
+    t_phase = time.perf_counter()
+    rc, lines, seconds = run_child("bench_torch.py", ["bench_torch.py"], 600,
+                                   RAYSTRACK_TPU_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    for line in lines:
+        if not line.startswith("{"):
+            print(f"[bench] bench_torch | {line}")
+    check(rc == 0 and lines, f"bench_torch.py exited {rc}")
+    head, last = json.loads(lines[0]), json.loads(lines[-1])
+    print(f"[bench] headline (the first line): {json.dumps(head)}")
+    print(f"[bench] enriched (the last line): "
+          f"{json.dumps({k: v for k, v in last.items() if k != 'launches'})}")
+    check(head["metric"] == "ray_triangle_tests_per_sec" and head["device"] == card,
+          f"bench_torch.py's first line is not the headline on this card: {lines[0]}")
+    fields = ("district_97_emitters_solve_s", "occluded_city_rays_per_sec", "canyon_solve_s",
+              "parallel_plates_abs_err")
+    check(all(last.get(k) is not None for k in fields) and "failed" not in last,
+          f"bench_torch.py left a secondary empty or failed under a {BENCH_BUDGET_S} s budget")
+    rows = [int(m.group(1)) for line in lines
+            for m in [re.match(r"# district: (\d+) non-empty rows", line)] if m]
+    check(rows and rows[0] >= 90, f"district rows {rows}")
+    check(last["parallel_plates_abs_err"] <= PLATES_BOUND,
+          f"plates |err| {last['parallel_plates_abs_err']} > {PLATES_BOUND}")
+    points = last["occluded_city_rays_per_sec"]
+    check(sorted(map(int, points)) == [10_000, 100_000, 1_000_000, CALIBRATED_TRIS],
+          f"city points {sorted(points)}")
+    cal = load_expected()[torch.cuda.get_device_name(0).replace(" ", "_")][str(CALIBRATED_TRIS)]
+    big = points[str(CALIBRATED_TRIS)]
+    check(big.get("brute_anchor") == "calibrated" and (big["hits"], big["hits_back"])
+          == (cal["hits"], cal["hits_back"]),
+          f"the 1e7 point {big} is not held to the committed calibration {cal}")
+    check(all("brute_anchor" not in p and p["brute"] > 0 for n, p in points.items()
+              if int(n) < CALIBRATED_TRIS), "a small city point's brute run was not live")
+    launches = {k: sum(stage[k] for stage in last["launches"].values()) for k in LAUNCH_KEYS}
+    print(f"[bench] bench_torch.py: exit 0 in {seconds:.1f} s; district {rows[0]} rows; "
+          f"brute == gated at 1e4-1e6 (live), the 1e7 gated checksum {cal['hits']} front + "
+          f"{cal['hits_back']} back == the committed calibration; plates |err| "
+          f"{last['parallel_plates_abs_err']}; launches by stage {last['launches']}")
+
+    out_path = ROOT / "build" / "smoke_head_to_head.json"
+    rc, h_lines, h_seconds = run_child(
+        "head_to_head_torch.py", ["head_to_head_torch.py", "--sizes",
+                                  ",".join(map(str, BENCH_H2H_SIZES)), "--out", str(out_path)],
+        600)
+    for line in h_lines:
+        print(f"[bench] head_to_head | {line}")
+    check(rc == 0, f"head_to_head_torch.py exited {rc}")
+    h2h = json.loads(out_path.read_text())
+    out_path.unlink()
+    check(sorted(map(int, h2h["points"])) == list(BENCH_H2H_SIZES) and h2h["device"] == card,
+          f"head-to-head points {sorted(h2h['points'])} on {h2h['device']}")
+    for n, p in h2h["points"].items():
+        check(p["hits_rel_diff"] < 1e-3 and p["gpu_launches"]["k1_gated"] > 0,
+              f"head-to-head {n}: hits {p['hits_gpu']} vs {p['hits_ref']}, launches "
+              f"{p['gpu_launches']}")
+        for k in LAUNCH_KEYS:
+            launches[k] += p["gpu_launches"][k]
+    print(f"[bench] head_to_head_torch.py: exit 0 in {h_seconds:.1f} s; hits within "
+          f"{max(p['hits_rel_diff'] for p in h2h['points'].values()):.3g} (relative) of the "
+          "C++ BVH's at every size")
+    check(launches["k1_gated"] > 0 and launches["k2"] > 0 and launches["count"] > 0
+          and launches["cross"] > 0 and launches["k1"] > launches["k1_gated"],
+          f"phase 25 launches {launches}: not every kernel of the path")
+    out = dict(bench=last, bench_s=seconds, head_to_head=h2h["points"], head_to_head_s=h_seconds,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    print(f"[bench] phase 25 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false",
@@ -3738,6 +3799,14 @@ def main() -> int:
     check(launches_ex[0] > 0 and launches_ex[2] > 0 and launches_ex[4] > 0,
           "phase 24 launched no kernel #1, kernel #2 or count")
 
+    # 25. bench_torch.py and head_to_head_torch.py in child processes: their
+    # launches come from their own counters, which start at 0 in each child
+    bench_out = phase_bench(card)
+    lb = bench_out["launches"]
+    print(f"[launches] phase 25 (the children): kernel #1 {lb['k1']} ({lb['k1_gated']} gated), "
+          f"kernel #2 {lb['k2']} ({lb['k2_gated']} gated), count {lb['count']}, crossing "
+          f"{lb['cross']}")
+
     def kernel_entry(name, replaces, n_launches, gated_launches, err, ms_, plain, bnd, city_k):
         entry = {"name": name, "route": "cuda", "source": "raystrack_tpu_torch/csrc/sweep_kernels.cuh",
                  "replaces": replaces, "launches": n_launches,
@@ -3751,10 +3820,10 @@ def main() -> int:
         "sweep_rays", "raystrack_tpu/ops/trace_pallas.py:1453",
         launches + launches_city[0] + launches_slim[0] + launches_big[0] + launches_sky[0]
         + launches_resume["k1"] + launches_par["k1"] + launches_halton[0] + launches_val[0]
-        + launches_range[0] + launches_ex[0],
+        + launches_range[0] + launches_ex[0] + lb["k1"],
         launches_city[1] + launches_slim[1] + launches_big[1] + launches_sky[1]
         + launches_resume["k1_gated"] + launches_par["k1_gated"] + launches_halton[1]
-        + launches_val[1] + launches_range[1] + launches_ex[1],
+        + launches_val[1] + launches_range[1] + launches_ex[1] + lb["k1_gated"],
         max(max_err, city_code["max_abs_err"], range_out["kernels"][0]["max_abs_err"]),
         ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2] + code_range
@@ -3763,9 +3832,10 @@ def main() -> int:
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
         launches2 + launches_city[2] + launches_big2[0] + launches_sky[2]
         + launches_resume["k2"] + launches_par["k2"] + launches_halton[2] + launches_val[2]
-        + launches_ex[2],
+        + launches_ex[2] + lb["k2"],
         launches_city[3] + launches_big2[1] + launches_sky[3] + launches_resume["k2_gated"]
-        + launches_par["k2_gated"] + launches_halton[3] + launches_val[3] + launches_ex[3],
+        + launches_par["k2_gated"] + launches_halton[3] + launches_val[3] + launches_ex[3]
+        + lb["k2_gated"],
         max_err2, ms2, plain_ms2, bound2, city_k2)
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
@@ -3794,6 +3864,9 @@ def main() -> int:
     sched_entry["examples_launches"] = launches_ex[2]
     sweep_entry["ex06_row"] = {k: v for k, v in examples_out["ex06_city_block"]["row"].items()
                                if k != "launches"}
+    # phase 25's: bench_torch.py's and head_to_head_torch.py's children
+    sweep_entry["bench_launches"] = lb["k1"]
+    sched_entry["bench_launches"] = lb["k2"]
     sky_summary = dict(
         canyon_road_sky=canyon_sky["road_sky"], canyon_road_sky_analytic=canyon_sky["analytic"],
         canyon_patch_sum_diff=canyon_sky["patch_diff"],
@@ -3810,6 +3883,7 @@ def main() -> int:
     print(f"[validation] summary: {json.dumps(validation)}")
     print(f"[range] summary: {json.dumps(range_out)}")
     print(f"[examples] summary: {json.dumps(examples_out)}")
+    print(f"[bench] summary: {json.dumps(bench_out)}")
     print(json.dumps({"kernels": [
         sweep_entry,
         sched_entry,
@@ -3821,7 +3895,7 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace.py:865",
             "launches": launches3 + count_city + count_slim + count_big + launches_sky[4]
             + launches_resume["count"] + launches_par["count"] + launches_halton[4]
-            + launches_val[4] + launches_range[4] + launches_ex[4],
+            + launches_val[4] + launches_range[4] + launches_ex[4] + lb["count"],
             "max_abs_err": max_err3,
             # the kernel's device time a launch; the wrapper's one call beside it
             "ms": launch3["device_ms"],
@@ -3842,7 +3916,7 @@ def main() -> int:
             "replaces": "raystrack_tpu/ops/trace_pallas.py:790",
             "launches": cross_city + cross_slim + cross_big + launches_sky[5]
             + launches_resume["cross"] + launches_par["cross"] + launches_halton[5]
-            + launches_val[5] + launches_range[5] + launches_ex[5],
+            + launches_val[5] + launches_range[5] + launches_ex[5] + lb["cross"],
             # the kernel's device time a launch on the city chunk; the rest
             # of cross_case's numbers beside it
             **cross,

@@ -16,8 +16,11 @@ the card against the in-process solve, and sharded chunks, rounds and
 solves on a ray mesh (a logical mesh of 4 shards on the card, and every
 card) against unsharded ones, the Halton tables built on the card
 against the host build, with the packs, flat tables and solves made from
-them, and kernel #1 in code mode behind the two-level gate with a ragged
-last group on a 2M-triangle slim city against its plain version.
+them, kernel #1 in code mode behind the two-level gate with a ragged
+last group on a 2M-triangle slim city against its plain version, and the
+two measurement scripts: ``bench_torch.run_chunk`` on the card against the
+CPU with its launches, ``head_to_head_torch.materialize_rays`` == the rays
+the card traced, and ``bench_torch.main`` exiting 1 when a stage raises.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1507,3 +1510,75 @@ def _quad(z, normal):
     V = np.array([[0, 0, z], [1, 0, z], [1, 1, z], [0, 1, z]], np.float32)
     F = np.array([[0, 1, 2], [0, 2, 3]] if normal > 0 else [[0, 2, 1], [0, 3, 2]], np.int32)
     return V, F
+
+
+# ---------------------------------------------------------------------------
+# bench_torch.py and head_to_head_torch.py on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("accel", [False, True], ids=["brute", "accel"])
+def test_bench_run_chunk_on_card_equals_cpu(card, accel):
+    """``bench_torch.run_chunk`` on a 10,000-triangle city: the card's
+    counts == the CPU's within max(2, 0.001 n_rays) per surface and
+    iteration (raygen ulps), one launch of kernel #1 (gated with
+    ``accel``), of the count and, gated, of the crossing kernel."""
+    import bench_torch
+
+    meshes = bench_torch.city_meshes(10_000, 30.0)
+    kw = dict(accel=accel, seed=4, chunk=2, samples=1, rays=2)
+    k0 = bench_torch.launches()
+    got, em, sc = bench_torch.run_chunk(raystrack_tpu_torch.PreparedSolver(meshes), card, **kw)
+    made = bench_torch.launches_since(k0)
+    want, _, _ = bench_torch.run_chunk(raystrack_tpu_torch.PreparedSolver(meshes),
+                                       torch.device("cpu"), **kw)
+    assert made == dict(k1=1, k1_gated=int(accel), k2=0, k2_gated=0, count=1, cross=int(accel))
+    tol = max(2, int(0.001 * em.n_rays_once))
+    for key in ("counts_f", "counts_b"):
+        assert got[key].is_cuda
+        assert int((got[key].cpu() - want[key]).abs().max()) <= tol, key
+    assert int(got["counts_b"].sum()) > 5_000
+
+
+def test_head_to_head_rays_are_the_rays_the_card_traced(card, monkeypatch):
+    """``head_to_head_torch.materialize_rays`` gives, bitwise, the valid
+    rays the gated dispatch generated on the card (before its sort)."""
+    import bench_torch
+    import head_to_head_torch
+    from raystrack_tpu_torch.ops import trace as T
+
+    traced = []
+    real = T.generate_rays
+    monkeypatch.setattr(T, "generate_rays", lambda *a: traced.append(real(*a)) or traced[-1])
+    ps = raystrack_tpu_torch.PreparedSolver(bench_torch.city_meshes(50_000, 60.0))
+    _, em, _ = bench_torch.run_chunk(ps, card, accel=True, seed=7, chunk=2, samples=1, rays=2)
+    monkeypatch.undo()
+    o, d = head_to_head_torch.materialize_rays(em, 2, 7, card)
+    assert len(traced) == 1 and o.shape == (2 * em.n_rays_once, 3)
+    for got, want in zip((o, d), traced[0]):
+        assert np.array_equal(got, want[:, : em.n_rays_once].reshape(-1, 3).cpu().numpy())
+
+
+def test_bench_main_exits_1_when_a_stage_raises_on_card(card, monkeypatch, capsys):
+    """``bench_torch.main`` on the card with the district raising: the
+    headline line first (the soup, kernel #1 and the count launched 6 times:
+    a warm-up and 5 timed), the enriched line last with the district empty,
+    exit 1."""
+    import json
+
+    import bench_torch
+
+    def boom(dev):
+        raise RuntimeError("district failed on the card")
+
+    monkeypatch.setattr(bench_torch, "district_solve", boom)
+    monkeypatch.setattr(bench_torch, "city_curve", lambda dev, budget, calibrate=False: {})
+    monkeypatch.setattr(bench_torch, "canyon_and_plates", lambda dev: (0.1, 1e-5))
+    assert bench_torch.main([]) == 1
+    lines = capsys.readouterr().out.splitlines()
+    head, last = json.loads(lines[0]), json.loads(lines[-1])
+    assert head["metric"] == "ray_triangle_tests_per_sec" and head["n_tri"] == 98304
+    assert head["rays_per_dispatch"] == 4 * 65536 and head["value"] > 1e9
+    assert last["failed"] == ["district"] and last["district_97_emitters_solve_s"] is None
+    assert last["launches"]["headline"] == dict(k1=6, k1_gated=0, k2=0, k2_gated=0, count=6,
+                                                cross=0)
