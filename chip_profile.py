@@ -245,17 +245,18 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                       "card": card, "warm_s": warm, "traced": runs}))
 
 
-def timeline_stats(label: str, timeline, visits, n_sms: int) -> dict:
-    """What a gated launch's per-block timeline says: ``timeline`` (blocks,
-    4) int64 holds each block's start and end on the card's nanosecond timer,
-    its SM and the visit positions it walked; ``visits`` its swept tiles."""
+def timeline_stats(label: str, timeline, visits, n_sms: int, per_block: int = 1) -> dict:
+    """What a gated launch's per-CTA timeline says: ``timeline`` (CTAs, 4)
+    int64 holds each CTA's start and end on the card's nanosecond timer, its
+    SM and the visit positions it walked; ``visits`` its swept tiles; CTA c
+    serves block c // ``per_block`` of 256 rays."""
     t = timeline.cpu().numpy()
     swept = visits.cpu().numpy().astype(np.float64)
     start, end, sm, walked = t[:, 0], t[:, 1], t[:, 2], t[:, 3].astype(np.float64)
     t0, t1 = start.min(), end.max()
     span = float(t1 - t0)
     spans = (end - start).astype(np.float64)
-    slots = 0  # blocks resident at once on one SM
+    slots = 0  # CTAs resident at once on one SM
     last_end = []
     for s_id in np.unique(sm):
         on = sm == s_id
@@ -268,41 +269,47 @@ def timeline_stats(label: str, timeline, visits, n_sms: int) -> dict:
         last_end.append(end[on].max())
     dry = float(min(last_end))  # the first SM with nothing left to run
     idle_tail = sum(float(t1 - e) for e in last_end) / (len(last_end) * span)
-    # block span ~ a * swept tiles + c * positions that ended at the vote + d
+    # CTA span ~ a * swept tiles + c * positions that ended at the vote + d
     voted = walked - swept
     A = np.stack([swept, voted, np.ones_like(swept)], axis=1)
     (a, c, d), *_ = np.linalg.lstsq(A, spans, rcond=None)
+    slowest = int(spans.argmax())
     out = dict(
-        label=label, blocks=int(t.shape[0]), sms_used=int(len(last_end)), slots_per_sm=slots,
-        span_ms=span / 1e6, fill=float(spans.sum()) / (n_sms * slots * span),
-        slowest_block_ms=float(spans.max()) / 1e6, tail_ms=(float(t1) - dry) / 1e6,
-        tail_share=(float(t1) - dry) / span, sm_idle_share_after_last_block=idle_tail,
+        label=label, ctas=int(t.shape[0]), ctas_a_block=per_block, sms_used=int(len(last_end)),
+        slots_per_sm=slots, span_ms=span / 1e6,
+        fill=float(spans.sum()) / (n_sms * slots * span),
+        slowest_cta_ms=float(spans.max()) / 1e6, slowest_cta_block=slowest // per_block,
+        slowest_cta_swept=int(swept[slowest]), tail_ms=(float(t1) - dry) / 1e6,
+        tail_share=(float(t1) - dry) / span, sm_idle_share_after_last_cta=idle_tail,
         swept_tiles=int(swept.sum()), walked_positions=int(walked.sum()),
         fit_us_per_swept_tile=a / 1e3, fit_us_per_vote_only_visit=c / 1e3,
-        fit_us_per_block=d / 1e3)
-    print(f"[timeline] {label}: {out['blocks']} blocks on {out['sms_used']} SMs, at most "
-          f"{slots} resident on one SM; kernel span {out['span_ms']:.3f} ms; sum of block "
-          f"spans over ({n_sms} SMs x {slots} slots x span) {out['fill']:.1%}; slowest block "
-          f"{out['slowest_block_ms']:.3f} ms; from the first SM running dry to the end "
+        fit_us_per_cta=d / 1e3)
+    print(f"[timeline] {label}: {out['ctas']} CTAs ({per_block} a block) on {out['sms_used']} "
+          f"SMs, at most {slots} resident on one SM; kernel span {out['span_ms']:.3f} ms; sum of "
+          f"CTA spans over ({n_sms} SMs x {slots} slots x span) {out['fill']:.1%}; slowest CTA "
+          f"{out['slowest_cta_ms']:.3f} ms (block {out['slowest_cta_block']}, "
+          f"{out['slowest_cta_swept']} tiles swept); from the first SM running dry to the end "
           f"{out['tail_ms']:.3f} ms = {out['tail_share']:.1%} of the span (mean SM idle after "
-          f"its last block {idle_tail:.1%} of the span); {out['swept_tiles']} tiles swept of "
-          f"{out['walked_positions']} positions walked; least-squares block span = "
+          f"its last CTA {idle_tail:.1%} of the span); {out['swept_tiles']} tiles swept of "
+          f"{out['walked_positions']} positions walked; least-squares CTA span = "
           f"{out['fit_us_per_swept_tile']:.3f} us x swept tiles + "
           f"{out['fit_us_per_vote_only_visit']:.3f} us x visits that end at the vote + "
-          f"{out['fit_us_per_block']:.1f} us")
+          f"{out['fit_us_per_cta']:.1f} us")
     return out
 
 
-def profile_timelines(card: str) -> None:
-    """The per-block timeline of the two gated launches chip_smoke.py times:
-    kernel #1 on the first chunk of the city's ground -> city solve and
-    kernel #2 on the first round of its ten-plate matrix, as the wrappers
-    launch them, on tables built once."""
+def gated_launches(card: str, range_tris: int = 0) -> tuple:
+    """The gated launches the rule is measured on, as (rays, n_tri_pad,
+    accel, launch(rays, **debug)) by label: kernel #1 on the first chunk of
+    the 1M city's ground -> city solve, kernel #2 on the first round of its
+    ten-plate matrix and, with ``range_tris``, kernel #1 in code mode on the
+    gated full chunk of city_100m_torch.py's city of that size (slim, the
+    two-level gate); and the 1M chunk's (pack, tile, tile flags) for its
+    plain version."""
     import chip_smoke
     from raystrack_tpu_torch import PreparedSolver, view_factor, view_factor_matrix
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
     from raystrack_tpu_torch.ops import trace as trace_mod
-    from raystrack_tpu_torch.ops import trace_cuda
     from raystrack_tpu_torch.ops.trace_cuda import sweep_rays, sweep_rays_scheduled
 
     cases = chip_smoke.solve_cases()
@@ -312,64 +319,99 @@ def profile_timelines(card: str) -> None:
         city[0], city[1], vf_params, prepared=PreparedSolver(city)))
     round_call = chip_smoke.first_call(trace_mod, "scheduled_trace", lambda: view_factor_matrix(
         plates, plates_params, prepared=PreparedSolver(plates)))
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False)
-    rays, pack, mask, accel, _, _ = chip_smoke.city_chunk_inputs(chunk_call)
+    rays, pack, mask, accel, tile, tiles_on = chip_smoke.city_chunk_inputs(chunk_call)
     rays2, pack2, masks, emap, accel2, _, _ = chip_smoke.city_round_inputs(round_call)
-    launches = {
-        "kernel #1 gated, city chunk": (rays, pack.shape[1], accel, lambda **dbg: sweep_rays(
-            rays, pack, mask, masks_baked=True, accel=accel, **kw, **dbg)),
+    out = {
+        "kernel #1 gated, city chunk": (rays, pack.shape[1], accel, lambda r, **dbg: sweep_rays(
+            r, pack, mask, masks_baked=True, **{**kw, "accel": accel, **dbg})),
         "kernel #2 gated, city_plates round": (
-            rays2, pack2.shape[1], accel2, lambda **dbg: sweep_rays_scheduled(
-                rays2, pack2, masks, emap, accel=accel2, **kw, **dbg)),
+            rays2, pack2.shape[1], accel2, lambda r, **dbg: sweep_rays_scheduled(
+                r, pack2, masks, emap[: r.shape[1] // 256].contiguous(),
+                **{**kw, "accel": accel2, **dbg})),
     }
+    if range_tris:
+        import city_100m_torch as big
+
+        dev = rays.device
+        meshes = big.city_meshes(range_tris)
+        ps = PreparedSolver(meshes)
+        rpack, _ = big.prepare(ps, dev, big.DeviceMemory(dev))
+        em = ps.get_emitter_pack(0, samples=1, rays=1, flip_faces=False, device=dev)
+        tri_pack, rmask, bounds = big.operands(rpack, dev)
+        rrays = big.chunk_rays(rpack, em, dev)
+        out[f"kernel #1 gated, range chunk ({range_tris} triangles)"] = (
+            rrays, tri_pack.shape[1], rpack.accel, lambda r, **dbg: sweep_rays(
+                r, tri_pack, rmask, code_bounds=bounds, **{**kw, "accel": rpack.accel, **dbg}))
+    return out, (pack, tile, tiles_on)
+
+
+def profile_timelines(card: str, range_tris: int = 0) -> None:
+    """The per-CTA timeline of the gated launches (:func:`gated_launches`) at
+    the geometry the wrapper's rule picks, on tables built once."""
+    import chip_smoke
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for label, (r, tpad, boxes, launch) in launches.items():
+    for label, (r, tpad, boxes, launch) in gated_launches(card, range_tris)[0].items():
         dev = r.device
         n_blocks = -(-r.shape[1] // chip_smoke.RAY_SUB)
         tile = trace_cuda.sweep_tile_width(tpad, PALLAS_TRI_TILE)
         gate = trace_cuda._gate_for(boxes, r, tpad, tile, PALLAS_TRI_TILE, dev)
-        split = trace_cuda.sweep_split(n_blocks, True, n_sms)
-        visits = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
-        timeline = torch.zeros((n_blocks, 4), dtype=torch.int64, device=dev)
+        geo = trace_cuda._geometry(trace_cuda.sweep_split(n_blocks, True, n_sms))
+        visits = torch.zeros(geo.units(r.shape[1]), dtype=torch.int32, device=dev)
+        timeline = torch.zeros((geo.units(r.shape[1]), 4), dtype=torch.int64, device=dev)
         with chip_smoke.forced_launch(gate=gate):
-            launch()  # warm
+            launch(r)  # warm
             ms, _ = chip_smoke.cuda_ms(
-                lambda: launch(visits=visits, timeline=timeline))  # noqa: B023
+                lambda: launch(r, visits=visits, timeline=timeline))  # noqa: B023
         torch.cuda.synchronize()
-        stats = timeline_stats(f"{label}, {split} threads a ray", timeline, visits, n_sms)
-        stats.update(kernel_ms=ms, split=split)
+        stats = timeline_stats(f"{label}, {geo.rays} rays x {geo.split} threads a CTA",
+                               timeline, visits, n_sms, geo.per_block)
+        stats.update(kernel_ms=ms, rays_a_cta=geo.rays, split=geo.split)
         out.append(stats)
-        swept = visits.double()
-        print(f"[timeline] {label}: correlation of a block's crossed boxes with its swept "
-              f"tiles "
-              f"{float(torch.corrcoef(torch.stack([gate.counts.double(), swept]))[0, 1]):.3f}; "
-              f"crossed boxes per block: median {float(gate.counts.double().median()):g}, "
-              f"at most {int(gate.counts.max())}")
     print(json.dumps({"timelines": out, "card": card}))
 
 
-SPLIT_BLOCKS = (32, 66, 128, 132, 160, 200, 264, 300, 396, 528, 792, 1024)
+SPLIT_BLOCKS = (32, 66, 128, 132, 160, 192, 200, 264, 300, 396, 528, 792, 1024)
+GATED_BLOCKS = (32, 132, 192, 264, 528, 1024)
 
 
-def profile_splits(card: str) -> None:
-    """Ungated kernel #1 (matrix, baked pack) on the leading B blocks of 256
-    rays of the soup chunk (98,304 triangles, 48 tiles), B from 32 to the
-    chunk's 1,024, at each triangle split the ungated kernels are built for:
-    best of 3 by CUDA events, every split equal to the first, and the split
-    the wrapper's rule (``trace_cuda.sweep_split``) picks. The measurement
-    behind that rule's thresholds."""
+def profile_splits(card: str, range_tris: int = 0) -> None:
+    """The measurement behind ``trace_cuda.sweep_split``: every geometry the
+    kernels are built at (``trace_cuda.BUILT_GEOMETRIES``), best of 3 by
+    CUDA events, each equal to the first (codes, flags and, gated, the
+    per-block visits), beside the geometry the rule picks:
+
+    - ungated kernel #1 (matrix, baked pack) on the leading B blocks of 256
+      rays of the soup chunk (98,304 triangles, 48 tiles), B from 32 to the
+      chunk's 1,024;
+    - the gated launches of :func:`gated_launches` (tables built once), on
+      their leading B blocks and whole: the kernel's ms, its own pair tests
+      (per-CTA swept tiles x rays a CTA x tile) against the 256-ray walk's,
+      the FP32 bound of the latter, and the per-CTA timeline's fill, slowest
+      CTA and tail; the 3e7-style chunk also ungated at each geometry;
+    - the tile segments of a gated walk, which the kernels do not cut: the
+      plain version's swept tiles at 2 and 4 segments on the 1M chunk's
+      leading blocks, against one.
+    """
     import chip_smoke
     from raystrack_tpu_torch import PreparedSolver
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
     from raystrack_tpu_torch.ops import trace_cuda
+    from raystrack_tpu_torch.ops.build import build
+    from raystrack_tpu_torch.ops.trace_cuda import SweepGeometry
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ops = chip_smoke.sass_pair_ops(chip_smoke.sass_functions(build().path))
+    fp32 = ops["sweep_kernel<1,0,1,0>"][0]
     soup, params = chip_smoke.solve_cases()["soup"]
     scene, rays, m_any, m_mat, tpad, _ = chip_smoke.soup_inputs(
         dev, PreparedSolver(soup), params.seed)
     pack = trace_cuda.build_tri_pack(scene, m_any, m_mat, bake=m_mat)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for n_blocks in SPLIT_BLOCKS:
         sub = rays[:, : n_blocks * chip_smoke.RAY_SUB].contiguous()
@@ -377,41 +419,194 @@ def profile_splits(card: str) -> None:
             sub, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True,  # noqa: B023
             want_any=False, masks_baked=True)
         times, first = {}, None
-        for split in trace_cuda.UNGATED_SPLITS:
-            with chip_smoke.forced_launch(split):
+        for geo in trace_cuda.BUILT_GEOMETRIES[False]:
+            with chip_smoke.forced_launch(geo):
                 launch()  # warm
-                times[split], out = chip_smoke.cuda_ms(launch)
+                times[geo.name], out = chip_smoke.cuda_ms(launch)
             first = first or out
             chip_smoke.check(torch.equal(out[0], first[0]) and torch.equal(out[1], first[1]),
-                             f"{n_blocks} blocks: {split} threads a ray != the first split")
-        chosen = trace_cuda.sweep_split(n_blocks, False, n_sms)
+                             f"{n_blocks} blocks: {geo} != the first geometry")
+        chosen = trace_cuda.sweep_split(n_blocks, False, n_sms).name
         best = min(times, key=times.get)
+        bound = n_blocks * 256 * tpad * fp32 / chip_smoke.PEAK_FP32_INSTR * 1e3
         rows.append(dict(blocks=n_blocks, blocks_per_sm=n_blocks / n_sms, ms=times,
-                         rule=chosen, fastest=best))
-        print(f"[splits] {n_blocks:5d} blocks ({n_blocks / n_sms:.2f} an SM) x {tpad} triangles: "
-              + ", ".join(f"{sp} thread(s) a ray {t:.3f} ms" for sp, t in times.items())
+                         rule=chosen, fastest=best, bound_ms=bound))
+        print(f"[splits] ungated {n_blocks:5d} blocks ({n_blocks / n_sms:.2f} an SM) x {tpad} "
+              f"triangles: " + ", ".join(f"{g} {t:.3f} ms ({bound / t:.1%})"
+                                         for g, t in times.items())
               + f"; fastest {best}, the rule picks {chosen} "
                 f"({times[chosen] / times[best] - 1:+.1%} on the fastest)")
-    # the whole chunk in every output and mask variant of kernel #1
-    variants = {}
-    for baked in (True, False):
-        for wm, wa in ((True, False), (False, True), (True, True)):
-            prim = m_any if wa else m_mat
-            vpack = trace_cuda.build_tri_pack(scene, m_any, m_mat, bake=prim if baked else None)
-            launch = lambda: trace_cuda.sweep_rays(  # noqa: E731
-                rays, vpack, prim, tri_tile=PALLAS_TRI_TILE, want_matrix=wm,  # noqa: B023
-                want_any=wa, masks_baked=baked)  # noqa: B023
-            name = (f"{'matrix+any' if wm and wa else 'matrix' if wm else 'any'},"
-                    f"{'baked' if baked else 'rows'}")
+    gated_rows = []
+    launches, (c_pack, c_tile, c_tiles_on) = gated_launches(card, range_tris)
+    for label, (r_all, t_pad, boxes, launch) in launches.items():
+        tile = trace_cuda.sweep_tile_width(t_pad, PALLAS_TRI_TILE)
+        n_all = -(-r_all.shape[1] // 256)
+        sizes = sorted({b for b in GATED_BLOCKS if b < n_all} | {n_all})
+        if label != "kernel #1 gated, city chunk":
+            sizes = [n_all]
+        for n_blocks in sizes:
+            r = r_all[:, : n_blocks * 256].contiguous()
+            gate = trace_cuda._gate_for(boxes, r, t_pad, tile, PALLAS_TRI_TILE, dev)
+            times, ref, row = {}, None, dict(launch=label, blocks=n_blocks, geometries={})
+            for geo in trace_cuda.BUILT_GEOMETRIES[True]:
+                name = geo.name
+                units = geo.units(r.shape[1])
+                v_block = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+                v_cta = torch.zeros(units, dtype=torch.int32, device=dev)
+                timeline = torch.zeros((units, 4), dtype=torch.int64, device=dev)
+                with chip_smoke.forced_launch(geo, gate=gate):
+                    launch(r)  # warm
+                    ms, out = chip_smoke.cuda_ms(lambda: launch(r))  # noqa: B023
+                    launch(r, visits=v_block)
+                    launch(r, visits=v_cta, timeline=timeline)
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = (out, v_block)
+                chip_smoke.check(torch.equal(out[0], ref[0][0]) and torch.equal(out[1], ref[0][1])
+                                 and torch.equal(v_block, ref[1]),
+                                 f"{label}, {n_blocks} blocks: {name} != the first geometry")
+                walk_pairs = int(v_block.sum()) * 256 * tile
+                own_pairs = int(v_cta.sum()) * geo.rays * tile
+                bound = walk_pairs * fp32 / chip_smoke.PEAK_FP32_INSTR * 1e3
+                stats = timeline_stats(f"{label}, {n_blocks} blocks, {name}", timeline, v_cta,
+                                       n_sms, geo.per_block)
+                row["geometries"][name] = dict(ms=ms, bound_ms=bound, share=bound / ms,
+                                               pairs=own_pairs, walk_pairs=walk_pairs,
+                                               fill=stats["fill"], tail_share=stats["tail_share"],
+                                               slowest_cta_ms=stats["slowest_cta_ms"])
+                times[name] = ms
+                print(f"[splits] {label}, {n_blocks} blocks, {name}: {ms:.3f} ms, bound "
+                      f"{bound:.3f} ms ({bound / ms:.1%}; the 256-ray walk's {walk_pairs:.4g} "
+                      f"pairs), the kernel's own pairs {own_pairs:.4g} "
+                      f"({own_pairs / max(walk_pairs, 1):.3f} of the walk's)")
+            chosen = trace_cuda.sweep_split(n_blocks, True, n_sms).name
+            row.update(rule=chosen, fastest=min(times, key=times.get))
+            print(f"[splits] {label}, {n_blocks} blocks: fastest {row['fastest']}, the rule "
+                  f"picks {chosen} ({times[chosen] / times[row['fastest']] - 1:+.1%})")
+            gated_rows.append(row)
+        if "range" in label:  # the range chunk ungated at each geometry
             times = {}
-            for split in trace_cuda.UNGATED_SPLITS:
-                with chip_smoke.forced_launch(split):
-                    launch()
-                    times[split], _ = chip_smoke.cuda_ms(launch)
-            variants[name] = times
-            print(f"[splits] whole chunk, {name}: "
-                  + ", ".join(f"{sp} thread(s) a ray {t:.3f} ms" for sp, t in times.items()))
-    print(json.dumps({"splits": rows, "variants": variants, "card": card, "sms": n_sms}))
+            for geo in trace_cuda.BUILT_GEOMETRIES[False]:
+                with chip_smoke.forced_launch(geo):
+                    t, _ = chip_smoke.cuda_ms(lambda: launch(r_all, accel=None), reps=1)  # noqa
+                times[geo.name] = t
+            print(f"[splits] {label} ungated: " + ", ".join(
+                f"{g} {t:.3f} ms" for g, t in times.items()) + f"; the rule picks "
+                f"{trace_cuda.sweep_split(n_all, False, n_sms).name}")
+            gated_rows.append(dict(launch=label + " ungated", blocks=n_all, ms=times))
+    # tile segments of a gated walk, which the kernels do not cut: its visits
+    seg = {}
+    r_all, t_pad, boxes, _ = launches["kernel #1 gated, city chunk"]
+    r = r_all[:, : 16 * 256].contiguous()
+    gate = trace_cuda._gate_for(boxes, r, t_pad, c_tile, PALLAS_TRI_TILE, dev)
+    for g in (1, 2, 4):
+        v = torch.zeros(16 * g, dtype=torch.int32, device=dev)
+        trace_cuda.sweep_rays_reference(
+            r, c_pack, trace_cuda._gated_tiles_on(c_tiles_on, gate), c_tile, want_matrix=True,
+            want_any=False, masks_baked=True, gate=gate, visits=v,
+            split=SweepGeometry(256, 4, g))
+        seg[g] = int(v.sum())
+    print(f"[splits] tile segments of the gated walk, plain version, city chunk, 16 leading "
+          f"blocks: swept tiles at 1 / 2 / 4 segments {seg[1]} / {seg[2]} / {seg[4]} "
+          f"({seg[2] / seg[1]:.3f}x, {seg[4] / seg[1]:.3f}x)")
+    print(json.dumps({"splits": rows, "gated": gated_rows, "segments": seg, "card": card,
+                      "sms": n_sms}))
+
+
+def profile_launches(card: str) -> None:
+    """The launches PERF.md section 6 times, each at the geometry the
+    tree's wrapper picks, best of 5 by CUDA events after a warm call: kernel
+    #1 on the soup chunk (matrix and any-only, baked pack), #2 on the soup8
+    round, #1 gated on the 1M city's first ground -> city chunk and #2
+    gated on the first ``city_plates`` round (the gate's tables built once),
+    ex06's row (each kernel #1 launch of the row, 50 back to back; ms a
+    launch) and #1 gated on the 10M city's first chunk. With ``--tree`` the
+    package and chip_smoke.py come from that tree: run a parent tree and
+    this one in turns in one call to A/B a kernel change."""
+    import chip_smoke
+    from raystrack_tpu_torch import PreparedSolver, view_factor, view_factor_matrix
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops import trace_cuda as tc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = chip_smoke.solve_cases()
+    out = {}
+
+    def best(label, fn, reps=5):
+        fn()
+        out[label] = chip_smoke.cuda_ms(fn, reps)[0]
+        print(f"[launches] {label}: {out[label]:.4f} ms", flush=True)
+
+    soup, params = cases["soup"]
+    scene, rays, m_any, m_mat, _, _ = chip_smoke.soup_inputs(dev, PreparedSolver(soup),
+                                                             params.seed)
+    for label, wm, wa, prim in (("soup chunk, matrix", True, False, m_mat),
+                                ("soup chunk, any-only", False, True, m_any)):
+        pack = tc.build_tri_pack(scene, m_any, m_mat, bake=prim)
+        best(label, lambda: tc.sweep_rays(rays, pack, prim, tri_tile=PALLAS_TRI_TILE,  # noqa
+                                          want_matrix=wm, want_any=wa, masks_baked=True))  # noqa
+    del scene, rays, pack
+    soup8, params8 = cases["soup8"]
+    args, kw = chip_smoke.first_call(T, "scheduled_trace", lambda: view_factor_matrix(
+        soup8, params8, prepared=PreparedSolver(soup8)))
+    (scene8, pack8, tables, geom, cp, surf, emit, mins, once, plane, schedule, sel) = args
+    sb = kw["sched_block"]
+    masks = T.combined_masks(scene8, surf, emit, mins, plane)
+    o, d, _ = T.scheduled_rays(tables, geom, cp, once, schedule, sel, sched_block=sb)
+    rays8 = T.ray_pack(o, d)
+    emap = schedule[:, 0].repeat_interleave(sb // chip_smoke.RAY_SUB)
+    best("soup8 round, matrix", lambda: tc.sweep_rays_scheduled(
+        rays8, pack8, masks, emap, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False))
+    del args, scene8, pack8, tables, masks, rays8
+    city, vf_params = cases["city"]
+    plates, plates_params = cases["city_plates"]
+    call = chip_smoke.first_call(T, "chunk_body", lambda: view_factor(
+        city[0], city[1], vf_params, prepared=PreparedSolver(city)))
+    r, pack, mask, accel, tile, _ = chip_smoke.city_chunk_inputs(call)
+    with chip_smoke.forced_launch(gate=tc._gate_for(accel, r, pack.shape[1], tile,
+                                                    PALLAS_TRI_TILE, dev)):
+        best("1M gated chunk", lambda: tc.sweep_rays(
+            r, pack, mask, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+            masks_baked=True, accel=accel))
+    call = chip_smoke.first_call(T, "scheduled_trace", lambda: view_factor_matrix(
+        plates, plates_params, prepared=PreparedSolver(plates)))
+    r, pack, masks, emap, accel, tile, _ = chip_smoke.city_round_inputs(call)
+    with chip_smoke.forced_launch(gate=tc._gate_for(accel, r, pack.shape[1], tile,
+                                                    PALLAS_TRI_TILE, dev)):
+        best("city_plates round", lambda: tc.sweep_rays_scheduled(
+            r, pack, masks, emap, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+            accel=accel))
+    from examples_torch import ex06_city_block as ex06
+    from examples.ex06_city_block import build_city
+    from raystrack_tpu_torch import MatrixParams
+    from raystrack_tpu_torch.parallel.distribute import view_factor_matrix_partition
+
+    ex_meshes = build_city()
+    target = ex06.target_name()
+    part = [name for name, _, _ in ex_meshes].index(target)
+    calls = []
+    real = T.sweep_rays
+    T.sweep_rays = lambda *a, **k: calls.append((a, k)) or real(*a, **k)
+    try:
+        view_factor_matrix_partition(ex_meshes, MatrixParams(**ex06.SETTINGS, reciprocity=False),
+                                     n_parts=len(ex_meshes), part=part)
+    finally:
+        T.sweep_rays = real
+    a, k = calls[0]
+    best("ex06 row, a kernel #1 launch (50 back to back)", lambda: [
+        tc.sweep_rays(*a, **k) for _ in range(50)][-1])
+    out["ex06 row, a kernel #1 launch (50 back to back)"] /= 50
+    big = chip_smoke.city_meshes(chip_smoke.BIG_CITY_TRIS)
+    call = chip_smoke.first_call(T, "chunk_body", lambda: view_factor(
+        big[0], big[1], vf_params, prepared=PreparedSolver(big)))
+    r, pack, mask, accel, tile, _ = chip_smoke.city_chunk_inputs(call)
+    gate = tc._gate_for(accel, r, pack.shape[1], tile, PALLAS_TRI_TILE, dev)
+    with chip_smoke.forced_launch(gate=gate):
+        best("10M gated chunk", lambda: tc.sweep_rays(
+            r, pack, mask, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+            masks_baked=True, accel=accel))
+    print(json.dumps({"launches": out, "tree": str(Path(tc.__file__).parents[2]), "card": card}))
 
 
 def profile_variants(card: str) -> None:
@@ -450,17 +645,16 @@ def profile_variants(card: str) -> None:
                                        sched_block=kw["sched_block"])
     rays8 = trace_mod.ray_pack(o, d)
     emap = schedule[:, 0].repeat_interleave(kw["sched_block"] // chip_smoke.RAY_SUB)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
     for wm, wa in ((True, False), (False, True), (True, True)):
         name = "matrix+any" if wm and wa else "matrix" if wm else "any"
         flags = "".join(str(int(f)) for f in (wm, wa))
         prim = m_any if wa else m_mat
         pack = trace_cuda.build_tri_pack(scene, m_any, m_mat, bake=prim)
-        split1 = trace_cuda.sweep_split(rays.shape[1] // chip_smoke.RAY_SUB, False, n_sms)
-        split2 = trace_cuda.sweep_split(rays8.shape[1] // chip_smoke.RAY_SUB, False, n_sms)
-        sym1 = f"sweep_kernel<{','.join(flags)},1,0>" + (f"x{split1}" if split1 > 1 else "")
-        sym2 = f"sweep_sched_kernel<{','.join(flags)},0>" + (f"x{split2}" if split2 > 1 else "")
+        sym1 = chip_smoke.sweep_name(f"sweep_kernel<{','.join(flags)},1,0>",
+                                     trace_cuda._launch_geometry(rays.shape[1], False, dev))
+        sym2 = chip_smoke.sweep_name(f"sweep_sched_kernel<{','.join(flags)},0>",
+                                     trace_cuda._launch_geometry(rays8.shape[1], False, dev))
         for label, sym, launch in (
             ("kernel #1, soup chunk", sym1, lambda: trace_cuda.sweep_rays(  # noqa: E731
                 rays, pack, prim, tri_tile=PALLAS_TRI_TILE, want_matrix=wm,  # noqa: B023
@@ -528,6 +722,12 @@ def main() -> int:
     parser.add_argument("--variants", action="store_true")
     parser.add_argument("--halton", action="store_true")
     parser.add_argument("--force-split", type=int, default=None)
+    parser.add_argument("--launches", action="store_true")
+    parser.add_argument("--tree", default=None,
+                        help="import the package and chip_smoke.py from this tree")
+    parser.add_argument("--range", type=int, default=0,
+                        help="with --splits or --timeline, also the gated chunk of "
+                             "city_100m_torch.py's city of this many triangles")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
     args = parser.parse_args()
@@ -537,6 +737,8 @@ def main() -> int:
         print("chip_profile.py needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.tree:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
     import chip_smoke
     import raystrack_tpu_torch.solver as solver_mod
     from raystrack_tpu_torch import config
@@ -554,13 +756,16 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     if args.timeline:
-        profile_timelines(card)
+        profile_timelines(card, args.range)
         return 0
     if args.splits:
-        profile_splits(card)
+        profile_splits(card, args.range)
         return 0
     if args.variants:
         profile_variants(card)
+        return 0
+    if args.launches:
+        profile_launches(card)
         return 0
     if args.halton:
         profile_halton(card)

@@ -25,10 +25,13 @@ settings, and checks each against its analytic or plain reference:
               crossing kernel (at 1, 2 and 4 boxes a thread)
 3. kernel #1  single-emitter sweep vs its plain version on the soup (98,304
               triangles x 262,144 rays), 6 output/mask variants; the solve's
-              variant also at 4 threads a ray (== 1, timed)
+              variant also at every ungated CTA geometry the kernels are built
+              at (rays a CTA x threads a ray: == the wrapper's launch, codes
+              and each CTA's visits, timed beside the bound)
 4. kernel #2  multi-emitter sweep vs its plain version on the soup8 round
               (100,352 padded triangles x 262,144 rays of 8 emitters), 3
-              variants, and vs kernel #1 per emitter on the same rays; the
+              variants, at every ungated CTA geometry (as phase 3), and vs
+              kernel #1 per emitter on the same rays; the
               sky's any-only and the workflow's matrix + any variants of
               both kernels (on the m_any-baked pack their solves build) beside
               their bounds, the FP32 SASS instructions a pair of the
@@ -45,10 +48,12 @@ settings, and checks each against its analytic or plain reference:
               (kernel #2, the matrix of the city with its ground split into
               ten plates: 245,760 rays, all real) the solves
               dispatch: gated == ungated
-              over all of them, gated == its plain gated version on the
-              leading blocks, run at the kernel's 4 threads a ray
-              (``split=4``) and unsplit: codes, flags, visits; times beside
-              the bound, the share
+              over all of them; at every gated CTA geometry the kernels are
+              built at, == the wrapper's launch (codes, flags, each block's
+              visits), timed beside the 256-ray walk's bound with its own
+              pair tests; gated == its plain gated version on the leading
+              blocks, at the rule's geometry (each CTA's visits) and at
+              whole 256-ray blocks a CTA: codes, flags, visits; the share
               of (block, tile) visits the gate leaves, the gate-table build
               time; the gate's crossing kernel == its plain version on both
               inputs, with one box per tile and through the two-level gate,
@@ -80,12 +85,14 @@ settings, and checks each against its analytic or plain reference:
               ``==``); warm walls, rays/s, peak device memory; one gated
               launch, and one launch of the gate's crossing kernel, per
               chunk or round of the gated solves, one ungated launch per
-              chunk or round of the others
+              chunk or round of the others; the gated solves again at whole
+              256-ray blocks a CTA (uncounted): dicts ``==``
 13. slim 1M   the same ground -> city solve and the ten-plate matrix with the
               scene pack slim (forced through config.SLIM_PACK_MIN_TRIS,
               restored after): dicts ``==`` phase 12's; per-emitter chunks
               only, one gated code-mode launch each, on the resident pack,
-              no per-emitter pack built; peak device memory of both modes
+              no per-emitter pack built; peak device memory of both modes;
+              both again at whole 256-ray blocks a CTA: dicts ``==``
 14. slim 10M  ``view_factor`` ground -> city of the 10M-triangle city
               (10,000,384 padded, 4,883 tiles), bvh="auto", full mode then
               slim mode, each from a fresh PreparedSolver with the other's
@@ -96,7 +103,11 @@ settings, and checks each against its analytic or plain reference:
               each mode and per emitter row of a round, and the sizes at
               which full mode's peaks would pass half the card's memory
               (the reckoning behind the default of SLIM_PACK_MIN_TRIS); the
-              crossing kernel on the 10M chunk's rays and 4,883 boxes
+              crossing kernel on the 10M chunk's rays and 4,883 boxes; after
+              the full-mode footprint, kernel #1 on the 10M chunk at every
+              gated CTA geometry (as phase 5, the plain version on 16
+              blocks, no ungated launch) and the solve at whole 256-ray
+              blocks a CTA ``==`` (uncounted)
 15. kernel #3 the FP32 FMA-peak probe (1.374e11 dependent-chain FFMAs): best
               of 5 by CUDA events, FFMA/s and its share of the data sheet's
               33.5e12, the SM clock while it runs, every repeat against the
@@ -176,9 +187,11 @@ settings, and checks each against its analytic or plain reference:
               (groups of 2 over 7,325 boxes, the last one real tile and one
               phantom, no early-exit window); the r05 sweep cases gated ==
               ungated on the 24-block subset and the full ray set; kernel #1
-              in code mode, gated, on the full chunk == ungated and, on its
-              first 24 blocks, == its plain gated version (codes, flags,
-              visits), timed beside its bound; the bounded solve (3
+              in code mode, gated and ungated, on the full chunk at the
+              rule's geometry and at whole 256-ray blocks a CTA, all equal,
+              and, on its first 24 blocks, == its plain gated version at the
+              rule's geometry (codes, flags, each CTA's visits), timed beside
+              the 256-ray walk's bound; the bounded solve (3
               iterations) per-emitter on the resident pack, every kernel #1
               launch gated and in code mode, one crossing and count launch a
               chunk, == ``bvh="off"``; set-up split by step, host peak RSS,
@@ -239,7 +252,7 @@ import numpy as np
 import torch
 
 from bench_torch import district_meshes, plates_meshes, soup_meshes
-from city_100m_torch import city_meshes, slim_threshold
+from city_100m_torch import city_meshes, forced_launch, slim_threshold
 
 ROOT = Path(__file__).resolve().parent
 PLATES_EXACT = 0.1998249
@@ -487,7 +500,8 @@ def kernel_name(match) -> str:
     """A kernel instantiation's name from its mangled symbol (a match of
     KERNEL_SYMBOL): sweep_kernel as ``sweep_kernel<matrix,any,baked,gate>``,
     sweep_code_kernel and sweep_sched_kernel as ``<matrix,any,gate>``, with
-    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit);
+    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit) and ``r64``
+    after that for a CTA of 64 rays (kCta; none for a whole block of 256);
     gate_cross_kernel as ``gate_cross_kernel<K>``, K boxes a thread;
     count_codes_kernel as ``<shared>``."""
     flags = re.findall(r"Lb(\d)", match.group(2))
@@ -497,7 +511,16 @@ def kernel_name(match) -> str:
     if match.group(1) == "count_codes_kernel":
         return f"count_codes_kernel<{','.join(split + flags)}>"
     return (match.group(1) + (f"<{','.join(flags)}>" if flags else "")
-            + (f"x{split[0]}" if split and split[0] != "1" else ""))
+            + (f"x{split[0]}" if split and split[0] != "1" else "")
+            + (f"r{split[1]}" if len(split) > 1 and split[1] != "256" else ""))
+
+
+def sweep_name(base: str, geo) -> str:
+    """The :func:`kernel_name` of a sweep instantiation launched at ``geo``
+    (a ``trace_cuda.SweepGeometry``): ``base`` as ``"sweep_kernel<1,0,1,1>"``
+    with the split and the rays a CTA after it."""
+    return (base + (f"x{geo.split}" if geo.split > 1 else "")
+            + (f"r{geo.rays}" if geo.rays != RAY_SUB else ""))
 
 
 def ptxas_lines(log: str) -> list:
@@ -689,21 +712,55 @@ def phase_kernel(dev, soup_ps, seed: int):
                        want_any=False, masks_baked=True)[0]
     front = int((codes == 3).sum())
     ms, plain_ms = rows[(True, False, True)][:2]  # the matrix solve's own variant
-    with forced_launch(split=4):  # the same launch at the under-filled launches' split
-        ms4, (c4, _) = cuda_ms(lambda: sweep_rays(
-            rays, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
-            masks_baked=True))
-    check(torch.equal(c4, codes), "kernel #1 at 4 threads a ray != at 1 on the soup")
-    print(f"[kernel1] matrix,baked at 4 threads a ray: equal=True, {ms4:.3f} ms "
-          f"(the wrapper's 1 thread a ray: {ms:.3f} ms)")
     tiles_on = m_mat.reshape(-1, tile).any(dim=1)
+    geos = ungated_geometries("kernel1", lambda **kw: sweep_rays(
+        rays, pack, m_mat, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
+        masks_baked=True, **kw), codes, int(tiles_on.sum()), "sweep_kernel<1,0,1,0>")
     pairs = -(-n // 256) * 256 * int(tiles_on.sum()) * tile
     nbytes = sweep_bytes(rays, pack, tiles_on.to(torch.int32))
     # the sky's and the workflow's variants: the m_any-baked pack they sweep
     sky = {name: rows[key] for name, key in (("any", (False, True, True)),
                                              ("matrix+any", (True, True, True)))}
     return (max_err, ms, plain_ms, front / n, (codes.view(SOUP_CHUNK, -1), valid, 4, None),
-            pairs, nbytes, sky)
+            pairs, nbytes, sky, geos)
+
+
+def ungated_geometries(tag, launch, codes, active, base) -> dict:
+    """An ungated kernel at every geometry it is built at (``launch(**kw)``
+    under :func:`forced_launch`; ``codes``: the wrapper's own launch, equal
+    to its plain version): codes equal, the visits of each block's CTAs
+    (its tile segments) summing to its ``active`` tiles (an int, or one per
+    block of 256 rays); best of 3 by CUDA events. -> geometry name -> (ms, the SASS name
+    of its instantiation, ``base`` at that geometry)."""
+    from raystrack_tpu_torch.ops.trace_cuda import BUILT_GEOMETRIES
+
+    out = {}
+    n = codes.shape[0]
+    for geo in BUILT_GEOMETRIES[False]:
+        v = torch.full((geo.units(n),), -1, dtype=torch.int32, device=codes.device)
+        with forced_launch(geo):
+            t, (c, _) = cuda_ms(lambda: launch())
+            launch(visits=v)
+        name = geo.name
+        per_block = v.view(-1, geo.per_block).sum(dim=1)  # the segments share the tiles
+        check(torch.equal(c, codes) and bool((v >= 0).all()) and bool((per_block == active).all()),
+              f"{tag}: the kernel at {name} != the wrapper's launch (codes, each CTA's visits)")
+        out[name] = (t, sweep_name(base, geo))
+    print(f"[{tag}] matrix variant at every built ungated geometry (codes and each CTA's visits "
+          f"== the wrapper's launch, which == its plain version): "
+          + ", ".join(f"{name} {t:.3f} ms" for name, (t, _) in out.items()))
+    return out
+
+
+def geometry_rows(geos, nbytes, pairs, pair_ops) -> dict:
+    """Each geometry's ms beside the launch's bound (its pairs, all tested at
+    every ungated geometry, x the FP32 instructions a pair of that
+    geometry's instantiation) and its share."""
+    out = {}
+    for name, (ms_, inst) in geos.items():
+        bnd = bound(nbytes, pairs, pair_ops[inst][0])
+        out[name] = dict(ms=ms_, bound_ms=bnd[0], bound_by=bnd[1], share=bnd[0] / ms_)
+    return out
 
 
 def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
@@ -753,6 +810,10 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
               f"plain {plain_ms:.3f} ms ({n * tpad / plain_ms * 1e3:.4g} tests/s)")
         check(same, f"kernel #2 != plain version in variant {name}")
 
+    active = scheduled_tiles_on(masks, tile, want_matrix=True, want_any=False)[emap.long()]
+    geos = ungated_geometries("kernel2", lambda **kw: sweep_rays_scheduled(
+        rays, tri_pack, masks, emap, tri_tile=tri_tile, want_matrix=True, want_any=False, **kw),
+        outs[(True, False)][0], active.sum(dim=1, dtype=torch.int32), "sweep_sched_kernel<1,0,0>")
     # the same rays through kernel #1, emitter by emitter, with row masks
     codes, any_hit = outs[(True, True)]
     ray_row = emap.repeat_interleave(RAY_SUBBLOCK)
@@ -782,7 +843,7 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     sky = {name: times[key] for name, key in (("any", (False, True)),
                                               ("matrix+any", (True, True)))}
     return (max_err, ms, plain_ms, fronts, (codes_rows, valid, 2 * (surf.shape[1] - 1), None),
-            pairs, nbytes, sky, (sky_ids, valid))
+            pairs, nbytes, sky, (sky_ids, valid), geos)
 
 
 def phase_count(cases):
@@ -878,102 +939,149 @@ def first_call(mod, name: str, fn):
 
 
 @contextlib.contextmanager
-def forced_launch(split=None, gate=None):
-    """Inside the block the sweep wrappers launch at ``split`` threads a ray
-    (else their own choice) and, with ``gate``, on these prebuilt tables
-    (else they build their own)."""
-    from raystrack_tpu_torch.ops import trace_cuda
+def uncounted():
+    """Inside the block launches of the sweeps, the count and the crossing
+    are made to compare a kernel with its plain version or with another
+    geometry: the wrappers' counters are restored after it."""
+    from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
 
-    real = trace_cuda.sweep_split, trace_cuda._gate_for
-    if split is not None:
-        trace_cuda.sweep_split = lambda n_blocks, gated, n_sms: split
-    if gate is not None:
-        trace_cuda._gate_for = lambda *args: gate
+    names = {sweep_rays: ("launches", "gated_launches", "code_launches"),
+             sweep_rays_scheduled: ("launches", "gated_launches"),
+             count_bins: ("launches",), gate_cross: ("launches",)}
+    saved = {(fn, a): getattr(fn, a) for fn, attrs in names.items() for a in attrs}
     try:
         yield
     finally:
-        trace_cuda.sweep_split, trace_cuda._gate_for = real
+        for (fn, a), v in saved.items():
+            setattr(fn, a, v)
 
 
-def gate_phase(label, rays, kernel, plain, tables, n_blocks, tiles_total, tile, ops, nbytes):
+def gate_phase(label, rays, kernel, plain, tables, n_blocks, tiles_total, tile, ops, nbytes,
+               plain_blocks=CITY_PLAIN_BLOCKS, ungated=True):
     """Gated kernel vs ungated kernel (whole input) and vs its plain gated
-    version on the leading CITY_PLAIN_BLOCKS blocks, with times, the visit
-    share and the gate-table build time. ``kernel(rays, gated, visits)``
-    and ``plain(rays, gate, tiles_on, visits, split)`` run the two versions;
-    ``tables()`` builds the gate's tables and padded tile flags for ``rays``;
-    ``tiles_total`` is the (block, tile) visits of the ungated sweep.
+    version on the leading CITY_PLAIN_BLOCKS blocks, at every geometry the
+    gated kernels are built at, with times, the visit share and the
+    gate-table build time. ``kernel(rays, gated, visits)`` and
+    ``plain(rays, gate, tiles_on, visits, geometry)`` run the two versions;
+    ``tables()`` builds the gate's tables and padded tile flags for
+    ``rays``; ``tiles_total`` is the (block, tile) visits of the ungated
+    sweep; ``ops`` is (the SASS counts :func:`sass_pair_ops` gives, the
+    gated and the ungated instantiation's name before its geometry). The
+    plain version runs on ``plain_blocks`` leading blocks; with
+    ``ungated=False`` the ungated launch (seconds at 10M triangles) is
+    skipped.
 
-    The wrapper builds the gate's tables at every call; the kernel's own
-    time is taken with the tables built once beforehand. The gated kernels
-    are built at one triangle split (``trace_cuda.GATED_SPLIT``); the plain
-    version runs at that split and unsplit, and both must give the kernel's
-    codes, flags and visits."""
+    The wrapper builds the gate's tables at every call; each geometry's time
+    is taken with the tables built once beforehand. Every geometry gives
+    the wrapper's codes, flags and visits of each block (the tiles any of
+    its CTAs swept: the 256-ray walk's); the plain version at the rule's
+    geometry gives the kernel's per-CTA visits too, and at the whole-block
+    geometry (``trace_cuda.GATED_SPLIT`` as a bare int) its per-block ones.
+    The bound is the 256-ray walk's: its visits x 256 x tile pairs; each
+    geometry's own pair tests (its per-CTA visits x its rays x tile) stand
+    beside it."""
     from raystrack_tpu_torch.ops import trace_cuda
 
     dev = rays.device
+    n = rays.shape[1]
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     visits = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
     full = torch.zeros_like(visits)
     table_ms, (gate, tiles_on) = cuda_ms(lambda: tables(rays))
     wrapper_ms, (c, a) = cuda_ms(lambda: kernel(rays, True, visits))
-    chosen = trace_cuda.sweep_split(n_blocks, True, n_sms)
-    check(chosen == trace_cuda.GATED_SPLIT, f"{label}: the rule picks {chosen} for a gated launch")
-    v = torch.full_like(visits, -1)
-    with forced_launch(gate=gate):
-        ms, (cs, as_) = cuda_ms(lambda: kernel(rays, True, v))
-    check(torch.equal(cs, c) and torch.equal(as_, a) and torch.equal(v, visits),
-          f"{label}: the kernel on prebuilt tables != the wrapper's launch")
-    ms_u, (cu, au) = cuda_ms(lambda: kernel(rays, False, full))
-    check(torch.equal(c, cu) and torch.equal(a, au), f"{label}: gated kernel != ungated kernel")
-    k = min(CITY_PLAIN_BLOCKS, n_blocks)
+    chosen = trace_cuda._geometry(trace_cuda.sweep_split(n_blocks, True, n_sms))
+    whole = trace_cuda._geometry(trace_cuda.GATED_SPLIT)
+    check(chosen in trace_cuda.BUILT_GEOMETRIES[True],
+          f"{label}: the rule picks {chosen} for a gated launch")
+    swept, total = int(visits.sum()), None
+    pairs = swept * RAY_SUB * tile
+    pair_ops, gated_base, ungated_base = ops
+    bnd = bound(nbytes, pairs, pair_ops[sweep_name(gated_base, chosen)][0])
+    geos = {}
+    for geo in trace_cuda.BUILT_GEOMETRIES[True]:
+        v_block = torch.full_like(visits, -1)
+        v_cta = torch.full((geo.units(n),), -1, dtype=torch.int32, device=dev)
+        with forced_launch(geo, gate=gate):
+            ms_g, (cs, as_) = cuda_ms(lambda: kernel(rays, True, None))  # noqa: B023
+            kernel(rays, True, v_block)
+            kernel(rays, True, v_cta)
+        name = geo.name
+        check(torch.equal(cs, c) and torch.equal(as_, a) and torch.equal(v_block, visits),
+              f"{label}: the kernel at {name} on prebuilt tables != the wrapper's launch (codes, "
+              f"flags, visits of each block)")
+        own = int(v_cta.sum()) * geo.rays * tile
+        geos[name] = dict(ms=ms_g, bound_ms=bnd[0], share=bnd[0] / ms_g, pairs=own,
+                          walk_pairs=pairs, ctas=geo.units(n), cta_visits=v_cta)
+    ms = geos[chosen.name]["ms"]
+    ms_u = None
+    if ungated:
+        ms_u, (cu, au) = cuda_ms(lambda: kernel(rays, False, full))
+        check(torch.equal(c, cu) and torch.equal(a, au), f"{label}: gated kernel != ungated "
+              f"kernel")
+    else:
+        full.fill_(tiles_total // n_blocks)
+    k = min(plain_blocks, n_blocks)
     sub = rays[:, : k * RAY_SUB].contiguous()
     sub_visits = torch.zeros(k, dtype=torch.int32, device=dev)
     sub_ms, (cs, as_) = cuda_ms(lambda: kernel(sub, True, sub_visits))
     lead = slice(0, k * RAY_SUB)
     err, plain_ms = 0, {}
-    for split in (chosen, 1):
-        plain_visits = torch.zeros_like(sub_visits)
-        plain_ms[split], (cp, ap) = timed_once(lambda: plain(  # noqa: B023
-            sub, gate.blocks(torch.arange(k, device=dev)), tiles_on, plain_visits, split))  # noqa: B023
+    for geo in (chosen, whole):
+        name = geo.name
+        rows = geo.units(k * RAY_SUB)
+        plain_visits = torch.full((rows,), -2, dtype=torch.int32, device=dev)
+        plain_ms[name], (cp, ap) = timed_once(lambda: plain(  # noqa: B023
+            sub, gate.blocks(torch.arange(k, device=dev)), tiles_on, plain_visits,  # noqa: B023
+            geo))
         same = (torch.equal(cp, c[lead]) and torch.equal(ap, a[lead])
-                and torch.equal(plain_visits, visits[:k]))
+                and torch.equal(plain_visits, geos[name]["cta_visits"][:rows]))
         err = max(err, int((cp - c[lead]).abs().max()), int((ap - a[lead]).abs().max()))
-        check(same, f"{label}: gated kernel != its plain gated version (split={split}) on "
-                    f"{k} blocks")
+        check(same, f"{label}: gated kernel != its plain gated version at {name} on {k} blocks "
+                    f"(codes, flags, visits of each CTA)")
     # the leading blocks alone (timed against the plain version) build their
     # own tables; a block's mean origin may round apart, reordering ties only
     sub_same = torch.equal(cs, cp) and torch.equal(as_, ap)
-    swept, total = int(visits.sum()), int(full.sum())
+    total = int(full.sum())
     check(total == tiles_total, f"{label}: ungated visits {total} != {tiles_total}")
-    pairs, pairs_full = swept * RAY_SUB * tile, total * RAY_SUB * tile
+    pairs_full = total * RAY_SUB * tile
+    for g in geos.values():
+        del g["cta_visits"]
     out = dict(
-        gated_ms=ms, gated_split=chosen, gated_wrapper_ms=wrapper_ms, ungated_ms=ms_u,
-        ungated_split=trace_cuda.sweep_split(n_blocks, False, n_sms),
-        gated_plain_ms=plain_ms[chosen], gated_plain_blocks=k,
+        gated_ms=ms, gated_geometry=chosen.name, gated_split=chosen.split,
+        gated_wrapper_ms=wrapper_ms, ungated_ms=ms_u,
+        ungated_geometry=trace_cuda._launch_geometry(n, False, dev).name,
+        gated_plain_ms=plain_ms[chosen.name], gated_plain_blocks=k,
+        gated_plain_ms_whole_blocks=plain_ms[whole.name],
         gated_kernel_ms_on_plain_blocks=sub_ms, gate_tables_ms=table_ms,
         visit_share=swept / total, gated_pairs=pairs, ungated_pairs=pairs_full,
-        max_abs_err=err)
-    out["gated_bound_ms"], out["gated_bound_by"] = bound(nbytes, pairs, ops[0])
-    out["ungated_bound_ms"], out["ungated_bound_by"] = bound(nbytes, pairs_full, ops[1])
+        geometries=geos, max_abs_err=err)
+    out["gated_bound_ms"], out["gated_bound_by"] = bnd
+    out["ungated_bound_ms"], out["ungated_bound_by"] = bound(
+        nbytes, pairs_full,
+        pair_ops[sweep_name(ungated_base, trace_cuda._launch_geometry(n, False, dev))][0])
     print(f"[gate] {label}: {n_blocks} blocks, {total} (block, tile) visits of {tile} "
           f"triangles ungated; the gate "
           f"leaves {swept} of {total} (block, tile) visits = {swept / total:.4%} "
-          f"({pairs:.4g} of {pairs_full:.4g} pair tests); gated == ungated and == the "
-          f"plain gated version at split={chosen} and split=1 on {k} blocks (codes, flags, "
-          f"visits): True; "
+          f"({pairs:.4g} of {pairs_full:.4g} pair tests); gated == ungated, every built "
+          f"geometry == the wrapper's launch, and == the plain gated version at "
+          f"{', '.join(plain_ms)} on {k} blocks (codes, flags, visits): True; "
           f"the kernel on those blocks alone: codes equal {sub_same}, visits equal "
-          f"{torch.equal(sub_visits, plain_visits)}")
+          f"{torch.equal(sub_visits, visits[:k])}")
     print(f"[gate] {label}: at most {int(visits.max())} tiles in one block (ungated "
           f"{int(full.max())}); per block, the median {float(visits.float().median()):g}")
-    print(f"[gate] {label}: gated kernel, {chosen} threads a ray, {ms:.3f} ms (bound "
-          f"{out['gated_bound_ms']:.3f} ms, {out['gated_bound_by']}: "
-          f"{out['gated_bound_ms'] / ms:.1%} of it), ungated kernel, "
-          f"{out['ungated_split']} thread(s) a ray, {ms_u:.3f} ms (bound "
-          f"{out['ungated_bound_ms']:.3f} ms, {out['ungated_bound_by']}), gate tables "
-          f"{table_ms:.3f} ms, the gated wrapper (tables and kernel) {wrapper_ms:.3f} ms; "
-          f"on the leading {k} blocks (tables included): gated kernel {sub_ms:.3f} ms, "
-          f"plain gated version " + ", ".join(f"{t:.3f} ms (split={sp})"
-                                              for sp, t in plain_ms.items()))
+    print(f"[gate] {label}: gated kernel (tables prebuilt), bound {bnd[0]:.3f} ms ({bnd[1]}, "
+          f"the 256-ray walk's pairs): " + "; ".join(
+              f"{name} {g['ms']:.3f} ms ({g['share']:.1%} of the bound; its own pair tests "
+              f"{g['pairs'] / max(pairs, 1):.3f} of the walk's)" for name, g in geos.items())
+          + f"; the rule picks {chosen.name}; ungated kernel at "
+          f"{out['ungated_geometry']} "
+          + (f"{ms_u:.3f} ms" if ms_u is not None else "not launched")
+          + f" (bound {out['ungated_bound_ms']:.3f} ms, "
+          f"{out['ungated_bound_by']}), gate tables {table_ms:.3f} ms, the gated wrapper "
+          f"(tables and kernel) {wrapper_ms:.3f} ms; on the leading {k} blocks (tables "
+          f"included): gated kernel {sub_ms:.3f} ms, plain gated version "
+          + ", ".join(f"{t:.3f} ms ({name})" for name, t in plain_ms.items()))
     return out
 
 
@@ -1029,18 +1137,17 @@ def city_round_inputs(round_call):
     return rays, pack, masks, emap, accel, tile, t_on
 
 
-def phase_city_kernels(chunk_call, round_call, pair_ops):
-    """Kernels #1 and #2 gated on the city: the first chunk of the
-    ground -> city solve and the first round of the ten-plate matrix
-    solve, with the rays those dispatches sweep."""
+def chunk_gate_phase(label, chunk_call, pair_ops, **kw):
+    """:func:`gate_phase` of kernel #1 (baked pack, the matrix) on the rays
+    of a captured ``chunk_body`` call (:func:`city_chunk_inputs`); ``kw``
+    goes to gate_phase. -> (its result, the rays)."""
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
     from raystrack_tpu_torch.ops.trace_cuda import (
         _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference,
-        sweep_rays_scheduled, sweep_rays_scheduled_reference,
     )
 
     rays, pack, sweep_mask, accel, tile, tiles_on = city_chunk_inputs(chunk_call)
-    dev, rays1 = rays.device, rays
+    dev = rays.device
     n, tpad = rays.shape[1], pack.shape[1]
     check(tpad % 2048 == 0 and tile == 2048, f"city pack {tpad}, tile {tile}")
     sweep_kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
@@ -1050,17 +1157,29 @@ def phase_city_kernels(chunk_call, round_call, pair_ops):
         gate = _gate_for(accel, r, tpad, tile, PALLAS_TRI_TILE, dev)
         return gate, _gated_tiles_on(tiles_on, gate)
 
-    k1 = gate_phase(
-        "kernel #1, city chunk", rays,
+    return gate_phase(
+        label, rays,
         lambda r, gated, v: sweep_rays(r, pack, sweep_mask, accel=accel if gated else None,
                                        visits=v, **sweep_kw),
         lambda r, gate, t_on, v, split: sweep_rays_reference(
             r, pack, t_on, tile, want_matrix=True, want_any=False, masks_baked=True,
             gate=gate, visits=v, split=split),
         tables1, n // RAY_SUB, n // RAY_SUB * int(tiles_on.sum()), tile,
-        (pair_ops["sweep_kernel<1,0,1,1>x4"][0], pair_ops["sweep_kernel<1,0,1,0>"][0]),
-        sweep_bytes(rays, pack, tiles_on, *accel))
+        (pair_ops, "sweep_kernel<1,0,1,1>", "sweep_kernel<1,0,1,0>"),
+        sweep_bytes(rays, pack, tiles_on, *accel), **kw), rays
 
+
+def phase_city_kernels(chunk_call, round_call, pair_ops):
+    """Kernels #1 and #2 gated on the city: the first chunk of the
+    ground -> city solve and the first round of the ten-plate matrix
+    solve, with the rays those dispatches sweep."""
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops.trace_cuda import (
+        _gate_for, _gated_tiles_on, sweep_rays_scheduled, sweep_rays_scheduled_reference,
+    )
+
+    k1, rays1 = chunk_gate_phase("kernel #1, city chunk", chunk_call, pair_ops)
+    dev, tpad = rays1.device, chunk_call[0][0].shape[1]
     rays, pack2, masks, emap, accel, tile, t_on = city_round_inputs(round_call)
     n = rays.shape[1]
 
@@ -1082,7 +1201,7 @@ def phase_city_kernels(chunk_call, round_call, pair_ops):
     k2 = gate_phase(
         "kernel #2, city_plates round", rays, kernel2, plain2, tables2, n // RAY_SUB,
         int(t_on[emap.long()].sum()), tile,
-        (pair_ops["sweep_sched_kernel<1,0,1>x4"][0], pair_ops["sweep_sched_kernel<1,0,0>"][0]),
+        (pair_ops, "sweep_sched_kernel<1,0,1>", "sweep_sched_kernel<1,0,0>"),
         sweep_bytes(rays, pack2, masks, emap, t_on, *accel))
     cross = phase_gate_cross({"city chunk": rays1, "city_plates round": rays}, accel, tile,
                              tpad // tile, pair_ops)
@@ -1208,7 +1327,7 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
     from raystrack_tpu_torch.ops import trace as T
     from raystrack_tpu_torch.ops.trace_cuda import (
-        UNGATED_SPLITS, _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference,
+        BUILT_GEOMETRIES, _gate_for, _gated_tiles_on, sweep_rays, sweep_rays_reference,
         sweep_split, sweep_tile_width,
     )
 
@@ -1247,7 +1366,7 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     k = gate_phase(
         "kernel #1 code mode, city chunk", rays, kernel, plain, tables1, n // RAY_SUB,
         n // RAY_SUB * int(tiles_on.sum()), tile,
-        (pair_ops["sweep_code_kernel<1,0,1>x4"][0], pair_ops["sweep_code_kernel<1,0,0>"][0]),
+        (pair_ops, "sweep_code_kernel<1,0,1>", "sweep_code_kernel<1,0,0>"),
         sweep_bytes(rays, pack, tiles_on, *accel))
     # against the baked kernel over the whole chunk, and the ungated plain
     # version on the leading blocks
@@ -1273,23 +1392,25 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     small = rays[:, : 32 * RAY_SUB].contiguous()
     k["small_chunk_ms"] = {}
     ref = None
-    for split in UNGATED_SPLITS:
+    for geo in BUILT_GEOMETRIES[False]:
         v = torch.zeros(32, dtype=torch.int32, device=dev)
-        with forced_launch(split):
+        with forced_launch(geo):
             t, (cs, as_) = cuda_ms(lambda: kernel(small, False, v))  # noqa: B023
         ref = ref or (cs, as_, v)
         check(torch.equal(cs, ref[0]) and torch.equal(as_, ref[1]) and torch.equal(v, ref[2]),
-              f"code-mode kernel on 32 blocks, ungated: {split} threads a ray != 1")
-        k["small_chunk_ms"][f"ungated, {split}"] = t
-    t, (cs, as_) = cuda_ms(lambda: kernel(small, True, v))
-    check(torch.equal(cs, ref[0]) and torch.equal(as_, ref[1]),
-          "code-mode kernel on 32 blocks: gated != ungated")
-    k["small_chunk_ms"][f"gated, {sweep_split(32, True, n_sms)}"] = t
-    print(f"[code] 32 leading blocks alone (a slim ten-plate chunk's size), threads a ray "
-          f"(codes, flags and ungated visits equal; the gated time includes the tables): "
+              f"code-mode kernel on 32 blocks, ungated: {geo} != the first geometry")
+        k["small_chunk_ms"][f"ungated, {geo.name}"] = t
+    for geo in BUILT_GEOMETRIES[True]:
+        with forced_launch(geo):
+            t, (cs, as_) = cuda_ms(lambda: kernel(small, True, None))
+        check(torch.equal(cs, ref[0]) and torch.equal(as_, ref[1]),
+              f"code-mode kernel on 32 blocks: gated at {geo} != ungated")
+        k["small_chunk_ms"][f"gated, {geo.name}"] = t
+    print(f"[code] 32 leading blocks alone (a slim ten-plate chunk's size), by geometry "
+          f"(codes, flags and ungated visits equal; the gated times include the tables): "
           + "; ".join(f"{key} {t:.3f} ms" for key, t in k["small_chunk_ms"].items())
-          + f"; the wrapper launches {sweep_split(32, False, n_sms)} ungated and "
-            f"{sweep_split(32, True, n_sms)} gated")
+          + f"; the wrapper launches {sweep_split(32, False, n_sms).name} ungated "
+            f"and {sweep_split(32, True, n_sms).name} gated")
     ops_code, ops_baked = pair_ops["sweep_code_kernel<1,0,0>"], pair_ops["sweep_kernel<1,0,1,0>"]
     print(f"[code] == the baked kernel over the whole chunk (codes and flags), gated and "
           f"ungated: True; ungated == its plain version on {lead} blocks (codes, flags, "
@@ -1304,12 +1425,30 @@ def phase_code_kernel(chunk_call, code_call, pair_ops, baked):
     return k
 
 
-def mode_footprint(label, meshes, solve_with, slim: bool, dev, repeats: int = 3):
+def whole_block_solves(tag, solves, dicts) -> bool:
+    """Each gated solve of ``solves`` (name -> (params, solve(params))) again
+    with every sweep forced to a whole 256-ray block a CTA at
+    ``trace_cuda.GATED_SPLIT`` threads a ray (the geometry before CTAs
+    served part of a block), outside the launch counts: its dict == the
+    solve's at the rule's geometry (``dicts``)."""
+    from raystrack_tpu_torch.ops.trace_cuda import GATED_SPLIT
+
+    with uncounted(), forced_launch(GATED_SPLIT):
+        for name, (params, solve) in solves.items():
+            check(solve(params) == dicts[name], f"{tag} {name}: the dict at whole-block CTAs "
+                                                f"!= the dict at the rule's geometry")
+    print(f"[{tag}] every gated solve again at whole 256-ray blocks a CTA ({GATED_SPLIT} "
+          f"threads a ray): dicts == the rule's geometry's: True")
+    return True
+
+
+def mode_footprint(label, meshes, solve_with, slim: bool, dev, repeats: int = 3, then=None):
     """``solve_with(prepared)`` on ``meshes`` from a fresh PreparedSolver in
     full or slim mode: the dict, set-up (first solve) seconds, warm walls,
     and device bytes over what was allocated before: the peak of the first
     solve (pack build included), of the warm solves, and what stays
-    resident. Frees its packs before it returns."""
+    resident; then, measured, ``then(prepared, dict)`` (its result under
+    ``"then"``). Frees its packs before it returns."""
     from raystrack_tpu_torch import PreparedSolver, config
 
     gc.collect()
@@ -1330,6 +1469,7 @@ def mode_footprint(label, meshes, solve_with, slim: bool, dev, repeats: int = 3)
         warm_peak = torch.cuda.max_memory_allocated(dev) - base
         resident = torch.cuda.memory_allocated(dev) - base
         n_tri_pad = pack.n_tri_pad
+        extra = then(ps, result) if then is not None else None
     del ps, pack
     gc.collect()
     torch.cuda.empty_cache()
@@ -1340,7 +1480,7 @@ def mode_footprint(label, meshes, solve_with, slim: bool, dev, repeats: int = 3)
           f"of the warm solves {warm_peak / 2**20:.1f} MiB = {warm_peak / n_tri_pad:.1f} B, "
           f"resident after {resident / 2**20:.1f} MiB = {resident / n_tri_pad:.1f} B")
     return dict(result=result, setup_s=setup_s, warm=warm, first_peak=first_peak,
-                warm_peak=warm_peak, resident=resident, n_tri_pad=n_tri_pad)
+                warm_peak=warm_peak, resident=resident, n_tri_pad=n_tri_pad, then=extra)
 
 
 def phase_fma_peak(dev, sass, sweep_rates):
@@ -1408,16 +1548,15 @@ def sky_variants(sky1, sky2, pair_ops) -> dict:
     wrappers pick for those shapes, beside their bounds: the FP32 SASS
     instructions a pair of the instantiation that launched times the pairs
     it tests, over 33.5e12/s (or the bytes, if larger)."""
-    from raystrack_tpu_torch.ops.trace_cuda import sweep_split
+    from raystrack_tpu_torch.ops.trace_cuda import _launch_geometry
 
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for label, rows, sym in (("kernel #1, soup chunk", sky1, "sweep_kernel<{},1,0>"),
                              ("kernel #2, soup8 round", sky2, "sweep_sched_kernel<{},0>")):
-        split = sweep_split(SOUP_CHUNK * 65536 // RAY_SUB, False, n_sms)
+        geo = _launch_geometry(SOUP_CHUNK * 65536, False, torch.device("cuda"))
+        split = geo.split
         for name, (ms_, plain, pairs, nbytes) in rows.items():
-            inst = sym.format("0,1" if name == "any" else "1,1") + (
-                f"x{split}" if split > 1 else "")
+            inst = sweep_name(sym.format("0,1" if name == "any" else "1,1"), geo)
             ops = pair_ops[inst][0]
             bnd = bound(nbytes, pairs, ops)
             out[f"{label}, {name}"] = dict(ms=ms_, plain_ms=plain, bound_ms=bnd[0],
@@ -2694,7 +2833,7 @@ def phase_range(dev, pair_ops, slim_slope: dict) -> dict:
     the instantiations that launched."""
     import city_100m_torch as city
     from raystrack_tpu_torch import PreparedSolver
-    from raystrack_tpu_torch.ops.trace_cuda import GATED_SPLIT, sweep_split
+    from raystrack_tpu_torch.ops.trace_cuda import SweepGeometry
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -2710,12 +2849,9 @@ def phase_range(dev, pair_ops, slim_slope: dict) -> dict:
           and shape["phantoms"] == 1,
           f"range city: (triangles, padded, group, boxes) {got}, window {shape['window']}, "
           f"{shape['phantoms']} phantoms")
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_blocks = out["sweeps"]["n_full"] // RAY_SUB
     for row in out["kernels"]:
-        gated = not row["launch"].endswith("ungated")
-        split = GATED_SPLIT if gated else sweep_split(n_blocks, False, n_sms)
-        name = f"sweep_code_kernel<1,0,{int(gated)}>" + (f"x{split}" if split > 1 else "")
+        geo = SweepGeometry(row["rays_a_cta"], row["split"], row["segments"])
+        name = sweep_name(f"sweep_code_kernel<1,0,{int(row['gated'])}>", geo)
         row["fp32_per_pair"] = pair_ops[name][0]
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["pairs"], pair_ops[name][0])
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -2853,20 +2989,23 @@ def sweep_replay(args, kwargs) -> tuple:
                                           device) is None,
           "a kernel #1 launch to replay is gated or in code mode")
     tiles_on = sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32)
-    split = tc.sweep_split(-(-n // RAY_SUB), False, tc._sm_count(device))
+    geo = tc._launch_geometry(n, False, device)
     codes = torch.empty((n,), dtype=torch.int32, device=device)
     any_hit = torch.empty((n,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream().cuda_stream
 
+    shape, parts = tc._gate_args(None, geo, n, device)
+
     def launch() -> int:
         return lib.raystrack_sweep_rays(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad, tiles_on.data_ptr(), tile,
-            int(wm), int(wa), tc._MASK_MODES.index(mode), 0.0, 0.0, *tc._gate_args(None, split),
-            codes.data_ptr(), any_hit.data_ptr(), None, None, stream)
+            int(wm), int(wa), tc._MASK_MODES.index(mode), 0.0, 0.0, *shape,
+            codes.data_ptr(), any_hit.data_ptr(), None, None, None, 0, None, stream)
+
+    launch.parts = parts  # the tile segments' buffers live as long as the launch
 
     pairs = -(-n // RAY_SUB) * RAY_SUB * int(tiles_on.sum()) * tile
-    name = (f"sweep_kernel<{int(wm)},{int(wa)},{int(mode == 'baked')},0>"
-            + (f"x{split}" if split > 1 else ""))
+    name = sweep_name(f"sweep_kernel<{int(wm)},{int(wa)},{int(mode == 'baked')},0>", geo)
     return launch, pairs, sweep_bytes(rays, tri_pack, tiles_on), name, (codes, any_hit)
 
 
@@ -3198,7 +3337,7 @@ def main() -> int:
     from raystrack_tpu_torch.ops import trace as trace_mod
     from raystrack_tpu_torch.ops.count_cuda import count_bins
     from raystrack_tpu_torch.ops.trace_cuda import (
-        gate_cross, sweep_rays, sweep_rays_scheduled,
+        SweepGeometry, gate_cross, sweep_rays, sweep_rays_scheduled,
     )
     from raystrack_tpu_torch.prepared import EmitterPack
     from analytic import canyon_ground_truth
@@ -3231,9 +3370,10 @@ def main() -> int:
     cases = solve_cases()
     soup, soup_params = cases["soup"]
     soup_ps = PreparedSolver(soup)
-    max_err, ms, plain_ms, soup_front, soup_codes, pairs1, bytes1, sky1 = phase_kernel(
+    max_err, ms, plain_ms, soup_front, soup_codes, pairs1, bytes1, sky1, geos1 = phase_kernel(
         dev, soup_ps, soup_params.seed)
     bound1 = bound(bytes1, pairs1, pair_ops["sweep_kernel<1,0,1,0>"][0])
+    geos1 = geometry_rows(geos1, bytes1, pairs1, pair_ops)
     print(f"[kernel1] matrix,baked: {pairs1:.4g} pair tests, bound {bound1[0]:.3f} ms "
           f"({bound1[1]}); the kernel at {bound1[0] / ms:.1%} of it")
 
@@ -3255,9 +3395,10 @@ def main() -> int:
     trace_mod.scheduled_trace = real_round
     check(len(captured) == 1, f"soup8 took {len(captured)} scheduled rounds, not 1")
     (max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes, pairs2, bytes2, sky2,
-     (sky_ids, sky_valid)) = phase_sched_kernel(*captured[0], ms)
+     (sky_ids, sky_valid), geos2) = phase_sched_kernel(*captured[0], ms)
     del captured
     bound2 = bound(bytes2, pairs2, pair_ops["sweep_sched_kernel<1,0,0>"][0])
+    geos2 = geometry_rows(geos2, bytes2, pairs2, pair_ops)
     print(f"[kernel2] matrix: {pairs2:.4g} pair tests, bound {bound2[0]:.3f} ms "
           f"({bound2[1]}); the kernel at {bound2[0] / ms2:.1%} of it")
     # the sky variants as the sky and workflow solves launch them, at the
@@ -3535,6 +3676,7 @@ def main() -> int:
           "city: kernel #2 launches != one gated launch per gated round")
     check(count_city == sum(n_chunks.values()) + sum(n_rounds.values()),
           "city: count launches != chunks and rounds")
+    same_whole = whole_block_solves("city", solves, city_dicts)
 
     # 13. the same solves with the scene pack slim: per-emitter chunks on the
     # resident pack, kernel #1 in code mode, the dicts of phase 12
@@ -3592,6 +3734,7 @@ def main() -> int:
     check(not built, f"slim: {len(built)} per-emitter packs were built")
     check(len(resident) == n_slim_chunks and all(resident),
           "slim: a chunk did not sweep the scene's resident pack")
+    whole_block_solves("slim", slim_solves, city_dicts)
     del city_slim_ps, city_plates_slim_ps
     # phase 20 solves these again: their host prep stays, their packs go
     city_ps.clear_device_cache()
@@ -3606,6 +3749,18 @@ def main() -> int:
     big = city_meshes(BIG_CITY_TRIS)
     foot = {}
     cross_big_call = []  # the 10M chunk's (rays, boxes), for the crossing kernel's 10M case
+    def big_chunk(ps, result):
+        """The 10M chunk's kernel #1 at every built geometry (the footprint
+        measured), and the solve at whole-block CTAs == ``result``."""
+        solve = lambda: view_factor(big[0], big[1], vf_params, prepared=ps)  # noqa: E731
+        with uncounted():
+            out, _ = chunk_gate_phase("kernel #1, 10M city chunk",
+                                      first_call(trace_mod, "chunk_body", solve), pair_ops,
+                                      plain_blocks=16, ungated=False)
+            whole_block_solves("city 10M", {"ground -> city": (None, lambda p: solve())},
+                               {"ground -> city": result})
+        return out
+
     for size, meshes in (("1M", city), ("10M", big)):
         for slim in (False, True):
             # kept on the host: the footprint is measured around it
@@ -3615,10 +3770,12 @@ def main() -> int:
                 foot[size, slim] = mode_footprint(
                     f"city {size}, view_factor ground -> city", meshes,
                     lambda ps: view_factor(meshes[0], meshes[1], vf_params,  # noqa: B023
-                                           prepared=ps), slim, dev)
+                                           prepared=ps), slim, dev,
+                    then=big_chunk if (size, slim) == ("10M", False) else None)
         same = foot[size, True]["result"] == foot[size, False]["result"]
         print(f"[slim] city {size}: slim dict == full dict: {same}; {foot[size, True]['result']}")
         check(same, f"city {size}: slim dict != full dict")
+    city_k1_10m = foot["10M", False]["then"]
     check(foot["1M", False]["result"] == city_dicts["view_factor ground -> city"],
           "city 1M: a fresh full-mode solve != phase 12's dict")
     check(foot["10M", True]["n_tri_pad"] == 10_000_384, "the 10M city's padded size")
@@ -3828,6 +3985,18 @@ def main() -> int:
         ms, plain_ms, bound1, city_k1)
     sweep_entry["code_launches"] = launches_slim[2] + launches_big[2] + code_range
     sweep_entry.update({f"code_{k}": v for k, v in city_code.items() if k != "max_abs_err"})
+    # each launch at every geometry the kernels are built at: ms, the bound
+    # of the 256-ray walk (gated) or of every pair (ungated), its share
+    range_rows = {f"{'gated' if r['gated'] else 'ungated'}, " + SweepGeometry(
+        r["rays_a_cta"], r["split"], r["segments"]).name: dict(
+        ms=r["ms"], bound_ms=r["bound_ms"], share=r["share_of_bound"], pairs=r["own_pairs"],
+        walk_pairs=r["pairs"]) for r in range_out["kernels"]}
+    sweep_entry["geometries"] = {
+        "soup chunk": geos1, "1M city chunk, gated": city_k1["geometries"],
+        "1M city chunk, gated, code mode": city_code["geometries"],
+        "10M city chunk, gated": city_k1_10m["geometries"],
+        f"{RANGE_CITY_TRIS:.0e} city chunk, code mode": range_rows}
+    sweep_entry.pop("code_geometries", None)
     sched_entry = kernel_entry(
         "sweep_rays_scheduled", "raystrack_tpu/ops/trace_pallas.py:1267",
         launches2 + launches_city[2] + launches_big2[0] + launches_sky[2]
@@ -3837,6 +4006,8 @@ def main() -> int:
         + launches_par["k2_gated"] + launches_halton[3] + launches_val[3] + launches_ex[3]
         + lb["k2_gated"],
         max_err2, ms2, plain_ms2, bound2, city_k2)
+    sched_entry["geometries"] = {"soup8 round": geos2,
+                                 "city_plates round, gated": city_k2["geometries"]}
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
     for entry, label in ((sweep_entry, "kernel #1, soup chunk"),

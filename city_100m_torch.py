@@ -327,27 +327,58 @@ def sweep_cases(ops, pack, em, dev, reps: int = 3) -> dict:
                 counts={k: [v[0].tolist(), v[1].tolist()] for k, v in counts.items()})
 
 
+def chunk_rays(pack, em, dev) -> torch.Tensor:
+    """The (9, N) rays of the gated full chunk (seed 0), coherence-sorted as
+    ``chunk_body`` sorts them."""
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.solver import _cp_rows, _emission_geometry, _ray_tables
+
+    cp = torch.from_numpy(_cp_rows(0, 0, 0, 1)).to(dev)
+    o, d = T.generate_rays(_ray_tables(em), _emission_geometry(em), cp)
+    valid = (torch.arange(em.n_rays_pad, device=dev) < em.n_rays_once)[None]
+    o, d, _ = T._sorted_for_gate(o, d, valid, pack.accel)
+    return T.ray_pack(o, d)
+
+
+@contextlib.contextmanager
+def forced_launch(split=None, gate=None):
+    """Inside the block the sweep wrappers launch at ``split`` (a
+    ``SweepGeometry``, or a bare int: a whole 256-ray block a CTA at that
+    many threads a ray; else the rule's geometry) and, with ``gate``, on
+    these prebuilt tables (else they build their own)."""
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    real = trace_cuda.sweep_split, trace_cuda._gate_for
+    if split is not None:
+        trace_cuda.sweep_split = lambda n_blocks, gated, n_sms: split
+    if gate is not None:
+        trace_cuda._gate_for = lambda *args: gate
+    try:
+        yield
+    finally:
+        trace_cuda.sweep_split, trace_cuda._gate_for = real
+
+
 def kernel_launches(ops, pack, em, dev, reps: int = 3) -> list:
     """Kernel #1 alone on the gated full chunk's rays (coherence-sorted as
     ``chunk_body`` sorts them), gated (tables prebuilt; best of ``reps``) and
-    ungated (one run), by CUDA events: ms, (block, tile) visits, the pairs
-    tested and the bound, the larger of the bytes the launch must move over
-    the card's memory rate and ``FP32_PER_PAIR`` FP32 instructions a pair
-    over its issue rate. Gated == ungated over the whole chunk, and the
-    gated launch's first ``SUB_BLOCKS`` blocks == its plain gated version
-    on them (codes, flags and visits; the tables' rows of those blocks, at
-    the kernel's triangle split)."""
+    ungated (one run), by CUDA events, each at the geometry the wrapper's
+    rule picks and at a whole 256-ray block a CTA (the geometry before CTAs
+    served part of a block: ``trace_cuda._whole_block``): ms, the (block,
+    tile) visits of the 256-ray walk (the tiles any CTA of a block swept:
+    the same at every geometry) and its pairs, the launch's own pair tests
+    (each CTA's swept tiles x its rays x the tile) and the bound, the
+    larger of the bytes the launch must move over the card's memory rate
+    and ``FP32_PER_PAIR`` FP32 instructions a pair of the walk over its
+    issue rate. Gated == ungated over the whole chunk at every geometry,
+    and the gated launch's first ``SUB_BLOCKS`` blocks == its plain gated
+    version on them at the rule's geometry (codes, flags and each CTA's
+    visits; the tables' rows of those blocks)."""
     from raystrack_tpu_torch.ops import trace as T
     from raystrack_tpu_torch.ops import trace_cuda
-    from raystrack_tpu_torch.solver import _cp_rows, _emission_geometry, _ray_tables
 
     tri_pack, mask, bounds = ops
-    tables = _ray_tables(em)
-    cp = torch.from_numpy(_cp_rows(0, 0, 0, 1)).to(dev)
-    o, d = T.generate_rays(tables, _emission_geometry(em), cp)
-    valid = (torch.arange(em.n_rays_pad, device=dev) < em.n_rays_once)[None]
-    o, d, _ = T._sorted_for_gate(o, d, valid, pack.accel)
-    rays = T.ray_pack(o, d)
+    rays = chunk_rays(pack, em, dev)
     n_tri_pad, n = tri_pack.shape[1], rays.shape[1]
     n_blocks = -(-n // RAY_SUB)
     shape = gate_shape(n_tri_pad)
@@ -370,58 +401,73 @@ def kernel_launches(ops, pack, em, dev, reps: int = 3) -> list:
 
     table_ms, gate = timed(lambda: trace_cuda._gate_for(
         pack.accel, rays, n_tri_pad, tile, T.PALLAS_TRI_TILE, dev), reps)
-    real_gate_for = trace_cuda._gate_for
-    trace_cuda._gate_for = lambda *args: gate
-    try:
-        visits = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
-        gated_ms, gated_out = timed(lambda: trace_cuda.sweep_rays(
-            rays, tri_pack, mask, accel=pack.accel, visits=visits, **kw), reps)
-    finally:
-        trace_cuda._gate_for = real_gate_for
+    runs, ref = [], None
+    for gated in (True, False):
+        rule = trace_cuda._launch_geometry(n, gated, dev)
+        for geo in (rule, trace_cuda._whole_block(rule)):
+            accel = pack.accel if gated else None
+            block = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+            cta = torch.zeros(geo.units(n), dtype=torch.int32, device=dev)
+            with forced_launch(geo, gate if gated else None):
+                ms, out = timed(lambda: trace_cuda.sweep_rays(  # noqa: B023
+                    rays, tri_pack, mask, accel=accel, visits=block, **kw),  # noqa: B023
+                    reps if gated else 1)
+                if geo.per_block > 1:
+                    trace_cuda.sweep_rays(rays, tri_pack, mask, accel=accel, visits=cta, **kw)
+                else:
+                    cta.copy_(block)
+            ref = ref or out
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise SystemExit(f"FAILED: kernel #1 (gated={gated}) at {geo} != the gated "
+                                 f"launch at the rule's geometry on the full chunk")
+            runs.append((gated, geo, ms, block, cta))
+    visits, cta_visits = runs[0][3], runs[0][4]
+    if not torch.equal(runs[1][3], visits):
+        raise SystemExit("FAILED: the whole-block walk's visits != the rule's launch's")
+    rule = runs[0][1]
     k = min(SUB_BLOCKS, n_blocks)
     lead = slice(0, k * RAY_SUB)
-    plain_visits = torch.zeros(k, dtype=torch.int32, device=dev)
+    plain_visits = torch.zeros(rule.units(k * RAY_SUB), dtype=torch.int32, device=dev)
     plain_ms, plain = timed(lambda: trace_cuda.sweep_rays_reference(
         rays[:, lead].contiguous(), tri_pack, trace_cuda._gated_tiles_on(tiles_on, gate), tile,
         want_matrix=True, want_any=False, masks_baked=bounds is None, code_bounds=bounds,
-        gate=gate.blocks(torch.arange(k, device=dev)), visits=plain_visits,
-        split=trace_cuda.GATED_SPLIT), 1)
-    same_plain = (torch.equal(plain[0], gated_out[0][lead])
-                  and torch.equal(plain[1], gated_out[1][lead])
-                  and torch.equal(plain_visits, visits[:k]))
-    log(f"kernel: the gated launch's first {k} blocks == its plain gated version (codes, "
-        f"flags, visits): {same_plain}; plain {plain_ms:.1f} ms")
+        gate=gate.blocks(torch.arange(k, device=dev)), visits=plain_visits, split=rule), 1)
+    same_plain = (torch.equal(plain[0], ref[0][lead]) and torch.equal(plain[1], ref[1][lead])
+                  and torch.equal(plain_visits, cta_visits[: plain_visits.shape[0]]))
+    log(f"kernel: the gated launch's first {k} blocks == its plain gated version at "
+        f"{rule.name} (codes, flags, each CTA's visits): "
+        f"{same_plain}; plain {plain_ms:.1f} ms")
     if not same_plain:
         raise SystemExit(f"FAILED: gated kernel #1 != its plain gated version on {k} blocks")
-    full = torch.zeros_like(visits)
-    ungated_ms, ungated_out = timed(lambda: trace_cuda.sweep_rays(
-        rays, tri_pack, mask, visits=full, **kw), 1)
-    same = all(torch.equal(a, b) for a, b in zip(gated_out, ungated_out))
-    if not same:
-        raise SystemExit("FAILED: gated kernel #1 != ungated kernel #1 on the full chunk")
     n_bytes = (rays.numel() + tri_pack.numel() + tiles_on.numel()) * 4 + 8 * n
+    gate_bytes = sum(t.numel() * t.element_size()
+                     for t in (*pack.accel, gate.order, gate.counts))
     rows = []
-    for label, ms, v, extra in (("gated", gated_ms, visits, sum(
-            t.numel() * t.element_size() for t in (*pack.accel, gate.order, gate.counts))),
-                                ("ungated", ungated_ms, full, 0)):
-        pairs = int(v.sum()) * RAY_SUB * tile
+    for gated, geo, ms, block, cta in runs:
+        pairs = int(block.sum()) * RAY_SUB * tile
         t_ops = pairs * FP32_PER_PAIR / PEAK_FP32_INSTR * 1e3
+        extra = gate_bytes if gated else 0
         t_bytes = (n_bytes + extra) / PEAK_BYTES * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-        rows.append(dict(launch=f"kernel #1 code mode, {label}" if bounds is not None
-                         else f"kernel #1 baked, {label}", ms=ms, visits=int(v.sum()),
-                         pairs=pairs, bytes=n_bytes + extra, bound_ms=bound_ms,
-                         bound_by=bound_by, share_of_bound=bound_ms / ms))
+        mode = "code mode" if bounds is not None else "baked"
+        rows.append(dict(launch=f"kernel #1 {mode}, {'gated' if gated else 'ungated'}, "
+                                f"{geo.name} (rays a CTA x threads a ray, segments)",
+                         gated=gated, rays_a_cta=geo.rays, split=geo.split,
+                         segments=geo.segments, ms=ms,
+                         visits=int(block.sum()), pairs=pairs,
+                         own_pairs=int(cta.sum()) * geo.rays * tile, bytes=n_bytes + extra,
+                         bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms))
         log(f"kernel: {rows[-1]['launch']} on {n:,} rays x {n_tri_pad:,} padded triangles "
             f"({shape['n_tiles']:,} tiles, {shape['n_boxes']:,} gate boxes of {shape['group']} "
-            f"tiles): {ms:.3f} ms, {int(v.sum()):,} (block, tile) visits = {pairs:.4g} pair "
-            f"tests; bound {bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
+            f"tiles): {ms:.3f} ms, {int(block.sum()):,} (block, tile) visits of the 256-ray "
+            f"walk = {pairs:.4g} pair tests, the launch's own {rows[-1]['own_pairs']:.4g}; "
+            f"bound {bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
     rows[0].update(gate_tables_ms=table_ms, plain_ms=plain_ms, plain_blocks=k,
-                   max_abs_err=max(int((plain[0] - gated_out[0][lead]).abs().max()),
-                                   int((plain[1] - gated_out[1][lead]).abs().max())))
-    rows[0]["visit_share"] = int(visits.sum()) / max(int(full.sum()), 1)
+                   max_abs_err=max(int((plain[0] - ref[0][lead]).abs().max()),
+                                   int((plain[1] - ref[1][lead]).abs().max())))
+    rows[0]["visit_share"] = int(visits.sum()) / max(int(runs[2][3].sum()), 1)
     log(f"kernel: gate tables {table_ms:.3f} ms; the gate leaves {rows[0]['visit_share']:.4%} "
-        f"of the ungated visits; gated == ungated codes and flags: {same}")
+        f"of the ungated visits; gated == ungated codes and flags at every geometry: True")
     return rows
 
 

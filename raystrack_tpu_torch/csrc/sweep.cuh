@@ -1,32 +1,58 @@
 // What the sweeps' C entries (sweep.cu) and the translation units that hold
-// the kernels (sweep_split1.cu, sweep_split4.cu and sweep_gated.cu, each
-// instantiating sweep_kernels.cuh for one triangle split, ungated or gated)
-// share: the launch arguments and the two launch
-// functions. One translation unit each keeps the build parallel: every .cu
-// compiles in its own nvcc process.
+// the kernels (sweep_<rays>x<split>[_gated].cu, each instantiating
+// sweep_kernels.cuh for one CTA geometry, ungated or gated) share: the
+// launch arguments, the geometries built and the two launch functions. One
+// translation unit each keeps the build parallel: every .cu compiles in
+// its own nvcc process.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace raystrack {
 
-// The gate's per-call tables (ops/trace_cuda.py _gate_tables). Block b
-// visits positions j < counts[b] * group: box order[b][j / group], tile
-// box * group + j % group (tiles_on is padded with inactive phantom tiles
-// up to whole groups). With window > 0, at j % window == 0 the block stops
-// once every ray's best_t <= suffmin[b][j / window] (and any_hit is set,
-// when wanted).
+// The gate's per-call tables (ops/trace_cuda.py _gate_tables), one row per
+// block of 256 rays. Block b visits positions j < counts[b] * group: box
+// order[b][j / group], tile box * group + j % group (tiles_on is padded with
+// inactive phantom tiles up to whole groups). With window > 0, at j % window
+// == 0 a CTA serving the block stops once every ray of the CTA has best_t <=
+// suffmin[b][j / window] (and any_hit set, when wanted).
 struct Gate {
   const float* boxes;    // (n_boxes, 6): lo_x, lo_y, lo_z, hi_x, hi_y, hi_z
   const int* order;      // (n_blocks, n_boxes)
   const int* counts;     // (n_blocks,)
   const float* suffmin;  // (n_blocks, n_windows)
-  long long* timeline;   // NULL, or (n_blocks, 4), a debug output: each block's start and
+  long long* timeline;   // NULL, or (n_ctas, 4), a debug output: each CTA's start and
                          // end ns, its SM and the visit positions it walked
   int n_boxes;
   int group;
   int window;
   int n_windows;
+};
+
+// The visit counts, debug outputs (each NULL or given): `cta` one int per
+// CTA, the tiles it swept; `block` one int per block of 256 rays, zeroed
+// before the launch, the tiles any CTA serving the block swept (the
+// 256-ray walk's count at every geometry), tallied through `swept`, a
+// zeroed bitmap of `words` words a block: a CTA sets a tile's bit when it
+// sweeps it and counts the tile when the bit was clear.
+struct Visits {
+  int* cta;
+  int* block;
+  unsigned* swept;
+  int words;
+};
+
+// Tile segments of an ungated launch: `count` CTAs serve each part of a
+// block, CTA c sweeping tiles [g * per, (g + 1) * per) of the block's
+// (g = c % count, per = ceil(tiles / count)) from a fresh carry; with count
+// > 1 each writes its rays' (best t, code, any-hit) to row g of `t`, `code`
+// and `any` ((count, n) each), which the fold kernel folds in order by the
+// carry's rule into the launch's outputs.
+struct Segments {
+  int count;
+  float* t;
+  int* code;
+  int* any;
 };
 
 struct Args {
@@ -41,7 +67,8 @@ struct Args {
   Gate gate;  // order == NULL: ungated
   int* codes;
   int* any_out;
-  int* visits;  // NULL, or one int per ray block: tiles swept
+  Visits visits;
+  Segments seg;  // count 1 for every gated launch
   cudaStream_t stream;
 };
 
@@ -62,14 +89,18 @@ struct Sched {
   int tiles_stride;
 };
 
-// Threads a ray of every gated launch (ops/trace_cuda.py sweep_split).
-constexpr int kGatedSplit = 4;
+// The geometries the kernels are built at, X(kSplit, kCta, kGate) (ops/
+// trace_cuda.py BUILT_GEOMETRIES), ungated ones at any count of tile
+// segments: each instantiated in a translation unit of its own,
+// sweep_<kCta>x<kSplit>[_gated].cu.
+#define RAYSTRACK_SWEEP_GEOMETRIES(X) \
+  X(1, 256, false) X(4, 256, false) X(4, 256, true) X(8, 64, true) X(16, 64, true)
 
-// Launch kernel #1 / kernel #2 with kSplit threads a ray, ungated or gated:
-// instantiated in sweep_split<kSplit>.cu (ungated) and sweep_gated.cu.
-template <int kSplit, bool kGate>
+// Launch kernel #1 / kernel #2 at kCta rays a CTA and kSplit threads a
+// ray, ungated or gated.
+template <int kSplit, int kCta, bool kGate>
 void launch_sweep(const Masks& m, const Args& a);
-template <int kSplit, bool kGate>
+template <int kSplit, int kCta, bool kGate>
 void launch_sweep_sched(const Sched& s, const Args& a);
 
 }  // namespace raystrack

@@ -1,0 +1,11 @@
+// Kernels #1 and #2, gated, a whole block of 256 rays a CTA at 4 threads a
+// ray (the gated geometry before CTAs served part of a block): see
+// sweep_kernels.cuh.
+#include "sweep_kernels.cuh"
+
+namespace raystrack {
+
+template void launch_sweep<4, 256, true>(const Masks&, const Args&);
+template void launch_sweep_sched<4, 256, true>(const Sched&, const Args&);
+
+}  // namespace raystrack

@@ -35,20 +35,18 @@
 // TPU's union fallback past SCHED_TILES_SMEM_BUDGET is a limit of its scalar
 // memory that this card does not have.
 //
-// The triangle split (kSplit in {1, 4}): kSplit threads serve one ray, so a
-// block is 256 rays x kSplit threads, 8 or 32 warps. The TPU kernel has no
-// such choice: its grid runs in order on one core. On this card a launch of
-// few ray blocks, or a gated launch whose blocks sweep between 0 and 124
-// tiles, leaves SMs with one block of 8 warps or none, and a block of rays
-// that crosses the whole scene sweeps hundreds of tiles on one SM: the split
-// lets such a block use the whole width of its SM (one block alone on an SM
-// sweeps 48 tiles in 14.66 ms at one thread a ray and in 7.43 ms at four),
-// and cuts the span of a gated launch's slowest block (62 ms of a launch's
-// 81 ms on the 1M-triangle city at one thread a ray, 20 of 61 ms at four).
-// The kSplit threads of a ray sit in different warps (thread = part * 256 +
-// ray), so each warp still reads one staged triangle at a time as a
-// broadcast, without bank conflicts of the 80-byte Tri stride; within every
-// 128-triangle stage, part p takes triangles
+// The triangle split (kSplit in {1, 4, 8, 16}): kSplit threads serve one
+// ray, so a CTA is kCta rays x kSplit threads. The TPU kernel has no such
+// choice: its grid runs in order on one core. On this card a launch of few
+// ray blocks, or a gated launch whose blocks sweep between 0 and 124 tiles,
+// leaves SMs with one block of 8 warps or none, and a block of rays that
+// crosses the whole scene sweeps hundreds of tiles on one SM: the split
+// lets such a block use the whole width of its SM (one block alone on an
+// SM sweeps 48 tiles in 14.66 ms at one thread a ray and in 7.43 ms at
+// four). The kSplit threads of a ray sit in different warps (thread = part
+// * kCta + ray), so each warp still reads one staged triangle at a time as
+// a broadcast, without bank conflicts of the 80-byte Tri stride; within
+// every 128-triangle stage, part p takes triangles
 // [p * 128 / kSplit, (p + 1) * 128 / kSplit). At the end of a sweep
 // tile the parts' (t, code, any-hit) meet in shared memory and every thread
 // of the ray merges all of them by the rule the tile already has: smaller t,
@@ -58,15 +56,40 @@
 // result is bitwise the unsplit one. The fold across tiles (strictly
 // smaller t replaces the carry), whose order does matter, is untouched, and
 // since every thread of a ray holds the same carry, every thread casts the
-// same vote. A ray block stays 256 rays at every split because the gate's
-// tables (one row per block), emap and the JAX package's ray_block are
-// defined on it: a wider block would change which tiles a block sweeps, a
-// narrower one the tables' size. The wrapper picks kSplit from the launch's
-// shape (ops/trace_cuda.py sweep_split): a gated launch always takes 4, the
-// only split the gated kernels are built at (sweep_gated.cu); an ungated one
-// 4 while it has few blocks an SM and 1 past that (sweep_split4.cu,
-// sweep_split1.cu), where the one-thread kernel is the unsplit one: its
-// shared block is the stage alone and its part and ray indices are constants.
+// same vote.
+//
+// The CTA and the gate block (kCta in {64, 128, 256}): a gate block stays
+// 256 rays, because the gate's tables (one row per block), emap and the JAX
+// package's ray_block are defined on it; a CTA serves kCta of its rays
+// (CTA c serves rays [c * kCta, (c + 1) * kCta) of block c * kCta / 256)
+// and walks that block's visit list with its own votes over its own rays.
+// That is exact: for one ray the walk returns the minimum, in the order (t,
+// visit position, code), over the hits inside the boxes the ray crosses; a
+// tile no ray of the CTA needs holds no hit below any of their carries, so
+// by induction every ray keeps the carry the 256-ray walk gives it, the
+// CTAs of a block together sweep exactly the tiles the block's walk sweeps,
+// and suffmin, a bound over the block's rays, bounds any subset of them.
+// What it buys: a whole block a CTA at 4 threads a ray is 1,024 threads,
+// one to an SM, so a launch of 192 blocks on 132 SMs runs in two waves for
+// 1.45 waves of work and lasts as long as the SM that drew its heaviest
+// blocks, while a CTA of part of a block spreads a block's work over
+// several SMs. The geometries built are sweep.cuh's
+// RAYSTRACK_SWEEP_GEOMETRIES, one translation unit each
+// (sweep_<kCta>x<kSplit>[_gated].cu); the wrapper picks one from the
+// launch's shape (ops/trace_cuda.py sweep_split, with the measured table
+// behind it). At one thread a ray the kernel is the unsplit one: its
+// shared block is the stage alone and its part and ray indices are
+// constants.
+//
+// Tile segments (ungated launches; struct Segments, sweep.cuh): a block's
+// tiles cut into `count` contiguous runs, each swept by a CTA of its own
+// from a fresh carry, so a launch of few whole-block CTAs of 1,024 threads
+// fills every SM's slot with its last wave as full as the count can make
+// it. The segments' (best t, code, any-hit) fold in segment order by the
+// carry's own rule (sweep.cu sweep_fold_kernel): ungated, the walk's fold
+// runs in tile order, so the result is the one-segment walk's bit for bit.
+// A gated walk is not cut: a later segment would start without the carry
+// its votes need (the plain versions measure what that costs).
 //
 // The AABB distance gate (the kGate instantiations; the TPU kernels' use_gate
 // modes, _gate_need_rays / _gate_indexers): each block walks its own visit
@@ -116,13 +139,14 @@
 namespace raystrack {
 namespace {
 
-constexpr int kRays = 256;      // rays per block; kSplit threads each
+constexpr int kRays = 256;      // rays per gate block: one emap entry, one gate-table row
 constexpr int kStage = 128;     // triangles per shared-memory stage
 constexpr int kUsedRows = 19;   // pack rows kernel #1 reads
 constexpr int kCodeRows = 17;   // pack rows kernel #2 and code mode read (no mask rows)
 constexpr int kMaskSlot = 19;   // Tri float slot of kernel #2's mask row
 constexpr int kAhead = 16;      // visit-list positions read ahead at a time
 constexpr int kAheadWords = 8;  // per position: six box floats, tile flag, box index
+constexpr int kAheadThreads = kAhead * kAheadWords + 2;  // the read-ahead's loads and bounds
 
 // One staged triangle: the operand rows in five 16-byte groups.
 struct alignas(16) Tri {
@@ -137,21 +161,21 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, cx, cy, cz;
 };
 
-// A block's shared memory: the triangle stage; at more than one thread a
-// ray, the parts' results of a split tile; in a gated block, the read-ahead
+// A CTA's shared memory: the triangle stage; at more than one thread a
+// ray, the parts' results of a split tile; in a gated CTA, the read-ahead
 // (two buffers of kAhead positions). What an instantiation does not use is
-// an empty base: an ungated block at one thread a ray holds the 10,240
+// an empty base: an ungated CTA at one thread a ray holds the 10,240
 // bytes of its stage and nothing else, so six of them fit the 64 KB
 // shared-memory carve-out and leave the rest of the SM's 256 KB to the L1
 // cache, through which they share the pack.
-template <int kSplit>
+template <int kSplit, int kCta>
 struct Parts {
-  float part_t[kSplit * kRays];
-  int part_code[kSplit * kRays];
-  int part_any[kSplit * kRays];
+  float part_t[kSplit * kCta];
+  int part_code[kSplit * kCta];
+  int part_any[kSplit * kCta];
 };
-template <>
-struct Parts<1> {};
+template <int kCta>
+struct Parts<1, kCta> {};
 
 template <bool kGate>
 struct Ahead {
@@ -161,21 +185,36 @@ struct Ahead {
 template <>
 struct Ahead<false> {};
 
-template <int kSplit, bool kGate>
-struct Shared : Parts<kSplit>, Ahead<kGate> {
+template <int kSplit, int kCta, bool kGate>
+struct Shared : Parts<kSplit, kCta>, Ahead<kGate> {
   Tri stage[kStage];
 };
 
 // Which of a ray's kSplit threads this one is, and the ray's index in the
-// block: thread = part * kRays + ray. Constants at one thread a ray.
-template <int kSplit>
+// CTA: thread = part * kCta + ray. Constants at one thread a ray.
+template <int kSplit, int kCta>
 __device__ __forceinline__ int split_part() {
-  return kSplit == 1 ? 0 : static_cast<int>(threadIdx.x) / kRays;
+  return kSplit == 1 ? 0 : static_cast<int>(threadIdx.x) / kCta;
 }
 
-template <int kSplit>
+template <int kSplit, int kCta>
 __device__ __forceinline__ int split_ray() {
-  return kSplit == 1 ? static_cast<int>(threadIdx.x) : static_cast<int>(threadIdx.x) % kRays;
+  return kSplit == 1 ? static_cast<int>(threadIdx.x) : static_cast<int>(threadIdx.x) % kCta;
+}
+
+// The gate block of 256 rays that CTA `cta` (of kCta rays) serves.
+template <int kCta>
+__device__ __forceinline__ size_t cta_block(int cta) {
+  return static_cast<size_t>(cta) / (kRays / kCta);
+}
+
+// Which CTA of kCta rays (ray group) and which tile segment this block of
+// threads serves: blockIdx.x = group * segments + segment. Gated launches
+// have one segment.
+template <bool kGate>
+__device__ __forceinline__ int2 cta_place(const Segments& seg) {
+  if (kGate || seg.count == 1) return make_int2(blockIdx.x, 0);
+  return make_int2(blockIdx.x / seg.count, blockIdx.x % seg.count);
 }
 
 // Float offset of pack row `row` inside Tri.
@@ -206,21 +245,21 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int n, i
 
 // Stage pack columns [base, base + kStage): the first kRows rows and, with
 // kMaskRow, the same slice of the emitter's mask row. Every thread of the
-// block must call it: it holds both barriers.
-template <int kRows, bool kMaskRow, int kSplit>
+// CTA (kThreads of them) must call it: it holds both barriers.
+template <int kRows, bool kMaskRow, int kThreads>
 __device__ __forceinline__ void stage_tile(Tri* stage, const float* __restrict__ pack,
                                            int n_tri_pad, int base,
                                            const float* __restrict__ mask_row) {
   float* stage_f = reinterpret_cast<float*>(stage);
   __syncthreads();  // the previous stage is no longer read
-  for (int idx = threadIdx.x; idx < kRows * kStage; idx += kRays * kSplit) {
+  for (int idx = threadIdx.x; idx < kRows * kStage; idx += kThreads) {
     const int row = idx / kStage;
     const int k = idx - row * kStage;
     stage_f[k * 20 + tri_slot(row)] =
         pack[static_cast<size_t>(row) * n_tri_pad + base + k];
   }
   if (kMaskRow) {
-    for (int k = threadIdx.x; k < kStage; k += kRays * kSplit) {
+    for (int k = threadIdx.x; k < kStage; k += kThreads) {
       stage_f[k * 20 + kMaskSlot] = mask_row[base + k];
     }
   }
@@ -329,21 +368,22 @@ __device__ __forceinline__ bool box_needed(const Ray& r, const float* box, float
 // One sweep tile of one ray, staged kStage triangles at a time, each of the
 // ray's kSplit threads taking its part of every stage; the parts merged by
 // the tile's own tie rule, the result folded into the ray's carry, which
-// all threads of the ray keep alike. Every thread of the block must call
+// all threads of the ray keep alike. Every thread of the CTA must call
 // it: stage_tile and the merge hold barriers.
-template <bool kMatrix, bool kAny, int kRows, bool kMaskRow, int kSplit, class Sh, class Elig>
+template <bool kMatrix, bool kAny, int kRows, bool kMaskRow, int kSplit, int kCta, class Sh,
+          class Elig>
 __device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restrict__ pack,
                                            int n_tri_pad, int it, int tile,
                                            const float* __restrict__ mask_row, Sh& sh,
                                            Elig elig, float& best_t, int& best_code,
                                            int& any_hit) {
   constexpr int kPart = kStage / kSplit;
-  const Tri* mine = sh.stage + split_part<kSplit>() * kPart;
+  const Tri* mine = sh.stage + split_part<kSplit, kCta>() * kPart;
   float tile_t = kInf;
   int tile_code = 1 << 30;
   const int tile_end = (it + 1) * tile;
   for (int base = it * tile; base < tile_end; base += kStage) {
-    stage_tile<kRows, kMaskRow, kSplit>(sh.stage, pack, n_tri_pad, base, mask_row);
+    stage_tile<kRows, kMaskRow, kCta * kSplit>(sh.stage, pack, n_tri_pad, base, mask_row);
 #pragma unroll 2
     for (int j = 0; j < kPart; ++j) {
       float t;
@@ -369,14 +409,14 @@ __device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restri
     }
     if (kAny) sh.part_any[threadIdx.x] = any_hit;
     __syncthreads();
-    const int r = split_ray<kSplit>();
+    const int r = split_ray<kSplit, kCta>();
     tile_t = kInf;
     tile_code = 1 << 30;
 #pragma unroll
     for (int p = 0; p < kSplit; ++p) {
       if (kMatrix) {
-        const float t = sh.part_t[p * kRays + r];
-        const int code = sh.part_code[p * kRays + r];
+        const float t = sh.part_t[p * kCta + r];
+        const int code = sh.part_code[p * kCta + r];
         if (t < tile_t) {
           tile_t = t;
           tile_code = code;
@@ -384,7 +424,7 @@ __device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restri
           tile_code = code;
         }
       }
-      if (kAny) any_hit |= sh.part_any[p * kRays + r];
+      if (kAny) any_hit |= sh.part_any[p * kCta + r];
     }
   }
   if (kMatrix && tile_t < best_t) {
@@ -395,11 +435,12 @@ __device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restri
 
 // The gate's read-ahead. ahead_load starts this thread's global load for
 // the kAhead visit positions of chunk `c` and returns the raw word, which
-// the caller keeps in a register while the block works; ahead_store parks
+// the caller keeps in a register while the CTA works; ahead_store parks
 // it in buffer `buf`. Threads 0-127: position k = thread / 8 and word
-// thread % 8 of it (six box floats; the tile's flag when a box is one tile,
-// else 1; the box index). Threads 128-129: the early-exit bounds of the
-// chunk's windows.
+// thread % 8 of it (six box floats; the active flags of the box's first 32
+// tiles as a bitmask, bit g for tile box * group + g; the box index).
+// Threads 128-129: the early-exit bounds of the chunk's windows. So a gated
+// CTA has at least kAheadThreads threads.
 __device__ __forceinline__ unsigned ahead_load(const Gate& gate, const int* __restrict__ order,
                                                const float* __restrict__ suffmin,
                                                const int* __restrict__ tiles_on, int n_pos,
@@ -411,8 +452,11 @@ __device__ __forceinline__ unsigned ahead_load(const Gate& gate, const int* __re
     if (p >= n_pos) return 0u;
     const int box = order[p];
     if (word < 6) return __float_as_uint(gate.boxes[6 * static_cast<size_t>(box) + word]);
-    if (word == 6) return gate.group == 1 ? static_cast<unsigned>(tiles_on[box]) : 1u;
-    return static_cast<unsigned>(box);
+    if (word == 7) return static_cast<unsigned>(box);
+    unsigned flags = 0u;
+    const int* group = tiles_on + static_cast<size_t>(box) * gate.group;
+    for (int g = 0; g < gate.group && g < 32; ++g) flags |= (group[g] != 0 ? 1u : 0u) << g;
+    return flags;
   }
   if (gate.window > 0 && tid < kAhead * kAheadWords + kAhead / gate.window) {
     const int w = c * (kAhead / gate.window) + tid - kAhead * kAheadWords;
@@ -431,44 +475,61 @@ __device__ __forceinline__ void ahead_store(Sh& sh, int buf, unsigned word) {
   }
 }
 
+// Tile `it` swept by a CTA of block b: set its bit in the block's row of
+// the bitmap, and count it for the block when no CTA of the block had.
+__device__ __forceinline__ void mark_swept(const Visits& v, size_t b, int it) {
+  const unsigned bit = 1u << (it % 32);
+  if ((atomicOr(v.swept + b * v.words + it / 32, bit) & bit) == 0u) atomicAdd(v.block + b, 1);
+}
+
 // One ray against the scene. Ungated: every active tile in order. Gated:
-// the block's visit list, read ahead kAhead positions at a time, each tile
-// taken only when some live ray of the block needs it (__syncthreads_or:
-// one instruction for the TPU's any-reduce over the block) and the list cut
-// short at window starts once every ray is settled (__syncthreads_and).
-// tiles_on, the visit list and both votes are uniform across the block, so
-// every thread takes the same branches and reaches every barrier; threads
-// past the last ray vote "not needed" and "settled". Thread 0 writes the
-// block's count of swept tiles to `visits` when it is given, and a gated
-// block its times to `gate.timeline`.
-template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, int kSplit,
+// the visit list of the gate block this CTA serves, read ahead kAhead
+// positions at a time, each tile taken only when some live ray of the CTA
+// needs it (__syncthreads_or: one instruction for the TPU's any-reduce over
+// the block) and the list cut short at window starts once every ray of the
+// CTA is settled (__syncthreads_and). tiles_on, the visit list and both
+// votes are uniform across the CTA, so every thread takes the same branches
+// and reaches every barrier; threads past the last ray vote "not needed"
+// and "settled". Thread 0 writes the CTA's count of swept tiles to
+// `visits.cta[blockIdx.x]`, marks each tile it sweeps in the block's row of
+// `visits.swept` (see struct Visits), each when it is given, and a gated
+// CTA writes its times to row blockIdx.x of `gate.timeline`.
+template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, int kSplit, int kCta,
           class Elig>
 __device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
                                           const float* __restrict__ pack, int n_tri_pad,
                                           const int* __restrict__ tiles_on, int tile,
                                           const float* __restrict__ mask_row,
-                                          const Gate& gate, Shared<kSplit, kGate>& sh,
-                                          Elig elig,
-                                          int& code_out, int& any_out,
-                                          int* __restrict__ visits) {
+                                          const Gate& gate, Shared<kSplit, kCta, kGate>& sh,
+                                          Elig elig, int2 place, int n_segments,
+                                          float& t_out, int& code_out, int& any_out,
+                                          const Visits& visits) {
+  static_assert(kRays % kCta == 0, "a CTA serves a whole part of one gate block");
+  static_assert(!kGate || kCta * kSplit >= kAheadThreads, "the read-ahead's threads");
   float best_t = kInf;
   int best_code = -1;
   int any_hit = 0;
   int n_swept = 0;
+  const size_t b = cta_block<kCta>(place.x);
+  const bool mark = visits.block != nullptr && threadIdx.x == 0;
   if constexpr (!kGate) {
     const int n_tiles = n_tri_pad / tile;
-    for (int it = 0; it < n_tiles; ++it) {
+    const int per = (n_tiles + n_segments - 1) / n_segments;  // tiles a segment
+    const int first = place.y * per;
+    const int end = first + per < n_tiles ? first + per : n_tiles;
+    for (int it = first; it < end; ++it) {
       if (tiles_on[it] == 0) continue;  // no eligible triangle: exact skip
-      sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit>(
+      sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit, kCta>(
           ray, pack, n_tri_pad, it, tile, mask_row, sh, elig, best_t, best_code, any_hit);
       ++n_swept;
+      if (mark) mark_swept(visits, b, it);
     }
   } else {
-    const size_t b = blockIdx.x;
+    const size_t row = blockIdx.x;
     long long* __restrict__ timeline = gate.timeline;
     if (timeline != nullptr && threadIdx.x == 0) {
-      timeline[4 * b] = global_ns();
-      timeline[4 * b + 2] = sm_id();
+      timeline[4 * row] = global_ns();
+      timeline[4 * row + 2] = sm_id();
     }
     int n_walked = 0;
     const int* __restrict__ order = gate.order + b * gate.n_boxes;
@@ -501,158 +562,196 @@ __device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
       const int box = static_cast<int>(at[7]);
       for (int g = 0; g < gate.group; ++g, ++n_walked) {
         const int it = box * gate.group + g;
-        if (gate.group == 1 ? at[6] == 0u : tiles_on[it] == 0) continue;
+        if (g < 32 ? (at[6] >> g & 1u) == 0u : tiles_on[it] == 0) continue;
         const bool need = live && box_needed<kMatrix, kAny>(
             ray, reinterpret_cast<const float*>(at), best_t, any_hit);
-        if (!__syncthreads_or(need)) continue;  // no ray can improve: exact skip
-        sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit>(
+        // no ray can improve: an exact skip, and of the rest of the group
+        // too, whose tiles share this box and meet the same carries
+        if (!__syncthreads_or(need)) {
+          ++n_walked;
+          break;
+        }
+        sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit, kCta>(
             ray, pack, n_tri_pad, it, tile, mask_row, sh, elig, best_t, best_code, any_hit);
         ++n_swept;
+        if (mark) mark_swept(visits, b, it);
       }
     }
     if (timeline != nullptr && threadIdx.x == 0) {
-      timeline[4 * b + 1] = global_ns();
-      timeline[4 * b + 3] = n_walked;
+      timeline[4 * row + 1] = global_ns();
+      timeline[4 * row + 3] = n_walked;
     }
   }
-  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = n_swept;
-  code_out = best_t < kInf ? best_code : -1;
+  if (visits.cta != nullptr && threadIdx.x == 0) visits.cta[blockIdx.x] = n_swept;
+  t_out = best_t;
+  code_out = best_code;  // -1 until a hit: best_t < kInf
   any_out = any_hit;
 }
 
-template <bool kMatrix, bool kAny, bool kBaked, bool kGate, int kSplit>
-__global__ void __launch_bounds__(kRays * kSplit)
+// A ray's result: the launch's outputs, or its segment's row of the
+// partial results the fold kernel folds.
+__device__ __forceinline__ void put_ray(const Segments& seg, int g, int n, int ray, float t,
+                                        int code, int any_hit, int* __restrict__ codes,
+                                        int* __restrict__ any_out) {
+  if (seg.count > 1) {
+    const size_t at = static_cast<size_t>(g) * n + ray;
+    seg.t[at] = t;
+    seg.code[at] = code;
+    seg.any[at] = any_hit;
+  } else {
+    codes[ray] = code;
+    any_out[ray] = any_hit;
+  }
+}
+
+// CTAs an SM must hold at once: 1,536 threads' worth (six CTAs of 256
+// threads, three of 512: at most 40 registers a thread), which puts a
+// launch of 198 blocks or fewer in one wave at 64 or 128 rays x 4; a CTA of
+// 1,024 threads, one (at most 64 registers).
+constexpr int min_ctas(int threads) {
+  return threads >= 1024 ? 1 : 1536 / threads;
+}
+
+// CTA c serves rays [c * kCta, (c + 1) * kCta): the grid is ceil(n / kCta)
+// CTAs, and the last may be partial.
+template <bool kMatrix, bool kAny, bool kBaked, bool kGate, int kSplit, int kCta>
+__global__ void __launch_bounds__(kCta * kSplit, min_ctas(kCta * kSplit))
 sweep_kernel(const float* __restrict__ rays, int n,
              const float* __restrict__ pack, int n_tri_pad,
              const int* __restrict__ tiles_on, int tile, Gate gate,
              int* __restrict__ codes, int* __restrict__ any_out,
-             int* __restrict__ visits) {
-  __shared__ Shared<kSplit, kGate> sh;
-  const int ray = blockIdx.x * kRays + split_ray<kSplit>();
+             Visits visits, Segments seg) {
+  __shared__ Shared<kSplit, kCta, kGate> sh;
+  const int2 place = cta_place<kGate>(seg);
+  const int ray = place.x * kCta + split_ray<kSplit, kCta>();
   const bool live = ray < n;
   // threads past the last ray still load stages and reach every barrier
   const Ray r = load_ray(rays, n, live ? ray : 0);
+  float t;
   int code, any_hit;
-  sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit>(
+  sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit, kCta>(
       r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
-      PackMasks<!kBaked, !(kBaked && !kAny)>{}, code, any_hit, visits);
-  if (live && split_part<kSplit>() == 0) {
-    codes[ray] = code;
-    any_out[ray] = any_hit;
+      PackMasks<!kBaked, !(kBaked && !kAny)>{}, place, seg.count, t, code, any_hit, visits);
+  if (live && split_part<kSplit, kCta>() == 0) {
+    put_ray(seg, place.y, n, ray, t, code, any_hit, codes, any_out);
   }
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit>
-__global__ void __launch_bounds__(kRays * kSplit)
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
+__global__ void __launch_bounds__(kCta * kSplit, min_ctas(kCta * kSplit))
 sweep_code_kernel(const float* __restrict__ rays, int n,
                   const float* __restrict__ pack, int n_tri_pad,
                   const int* __restrict__ tiles_on, int tile, float emit_code,
                   float min_code, Gate gate, int* __restrict__ codes,
-                  int* __restrict__ any_out, int* __restrict__ visits) {
-  __shared__ Shared<kSplit, kGate> sh;
-  const int ray = blockIdx.x * kRays + split_ray<kSplit>();
+                  int* __restrict__ any_out, Visits visits, Segments seg) {
+  __shared__ Shared<kSplit, kCta, kGate> sh;
+  const int2 place = cta_place<kGate>(seg);
+  const int ray = place.x * kCta + split_ray<kSplit, kCta>();
   const bool live = ray < n;
   const Ray r = load_ray(rays, n, live ? ray : 0);
+  float t;
   int code, any_hit;
-  sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit>(
+  sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit, kCta>(
       r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
-      CodeBounds{emit_code, min_code}, code, any_hit, visits);
-  if (live && split_part<kSplit>() == 0) {
-    codes[ray] = code;
-    any_out[ray] = any_hit;
+      CodeBounds{emit_code, min_code}, place, seg.count, t, code, any_hit, visits);
+  if (live && split_part<kSplit, kCta>() == 0) {
+    put_ray(seg, place.y, n, ray, t, code, any_hit, codes, any_out);
   }
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit>
-__global__ void __launch_bounds__(kRays * kSplit)
+// n is a multiple of kRays, so every CTA is whole; CTA c serves gate block
+// c * kCta / 256 and emitter row emap[that block].
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
+__global__ void __launch_bounds__(kCta * kSplit, min_ctas(kCta * kSplit))
 sweep_sched_kernel(const float* __restrict__ rays, int n,
                    const float* __restrict__ pack, int n_tri_pad,
                    const float* __restrict__ masks, int n_emit,
                    const int* __restrict__ emap, const int* __restrict__ tiles_on,
                    int tiles_stride, int tile, Gate gate, int* __restrict__ codes,
-                   int* __restrict__ any_out, int* __restrict__ visits) {
-  __shared__ Shared<kSplit, kGate> sh;
-  const int ray = blockIdx.x * kRays + split_ray<kSplit>();  // n is a multiple of kRays
-  const size_t b = blockIdx.x;
-  const int e = emap[b];
+                   int* __restrict__ any_out, Visits visits, Segments seg) {
+  __shared__ Shared<kSplit, kCta, kGate> sh;
+  const int2 place = cta_place<kGate>(seg);
+  const int ray = place.x * kCta + split_ray<kSplit, kCta>();
+  const size_t c = blockIdx.x;
+  const int e = emap[cta_block<kCta>(place.x)];
   if (e < 0 || e >= n_emit) {  // a row the masks do not hold sweeps nothing;
-    if (split_part<kSplit>() == 0) {  // block-uniform, and before any barrier
-      codes[ray] = -1;
-      any_out[ray] = 0;
+    if (split_part<kSplit, kCta>() == 0) {  // CTA-uniform, and before any barrier
+      put_ray(seg, place.y, n, ray, kInf, -1, 0, codes, any_out);
     }
     if (threadIdx.x == 0) {
-      if (visits != nullptr) visits[b] = 0;
+      if (visits.cta != nullptr) visits.cta[c] = 0;
       if (kGate && gate.timeline != nullptr) {
         const long long now = global_ns();
-        gate.timeline[4 * b] = now;
-        gate.timeline[4 * b + 1] = now;
-        gate.timeline[4 * b + 2] = sm_id();
-        gate.timeline[4 * b + 3] = 0;
+        gate.timeline[4 * c] = now;
+        gate.timeline[4 * c + 1] = now;
+        gate.timeline[4 * c + 2] = sm_id();
+        gate.timeline[4 * c + 3] = 0;
       }
     }
     return;
   }
   const size_t row = static_cast<size_t>(e);
   const Ray r = load_ray(rays, n, ray);
+  float t;
   int code, any_hit;
-  sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit>(
+  sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit, kCta>(
       r, true, pack, n_tri_pad, tiles_on + row * tiles_stride, tile,
-      masks + row * n_tri_pad, gate, sh, CombinedMask{}, code, any_hit, visits);
-  if (split_part<kSplit>() == 0) {
-    codes[ray] = code;
-    any_out[ray] = any_hit;
+      masks + row * n_tri_pad, gate, sh, CombinedMask{}, place, seg.count, t, code, any_hit,
+      visits);
+  if (split_part<kSplit, kCta>() == 0) {
+    put_ray(seg, place.y, n, ray, t, code, any_hit, codes, any_out);
   }
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit>
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
 void launch_masks(const Masks& m, const Args& a) {
-  const dim3 grid((a.n + kRays - 1) / kRays);
-  const int threads = kRays * kSplit;
+  const dim3 grid((a.n + kCta - 1) / kCta * a.seg.count);
+  const int threads = kCta * kSplit;
   if (m.mode == kCodeMode) {
-    sweep_code_kernel<kMatrix, kAny, kGate, kSplit><<<grid, threads, 0, a.stream>>>(
+    sweep_code_kernel<kMatrix, kAny, kGate, kSplit, kCta><<<grid, threads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, m.emit_code, m.min_code,
-        a.gate, a.codes, a.any_out, a.visits);
+        a.gate, a.codes, a.any_out, a.visits, a.seg);
   } else if (m.mode == kBakedMode) {
-    sweep_kernel<kMatrix, kAny, true, kGate, kSplit><<<grid, threads, 0, a.stream>>>(
+    sweep_kernel<kMatrix, kAny, true, kGate, kSplit, kCta><<<grid, threads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
-        a.visits);
+        a.visits, a.seg);
   } else {
-    sweep_kernel<kMatrix, kAny, false, kGate, kSplit><<<grid, threads, 0, a.stream>>>(
+    sweep_kernel<kMatrix, kAny, false, kGate, kSplit, kCta><<<grid, threads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
-        a.visits);
+        a.visits, a.seg);
   }
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit>
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
 void launch_sched_gate(const Sched& s, const Args& a) {
-  sweep_sched_kernel<kMatrix, kAny, kGate, kSplit>
-      <<<a.n / kRays, kRays * kSplit, 0, a.stream>>>(
+  sweep_sched_kernel<kMatrix, kAny, kGate, kSplit, kCta>
+      <<<a.n / kCta * a.seg.count, kCta * kSplit, 0, a.stream>>>(
           a.rays, a.n, a.pack, a.n_tri_pad, s.masks, s.n_emit, s.emap, a.tiles_on,
-          s.tiles_stride, a.tile, a.gate, a.codes, a.any_out, a.visits);
+          s.tiles_stride, a.tile, a.gate, a.codes, a.any_out, a.visits, a.seg);
 }
 
 }  // namespace
 
 // The instantiation a launch's wanted outputs select.
-template <int kSplit, bool kGate>
+template <int kSplit, int kCta, bool kGate>
 void launch_sweep(const Masks& m, const Args& a) {
   if (a.want_matrix && a.want_any) {
-    launch_masks<true, true, kGate, kSplit>(m, a);
+    launch_masks<true, true, kGate, kSplit, kCta>(m, a);
   } else if (a.want_matrix) {
-    launch_masks<true, false, kGate, kSplit>(m, a);
+    launch_masks<true, false, kGate, kSplit, kCta>(m, a);
   } else {
-    launch_masks<false, true, kGate, kSplit>(m, a);
+    launch_masks<false, true, kGate, kSplit, kCta>(m, a);
   }
 }
 
-template <int kSplit, bool kGate>
+template <int kSplit, int kCta, bool kGate>
 void launch_sweep_sched(const Sched& s, const Args& a) {
   if (a.want_matrix && a.want_any) {
-    launch_sched_gate<true, true, kGate, kSplit>(s, a);
+    launch_sched_gate<true, true, kGate, kSplit, kCta>(s, a);
   } else if (a.want_matrix) {
-    launch_sched_gate<true, false, kGate, kSplit>(s, a);
+    launch_sched_gate<true, false, kGate, kSplit, kCta>(s, a);
   } else {
-    launch_sched_gate<false, true, kGate, kSplit>(s, a);
+    launch_sched_gate<false, true, kGate, kSplit, kCta>(s, a);
   }
 }
 

@@ -129,8 +129,11 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
     lib = ctypes.CDLL(str(build().path))
     # the gate: boxes, order, counts, suffmin; n_boxes, group, window,
-    # n_windows; then the triangle split
-    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    # n_windows; then the geometry: threads a ray, rays a CTA, tile
+    # segments and their partial results (t, code, any)
+    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    # the block visit counts, their bitmap, its words a block
+    block_visits = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     fn = lib.raystrack_sweep_rays
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # rays, n
@@ -140,6 +143,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_float,  # emit_code, min_code
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
+        *block_visits,
         ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
     ]
     fn.restype = ctypes.c_int
@@ -168,6 +172,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tile, want_matrix, want_any
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
+        *block_visits,
         ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
     ]
     fn.restype = ctypes.c_int

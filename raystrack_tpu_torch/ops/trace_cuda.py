@@ -44,10 +44,12 @@ anew. Past ``GATE_MAX_TILES`` tiles one box covers a group of consecutive
 tiles. It is exact: only the visit order differs from the ungated sweep,
 and that decides nothing but exact-``t`` ties across tiles.
 
-On the card a block of 256 rays is served by 256 or 1,024 threads:
-``split`` threads share a ray's triangles inside every sweep tile and merge
-by the tile's own tie rule, so the result does not depend on the split
-(:func:`sweep_split` picks it from the launch's shape).
+On the card a block of 256 rays is served by one CTA or by two or four of
+128 or 64 rays: ``split`` threads (1 to 16) share a ray's triangles inside
+every sweep tile and merge by the tile's own tie rule, and each CTA walks
+its block's visit list with its own votes over its own rays, so the result
+depends on neither (:func:`sweep_split` picks the launch's
+:class:`SweepGeometry` from its shape).
 """
 from __future__ import annotations
 
@@ -191,7 +193,7 @@ class GateTables:
 
 
 # SMs of the card the port is written for (an H100 SXM): what a CPU tensor's
-# plain version takes for the split its launch would have.
+# plain version takes for the geometry its launch would have.
 _H100_SMS = 132
 
 
@@ -202,47 +204,128 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# The splits the kernels are built at (csrc/sweep_split1.cu, sweep_split4.cu
-# ungated; sweep_gated.cu), and blocks an SM up to which an ungated launch
-# takes four threads a ray.
+@dataclasses.dataclass(frozen=True)
+class SweepGeometry:
+    """How a launch lays its blocks of 256 rays (the gate's and ``emap``'s
+    unit, the JAX package's ``ray_block``) onto CTAs: ``rays`` rays a CTA
+    (256, 128 or 64: a block is ``256 // rays`` CTAs, CTA c serving rays
+    ``[c * rays, (c + 1) * rays)``), ``split`` threads a ray (the kernels'
+    ``kSplit``) and ``segments``, the contiguous parts a block's walk is cut
+    into, each swept by a CTA of its own from a fresh carry and folded in
+    order (the kernels cut an ungated launch's tiles; the plain versions a
+    gated walk's visit positions too). Every geometry gives the codes and
+    flags of the 256-ray, one-segment walk."""
+
+    rays: int = RAY_SUBBLOCK
+    split: int = 1
+    segments: int = 1
+
+    def units(self, n_rays: int) -> int:
+        """CTAs (times segments) of a launch of ``n_rays`` rays: the rows
+        of its per-CTA ``visits`` and ``timeline``."""
+        return -(-n_rays // self.rays) * self.segments
+
+    @property
+    def per_block(self) -> int:
+        """Rows of a block of 256 rays."""
+        return RAY_SUBBLOCK // self.rays * self.segments
+
+    @property
+    def name(self) -> str:
+        """``"64x8"``: rays a CTA x threads a ray, and ``"s2"`` after it
+        for 2 segments."""
+        return f"{self.rays}x{self.split}" + (f"s{self.segments}" if self.segments > 1 else "")
+
+
+# The geometries the kernels are built at (csrc/sweep.cuh
+# RAYSTRACK_SWEEP_GEOMETRIES): a whole block a CTA at 1 or 4 threads a ray
+# ungated and at 4 gated (the geometry before CTAs served part of a block,
+# which a test or measurement forces as a bare int: the splits of the
+# whole-block CTA), and the parts of a block the rule picks.
 UNGATED_SPLITS = (1, 4)
 GATED_SPLIT = 4
+BUILT_GEOMETRIES = {
+    False: (SweepGeometry(RAY_SUBBLOCK, 1),) + tuple(
+        SweepGeometry(RAY_SUBBLOCK, 4, g) for g in range(1, 5)),
+    True: tuple(SweepGeometry(r, k) for r, k in ((RAY_SUBBLOCK, GATED_SPLIT), (64, 8),
+                                                   (64, 16))),
+}
 _SPLIT_BLOCKS_PER_SM = 4
 
 
-def sweep_split(n_blocks: int, gated: bool, n_sms: int) -> int:
-    """Threads that share one ray's triangles (the kernels' ``kSplit``) for a
-    launch of ``n_blocks`` blocks of 256 rays on a card of ``n_sms`` SMs: a
-    pure function of the launch's shape.
+def sweep_split(n_blocks: int, gated: bool, n_sms: int) -> SweepGeometry:
+    """The geometry (:class:`SweepGeometry`) of a launch of ``n_blocks``
+    blocks of 256 rays, gated or not, on a card of ``n_sms`` SMs: a pure
+    function of the launch's shape.
 
-    A gated launch always takes 4: its blocks sweep between none and a
-    quarter of the tiles, so its SMs run dry one by one long before its
-    slowest block ends, and at four threads a ray a block's span shrinks
-    about threefold while an SM sweeps a tile as fast as the six resident
-    blocks of an ungated launch at one thread a ray do (167-171 us against
-    168 us a tile of 2,048 triangles on an H100, ``chip_profile.py
-    --timeline``); timed at 1, 2 and 4, both gated launches were fastest at
-    4 or within 1% of it (62.1 against 63.7 and 73.9 ms, 90.7 against 89.9
-    and 98.0 ms).
+    A CTA of 256 threads or of 1,024 fits an SM six times or once as
+    before; one of 512 threads three times (the kernels are held to 40
+    registers a thread below 1,024 threads). A CTA serving part of a block
+    spreads its block over several SMs, and more threads a ray give the
+    rays of a heavy part more of its SM. Measured by ``chip_profile.py
+    --splits`` (my chip call 3, PR 16: NVIDIA H100 80GB HBM3, 700 W, 132
+    SMs; ms, best of 3; rays a CTA x threads a ray):
 
-    An ungated launch takes 4 up to four blocks an SM, else 1. A block of
-    256 threads is 8 warps and an SM wants about 32 in flight; on the leading
-    blocks of the soup chunk (98,304 triangles, ``chip_profile.py --splits``,
-    H100, 132 SMs) four threads a ray take 7.4 against 14.7 ms up to 132
-    blocks, 14.8 against 18.5 ms up to 264 and 29.7 against 33.1 ms at 528:
-    10% or more at every size up to there, and two threads a ray are ahead
-    of four nowhere by more than 1.2%, which is why no kernel is built at 2.
-    Past that the gain
-    shrinks (4.5% at the soup's 1,024 blocks, and the any-only variant is 4%
-    slower), and the rounds of small scenes, thousands of blocks over a few
-    hundred triangles, lose 5 to 19% (``chip_profile.py --force-split 4``
-    plates, canyon, district), so full grids keep one thread a ray.
+    - Gated: 64 x 16 up to a block an SM, else 64 x 8. On the 1M city's
+      ground -> city chunk, leading 32 / 132 / 192 / 264 / 528 / 1,024
+      blocks: 64 x 16 2.776 / 9.754 / 14.174 / 18.089 / 34.194 / 58.509;
+      64 x 8 3.993 / 10.970 / 15.879 / 17.871 / 33.624 / 56.920; 64 x 4
+      6.305 / 13.820 / 19.673 / 21.969 / 37.374 / 59.379; 128 x 8 4.862 /
+      11.616 / 16.730 / 18.989 / 34.859 / 55.248; 256 x 4 (the geometry
+      before) 9.065 / 15.906 / 24.783 / 24.955 / 42.719 / 60.994. The
+      ``city_plates`` round (960 blocks): 64 x 8 73.851, 64 x 4 72.496, 64 x
+      16 81.234, 128 x 8 80.838, 256 x 4 91.401. The 3e7 city's chunk (192
+      blocks, the two-level gate): 64 x 8 177.293, 64 x 16 186.226, 64 x 4
+      200.589, 128 x 8 206.963, 256 x 4 303.782. A 64-ray CTA tests 0.64-0.86
+      of the 256-ray walk's pairs: its own votes prune more.
+    - Ungated, more than four blocks an SM: a whole block at one thread a
+      ray, as before (the soup's 1,024 blocks, the rounds of thousands,
+      ex06's 6,144: small scenes' rounds lose 5-19% at four threads a ray).
+    - Ungated, up to four blocks an SM: 64 x 16 up to a quarter of a block
+      an SM; else whole blocks at 4 threads a ray when the last wave of
+      such CTAs (one an SM) is more than half full, else 128 x 8. On the
+      soup chunk's leading blocks (98,304 triangles), 256 x 4 / 128 x 8 /
+      64 x 16 (/ 256 x 1): 32 blocks 7.271 / 3.938 / 2.296 (13.927); 66:
+      7.272 / 3.937 / 4.576; 132: 7.274 / 7.862 / 9.138; 160: 14.489 /
+      11.730 / 11.373; 192: 14.506 / 11.761 / 13.640; 200: 14.502 / 15.602 /
+      15.807; 264: 14.532 / 15.709 / 18.267; 300: 21.726 / 19.556 / 22.583;
+      396: 21.789 / 23.560 / 27.390; 528: 29.049 / 31.407 / 36.514 (32.054);
+      the 3e7 city's ungated chunk (192 blocks) 4,599.8 / 3,848.4 / 4,737.2
+      ms (256 x 1: 5,607.3).
     """
     if n_blocks <= 0 or n_sms <= 0:
-        return 1
+        return SweepGeometry(RAY_SUBBLOCK, 1)
     if gated:
-        return GATED_SPLIT
-    return 4 if n_blocks <= _SPLIT_BLOCKS_PER_SM * n_sms else 1
+        return SweepGeometry(64, 16) if n_blocks <= n_sms else SweepGeometry(64, 8)
+    if n_blocks > _SPLIT_BLOCKS_PER_SM * n_sms:
+        return SweepGeometry(RAY_SUBBLOCK, 1)
+
+    def fill(segments):  # the CTAs' share of the waves' slots, one CTA an SM
+        ctas = n_blocks * segments
+        return ctas / (-(-ctas // n_sms) * n_sms)
+
+    return SweepGeometry(RAY_SUBBLOCK, 4, max(range(1, 5), key=lambda g: (fill(g), -g)))
+
+
+def _whole_block(geo: SweepGeometry) -> SweepGeometry:
+    """The geometry the rule gave a launch before CTAs served part of a
+    block, for a launch it now gives ``geo``: a whole block a CTA at 4
+    threads a ray, one segment, where ``geo`` takes part of a block's rays
+    or tiles (every gated launch, and ungated ones up to four blocks an
+    SM), else ``geo``."""
+    if geo.rays < RAY_SUBBLOCK or geo.segments > 1:
+        return SweepGeometry(RAY_SUBBLOCK, 4)
+    return geo
+
+
+def _geometry(split) -> SweepGeometry:
+    """A :class:`SweepGeometry` as it is, or a bare int ``k``: the whole
+    256-ray block a CTA at ``k`` threads a ray, one segment (how a test or a
+    measurement forces the geometry launches had before CTAs served part of
+    a block)."""
+    if isinstance(split, SweepGeometry):
+        return split
+    return SweepGeometry(RAY_SUBBLOCK, int(split))
 
 
 def _ray_inv(dirs):
@@ -426,9 +509,17 @@ def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
 # Kernel #1's mask modes, in the order of the C entry's ``mask_mode`` argument.
 _MASK_MODES = ("rows", "baked", "code")
 
-# The triangle splits the plain versions take: the kernels' 1 and 4, and 2,
-# another partition the merge must be exact on.
-_SPLITS = (1, 2, 4)
+# The triangle splits, rays a CTA and segments the plain versions take: the
+# kernels' splits, and 2, another partition the merge must be exact on;
+# every part of a block of 256 rays down to 64; any count of segments.
+_SPLITS = (1, 2, 4, 8, 16)
+_CTA_RAYS = (64, 128, RAY_SUBBLOCK)
+
+
+def _check_geometry(geo: SweepGeometry) -> None:
+    if geo.split not in _SPLITS or geo.rays not in _CTA_RAYS or geo.segments < 1:
+        raise ValueError(f"a plain sweep takes split in {_SPLITS}, rays a CTA in {_CTA_RAYS} "
+                         f"and segments >= 1 (got {geo})")
 
 
 def _mask_mode(masks_baked: bool, code_bounds) -> str:
@@ -533,47 +624,77 @@ def _tile_step(rays, row, carry, *, want_matrix: bool, want_any: bool,
     return best_t, best_code, any_hit
 
 
-def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matrix: bool,
-                 want_any: bool, mode: str, code_bounds=None, split: int = 1, visits=None):
-    """The gated sweep in tensor ops: every block walks its visit list as
-    the gated kernel does (the same early-exit checks, the same per-box
-    decision against the current carry, the same tiles_on skip and
-    two-level indexing), all blocks in step, each visit running
-    :func:`_tile_step` on the blocks that take it."""
+def _fold_units(best_t, best_code, any_hit, segments: int):
+    """Fold ``segments`` consecutive units' carries (the segments of one CTA,
+    in order) into one, by the carry's own rule: only a strictly smaller t
+    replaces it, the any-hit is an OR. (..., B, 1) tensors whose leading
+    dimension is CTAs x segments."""
+    if segments == 1:
+        return best_t, best_code, any_hit
+    t, c, a = (x.unflatten(0, (-1, segments)) for x in (best_t, best_code, any_hit))
+    out_t, out_c, out_a = t[:, 0], c[:, 0], a[:, 0]
+    for g in range(1, segments):
+        take = t[:, g] < out_t
+        out_t = torch.where(take, t[:, g], out_t)
+        out_c = torch.where(take, c[:, g], out_c)
+        out_a = out_a | a[:, g]
+    return out_t, out_c, out_a
+
+
+def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, geo: SweepGeometry, *,
+                 want_matrix: bool, want_any: bool, mode: str, code_bounds=None):
+    """The gated sweep in tensor ops: every unit of ``geo`` (a CTA's rays
+    and one segment of its block's visit list) walks its part of the list
+    as the gated kernel does (the same early-exit checks, the same per-box
+    decision against its own rays' current carry, the same tiles_on skip
+    and two-level indexing), all units in step, each visit running
+    :func:`_tile_step` on the units that take it; then the segments fold in
+    order. Returns (codes, flags, per-unit swept tiles)."""
     n = rays.shape[1]
-    B = gate.ray_block
+    R, G = geo.rays, geo.segments
+    per_cta = gate.ray_block // R
     n_blocks = gate.counts.shape[0]
+    n_ctas = n_blocks * per_cta
     device = rays.device
-    cols = torch.nn.functional.pad(rays, (0, n_blocks * B - n)).view(9, n_blocks, B, 1)
-    live = (torch.arange(n_blocks * B, device=device) < n).view(n_blocks, B, 1)
+    cols = torch.nn.functional.pad(rays, (0, n_blocks * gate.ray_block - n)).view(9, n_ctas, 1, R)
+    cols = cols.expand(9, n_ctas, G, R).reshape(9, n_ctas * G, R, 1)
+    U = n_ctas * G
+    live = (torch.arange(n_ctas * R, device=device) < n).view(n_ctas, 1, R)
+    live = live.expand(n_ctas, G, R).reshape(U, R, 1)
+    blk = torch.arange(U, device=device) // (per_cta * G)  # the block each unit serves
+    seg = torch.arange(U, device=device) % G
     inv = _ray_inv(cols[3:6])
-    best_t = torch.full((n_blocks, B, 1), INF, dtype=torch.float32, device=device)
-    best_code = torch.full((n_blocks, B, 1), -1, dtype=torch.int32, device=device)
-    any_hit = torch.zeros((n_blocks, B, 1), dtype=torch.bool, device=device)
-    n_visit = gate.counts.long() * gate.group
-    done = torch.zeros(n_blocks, dtype=torch.bool, device=device)
-    n_done = torch.zeros(n_blocks, dtype=torch.int32, device=device)
+    best_t = torch.full((U, R, 1), INF, dtype=torch.float32, device=device)
+    best_code = torch.full((U, R, 1), -1, dtype=torch.int32, device=device)
+    any_hit = torch.zeros((U, R, 1), dtype=torch.bool, device=device)
+    n_visit = gate.counts.long()[blk] * gate.group
+    seg_len = -(-n_visit // G)
+    lo, hi = seg * seg_len, torch.minimum((seg + 1) * seg_len, n_visit)
+    order, suffmin = gate.order[blk], gate.suffmin[blk]
+    done = torch.zeros(U, dtype=torch.bool, device=device)
+    n_done = torch.zeros(U, dtype=torch.int32, device=device)
+    block_done = torch.zeros(n_blocks, dtype=torch.int32, device=device)
     lanes = torch.arange(tile, device=device)
-    step = max(1, _REF_PAIRS // (B * tile))
+    step = max(1, _REF_PAIRS // (R * tile))
     kw = dict(want_matrix=want_matrix, want_any=want_any, mode=mode, code_bounds=code_bounds,
-              split=split)
-    for j in range(int(n_visit.max()) if n_blocks else 0):
-        act = (n_visit > j) & ~done
+              split=geo.split)
+    for j in range(int(hi.max()) if U else 0):
+        act = (lo <= j) & (hi > j) & ~done
         if gate.window and j % gate.window == 0:
-            settled = best_t <= gate.suffmin[:, j // gate.window, None, None]
+            settled = best_t <= suffmin[:, j // gate.window, None, None]
             if want_any:
                 settled &= any_hit
             stop = act & (settled | ~live).all(dim=2).all(dim=1)
             done |= stop
             act &= ~stop
-        box = gate.order[:, j // gate.group].long()
+        box = order[:, j // gate.group].long()
         it = box * gate.group + j % gate.group
         act &= tiles_on[it] > 0
-        blk = act.nonzero().squeeze(1)
-        if blk.numel() == 0:
+        unit = act.nonzero().squeeze(1)
+        if unit.numel() == 0:
             continue
-        sub = lambda t: t.index_select(0, blk)  # noqa: E731
-        bx = gate.boxes.index_select(0, box.index_select(0, blk))[:, :, None, None]
+        sub = lambda t: t.index_select(0, unit)  # noqa: E731, B023
+        bx = gate.boxes.index_select(0, box.index_select(0, unit))[:, :, None, None]
         near_c, far_c = _box_interval(
             [sub(cols[c]) for c in range(3)], [tuple(map(sub, v)) for v in inv],
             [bx[:, c] for c in range(3)], [bx[:, 3 + c] for c in range(3)])
@@ -583,10 +704,12 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matri
             need = hit & (near_c < sub(best_t))
         if want_any:
             need = need | (hit & ~sub(any_hit))
-        blk = blk[(need & sub(live)).any(dim=2).any(dim=1)]
-        n_done.index_add_(0, blk, torch.ones_like(blk, dtype=torch.int32))
-        for k0 in range(0, blk.numel(), step):
-            kb = blk[k0 : k0 + step]
+        unit = unit[(need & sub(live)).any(dim=2).any(dim=1)]
+        n_done.index_add_(0, unit, torch.ones_like(unit, dtype=torch.int32))
+        # at step j all units of a block stand on one tile: count it once
+        block_done += torch.zeros_like(block_done).index_fill_(0, blk.index_select(0, unit), 1)
+        for k0 in range(0, unit.numel(), step):
+            kb = unit[k0 : k0 + step]
             idx = it.index_select(0, kb)[:, None] * tile + lanes  # (K, T)
             tri = tri_pack[:, idx]  # (24, K, T)
             row = lambda r: tri[r][:, None, :]  # noqa: E731, B023 - (K, 1, T)
@@ -594,10 +717,85 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, *, want_matri
             new = _tile_step([cols[c].index_select(0, kb) for c in range(9)], row, carry, **kw)
             for c, v in zip((best_t, best_code, any_hit), new):
                 c.index_copy_(0, kb, v)
-    if visits is not None:
-        visits.copy_(n_done)
+    best_t, best_code, any_hit = _fold_units(best_t, best_code, any_hit, G)
     codes = torch.where(best_t < INF, best_code, -1).view(-1)[:n]
-    return codes, any_hit.view(-1)[:n].to(torch.int32)
+    return codes, any_hit.view(-1)[:n].to(torch.int32), n_done[: geo.units(n)], block_done
+
+
+def _store_visits(visits: Optional[torch.Tensor], n: int, geo: SweepGeometry, per_unit,
+                  per_block) -> None:
+    """Write a sweep's visit counts into the caller's ``visits``: one row per
+    unit of ``geo`` (CTA x segment), the tiles each swept; or one row per
+    block of 256 rays, the tiles any of the block's units swept, which is
+    the 256-ray, one-segment walk's count at every geometry of one segment
+    (a CTA's rays keep the carries that walk gives them, so the CTAs
+    together sweep the tiles some ray of the block needs; a gated segment
+    after the first starts from a fresh carry and may sweep more)."""
+    if visits is None:
+        return
+    if visits.shape[0] == geo.units(n):
+        visits.copy_(per_unit)
+    elif visits.shape[0] == -(-n // RAY_SUBBLOCK):
+        visits.copy_(per_block)
+    else:
+        raise ValueError(f"visits must have one row per block of {RAY_SUBBLOCK} rays "
+                         f"({-(-n // RAY_SUBBLOCK)}) or per unit of {geo} ({geo.units(n)}); "
+                         f"got {visits.shape[0]}")
+
+
+def _fold_timeline(rows: torch.Tensor, out: torch.Tensor, geo: SweepGeometry) -> None:
+    """A per-block timeline ``out`` (blocks, 4) from the launch's per-CTA
+    ``rows``: the earliest start, the latest end, the SM of the block's
+    first CTA, the most visit positions one of its CTAs walked."""
+    per, n_blocks = geo.per_block, out.shape[0]
+    pad = n_blocks * per - rows.shape[0]
+    r = torch.cat([rows, rows.new_zeros((pad, 4))]).view(n_blocks, per, 4)
+    start = torch.cat([rows[:, 0], rows.new_full((pad,), torch.iinfo(rows.dtype).max)])
+    out[:, 0] = start.view(n_blocks, per).amin(dim=1)
+    out[:, 1] = r[:, :, 1].amax(dim=1)
+    out[:, 2] = r[:, 0, 2]
+    out[:, 3] = r[:, :, 3].amax(dim=1)
+
+
+def _sweep_plain(rays, tri_pack, tiles_on, tile, geo: SweepGeometry, *, gate, **kw):
+    """Kernel #1's plain sweep at ``geo``: (codes, flags, tiles each unit
+    swept, tiles each block's units swept)."""
+    if gate is not None:
+        return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, geo, **kw)
+    n = rays.shape[1]
+    device = rays.device
+    codes = torch.full((n,), -1, dtype=torch.int32, device=device)
+    any_out = torch.zeros((n,), dtype=torch.int32, device=device)
+    n_tiles = tiles_on.shape[0]
+    seg_len = -(-n_tiles // geo.segments)
+    on = tiles_on.tolist()
+    segments = [[i for i in range(g * seg_len, min((g + 1) * seg_len, n_tiles)) if on[i]]
+                for g in range(geo.segments)]
+    per_unit = torch.tensor([len(t) for t in segments], dtype=torch.int32,
+                            device=device).repeat(geo.units(n) // geo.segments)
+    per_block = torch.full((-(-n // RAY_SUBBLOCK),), sum(map(len, segments)), dtype=torch.int32,
+                           device=device)
+    chunk = max(1, _REF_PAIRS // tile)
+    for r0 in range(0, n, chunk):
+        ray_cols = [rays[j, r0 : r0 + chunk, None] for j in range(9)]
+        b = ray_cols[0].shape[0]
+        carries = []
+        for active in segments:
+            carry = (
+                torch.full((b, 1), INF, dtype=torch.float32, device=device),
+                torch.full((b, 1), -1, dtype=torch.int32, device=device),
+                torch.zeros((b, 1), dtype=torch.bool, device=device),
+            )
+            for i in active:
+                tri = tri_pack[:, i * tile : (i + 1) * tile]
+                carry = _tile_step(ray_cols, lambda r: tri[r : r + 1], carry,  # noqa: B023
+                                   split=geo.split, **kw)
+            carries.append(carry)
+        best_t, best_code, any_hit = _fold_units(
+            *(torch.stack(x, dim=1).flatten(0, 1) for x in zip(*carries)), geo.segments)
+        codes[r0 : r0 + b] = torch.where(best_t < INF, best_code, -1)[:, 0]
+        any_out[r0 : r0 + b] = any_hit[:, 0].to(torch.int32)
+    return codes, any_out, per_unit, per_block
 
 
 def sweep_rays_reference(
@@ -612,53 +810,39 @@ def sweep_rays_reference(
     code_bounds=None,
     gate: Optional[GateTables] = None,
     visits: Optional[torch.Tensor] = None,
-    split: int = 1,
+    split=1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #1: :func:`_tile_step` over triangle
     tiles of width ``tile``, skipping tiles whose ``tiles_on`` flag is 0, in
     the mask mode ``masks_baked`` / ``code_bounds`` name (:func:`_mask_mode`).
 
+    ``split`` is the launch's geometry: a :class:`SweepGeometry`, or a bare
+    int, the threads a ray of a whole 256-ray block a CTA (1, 2, 4, 8 or 16;
+    the kernels are built at :data:`BUILT_GEOMETRIES`). The split partitions
+    each tile's triangles as the kernel's ``kSplit`` threads of a ray do and
+    merges the parts by the tile's tie rule (:func:`_tile_step`); each CTA
+    of ``rays`` rays votes over its own rays; each segment sweeps its part
+    of the tiles (ungated: of the tile indices; gated: of the block's visit
+    positions) from a fresh carry, and the segments fold in order by the
+    carry's rule: the same codes and flags at every geometry.
+
     Ungated, every ray takes the active tiles in order, in ray chunks that
     bound its memory. With ``gate`` (:func:`_gate_tables` of these rays;
-    ``tiles_on`` padded to :func:`_gate_loop_bound`) each block of
-    ``gate.ray_block`` rays walks its own visit list as the gated kernel
-    does. ``visits``, a (blocks,) int32 tensor, receives the number
-    of tiles each block ran (a test and measurement aid, as in the kernel).
-    ``split`` (1, 2 or 4; the kernels are built at 1 and 4) partitions each
-    tile's triangles as the kernel's ``kSplit`` threads of a ray do and merges
-    the parts by the tile's tie rule (:func:`_tile_step`): the same bits at
-    every split.
+    ``tiles_on`` padded to :func:`_gate_loop_bound`) each CTA walks its
+    block's visit list as the gated kernel does. ``visits``, an int32
+    tensor of one row per unit of the geometry (``split.units(N)``: CTAs x
+    segments) or one per block of 256 rays, receives the tiles each unit
+    swept, or the tiles any unit of each block swept: the 256-ray,
+    one-segment walk's count at every geometry of one segment
+    (:func:`_store_visits`; a test and measurement aid, as in the kernel).
     """
-    if split not in _SPLITS:
-        raise ValueError(f"split must be one of {_SPLITS} (got {split})")
-    kw = dict(want_matrix=want_matrix, want_any=want_any,
-              mode=_mask_mode(masks_baked, code_bounds),
-              code_bounds=None if code_bounds is None else _code_bounds(code_bounds),
-              split=split)
-    if gate is not None:
-        return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, visits=visits, **kw)
-    n = rays.shape[1]
-    device = rays.device
-    codes = torch.full((n,), -1, dtype=torch.int32, device=device)
-    any_out = torch.zeros((n,), dtype=torch.int32, device=device)
-    active = [i for i, on in enumerate(tiles_on.tolist()) if on]
-    if visits is not None:
-        visits.fill_(len(active))
-    chunk = max(1, _REF_PAIRS // tile)
-    for r0 in range(0, n, chunk):
-        ray_cols = [rays[j, r0 : r0 + chunk, None] for j in range(9)]
-        b = ray_cols[0].shape[0]
-        carry = (
-            torch.full((b, 1), INF, dtype=torch.float32, device=device),
-            torch.full((b, 1), -1, dtype=torch.int32, device=device),
-            torch.zeros((b, 1), dtype=torch.bool, device=device),
-        )
-        for i in active:
-            tri = tri_pack[:, i * tile : (i + 1) * tile]
-            carry = _tile_step(ray_cols, lambda r: tri[r : r + 1], carry, **kw)  # noqa: B023
-        best_t, best_code, any_hit = carry
-        codes[r0 : r0 + b] = torch.where(best_t < INF, best_code, -1)[:, 0]
-        any_out[r0 : r0 + b] = any_hit[:, 0].to(torch.int32)
+    geo = _geometry(split)
+    _check_geometry(geo)
+    codes, any_out, per_unit, per_block = _sweep_plain(
+        rays, tri_pack, tiles_on, tile, geo, gate=gate, want_matrix=want_matrix,
+        want_any=want_any, mode=_mask_mode(masks_baked, code_bounds),
+        code_bounds=None if code_bounds is None else _code_bounds(code_bounds))
+    _store_visits(visits, rays.shape[1], geo, per_unit, per_block)
     return codes, any_out
 
 
@@ -729,30 +913,95 @@ def _gated_tiles_on(tiles_on: torch.Tensor, gate: Optional[GateTables]) -> torch
     return torch.nn.functional.pad(tiles_on, (0, extra)).contiguous()
 
 
-def _check_visits(visits, n: int, device: torch.device, timeline=None,
+def _check_visits(visits, n: int, device: torch.device, geo: SweepGeometry, timeline=None,
                   gated: bool = False) -> None:
-    n_blocks = -(-n // RAY_SUBBLOCK)
+    """``visits`` (int32) and ``timeline`` ((rows, 4) int64, gated card
+    sweeps only) take one row per block of 256 rays or one per unit of the
+    launch's geometry (``geo.units(n)``; the same where a CTA serves a
+    whole block)."""
+    rows = {-(-n // RAY_SUBBLOCK), geo.units(n)}
     if visits is not None:
         if not isinstance(visits, torch.Tensor):
             raise TypeError("visits must be a torch.Tensor")
-        _check("visits", visits, torch.int32, (n_blocks,), device)
+        if visits.dim() != 1 or visits.shape[0] not in rows:
+            raise ValueError(f"visits must have one row per block or per CTA, {sorted(rows)} "
+                             f"(got {tuple(visits.shape)})")
+        _check("visits", visits, torch.int32, tuple(visits.shape), device)
     if timeline is not None:
         if not isinstance(timeline, torch.Tensor):
             raise TypeError("timeline must be a torch.Tensor")
         if device.type != "cuda" or not gated:
             raise ValueError("timeline is the gated kernels' output: it needs cuda tensors "
                              "and a gated sweep")
-        _check("timeline", timeline, torch.int64, (n_blocks, 4), device)
+        if timeline.dim() != 2 or timeline.shape[0] not in rows:
+            raise ValueError(f"timeline must have one row per block or per CTA, {sorted(rows)} "
+                             f"(got {tuple(timeline.shape)})")
+        _check("timeline", timeline, torch.int64, (timeline.shape[0], 4), device)
 
 
-def _gate_args(gate: Optional[GateTables], split: int) -> tuple:
+def _launch_geometry(n: int, gated: bool, device: torch.device) -> SweepGeometry:
+    """The geometry of a sweep of ``n`` rays on ``device``: the rule's
+    (:func:`sweep_split`) on this card, or on an H100 for a CPU tensor."""
+    return _geometry(sweep_split(-(-n // RAY_SUBBLOCK), gated, _sm_count(device)))
+
+
+def _gate_args(gate: Optional[GateTables], geo: SweepGeometry, n: int,
+               device: torch.device) -> tuple:
     """The C entries' gate arguments, table pointers and sizes (NULL
-    pointers for an ungated sweep), and the triangle split after them."""
+    pointers for an ungated sweep), then the geometry: threads a ray, rays
+    a CTA, tile segments and, past one, their partial results' buffers
+    (kept alive by the tensors returned with the arguments)."""
+    if gate is not None and geo.segments != 1:
+        raise ValueError(f"a gated sweep runs one segment (got {geo.segments}): a later "
+                         f"segment would start without the carry the gate's votes need")
+    parts = ()
+    ptrs = (None, None, None)
+    if geo.segments > 1:
+        parts = (torch.empty((geo.segments, n), dtype=torch.float32, device=device),
+                 *(torch.empty((geo.segments, n), dtype=torch.int32, device=device)
+                   for _ in range(2)))
+        ptrs = tuple(t.data_ptr() for t in parts)
+    shape = (geo.split, geo.rays, geo.segments, *ptrs)
     if gate is None:
-        return (None, None, None, None, 0, 1, 0, 0, split)
+        return (None, None, None, None, 0, 1, 0, 0, *shape), parts
     return (gate.boxes.data_ptr(), gate.order.data_ptr(), gate.counts.data_ptr(),
             gate.suffmin.data_ptr(), int(gate.boxes.shape[0]),
-            gate.group, gate.window, int(gate.suffmin.shape[1]), split)
+            gate.group, gate.window, int(gate.suffmin.shape[1]), *shape), parts
+
+
+def _debug_args(visits, timeline, n: int, geo: SweepGeometry, n_tiles: int):
+    """The C entries' visit and timeline arguments for the caller's
+    ``visits`` and ``timeline`` (each one row per block of 256 rays or one
+    per CTA; :func:`_store_visits`), what folds a per-CTA timeline into the
+    caller's per-block one after the launch, and the buffers the arguments
+    point into, which the caller holds until the launch is enqueued (freed
+    earlier, the allocator would hand their memory to the next buffer the
+    launch writes). A per-block count at a geometry of several CTAs a block
+    is tallied in the kernel through a zeroed bitmap of the tiles
+    (``n_tiles``, phantoms included) per block."""
+    n_blocks, n_units = -(-n // RAY_SUBBLOCK), geo.units(n)
+    cta = block = swept = None
+    words = 0
+    if visits is not None:
+        if visits.shape[0] == n_units:
+            cta = visits
+        else:
+            block = visits.zero_()
+            words = -(-n_tiles // 32)
+            swept = torch.zeros((n_blocks, words), dtype=torch.int32, device=visits.device)
+    rows = timeline
+    if timeline is not None and timeline.shape[0] != n_units:
+        rows = torch.zeros((n_units, 4), dtype=torch.int64, device=timeline.device)
+
+    def fold():
+        if rows is not timeline:
+            _fold_timeline(rows, timeline, geo)
+
+    return (_ptr(cta), _ptr(block), _ptr(swept), words, _ptr(rows)), fold, (swept, rows)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def sweep_rays(
@@ -781,18 +1030,24 @@ def sweep_rays(
     ``accel``, the scene's ``(tile_lo, tile_hi)``, gates the sweep where
     :func:`gate_prunes` (pair it with ``ops.trace.sort_rays_for_coherence``:
     gating is exact either way, but only coherent blocks make it fire).
-    ``visits``, a (ceil(N / 256),) int32 tensor, receives the number of
-    tiles each block of 256 rays swept; ``timeline``, a (ceil(N / 256), 4)
-    int64 tensor (gated sweeps on the card only), each block's start and end
-    on the card's nanosecond timer, its SM and the visit positions it walked.
+    ``visits``, an int32 tensor of one row per CTA of the launch's geometry
+    (``sweep_split(...).units(N)``), receives the number of tiles each CTA
+    swept; of one row per block of 256 rays, the tiles any CTA serving the
+    block swept: the 256-ray walk's count at every geometry (at a whole
+    block a CTA, the two are the same).
+    ``timeline``, a (rows, 4) int64 tensor of the same rows (gated sweeps
+    on the card only), receives each CTA's start and end on the card's
+    nanosecond timer, its SM and the visit positions it walked, or per
+    block the first start, the last end, its first CTA's SM and the most
+    positions a CTA walked.
 
     CUDA tensors go to kernel #1 of ``csrc/sweep_kernels.cuh``, at the
-    triangle split :func:`sweep_split` gives for the launch's shape (launched
-    on the
-    current stream, not synchronised; ``sweep_rays.launches`` counts the
+    geometry :func:`sweep_split` gives for the launch's shape (launched on
+    the current stream, not synchronised; ``sweep_rays.launches`` counts the
     launches, ``sweep_rays.gated_launches`` the gated ones and
     ``sweep_rays.code_launches`` those in code mode); CPU tensors go to
-    :func:`sweep_rays_reference`.
+    :func:`sweep_rays_reference` at the geometry an H100 launch of their
+    shape would take.
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays",
@@ -802,15 +1057,15 @@ def sweep_rays(
     mode = _mask_mode(masks_baked, code_bounds)
     emit_code, min_code = _code_bounds(code_bounds) if mode == "code" else (0.0, 0.0)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
-    _check_visits(visits, n, device, timeline, gate is not None)
+    geo = _launch_geometry(n, gate is not None, device)
+    _check_visits(visits, n, device, geo, timeline, gate is not None)
     tiles_on = _gated_tiles_on(sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
-    split = sweep_split(-(-n // RAY_SUBBLOCK), gate is not None, _sm_count(device))
 
     if device.type == "cpu":
         return sweep_rays_reference(
             rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
             want_any=want_any, masks_baked=masks_baked, code_bounds=code_bounds,
-            gate=gate, visits=visits, split=split,
+            gate=gate, visits=visits, split=geo,
         )
 
     from .build import load_library
@@ -820,19 +1075,19 @@ def sweep_rays(
     any_hit = torch.empty((n,), dtype=torch.int32, device=device)
     if n == 0:  # nothing to launch
         return codes, any_hit
+    debug, fold, _held = _debug_args(visits, timeline, n, geo, int(tiles_on.shape[0]))
+    shape, _parts = _gate_args(gate, geo, n, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raystrack_sweep_rays(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
             tiles_on.data_ptr(), tile,
             int(want_matrix), int(want_any), _MASK_MODES.index(mode), emit_code, min_code,
-            *_gate_args(gate, split),
-            codes.data_ptr(), any_hit.data_ptr(),
-            None if visits is None else visits.data_ptr(),
-            None if timeline is None else timeline.data_ptr(), stream,
+            *shape, codes.data_ptr(), any_hit.data_ptr(), *debug, stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
+    fold()
     sweep_rays.launches += 1
     sweep_rays.gated_launches += gate is not None
     sweep_rays.code_launches += mode == "code"
@@ -866,7 +1121,7 @@ def sweep_rays_scheduled_reference(
     want_any: bool,
     gate: Optional[GateTables] = None,
     visits: Optional[torch.Tensor] = None,
-    split: int = 1,
+    split=1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #2: per emitter row named in
     ``emap``, its blocks of rays are swept by :func:`sweep_rays_reference`
@@ -875,31 +1130,34 @@ def sweep_rays_scheduled_reference(
     written into the mask rows (``> 0`` any, ``> 1`` matrix) and that
     emitter's row of ``tiles_on``. A block whose row lies outside
     ``0..E-1`` sweeps nothing (-1 and 0, no visit), as in the kernel.
-    ``split`` is :func:`sweep_rays_reference`'s."""
+    ``split`` (the geometry) and ``visits`` are :func:`sweep_rays_reference`'s."""
     n = rays.shape[1]
-    codes = torch.full((n,), -1, dtype=torch.int32, device=rays.device)
-    any_out = torch.zeros((n,), dtype=torch.int32, device=rays.device)
-    if visits is not None:
-        visits.zero_()
+    geo = _geometry(split)
+    _check_geometry(geo)
+    device = rays.device
+    codes = torch.full((n,), -1, dtype=torch.int32, device=device)
+    any_out = torch.zeros((n,), dtype=torch.int32, device=device)
+    per_unit = torch.zeros(geo.units(n), dtype=torch.int32, device=device)
+    per_block = torch.zeros(n // RAY_SUBBLOCK, dtype=torch.int32, device=device)
+    per = geo.per_block
     for e in torch.unique(emap).tolist():
         if not 0 <= e < masks.shape[0]:
             continue
         blocks = torch.nonzero(emap == e).squeeze(1)
         idx = (blocks[:, None] * RAY_SUBBLOCK
-               + torch.arange(RAY_SUBBLOCK, device=rays.device)).reshape(-1)
+               + torch.arange(RAY_SUBBLOCK, device=device)).reshape(-1)
         pack = tri_pack.clone()
         pack[ROW_MASK_ANY] = (masks[e] > 0.0).to(torch.float32)
         pack[ROW_MASK_MAT] = (masks[e] > 1.0).to(torch.float32)
-        v = None if visits is None else torch.zeros_like(blocks, dtype=torch.int32)
-        c, a = sweep_rays_reference(
-            rays.index_select(1, idx).contiguous(), pack, tiles_on[e], tile,
-            want_matrix=want_matrix, want_any=want_any, masks_baked=False,
-            gate=None if gate is None else gate.blocks(blocks), visits=v, split=split,
-        )
+        c, a, units, block = _sweep_plain(
+            rays.index_select(1, idx).contiguous(), pack, tiles_on[e], tile, geo,
+            gate=None if gate is None else gate.blocks(blocks), want_matrix=want_matrix,
+            want_any=want_any, mode="rows")
         codes[idx] = c
         any_out[idx] = a
-        if visits is not None:
-            visits[blocks] = v
+        per_unit[(blocks[:, None] * per + torch.arange(per, device=device)).reshape(-1)] = units
+        per_block[blocks] = block
+    _store_visits(visits, n, geo, per_unit, per_block)
     return codes, any_out
 
 
@@ -926,8 +1184,8 @@ def sweep_rays_scheduled(
     ``emap`` on the host would wait for the card. ``accel``, ``visits`` and
     ``timeline`` are :func:`sweep_rays`'.
 
-    CUDA tensors go to kernel #2 of ``csrc/sweep_kernels.cuh``, at the split
-    of :func:`sweep_rays` (launched on the
+    CUDA tensors go to kernel #2 of ``csrc/sweep_kernels.cuh``, at the
+    geometry of :func:`sweep_rays` (launched on the
     current stream, not synchronised; ``sweep_rays_scheduled.launches``
     counts the launches, ``sweep_rays_scheduled.gated_launches`` the gated
     ones); CPU tensors go to :func:`sweep_rays_scheduled_reference`.
@@ -944,16 +1202,16 @@ def sweep_rays_scheduled(
         raise ValueError(f"sweep_rays_scheduled takes a multiple of {RAY_SUBBLOCK} rays")
     _check("emap", emap, torch.int32, (n // RAY_SUBBLOCK,), device)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
-    _check_visits(visits, n, device, timeline, gate is not None)
+    geo = _launch_geometry(n, gate is not None, device)
+    _check_visits(visits, n, device, geo, timeline, gate is not None)
     tiles_on = _gated_tiles_on(
         scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
-    split = sweep_split(n // RAY_SUBBLOCK, gate is not None, _sm_count(device))
 
     if device.type == "cpu":
         return sweep_rays_scheduled_reference(
             rays, tri_pack, masks, emap, tiles_on, tile,
             want_matrix=want_matrix, want_any=want_any, gate=gate, visits=visits,
-            split=split,
+            split=geo,
         )
 
     from .build import load_library
@@ -963,18 +1221,19 @@ def sweep_rays_scheduled(
     any_hit = torch.empty((n,), dtype=torch.int32, device=device)
     if n == 0:  # nothing to launch
         return codes, any_hit
+    debug, fold, _held = _debug_args(visits, timeline, n, geo, int(tiles_on.shape[1]))
+    shape, _parts = _gate_args(gate, geo, n, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raystrack_sweep_rays_scheduled(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
             masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(),
             int(tiles_on.shape[1]), tile, int(want_matrix), int(want_any),
-            *_gate_args(gate, split), codes.data_ptr(), any_hit.data_ptr(),
-            None if visits is None else visits.data_ptr(),
-            None if timeline is None else timeline.data_ptr(), stream,
+            *shape, codes.data_ptr(), any_hit.data_ptr(), *debug, stream,
         )
     if err != 0:
         raise RuntimeError(f"scheduled sweep kernel launch failed: CUDA error {err}")
+    fold()
     sweep_rays_scheduled.launches += 1
     sweep_rays_scheduled.gated_launches += gate is not None
     return codes, any_hit
@@ -984,8 +1243,8 @@ sweep_rays_scheduled.launches = 0
 sweep_rays_scheduled.gated_launches = 0
 
 __all__ = [
-    "GateTables", "build_tri_pack", "gate_cross", "gate_cross_reference", "gate_group_size",
-    "gate_prunes", "sweep_rays", "sweep_split",
+    "GateTables", "SweepGeometry", "build_tri_pack", "gate_cross", "gate_cross_reference",
+    "gate_group_size", "gate_prunes", "sweep_rays", "sweep_split",
     "sweep_rays_reference", "sweep_rays_scheduled", "sweep_rays_scheduled_reference",
     "scheduled_tiles_on", "sweep_tile_width", "RAY_SUBBLOCK", "TRI_ROWS",
 ]

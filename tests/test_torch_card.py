@@ -1582,3 +1582,120 @@ def test_bench_main_exits_1_when_a_stage_raises_on_card(card, monkeypatch, capsy
     assert last["failed"] == ["district"] and last["district_97_emitters_solve_s"] is None
     assert last["launches"]["headline"] == dict(k1=6, k1_gated=0, k2=0, k2_gated=0, count=6,
                                                 cross=0)
+
+
+# ---------------------------------------------------------------------------
+# the CTA geometry: every geometry the kernels are built at, on the main
+# path's launches, against the plain version and whole-block CTAs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def geometry_cases(mid_city):
+    """The launches the geometry rule serves, as chip_smoke.py captures
+    them: kernel #1 gated on the 1M city's first ground -> city chunk (1,024
+    blocks), kernel #2 gated on the first ``city_plates`` round (960 blocks),
+    kernel #1 in code mode behind the two-level gate on the 2M slim city's
+    chunk (192 blocks), kernel #1 ungated on the soup chunk (1,024 blocks).
+    Each: rays, accel (None: ungated), the tile, its tile flags, the kernel
+    ``kernel(rays, **kw)`` and the plain version ``plain(rays, tiles_on,
+    **kw)``."""
+    import chip_smoke
+    from raystrack_tpu_torch import view_factor, view_factor_matrix
+    from raystrack_tpu_torch.ops import trace as T
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = chip_smoke.solve_cases()
+    city, vf_params = cases["city"]
+    plates, plates_params = cases["city_plates"]
+    out = {}
+    chunk = chip_smoke.first_call(T, "chunk_body", lambda: view_factor(
+        city[0], city[1], vf_params, prepared=raystrack_tpu_torch.PreparedSolver(city)))
+    rays, pack, mask, accel, tile, tiles_on = chip_smoke.city_chunk_inputs(chunk)
+    kw1 = dict(want_matrix=True, want_any=False, masks_baked=True)
+    out["city_chunk"] = (rays, accel, tile, tiles_on, lambda r, **kw: sweep_rays(
+        r, pack, mask, tri_tile=tile, **kw1, **kw), lambda r, t_on, **kw: sweep_rays_reference(
+        r, pack, t_on, tile, **kw1, **kw))
+    rnd = chip_smoke.first_call(T, "scheduled_trace", lambda: view_factor_matrix(
+        plates, plates_params, prepared=raystrack_tpu_torch.PreparedSolver(plates)))
+    rays2, pack2, masks, emap, accel2, tile2, t_on2 = chip_smoke.city_round_inputs(rnd)
+    kw2 = dict(want_matrix=True, want_any=False)
+    out["city_plates_round"] = (
+        rays2, accel2, tile2, t_on2, lambda r, **kw: sweep_rays_scheduled(
+            r, pack2, masks, emap[: r.shape[1] // 256].contiguous(), tri_tile=tile2, **kw2, **kw),
+        lambda r, t_on, **kw: sweep_rays_scheduled_reference(
+            r, pack2, masks, emap[: r.shape[1] // 256], t_on, tile2, **kw2, **kw))
+    slim, rays3 = mid_city
+    mask3, bounds = slim_operands(slim.sid, torch.tensor([0, 1, 0], dtype=torch.int32,
+                                                         device=dev), 0, 0)
+    tile3 = sweep_tile_width(slim.n_tri_pad, 2048)
+    kw3 = dict(want_matrix=True, want_any=False, code_bounds=bounds)
+    out["slim_city_two_level"] = (
+        rays3, slim.accel, tile3, mask3.reshape(-1, tile3).any(dim=1).to(torch.int32),
+        lambda r, **kw: sweep_rays(r, slim.tri_pack, mask3, tri_tile=tile3, **kw3, **kw),
+        lambda r, t_on, **kw: sweep_rays_reference(r, slim.tri_pack, t_on, tile3, **kw3, **kw))
+    soup, soup_params = cases["soup"]
+    scene, rays4, m_any, m_mat, tpad, _ = chip_smoke.soup_inputs(
+        dev, raystrack_tpu_torch.PreparedSolver(soup), soup_params.seed)
+    pack4 = build_tri_pack(scene, m_any, m_mat, bake=m_mat)
+    tile4 = sweep_tile_width(tpad, 2048)
+    out["soup_chunk"] = (rays4, None, tile4, m_mat.reshape(-1, tile4).any(dim=1).to(torch.int32),
+                         lambda r, **kw: sweep_rays(r, pack4, m_mat, tri_tile=tile4, **kw1, **kw),
+                         lambda r, t_on, **kw: sweep_rays_reference(r, pack4, t_on, tile4, **kw1,
+                                                                    **kw))
+    return out
+
+
+GEOMETRY_CASES = [(case, g.name)
+                  for case, gated in (("city_chunk", True), ("city_plates_round", True),
+                                      ("slim_city_two_level", True), ("soup_chunk", False))
+                  for g in tcuda.BUILT_GEOMETRIES[gated]]
+
+
+@pytest.mark.parametrize("case,geometry", GEOMETRY_CASES,
+                         ids=[f"{c}-{g}" for c, g in GEOMETRY_CASES])
+def test_every_built_geometry_equals_plain_and_whole_blocks(geometry_cases, monkeypatch, case,
+                                                            geometry):
+    """Each kernel at each geometry it is built at, forced, on the main
+    path's launches: codes, flags and each block's visits == the launch at
+    whole 256-ray blocks a CTA (the geometry before, ``_whole_block``), and, on 16
+    leading blocks, codes, flags and each CTA's visits == its plain version
+    at the same geometry (gated: on the kernel's own tables)."""
+    if case == "slim_city_two_level":
+        monkeypatch.setattr(tconfig, "GATE_MAX_TILES", MID_MAX_TILES)
+    rays, accel, tile, tiles_on, kernel, plain = geometry_cases[case]
+    dev, n = rays.device, rays.shape[1]
+    nb = -(-n // 256)
+    gated = accel is not None
+    geo = next(g for g in tcuda.BUILT_GEOMETRIES[gated] if g.name == geometry)
+    gate = tcuda._gate_for(accel, rays, tiles_on.shape[-1] * tile, tile, tile, dev)
+    assert (gate is not None) == gated
+    t_on = _gated_tiles_on(tiles_on, gate)
+
+    def run(g, rows):
+        v = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+        with monkeypatch.context() as m:
+            _force(m, g)
+            m.setattr(tcuda, "_gate_for", lambda *args: gate)
+            before = (sweep_rays.launches + sweep_rays_scheduled.launches)
+            codes, any_hit = kernel(rays, accel=accel, visits=v)
+            torch.cuda.synchronize()
+            assert sweep_rays.launches + sweep_rays_scheduled.launches == before + 1
+        return codes, any_hit, v
+
+    whole = run(tcuda._whole_block(tcuda._launch_geometry(n, gated, dev)), nb)
+    got = run(geo, nb)
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b)
+    per_cta = run(geo, geo.units(n))[2]
+    k = min(16, nb)
+    sub = rays[:, : k * 256].contiguous()
+    rows = geo.units(sub.shape[1])
+    vp = torch.full((rows,), -2, dtype=torch.int32, device=dev)
+    codes, any_hit = plain(sub, t_on, gate=None if gate is None else gate.blocks(
+        torch.arange(k, device=dev)), visits=vp, split=geo)
+    assert torch.equal(codes, got[0][: k * 256]) and torch.equal(any_hit, got[1][: k * 256])
+    assert torch.equal(vp, per_cta[:rows])
+    assert int((got[0] >= 0).sum()) > n // 10
+    if gated and geo.rays < 256:  # its CTAs test no more pairs than the walk
+        assert int(per_cta.sum()) * geo.rays <= int(whole[2].sum()) * 256

@@ -334,24 +334,29 @@ def test_gate_tables_blocks_are_the_named_rows_in_order():
         (529, False, 132, 1),
         (1024, False, 132, 1),  # the soup and soup8 launches keep one thread a ray
         (960, False, 132, 1), (60, False, 60, 4), (240, False, 60, 4), (241, False, 60, 1),
-        # gated: the blocks are uneven, so four threads a ray at every size
-        (32, True, 132, 4), (1024, True, 132, 4), (960, True, 132, 4), (3104, True, 132, 4),
-        (100000, True, 60, 4), (0, False, 132, 1), (0, True, 132, 1),
+        # gated: the blocks are uneven: 16 threads a ray up to a block an SM,
+        # then 8, at 64 rays a CTA
+        (32, True, 132, 16), (1024, True, 132, 8), (960, True, 132, 8), (3104, True, 132, 8),
+        (100000, True, 60, 8), (0, False, 132, 1), (0, True, 132, 1),
     ],
 )
 def test_sweep_split_is_the_stated_function_of_the_shape(n_blocks, gated, n_sms, split):
-    assert sweep_split(n_blocks, gated, n_sms) == split
+    assert sweep_split(n_blocks, gated, n_sms).split == split
     if n_blocks:
-        assert split in ((tcuda.GATED_SPLIT,) if gated else tcuda.UNGATED_SPLITS)
+        assert split in {g.split for g in tcuda.BUILT_GEOMETRIES[gated]}
     assert set(tcuda.UNGATED_SPLITS) | {tcuda.GATED_SPLIT} <= set(tcuda._SPLITS)
 
 
 def test_sweep_split_never_grows_with_the_grid():
+    """The threads a CTA (rays a CTA x threads a ray) never grow with the
+    grid: 1,024 at the smallest launches, 256 ungated (512 gated) at full
+    grids."""
     for gated in (False, True):
         for n_sms in (7, 60, 132):
-            splits = [sweep_split(n, gated, n_sms) for n in range(7, 40 * n_sms, 7)]
-            assert all(a >= b for a, b in zip(splits, splits[1:])), (gated, n_sms)
-            assert splits[0] == 4 and splits[-1] == (4 if gated else 1)
+            geos = [sweep_split(n, gated, n_sms) for n in range(7, 40 * n_sms, 7)]
+            threads = [g.rays * g.split for g in geos]
+            assert all(a >= b for a, b in zip(threads, threads[1:])), (gated, n_sms)
+            assert threads[0] == 1024 and threads[-1] == (512 if gated else 256)
 
 
 # ---------------------------------------------------------------------------
