@@ -5,7 +5,9 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_profile.py [--reps 5] [--traced 3] [--route auto|scheduled|grouped]
                             [--count kernel|plain] [--bvh auto|off] [--slim] [--timeline]
-                            [--splits] [--variants] [--halton] [--force-split 1|4]
+                            [--splits] [--variants] [--halton] [--force-split N|GEOMETRY]
+                            [--launches [--tree DIR]] [--sass [--loop NAME]] [--range N]
+                            [--dump FILE]
                             [plates canyon district soup soup8 city city_matrix city_plates
                              city10m]
 
@@ -51,8 +53,13 @@ instructions a pair: the sky's and the workflow's launches, and the A/B of
 a kernel change when run in two trees in one call. ``--halton`` instead measures the
 set-up of ex02's matrix (the canyon and its 89M-ray ground) and of ``city_plates``
 at one sample per m², with the Halton tables built on the card and on the host
-(``RAYSTRACK_TPU_DEVICE_HALTON=0``). ``--force-split N`` solves with every ungated
-sweep at N threads a ray instead of the rule's choice. The card's name
+(``RAYSTRACK_TPU_DEVICE_HALTON=0``). ``--sass`` instead prints every kernel
+instantiation's registers and spills and the SASS instructions a pair of
+the sweeps' pair loops (``--loop NAME`` prints that loop). ``--dump FILE``
+instead solves each named case once and writes the dicts to FILE (run in
+two trees, equal files mean bitwise equal solves). ``--force-split N`` solves (and times
+``--launches``) with every ungated sweep at N threads a ray, a whole block a
+CTA, or at the geometry named (``256x2r4``), instead of the rule's choice. The card's name
 and power limit come first; one JSON line ends each solve's block.
 Imports nothing of JAX.
 """
@@ -513,7 +520,7 @@ def profile_splits(card: str, range_tris: int = 0) -> None:
                       "sms": n_sms}))
 
 
-def profile_launches(card: str) -> None:
+def profile_launches(card: str, range_tris: int = 0) -> None:
     """The launches PERF.md section 6 times, each at the geometry the
     tree's wrapper picks, best of 5 by CUDA events after a warm call: kernel
     #1 on the soup chunk (matrix and any-only, baked pack), #2 on the soup8
@@ -522,7 +529,9 @@ def profile_launches(card: str) -> None:
     ex06's row (each kernel #1 launch of the row, 50 back to back; ms a
     launch) and #1 gated on the 10M city's first chunk. With ``--tree`` the
     package and chip_smoke.py come from that tree: run a parent tree and
-    this one in turns in one call to A/B a kernel change."""
+    this one in turns in one call to A/B a kernel change. With ``range_tris``
+    also the gated and ungated chunk of the range's city of that size
+    (:func:`range_launches`)."""
     import chip_smoke
     from raystrack_tpu_torch import PreparedSolver, view_factor, view_factor_matrix
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
@@ -538,15 +547,43 @@ def profile_launches(card: str) -> None:
         out[label] = chip_smoke.cuda_ms(fn, reps)[0]
         print(f"[launches] {label}: {out[label]:.4f} ms", flush=True)
 
+    def visit_share(label, fn, active, n_blocks):
+        """The (block, tile) pairs the launch's blocks swept (``fn(visits)``,
+        one row a block) over its ``active`` ones: below 1 where the any-only
+        stop cut tiles."""
+        v = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+        fn(v)
+        out[f"{label}, visit share"] = int(v.sum()) / max(active, 1)
+        print(f"[launches] {label}: {int(v.sum())} of {active} active (block, tile) pairs swept "
+              f"({out[f'{label}, visit share']:.4f})", flush=True)
+
     soup, params = cases["soup"]
     scene, rays, m_any, m_mat, _, _ = chip_smoke.soup_inputs(dev, PreparedSolver(soup),
                                                              params.seed)
+    tile = tc.sweep_tile_width(m_mat.shape[0], PALLAS_TRI_TILE)
+    n_blocks = -(-rays.shape[1] // 256)
     for label, wm, wa, prim in (("soup chunk, matrix", True, False, m_mat),
                                 ("soup chunk, any-only", False, True, m_any)):
         pack = tc.build_tri_pack(scene, m_any, m_mat, bake=prim)
         best(label, lambda: tc.sweep_rays(rays, pack, prim, tri_tile=PALLAS_TRI_TILE,  # noqa
                                           want_matrix=wm, want_any=wa, masks_baked=True))  # noqa
+        visit_share(label, lambda v: tc.sweep_rays(  # noqa: B023
+            rays, pack, prim, tri_tile=PALLAS_TRI_TILE, want_matrix=wm, want_any=wa,  # noqa
+            masks_baked=True, visits=v),
+            int(prim.reshape(-1, tile).any(dim=1).sum()) * n_blocks, n_blocks)
     del scene, rays, pack
+    # the canyon's sky at validation 07's settings: its first round, kernel
+    # #2's any-only variant
+    from examples.ex00_street_canyon_geometry import build_street_canyon
+    from raystrack_tpu_torch import SkyParams, view_factor_to_tregenza_sky
+
+    a, k = chip_smoke.first_call(T, "sweep_rays_scheduled", lambda: view_factor_to_tregenza_sky(
+        build_street_canyon(), SkyParams(**chip_smoke.sky_base())))
+    best("canyon sky round, any-only", lambda: tc.sweep_rays_scheduled(*a, **k))
+    tile = tc.sweep_tile_width(a[1].shape[1], k["tri_tile"])
+    active = tc.scheduled_tiles_on(a[2], tile, want_matrix=False, want_any=True)[a[3].long()]
+    visit_share("canyon sky round, any-only", lambda v: tc.sweep_rays_scheduled(
+        *a, **k, visits=v), int(active.sum()), a[0].shape[1] // 256)
     soup8, params8 = cases["soup8"]
     args, kw = chip_smoke.first_call(T, "scheduled_trace", lambda: view_factor_matrix(
         soup8, params8, prepared=PreparedSolver(soup8)))
@@ -606,7 +643,69 @@ def profile_launches(card: str) -> None:
         best("10M gated chunk", lambda: tc.sweep_rays(
             r, pack, mask, tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False,
             masks_baked=True, accel=accel))
+    if range_tris:
+        range_launches(range_tris, dev, best)
     print(json.dumps({"launches": out, "tree": str(Path(tc.__file__).parents[2]), "card": card}))
+
+
+def range_launches(n_tri: int, dev, best) -> None:
+    """Kernel #1 in code mode on the gated full chunk of city_100m_torch.py's
+    city of ``n_tri`` triangles (slim, the two-level gate), gated on tables
+    built once (best of 3) and ungated (best of 2), each at the geometry the
+    tree's wrapper picks: ``best(label, fn, reps)`` times and records them."""
+    import city_100m_torch as big
+    from raystrack_tpu_torch import PreparedSolver
+    from raystrack_tpu_torch.config import PALLAS_TRI_TILE
+    from raystrack_tpu_torch.ops import trace_cuda as tc
+
+    import chip_smoke
+
+    ps = PreparedSolver(big.city_meshes(n_tri))
+    pack, _ = big.prepare(ps, dev, big.DeviceMemory(dev))
+    em = ps.get_emitter_pack(0, samples=1, rays=1, flip_faces=False, device=dev)
+    tri_pack, mask, bounds = big.operands(pack, dev)
+    rays = big.chunk_rays(pack, em, dev)
+    tile = tc.sweep_tile_width(tri_pack.shape[1], PALLAS_TRI_TILE)
+    kw = dict(tri_tile=PALLAS_TRI_TILE, want_matrix=True, want_any=False, code_bounds=bounds)
+    with chip_smoke.forced_launch(gate=tc._gate_for(pack.accel, rays, tri_pack.shape[1], tile,
+                                                    PALLAS_TRI_TILE, dev)):
+        best(f"{n_tri:.0e} gated chunk", lambda: tc.sweep_rays(
+            rays, tri_pack, mask, accel=pack.accel, **kw), reps=3)
+    best(f"{n_tri:.0e} ungated chunk", lambda: tc.sweep_rays(rays, tri_pack, mask, **kw), reps=2)
+
+
+def profile_sass(card: str, loops=()) -> None:
+    """Each kernel instantiation's registers, shared memory and spills
+    (``ptxas -v``) and, for the sweeps and the crossing kernel, the FP32
+    SASS instructions a pair and all instructions a pair of the pair loop
+    (``chip_smoke.sass_pair_ops``), for the library of this tree (or of
+    ``--tree``), built anew into a temporary directory."""
+    import os
+    import tempfile
+
+    import chip_smoke
+    from raystrack_tpu_torch.ops import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["XDG_CACHE_HOME"] = tmp
+        build.SOURCE_BUILD_DIR = Path(tmp) / "build"
+        b = build.build()
+        ptxas = chip_smoke.ptxas_lines(b.log)
+        funcs = chip_smoke.sass_functions(b.path)
+        ops = chip_smoke.sass_pair_ops(funcs)
+    for line in ptxas:
+        print(f"[sass] {line}")
+    for name, (fp32, counts, total, local) in ops.items():
+        print(f"[sass] {name}: {fp32:g} FP32 instructions a pair ({counts}), {total:g} in all, "
+              f"{local} local loads and stores in the pair loop")
+    for name in loops:  # the pair loop's SASS, instruction by instruction
+        _, lo, hi = min(chip_smoke.sass_loops(funcs[name], "LDS.128"))
+        for addr, op in funcs[name]:
+            if lo <= addr <= hi:
+                print(f"[loop] {name} {addr:05x} {op}")
+    print(json.dumps({"sass": {k: dict(fp32=v[0], all=v[2], local=v[3], fp32_by_opcode=v[1])
+                               for k, v in ops.items()}, "ptxas": ptxas,
+                      "tree": str(Path(build.__file__).parents[2]), "card": card}))
 
 
 def profile_variants(card: str) -> None:
@@ -676,6 +775,22 @@ def profile_variants(card: str) -> None:
     print(json.dumps({"variants": rows, "card": card}))
 
 
+def dump_solves(names, cases, path: str, card: str) -> None:
+    """Solve each case once with ``view_factor_matrix`` (a fresh
+    ``PreparedSolver``) and write the dicts to ``path`` as JSON (keys
+    sorted, floats as Python prints them, so two trees' files are equal
+    exactly when every entry is): the check that a kernel change left every
+    solve's result bitwise as it was."""
+    from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
+
+    out = {}
+    for name in names:
+        meshes, params = cases[name]
+        out[name] = view_factor_matrix(meshes, params, prepared=PreparedSolver(meshes))
+        print(f"[dump] {name}: {len(out[name])} rows", flush=True)
+    Path(path).write_text(json.dumps({"solves": out, "card": card}, sort_keys=True))
+
+
 def profile_halton(card: str) -> None:
     """Set-up (first solve minus warm solve, fresh ``PreparedSolver``) of
     ex02's matrix at its own settings and of ``city_plates`` at one sample
@@ -721,12 +836,19 @@ def main() -> int:
     parser.add_argument("--splits", action="store_true")
     parser.add_argument("--variants", action="store_true")
     parser.add_argument("--halton", action="store_true")
-    parser.add_argument("--force-split", type=int, default=None)
+    parser.add_argument("--force-split", default=None,
+                        help="N (a whole block at N threads a ray) or a geometry's name "
+                             "(256x2r4, 256x8r4s2): every ungated sweep at it")
     parser.add_argument("--launches", action="store_true")
+    parser.add_argument("--sass", action="store_true")
+    parser.add_argument("--dump", default=None,
+                        help="solve the named cases once and write their dicts to this file")
+    parser.add_argument("--loop", action="append", default=[],
+                        help="with --sass, print this instantiation's pair loop")
     parser.add_argument("--tree", default=None,
                         help="import the package and chip_smoke.py from this tree")
     parser.add_argument("--range", type=int, default=0,
-                        help="with --splits or --timeline, also the gated chunk of "
+                        help="with --splits, --timeline or --launches, also the chunk of "
                              "city_100m_torch.py's city of this many triangles")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--traced", type=int, default=3)
@@ -748,11 +870,16 @@ def main() -> int:
         config.SLIM_PACK_MIN_TRIS = 1
     solver_mod._log = lambda line: None  # progress lines would flood the output
     if args.force_split is not None:
+        import re
+
         from raystrack_tpu_torch.ops import trace_cuda
 
+        m = re.fullmatch(r"(\d+)x(\d+)(?:r(\d+))?(?:s(\d+))?", args.force_split)
+        forced = (trace_cuda.SweepGeometry(int(m[1]), int(m[2]), int(m[4] or 1), int(m[3] or 1))
+                  if m else int(args.force_split))
         rule = trace_cuda.sweep_split
         trace_cuda.sweep_split = lambda n_blocks, gated, n_sms: (
-            rule(n_blocks, gated, n_sms) if gated else args.force_split)
+            rule(n_blocks, gated, n_sms) if gated else forced)
     card = chip_smoke.card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     if args.timeline:
@@ -765,7 +892,10 @@ def main() -> int:
         profile_variants(card)
         return 0
     if args.launches:
-        profile_launches(card)
+        profile_launches(card, args.range)
+        return 0
+    if args.sass:
+        profile_sass(card, args.loop)
         return 0
     if args.halton:
         profile_halton(card)
@@ -773,6 +903,9 @@ def main() -> int:
     cases = chip_smoke.solve_cases()
     if "city10m" in args.solves:  # built only on request: 10M triangles on the host
         cases["city10m"] = (chip_smoke.city_meshes(chip_smoke.BIG_CITY_TRIS), cases["city"][1])
+    if args.dump:
+        dump_solves(args.solves, cases, args.dump, card)
+        return 0
     for name in args.solves:
         meshes, params = cases[name]
         if args.bvh:

@@ -191,7 +191,7 @@ settings, and checks each against its analytic or plain reference:
               rule's geometry and at whole 256-ray blocks a CTA, all equal,
               and, on its first 24 blocks, == its plain gated version at the
               rule's geometry (codes, flags, each CTA's visits), timed beside
-              the 256-ray walk's bound; the bounded solve (3
+              the 256-ray walk's bound (uncounted); the bounded solve (3
               iterations) per-emitter on the resident pack, every kernel #1
               launch gated and in code mode, one crossing and count launch a
               chunk, == ``bvh="off"``; set-up split by step, host peak RSS,
@@ -236,7 +236,9 @@ check exits non-zero before them. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -500,8 +502,9 @@ def kernel_name(match) -> str:
     """A kernel instantiation's name from its mangled symbol (a match of
     KERNEL_SYMBOL): sweep_kernel as ``sweep_kernel<matrix,any,baked,gate>``,
     sweep_code_kernel and sweep_sched_kernel as ``<matrix,any,gate>``, with
-    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit) and ``r64``
-    after that for a CTA of 64 rays (kCta; none for a whole block of 256);
+    ``x2`` or ``x4`` after it for 2 or 4 threads a ray (kSplit), ``r64``
+    after that for a CTA of 64 rays (kCta; none for a whole block of 256)
+    and ``R2`` after that for 2 rays a thread (kR; none for one);
     gate_cross_kernel as ``gate_cross_kernel<K>``, K boxes a thread;
     count_codes_kernel as ``<shared>``."""
     flags = re.findall(r"Lb(\d)", match.group(2))
@@ -512,15 +515,17 @@ def kernel_name(match) -> str:
         return f"count_codes_kernel<{','.join(split + flags)}>"
     return (match.group(1) + (f"<{','.join(flags)}>" if flags else "")
             + (f"x{split[0]}" if split and split[0] != "1" else "")
-            + (f"r{split[1]}" if len(split) > 1 and split[1] != "256" else ""))
+            + (f"r{split[1]}" if len(split) > 1 and split[1] != "256" else "")
+            + (f"R{split[2]}" if len(split) > 2 and split[2] != "1" else ""))
 
 
 def sweep_name(base: str, geo) -> str:
     """The :func:`kernel_name` of a sweep instantiation launched at ``geo``
     (a ``trace_cuda.SweepGeometry``): ``base`` as ``"sweep_kernel<1,0,1,1>"``
-    with the split and the rays a CTA after it."""
+    with the split, the rays a CTA and the rays a thread after it."""
     return (base + (f"x{geo.split}" if geo.split > 1 else "")
-            + (f"r{geo.rays}" if geo.rays != RAY_SUB else ""))
+            + (f"r{geo.rays}" if geo.rays != RAY_SUB else "")
+            + (f"R{geo.per_thread}" if geo.per_thread > 1 else ""))
 
 
 def ptxas_lines(log: str) -> list:
@@ -583,37 +588,45 @@ def sass_pair_ops(funcs: dict) -> dict:
     SASS: the FADD, FMUL, FFMA, FSETP, FSEL and FMNMX instructions of the
     innermost loop (the one holding the shared-memory loads), outside the
     branches that only pairs passing the barycentric test take, divided by
-    the pairs one pass of that loop tests (5 LDS.128 a triangle; one a ray
-    of the crossing kernel, which tests it against its K boxes). Each takes
+    the pairs one pass of that loop tests (5 LDS.128 a triangle, each
+    triangle tested against the thread's kR rays, the ``R`` of the name; one
+    LDS.128 a ray of the crossing kernel, which tests it against its K
+    boxes). Each takes
     one slot per lane, an FFMA too; so does every other instruction, and the
-    third count is all of them.
+    third count is all of them; the fourth, the local-memory loads and
+    stores (spills) anywhere in the loop.
     ``"sweep_kernel<1,0,1,0>"`` -> (FP32 instructions per pair, {opcode:
-    count per pair}, instructions per pair)."""
+    count per pair}, instructions per pair, LDL and STL in the loop)."""
     out = {}
     for name, ins in funcs.items():
         if not name.startswith(("sweep_", "gate_cross")):
             continue
-        # pairs per LDS.128: K for the crossing kernel, 1/5 for the sweeps
-        per_load = int(name[-2]) if name.startswith("gate_cross") else 0.2
+        # pairs per LDS.128: K for the crossing kernel, kR / 5 for the sweeps
+        rays_a_thread = re.search(r"R(\d+)$", name)
+        per_load = (int(name[-2]) if name.startswith("gate_cross")
+                    else 0.2 * (int(rays_a_thread.group(1)) if rays_a_thread else 1))
         _, lo, hi = min(sass_loops(ins, "LDS.128"))
         skips = []
         for a, o in ins:
             m = re.search(r"@!?P\d BRA (0x[0-9a-f]+)", o)
             if m and lo <= a < int(m.group(1), 16) <= hi:
                 skips.append((a, int(m.group(1), 16)))
-        counts, loads, total = {}, 0, 0
+        counts, loads, total, local = {}, 0, 0, 0
         for a, o in ins:
-            if not lo <= a <= hi or any(s < a < e for s, e in skips):
+            if not lo <= a <= hi:
+                continue
+            o = o.split(None, 1)[1] if o.startswith("@") else o
+            local += o.startswith(("LDL", "STL"))  # spill traffic anywhere in the loop
+            if any(s < a < e for s, e in skips):
                 continue
             total += 1
-            o = o.split(None, 1)[1] if o.startswith("@") else o
             opc = o.split()[0].split(".")[0]
             if opc in FP32_OPCODES:
                 counts[opc] = counts.get(opc, 0) + 1
             loads += o.startswith("LDS.128")
         pairs = round(loads * per_load)
         ops = sum(counts.values()) / pairs
-        out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())}, total / pairs)
+        out[name] = (ops, {k: v / pairs for k, v in sorted(counts.items())}, total / pairs, local)
     return out
 
 
@@ -670,7 +683,7 @@ def soup_inputs(dev, soup_ps, seed: int):
 def phase_kernel(dev, soup_ps, seed: int):
     """Kernel #1 vs its plain version at the soup shape in all 6 variants."""
     from raystrack_tpu_torch.ops.trace_cuda import (
-        build_tri_pack, sweep_rays, sweep_rays_reference, sweep_tile_width,
+        _launch_geometry, build_tri_pack, sweep_rays, sweep_rays_reference, sweep_tile_width,
     )
     from raystrack_tpu_torch.config import PALLAS_TRI_TILE
 
@@ -688,19 +701,24 @@ def phase_kernel(dev, soup_ps, seed: int):
             prim = m_any if wa else m_mat
             pack = build_tri_pack(scene, m_any, m_mat, bake=prim if baked else None)
             tiles_on = prim.reshape(-1, tile).any(dim=1).to(torch.int32)
-            kern = lambda: sweep_rays(rays, pack, prim, tri_tile=PALLAS_TRI_TILE,  # noqa: E731
-                                      want_matrix=wm, want_any=wa, masks_baked=baked)
-            plain = lambda: sweep_rays_reference(rays, pack, tiles_on, tile,  # noqa: E731
-                                                 want_matrix=wm, want_any=wa,
-                                                 masks_baked=baked)
+            # each block's visits too, against the plain version at the
+            # launch's geometry
+            v, vp = (torch.full((n // 256,), f, dtype=torch.int32, device=dev) for f in (-1, -2))
+            kern = lambda v=None: sweep_rays(  # noqa: E731
+                rays, pack, prim, tri_tile=PALLAS_TRI_TILE, want_matrix=wm, want_any=wa,
+                masks_baked=baked, visits=v)
+            plain = lambda: sweep_rays_reference(  # noqa: E731
+                rays, pack, tiles_on, tile, want_matrix=wm, want_any=wa, masks_baked=baked,
+                visits=vp, split=_launch_geometry(n, False, dev))
             ms, (c, a) = cuda_ms(kern)
+            kern(v)
             plain_ms, (cr, ar) = timed_once(plain)
-            same = torch.equal(c, cr) and torch.equal(a, ar)
+            same = torch.equal(c, cr) and torch.equal(a, ar) and torch.equal(v, vp)
             err = max(int((c - cr).abs().max()), int((a - ar).abs().max()))
             max_err = max(max_err, err)
             name = f"{'matrix+any' if wm and wa else 'matrix' if wm else 'any'}," \
                    f"{'baked' if baked else 'rows'}"
-            rows[(wm, wa, baked)] = (ms, plain_ms, n * int(tiles_on.sum()) * tile,
+            rows[(wm, wa, baked)] = (ms, plain_ms, int(v.sum()) * 256 * tile,
                                      sweep_bytes(rays, pack, tiles_on))
             print(f"[kernel1] {name:17s} equal={same} hits={int((c >= 0).sum())} "
                   f"blocked={int(a.sum())} kernel {ms:.3f} ms "
@@ -768,7 +786,7 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     dispatched it, in all 3 variants; then vs kernel #1 per emitter."""
     from raystrack_tpu_torch.ops import trace as T
     from raystrack_tpu_torch.ops.trace_cuda import (
-        RAY_SUBBLOCK, build_tri_pack, scheduled_tiles_on, sweep_rays,
+        RAY_SUBBLOCK, _launch_geometry, build_tri_pack, scheduled_tiles_on, sweep_rays,
         sweep_rays_scheduled, sweep_rays_scheduled_reference, sweep_tile_width,
     )
 
@@ -790,17 +808,23 @@ def phase_sched_kernel(round_args, round_kwargs, kernel1_ms: float):
     outs = {}
     for wm, wa in ((True, False), (False, True), (True, True)):
         tiles_on = scheduled_tiles_on(masks, tile, want_matrix=wm, want_any=wa)
-        kern = lambda: sweep_rays_scheduled(rays, tri_pack, masks, emap,  # noqa: E731
-                                            tri_tile=tri_tile, want_matrix=wm,
-                                            want_any=wa)
+        # each block's visits too, against the plain version at the
+        # launch's geometry
+        v, vp = (torch.full((n // 256,), f, dtype=torch.int32, device=rays.device)
+                 for f in (-1, -2))
+        kern = lambda v=None: sweep_rays_scheduled(  # noqa: E731
+            rays, tri_pack, masks, emap, tri_tile=tri_tile, want_matrix=wm, want_any=wa,
+            visits=v)
         plain = lambda: sweep_rays_scheduled_reference(  # noqa: E731
-            rays, tri_pack, masks, emap, tiles_on, tile, want_matrix=wm, want_any=wa)
+            rays, tri_pack, masks, emap, tiles_on, tile, want_matrix=wm, want_any=wa,
+            visits=vp, split=_launch_geometry(n, False, rays.device))
         ms, (c, a) = cuda_ms(kern)
+        kern(v)
         plain_ms, (cr, ar) = timed_once(plain)
-        same = torch.equal(c, cr) and torch.equal(a, ar)
+        same = torch.equal(c, cr) and torch.equal(a, ar) and torch.equal(v, vp)
         max_err = max(max_err, int((c - cr).abs().max()), int((a - ar).abs().max()))
         name = "matrix+any" if wm and wa else "matrix" if wm else "any"
-        times[(wm, wa)] = (ms, plain_ms, int(tiles_on[emap.long()].sum()) * RAY_SUBBLOCK * tile,
+        times[(wm, wa)] = (ms, plain_ms, int(v.sum()) * RAY_SUBBLOCK * tile,
                            sweep_bytes(rays, tri_pack, masks, emap, tiles_on))
         outs[(wm, wa)] = (c, a)
         print(f"[kernel2] {name:10s} equal={same} hits={int((c >= 0).sum())} "
@@ -946,10 +970,10 @@ def uncounted():
     from raystrack_tpu_torch.ops.count_cuda import count_bins
     from raystrack_tpu_torch.ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
 
-    names = {sweep_rays: ("launches", "gated_launches", "code_launches"),
-             sweep_rays_scheduled: ("launches", "gated_launches"),
+    names = {sweep_rays: ("launches", "gated_launches", "code_launches", "geometries"),
+             sweep_rays_scheduled: ("launches", "gated_launches", "geometries"),
              count_bins: ("launches",), gate_cross: ("launches",)}
-    saved = {(fn, a): getattr(fn, a) for fn, attrs in names.items() for a in attrs}
+    saved = {(fn, a): copy.copy(getattr(fn, a)) for fn, attrs in names.items() for a in attrs}
     try:
         yield
     finally:
@@ -1280,7 +1304,7 @@ def cross_case(label, rays, boxes, pair_ops) -> dict:
     from raystrack_tpu_torch.ops.build import load_library
     from raystrack_tpu_torch.ops.trace_cuda import gate_cross, gate_cross_reference
 
-    fp32, _, every = pair_ops[f"gate_cross_kernel<{cross_boxes_a_thread(boxes.shape[0])}>"]
+    fp32, _, every, _ = pair_ops[f"gate_cross_kernel<{cross_boxes_a_thread(boxes.shape[0])}>"]
     n, n_boxes = rays.shape[1], boxes.shape[0]
     ms, (crossed, minnear) = cuda_ms(lambda: gate_cross(rays, boxes))
     plain_ms, (cr, mr) = timed_once(lambda: gate_cross_reference(rays, boxes))
@@ -2840,7 +2864,19 @@ def phase_range(dev, pair_ops, slim_slope: dict) -> dict:
     meshes = city_meshes(RANGE_CITY_TRIS)
     gen_s = time.perf_counter() - t0
     ps = PreparedSolver(meshes)
-    out = city.mode_run(meshes, ps, dev, city.DeviceMemory(dev), reps=3)
+    # the kernel's launches at forced geometries and their timed repeats
+    # measure it: they are not the main path's
+    real_launches = city.kernel_launches
+
+    def measured(*args, **kwargs):
+        with uncounted():
+            return real_launches(*args, **kwargs)
+
+    city.kernel_launches = measured
+    try:
+        out = city.mode_run(meshes, ps, dev, city.DeviceMemory(dev), reps=3)
+    finally:
+        city.kernel_launches = real_launches
     del ps
     shape = out["gate"]
     got = (out["n_tri"], out["n_tri_pad"], shape["group"], shape["n_boxes"])
@@ -2850,7 +2886,7 @@ def phase_range(dev, pair_ops, slim_slope: dict) -> dict:
           f"range city: (triangles, padded, group, boxes) {got}, window {shape['window']}, "
           f"{shape['phantoms']} phantoms")
     for row in out["kernels"]:
-        geo = SweepGeometry(row["rays_a_cta"], row["split"], row["segments"])
+        geo = SweepGeometry(row["rays_a_cta"], row["split"], row["segments"], row["per_thread"])
         name = sweep_name(f"sweep_code_kernel<1,0,{int(row['gated'])}>", geo)
         row["fp32_per_pair"] = pair_ops[name][0]
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["pairs"], pair_ops[name][0])
@@ -3362,9 +3398,9 @@ def main() -> int:
         print(f"[build] {line}")
     sass = sass_functions(b.path)
     pair_ops = sass_pair_ops(sass)
-    for name, (ops, counts, total) in pair_ops.items():
+    for name, (ops, counts, total, local) in pair_ops.items():
         print(f"[build] {name}: {ops:g} FP32 instructions per pair in the SASS ({counts}); "
-              f"{total:g} instructions in all")
+              f"{total:g} instructions in all; {local} local loads and stores in the pair loop")
 
     # 3. kernel #1 vs plain
     cases = solve_cases()
@@ -3488,12 +3524,20 @@ def main() -> int:
     trace_mod.scheduled_trace = counted_round
     progress = []  # per-emitter progress lines: hundreds, summarised below
     solver_mod._log = progress.append
-    def reset_launches():
+    # the geometries the main path's sweeps took, launches by name, folded
+    # in at each reset after the first (the kernel phases' launches before)
+    main_geometries = (collections.Counter(), collections.Counter())
+
+    def reset_launches(fold=True):
+        for total, fn in zip(main_geometries, (sweep_rays, sweep_rays_scheduled)):
+            if fold:
+                total.update(fn.geometries)
+            fn.geometries.clear()
         sweep_rays.launches = sweep_rays.gated_launches = sweep_rays.code_launches = 0
         sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
         count_bins.launches = gate_cross.launches = 0
 
-    reset_launches()
+    reset_launches(fold=False)
 
     def route_solve(route, solve):
         """(result, rounds, chunks) of one solve through ``route``."""
@@ -3988,7 +4032,7 @@ def main() -> int:
     # each launch at every geometry the kernels are built at: ms, the bound
     # of the 256-ray walk (gated) or of every pair (ungated), its share
     range_rows = {f"{'gated' if r['gated'] else 'ungated'}, " + SweepGeometry(
-        r["rays_a_cta"], r["split"], r["segments"]).name: dict(
+        r["rays_a_cta"], r["split"], r["segments"], r["per_thread"]).name: dict(
         ms=r["ms"], bound_ms=r["bound_ms"], share=r["share_of_bound"], pairs=r["own_pairs"],
         walk_pairs=r["pairs"]) for r in range_out["kernels"]}
     sweep_entry["geometries"] = {
@@ -4008,6 +4052,13 @@ def main() -> int:
         max_err2, ms2, plain_ms2, bound2, city_k2)
     sched_entry["geometries"] = {"soup8 round": geos2,
                                  "city_plates round, gated": city_k2["geometries"]}
+    # the geometries the main path launched each kernel at (phases 6-24;
+    # phase 25's children count their own)
+    reset_launches()
+    for entry, launched in zip((sweep_entry, sched_entry), main_geometries):
+        entry["launched_geometries"] = dict(sorted(launched.items()))
+        print(f"[launches] {entry['name']} on the main path by geometry: "
+              f"{entry['launched_geometries']}")
     # the sky's and the workflow's variants (phases 3-4) and their launches
     # on the main path (phases 16-18)
     for entry, label in ((sweep_entry, "kernel #1, soup chunk"),

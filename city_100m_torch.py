@@ -404,7 +404,7 @@ def kernel_launches(ops, pack, em, dev, reps: int = 3) -> list:
     runs, ref = [], None
     for gated in (True, False):
         rule = trace_cuda._launch_geometry(n, gated, dev)
-        for geo in (rule, trace_cuda._whole_block(rule)):
+        for geo in (rule, trace_cuda._whole_block(n_blocks, gated, trace_cuda._sm_count(dev))):
             accel = pack.accel if gated else None
             block = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
             cta = torch.zeros(geo.units(n), dtype=torch.int32, device=dev)
@@ -453,7 +453,7 @@ def kernel_launches(ops, pack, em, dev, reps: int = 3) -> list:
         rows.append(dict(launch=f"kernel #1 {mode}, {'gated' if gated else 'ungated'}, "
                                 f"{geo.name} (rays a CTA x threads a ray, segments)",
                          gated=gated, rays_a_cta=geo.rays, split=geo.split,
-                         segments=geo.segments, ms=ms,
+                         segments=geo.segments, per_thread=geo.per_thread, ms=ms,
                          visits=int(block.sum()), pairs=pairs,
                          own_pairs=int(cta.sum()) * geo.rays * tile, bytes=n_bytes + extra,
                          bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms))

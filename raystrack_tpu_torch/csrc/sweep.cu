@@ -1,6 +1,6 @@
 // The C entries of the two sweep kernels: they check the launch's shape and
 // hand it to the instantiation of its CTA geometry (rays a CTA, threads a
-// ray). The kernels, and the notes on what they replace, what bounds them
+// ray, rays a thread). The kernels, and the notes on what they replace, what bounds them
 // and what their design does about it, are in sweep_kernels.cuh; each
 // geometry compiles in a translation unit of its own.
 #include <cuda_runtime.h>
@@ -16,18 +16,18 @@ constexpr int kRays = 256;   // rays per gate block (sweep_kernels.cuh)
 constexpr int kStage = 128;  // triangles per shared-memory stage
 
 // Whether kernels are built at this geometry (RAYSTRACK_SWEEP_GEOMETRIES).
-bool built(int split, int rays_cta, bool gated) {
-#define RAYSTRACK_BUILT(S, C, G) \
-  if (split == S && rays_cta == C && gated == G) return true;
+bool built(int split, int rays_cta, bool gated, int per_thread) {
+#define RAYSTRACK_BUILT(S, C, G, R) \
+  if (split == S && rays_cta == C && gated == G && per_thread == R) return true;
   RAYSTRACK_SWEEP_GEOMETRIES(RAYSTRACK_BUILT)
 #undef RAYSTRACK_BUILT
   return false;
 }
 
 bool bad_shape(int n, int n_tri_pad, int tile, int want_matrix, int want_any, int split,
-               int rays_cta, bool gated) {
+               int rays_cta, bool gated, int per_thread) {
   return n < 0 || tile <= 0 || tile % kStage != 0 || n_tri_pad % tile != 0 ||
-         !(want_matrix || want_any) || !built(split, rays_cta, gated);
+         !(want_matrix || want_any) || !built(split, rays_cta, gated, per_thread);
 }
 
 // Tile indices a sweep can reach: the pack's tiles, and a gated sweep's
@@ -100,9 +100,9 @@ bool bad_gate(const Gate& g) {
 // With a gate (`order` not NULL) the tables are those of ops/trace_cuda.py
 // _gate_tables for these rays: one row per block of 256 rays, tiles_on
 // padded to whole groups, a window of 0, 8 or 16. `rays_cta` rays make a
-// CTA (CTA c serves rays [c * rays_cta, (c + 1) * rays_cta)) and `split`
-// threads share a ray's triangles: a geometry of RAYSTRACK_SWEEP_GEOMETRIES
-// (sweep.cuh), others are refused.
+// CTA (CTA c serves rays [c * rays_cta, (c + 1) * rays_cta)), `split`
+// threads share a ray's triangles and a thread holds `per_thread` rays: a
+// geometry of RAYSTRACK_SWEEP_GEOMETRIES (sweep.cuh), others are refused.
 // `segments` CTAs (1 gated) serve each part of a block, one a tile segment,
 // with their partial results in `seg_t`, `seg_code` and `seg_any` ((segments,
 // n) each; NULL for one segment), which a second kernel, launched after the
@@ -121,13 +121,15 @@ extern "C" int raystrack_sweep_rays(const float* rays, int n, const float* pack,
                                     const int* order, const int* counts,
                                     const float* suffmin, int n_boxes, int group,
                                     int window, int n_windows, int split, int rays_cta,
-                                    int segments, float* seg_t, int* seg_code, int* seg_any,
+                                    int segments, int per_thread, float* seg_t, int* seg_code,
+                                    int* seg_any,
                                     int* codes, int* any_out, int* visits,
                                     int* block_visits, unsigned* swept, int swept_words,
                                     long long* timeline, void* stream) {
   const Gate gate{boxes, order, counts, suffmin, timeline, n_boxes, group, window, n_windows};
   const bool gated = order != nullptr;
-  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any, split, rays_cta, gated) ||
+  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any, split, rays_cta, gated,
+                per_thread) ||
       bad_gate(gate) || mask_mode < kRowsMode || mask_mode > kCodeMode ||
       bad_visits(Visits{visits, block_visits, swept, swept_words}, reach(n_tri_pad, tile, gate)) ||
       bad_segments(Segments{segments, seg_t, seg_code, seg_any}, gated)) {
@@ -138,8 +140,9 @@ extern "C" int raystrack_sweep_rays(const float* rays, int n, const float* pack,
                codes, any_out, Visits{visits, block_visits, swept, swept_words},
                Segments{segments, seg_t, seg_code, seg_any}, static_cast<cudaStream_t>(stream)};
   const Masks m{mask_mode, emit_code, min_code};
-#define RAYSTRACK_LAUNCH(S, C, G) \
-  if (split == S && rays_cta == C && gated == G) launch_sweep<S, C, G>(m, a);
+#define RAYSTRACK_LAUNCH(S, C, G, R)                                   \
+  if (split == S && rays_cta == C && gated == G && per_thread == R) \
+    launch_sweep<S, C, G, R>(m, a);
   RAYSTRACK_SWEEP_GEOMETRIES(RAYSTRACK_LAUNCH)
 #undef RAYSTRACK_LAUNCH
   fold_segments(a);
@@ -156,12 +159,13 @@ extern "C" int raystrack_sweep_rays_scheduled(
     int n_emit, const int* emap, const int* tiles_on, int tiles_stride, int tile,
     int want_matrix, int want_any, const float* boxes, const int* order,
     const int* counts, const float* suffmin, int n_boxes, int group, int window,
-    int n_windows, int split, int rays_cta, int segments, float* seg_t, int* seg_code,
-    int* seg_any, int* codes, int* any_out, int* visits, int* block_visits, unsigned* swept,
-    int swept_words, long long* timeline, void* stream) {
+    int n_windows, int split, int rays_cta, int segments, int per_thread, float* seg_t,
+    int* seg_code, int* seg_any, int* codes, int* any_out, int* visits, int* block_visits,
+    unsigned* swept, int swept_words, long long* timeline, void* stream) {
   const Gate gate{boxes, order, counts, suffmin, timeline, n_boxes, group, window, n_windows};
   const bool gated = order != nullptr;
-  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any, split, rays_cta, gated) ||
+  if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any, split, rays_cta, gated,
+                per_thread) ||
       bad_gate(gate) || n % kRays != 0 || n_emit < 0 || tiles_stride < n_tri_pad / tile ||
       bad_visits(Visits{visits, block_visits, swept, swept_words}, reach(n_tri_pad, tile, gate)) ||
       bad_segments(Segments{segments, seg_t, seg_code, seg_any}, gated)) {
@@ -172,8 +176,9 @@ extern "C" int raystrack_sweep_rays_scheduled(
                codes, any_out, Visits{visits, block_visits, swept, swept_words},
                Segments{segments, seg_t, seg_code, seg_any}, static_cast<cudaStream_t>(stream)};
   const Sched s{masks, n_emit, emap, tiles_stride};
-#define RAYSTRACK_LAUNCH(S, C, G) \
-  if (split == S && rays_cta == C && gated == G) launch_sweep_sched<S, C, G>(s, a);
+#define RAYSTRACK_LAUNCH(S, C, G, R)                                   \
+  if (split == S && rays_cta == C && gated == G && per_thread == R) \
+    launch_sweep_sched<S, C, G, R>(s, a);
   RAYSTRACK_SWEEP_GEOMETRIES(RAYSTRACK_LAUNCH)
 #undef RAYSTRACK_LAUNCH
   fold_segments(a);

@@ -1,5 +1,5 @@
 // What the sweeps' C entries (sweep.cu) and the translation units that hold
-// the kernels (sweep_<rays>x<split>[_gated].cu, each instantiating
+// the kernels (sweep_<rays>x<split>[r<rays a thread>][_gated].cu, each instantiating
 // sweep_kernels.cuh for one CTA geometry, ungated or gated) share: the
 // launch arguments, the geometries built and the two launch functions. One
 // translation unit each keeps the build parallel: every .cu compiles in
@@ -89,18 +89,19 @@ struct Sched {
   int tiles_stride;
 };
 
-// The geometries the kernels are built at, X(kSplit, kCta, kGate) (ops/
+// The geometries the kernels are built at, X(kSplit, kCta, kGate, kR) (ops/
 // trace_cuda.py BUILT_GEOMETRIES), ungated ones at any count of tile
 // segments: each instantiated in a translation unit of its own,
-// sweep_<kCta>x<kSplit>[_gated].cu.
-#define RAYSTRACK_SWEEP_GEOMETRIES(X) \
-  X(1, 256, false) X(4, 256, false) X(4, 256, true) X(8, 64, true) X(16, 64, true)
+// sweep_<kCta>x<kSplit>[r<kR>][_gated].cu.
+#define RAYSTRACK_SWEEP_GEOMETRIES(X)                                          \
+  X(1, 256, false, 1) X(4, 256, false, 1) X(2, 256, false, 4) X(8, 256, false, 4) \
+  X(4, 256, true, 1) X(16, 64, true, 4)
 
-// Launch kernel #1 / kernel #2 at kCta rays a CTA and kSplit threads a
-// ray, ungated or gated.
-template <int kSplit, int kCta, bool kGate>
+// Launch kernel #1 / kernel #2 at kCta rays a CTA, kSplit threads a ray and
+// kR rays a thread, ungated or gated.
+template <int kSplit, int kCta, bool kGate, int kR>
 void launch_sweep(const Masks& m, const Args& a);
-template <int kSplit, int kCta, bool kGate>
+template <int kSplit, int kCta, bool kGate, int kR>
 void launch_sweep_sched(const Sched& s, const Args& a);
 
 }  // namespace raystrack

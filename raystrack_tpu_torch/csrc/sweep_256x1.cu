@@ -4,7 +4,7 @@
 
 namespace raystrack {
 
-template void launch_sweep<1, 256, false>(const Masks&, const Args&);
-template void launch_sweep_sched<1, 256, false>(const Sched&, const Args&);
+template void launch_sweep<1, 256, false, 1>(const Masks&, const Args&);
+template void launch_sweep_sched<1, 256, false, 1>(const Sched&, const Args&);
 
 }  // namespace raystrack

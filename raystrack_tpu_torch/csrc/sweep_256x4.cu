@@ -4,7 +4,7 @@
 
 namespace raystrack {
 
-template void launch_sweep<4, 256, false>(const Masks&, const Args&);
-template void launch_sweep_sched<4, 256, false>(const Sched&, const Args&);
+template void launch_sweep<4, 256, false, 1>(const Masks&, const Args&);
+template void launch_sweep_sched<4, 256, false, 1>(const Sched&, const Args&);
 
 }  // namespace raystrack

@@ -5,7 +5,7 @@
 
 namespace raystrack {
 
-template void launch_sweep<4, 256, true>(const Masks&, const Args&);
-template void launch_sweep_sched<4, 256, true>(const Sched&, const Args&);
+template void launch_sweep<4, 256, true, 1>(const Masks&, const Args&);
+template void launch_sweep_sched<4, 256, true, 1>(const Sched&, const Args&);
 
 }  // namespace raystrack

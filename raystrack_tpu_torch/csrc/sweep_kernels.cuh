@@ -11,8 +11,8 @@
 // each ray both return the nearest eligible hit packed as 2*sid + front (-1
 // on a miss) and a 0/1 any-hit flag. The TPU shares its tile math,
 // _tile_step, between the two; here both kernels run the same device
-// functions stage_tile, pair_hit and sweep_ray, so on the same rays and the
-// same eligibility they give the same bits. Kernel #1 takes a triangle's
+// functions stage_async, pair_margin, pair_t and sweep_ray, so on the same
+// rays and the same eligibility they give the same bits. Kernel #1 takes a triangle's
 // eligibility from the pack's mask rows, from a pack with the primary mask
 // baked into zeroed cross_e rows (sweep_kernel), or, as sweep_rays' code_bounds
 // mode does for a slim pack-resident scene, from the staged code row against
@@ -20,10 +20,11 @@
 // also code >= min_code. That pack is built once per scene and never
 // rewritten per emitter, and only its 17 operand rows are staged.
 //
-// What bounds them: FP32 ALU work. Each ray-triangle pair costs 51 FP32
-// instructions in the SASS of every instantiation (chip_smoke.py counts them
-// from the library at every run; the any-only ones held 57 while the
-// division below was hoisted out of its branch); a triangle's operands are
+// What bounds them: FP32 ALU work. A ray-triangle pair that fails the
+// margin test costs 45-46 FP32 instructions in the SASS of every
+// instantiation, 55-61 instructions in all (chip_smoke.py counts them from
+// the library at every run; 51 and 64-66 while every pair worked out t_num
+// and one ray a thread read the triangle alone); a triangle's operands are
 // 76 bytes, read once per block of rays. So each block stages a tile of
 // triangle operands in shared memory (coalesced loads along the pack's
 // triangle axis) and every thread loops over staged triangles reading the
@@ -31,12 +32,39 @@
 // stages its emitter's mask row slice in the same stage, in the slot kernel
 // #1 leaves unused, so the per-pair mask test costs one shared load. The
 // t = t_num / det division runs only for pairs whose barycentric tests pass.
+// A Hopper scheduler issues one warp instruction a clock, so every shared
+// load, branch and loop instruction takes a slot the FP32 work needs; three
+// measures keep them off the pair loop:
+//
+// - Rays a thread (kR in {1, 4}): a thread holds kR rays, each with its
+//   own operands and carry, reads a staged triangle once (five LDS.128) and
+//   tests it against all kR, so the loads, the loop's bookkeeping and the
+//   eligibility reads are paid once per kR pairs, and the kR independent
+//   chains give a warp the parallelism a CTA alone on its SM lacks. Each
+//   ray's arithmetic is pair_margin's and pair_t's, in _tile_step's order,
+//   so its bits do not change; thread = part * (kCta / kR) + g serves rays
+//   g + q * (kCta / kR), q < kR, so a warp's loads of rays and stores of
+//   results stay coalesced.
+// - The margin test first: nearly every pair fails the barycentric margin,
+//   so a thread tests its kR rays' margins against a staged triangle
+//   (pair_margin) and takes one branch a triangle; t_num, the division and
+//   the eligibility are worked out only behind it (pair_t), from the same
+//   operands in the same order.
+// - A double-buffered stage: stage s + 1 is copied into the second buffer
+//   with 4-byte cp.async (the Tri layout's slots are not 16-byte runs of one
+//   pack row) while stage s is swept; one barrier a stage, after
+//   cp.async.wait_group, where a synchronous stage needed two and left the
+//   loads' latency bare on an SM that holds one CTA. Ungated, the next
+//   active tile's first stage is copied during the last stage of the tile
+//   before; gated, the next tile is known only after the vote, so its first
+//   stage is copied then.
+//
 // Kernel #2 reads its tile table from global memory at every size: the
 // TPU's union fallback past SCHED_TILES_SMEM_BUDGET is a limit of its scalar
 // memory that this card does not have.
 //
-// The triangle split (kSplit in {1, 4, 8, 16}): kSplit threads serve one
-// ray, so a CTA is kCta rays x kSplit threads. The TPU kernel has no such
+// The triangle split (kSplit in {1, 2, 4, 8, 16}): kSplit threads serve one
+// ray, so a CTA is kCta rays x kSplit threads / kR rays a thread. The TPU kernel has no such
 // choice: its grid runs in order on one core. On this card a launch of few
 // ray blocks, or a gated launch whose blocks sweep between 0 and 124 tiles,
 // leaves SMs with one block of 8 warps or none, and a block of rays that
@@ -44,7 +72,7 @@
 // lets such a block use the whole width of its SM (one block alone on an
 // SM sweeps 48 tiles in 14.66 ms at one thread a ray and in 7.43 ms at
 // four). The kSplit threads of a ray sit in different warps (thread = part
-// * kCta + ray), so each warp still reads one staged triangle at a time as
+// * kCta / kR + g), so each warp still reads one staged triangle at a time as
 // a broadcast, without bank conflicts of the 80-byte Tri stride; within
 // every 128-triangle stage, part p takes triangles
 // [p * 128 / kSplit, (p + 1) * 128 / kSplit). At the end of a sweep
@@ -75,7 +103,7 @@
 // blocks, while a CTA of part of a block spreads a block's work over
 // several SMs. The geometries built are sweep.cuh's
 // RAYSTRACK_SWEEP_GEOMETRIES, one translation unit each
-// (sweep_<kCta>x<kSplit>[_gated].cu); the wrapper picks one from the
+// (sweep_<kCta>x<kSplit>[r<kR>][_gated].cu); the wrapper picks one from the
 // launch's shape (ops/trace_cuda.py sweep_split, with the measured table
 // behind it). At one thread a ray the kernel is the unsplit one: its
 // shared block is the stage alone and its part and ray indices are
@@ -90,6 +118,7 @@
 // runs in tile order, so the result is the one-segment walk's bit for bit.
 // A gated walk is not cut: a later segment would start without the carry
 // its votes need (the plain versions measure what that costs).
+
 //
 // The AABB distance gate (the kGate instantiations; the TPU kernels' use_gate
 // modes, _gate_need_rays / _gate_indexers): each block walks its own visit
@@ -161,13 +190,31 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, cx, cy, cz;
 };
 
-// A CTA's shared memory: the triangle stage; at more than one thread a
+// A CTA's threads: kCta rays x kSplit threads a ray / kR rays a thread.
+// Thread = part * kGroups + g serves rays g + q * kGroups (q < kR) of the
+// CTA and takes part `part` of every stage. Constants at one thread a ray.
+template <int kSplit, int kCta, int kR>
+struct Layout {
+  static constexpr int kGroups = kCta / kR;  // the threads of one part
+  static constexpr int kThreads = kGroups * kSplit;
+  static_assert(kCta % kR == 0 && kThreads % kStage == 0,
+                "a stage's copy gives each thread whole pack rows of one column");
+  __device__ static int part() {
+    return kSplit == 1 ? 0 : static_cast<int>(threadIdx.x) / kGroups;
+  }
+  __device__ static int ray(int q) {
+    return (kSplit == 1 ? static_cast<int>(threadIdx.x) : static_cast<int>(threadIdx.x) % kGroups)
+           + q * kGroups;
+  }
+};
+
+// A CTA's shared memory: the two stage buffers; at more than one thread a
 // ray, the parts' results of a split tile; in a gated CTA, the read-ahead
 // (two buffers of kAhead positions). What an instantiation does not use is
-// an empty base: an ungated CTA at one thread a ray holds the 10,240
-// bytes of its stage and nothing else, so six of them fit the 64 KB
-// shared-memory carve-out and leave the rest of the SM's 256 KB to the L1
-// cache, through which they share the pack.
+// an empty base: an ungated CTA at one thread a ray holds the 20,480 bytes
+// of its stages and nothing else. CUDA sizes the carve-out for the
+// resident CTAs and leaves the rest of the SM's 256 KB to the L1 cache,
+// through which the CTAs share the pack.
 template <int kSplit, int kCta>
 struct Parts {
   float part_t[kSplit * kCta];
@@ -187,20 +234,8 @@ struct Ahead<false> {};
 
 template <int kSplit, int kCta, bool kGate>
 struct Shared : Parts<kSplit, kCta>, Ahead<kGate> {
-  Tri stage[kStage];
+  Tri stage[2][kStage];
 };
-
-// Which of a ray's kSplit threads this one is, and the ray's index in the
-// CTA: thread = part * kCta + ray. Constants at one thread a ray.
-template <int kSplit, int kCta>
-__device__ __forceinline__ int split_part() {
-  return kSplit == 1 ? 0 : static_cast<int>(threadIdx.x) / kCta;
-}
-
-template <int kSplit, int kCta>
-__device__ __forceinline__ int split_ray() {
-  return kSplit == 1 ? static_cast<int>(threadIdx.x) : static_cast<int>(threadIdx.x) % kCta;
-}
 
 // The gate block of 256 rays that CTA `cta` (of kCta rays) serves.
 template <int kCta>
@@ -243,41 +278,60 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int n, i
              rays[6 * ns + r], rays[7 * ns + r], rays[8 * ns + r]};
 }
 
-// Stage pack columns [base, base + kStage): the first kRows rows and, with
-// kMaskRow, the same slice of the emitter's mask row. Every thread of the
-// CTA (kThreads of them) must call it: it holds both barriers.
-template <int kRows, bool kMaskRow, int kThreads>
-__device__ __forceinline__ void stage_tile(Tri* stage, const float* __restrict__ pack,
-                                           int n_tri_pad, int base,
-                                           const float* __restrict__ mask_row) {
-  float* stage_f = reinterpret_cast<float*>(stage);
-  __syncthreads();  // the previous stage is no longer read
-  for (int idx = threadIdx.x; idx < kRows * kStage; idx += kThreads) {
-    const int row = idx / kStage;
-    const int k = idx - row * kStage;
-    stage_f[k * 20 + tri_slot(row)] =
-        pack[static_cast<size_t>(row) * n_tri_pad + base + k];
-  }
-  if (kMaskRow) {
-    for (int k = threadIdx.x; k < kStage; k += kThreads) {
-      stage_f[k * 20 + kMaskSlot] = mask_row[base + k];
-    }
-  }
-  __syncthreads();
+// One float from global to shared memory through cp.async (cached in L1,
+// as the pack's loads were); cp_async_commit closes this thread's group of
+// them, cp_async_wait waits for all of its groups.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(gmem) : "memory");
 }
 
-// The pair math of _tile_step: true when the ray hits the triangle inside
-// its barycentric margin at t > 1e-6; then t and the front flag are set.
-__device__ __forceinline__ bool pair_hit(const Ray& r, const Tri& tri, float& t,
-                                         int& front) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Start copying pack columns [base, base + kStage) into `stage`: the first
+// kRows rows and, with kMaskRow, the same slice of the emitter's mask row.
+// Thread t copies column t % kStage of rows t / kStage, t / kStage +
+// kThreads / kStage, ... (coalesced along the pack's triangle axis). The
+// caller waits (cp_async_wait, then a barrier) before the stage is read,
+// and issues it only once every thread has finished reading the buffer.
+template <int kRows, bool kMaskRow, int kThreads>
+__device__ __forceinline__ void stage_async(Tri* stage, const float* __restrict__ pack,
+                                            int n_tri_pad, int base,
+                                            const float* __restrict__ mask_row) {
+  const int k = static_cast<int>(threadIdx.x) % kStage;
+  float* dst = reinterpret_cast<float*>(stage + k);
+  const float* src = pack + base + k;
+#pragma unroll
+  for (int row = static_cast<int>(threadIdx.x) / kStage; row < kRows; row += kThreads / kStage) {
+    cp_async4(dst + tri_slot(row), src + static_cast<size_t>(row) * n_tri_pad);
+  }
+  if (kMaskRow && threadIdx.x < kStage) cp_async4(dst + kMaskSlot, mask_row + base + k);
+  cp_async_commit();
+}
+
+// The pair math of _tile_step, in two parts. pair_margin: whether the ray
+// meets the triangle inside its barycentric margin (|det| >= 1e-7 and both
+// barycentrics in range), the test nearly every pair fails. pair_t, only
+// for a pair that passed it: t = t_num / det and the front flag, true when
+// t > 1e-6. pair_t works det and t_num out anew in the same operations and
+// order (so the same bits) from the staged triangle read through a volatile
+// pointer: the compiler can neither hoist those loads, and the arithmetic
+// on them, above the margin test nor keep det alive across it, so the
+// pairs that fail it pay for neither t_num nor the division.
+__device__ __forceinline__ bool pair_margin(const Ray& r, const Tri& tri) {
   const float4 ce = tri.ce_d0;
   const float4 e1 = tri.e1_code;
   const float4 e2 = tri.e2_many;
   const float4 wu = tri.wu_mmat;
   const float4 wv = tri.wv_comb;
-  // det = -(d . cross_e); t_num = o . cross_e - d0
+  // det = -(d . cross_e)
   const float det = -(r.dx * ce.x + r.dy * ce.y + r.dz * ce.z);
-  const float t_num = r.ox * ce.x + r.oy * ce.y + r.oz * ce.z - ce.w;
   // u_num = (o x d) . e2 + d . (v0 x e2)
   const float u_num = r.cx * e2.x + r.cy * e2.y + r.cz * e2.z + r.dx * wu.x +
                       r.dy * wu.y + r.dz * wu.z;
@@ -289,12 +343,17 @@ __device__ __forceinline__ bool pair_hit(const Ray& r, const Tri& tri, float& t,
   const float un = u_num * sign;
   const float vn = v_num * sign;
   const float margin = pmin(pmin(abs_det - 1e-7f, un), pmin(vn, abs_det - (un + vn)));
-  if (!(margin >= 0.0f)) return false;
-  // t = t_num / det, the IEEE division a plain `/` compiles to, written as
-  // PTX: the compiler does not speculate an asm statement, so the division
-  // stays behind the margin test. As a `/`, it was hoisted above the test in
-  // the any-only instantiations, whose branch holds nothing else: every
-  // pair paid for it.
+  return margin >= 0.0f;
+}
+
+__device__ __forceinline__ bool pair_t(const Ray& r, const Tri& tri, float& t, int& front) {
+  const volatile float* ce = &tri.ce_d0.x;  // cross_e, d0
+  const float cx = ce[0], cy = ce[1], cz = ce[2], d0 = ce[3];
+  // det = -(d . cross_e); t_num = o . cross_e - d0
+  const float det = -(r.dx * cx + r.dy * cy + r.dz * cz);
+  const float t_num = r.ox * cx + r.oy * cy + r.oz * cz - d0;
+  // the IEEE division a plain `/` compiles to, written as PTX: the
+  // compiler does not speculate an asm statement
   asm("div.rn.f32 %0, %1, %2;" : "=f"(t) : "f"(t_num), "f"(det));
   if (!(t > 1e-6f)) return false;
   front = det > 0.0f ? 1 : 0;
@@ -365,71 +424,124 @@ __device__ __forceinline__ bool box_needed(const Ray& r, const float* box, float
   return need;
 }
 
-// One sweep tile of one ray, staged kStage triangles at a time, each of the
-// ray's kSplit threads taking its part of every stage; the parts merged by
-// the tile's own tie rule, the result folded into the ray's carry, which
-// all threads of the ray keep alike. Every thread of the CTA must call
-// it: stage_tile and the merge hold barriers.
-template <bool kMatrix, bool kAny, int kRows, bool kMaskRow, int kSplit, int kCta, class Sh,
-          class Elig>
-__device__ __forceinline__ void sweep_tile(const Ray& ray, const float* __restrict__ pack,
-                                           int n_tri_pad, int it, int tile,
-                                           const float* __restrict__ mask_row, Sh& sh,
-                                           Elig elig, float& best_t, int& best_code,
-                                           int& any_hit) {
+// A thread's kR rays and their carries (best t, code, any-hit), which all
+// threads of a ray keep alike.
+template <int kR>
+struct Carry {
+  Ray ray[kR];
+  bool live[kR];
+  float best_t[kR];
+  int best_code[kR];
+  int any_hit[kR];
+};
+
+// One sweep tile of the thread's kR rays, kStage triangles a stage, each of
+// a ray's kSplit threads taking its part of every stage; the parts merged by
+// the tile's own tie rule, the result folded into the rays' carries. On
+// entry the tile's first stage has been issued into sh.stage[buf]; during
+// its last stage the first stage of tile `next` (unless -1) is issued into
+// the other buffer, and `buf` names the buffer of the next stage to sweep.
+// Every thread of the CTA must call it: the stages and the merge hold
+// barriers.
+template <bool kMatrix, bool kAny, int kRows, bool kMaskRow, int kSplit, int kCta, int kR,
+          class Sh, class Elig>
+__device__ __forceinline__ void sweep_tile(Carry<kR>& c, const float* __restrict__ pack,
+                                           int n_tri_pad, int it, int next, int tile,
+                                           const float* __restrict__ mask_row, Sh& sh, int& buf,
+                                           Elig elig) {
+  using L = Layout<kSplit, kCta, kR>;
   constexpr int kPart = kStage / kSplit;
-  const Tri* mine = sh.stage + split_part<kSplit, kCta>() * kPart;
-  float tile_t = kInf;
-  int tile_code = 1 << 30;
-  const int tile_end = (it + 1) * tile;
-  for (int base = it * tile; base < tile_end; base += kStage) {
-    stage_tile<kRows, kMaskRow, kCta * kSplit>(sh.stage, pack, n_tri_pad, base, mask_row);
+  const int off = L::part() * kPart;
+  float tile_t[kR];
+  int tile_code[kR];
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    tile_t[q] = kInf;
+    tile_code[q] = 1 << 30;
+  }
+  const int n_stages = tile / kStage;
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait();  // this thread's share of stage s has landed
+    __syncthreads();  // every share has landed, and the other buffer is no longer read
+    const int ahead = s + 1 < n_stages ? it * tile + (s + 1) * kStage
+                                       : (next >= 0 ? next * tile : -1);
+    if (ahead >= 0) {
+      stage_async<kRows, kMaskRow, L::kThreads>(sh.stage[buf ^ 1], pack, n_tri_pad, ahead,
+                                                mask_row);
+    }
+    const Tri* mine = sh.stage[buf] + off;
+    buf ^= 1;
 #pragma unroll 2
     for (int j = 0; j < kPart; ++j) {
-      float t;
-      int front;
-      if (!pair_hit(ray, mine[j], t, front)) continue;
-      if (kAny && elig.any(mine[j])) any_hit = 1;
-      if (kMatrix && elig.mat(mine[j])) {
-        const int code = static_cast<int>(mine[j].e1_code.w) + front;
-        if (t < tile_t) {
-          tile_t = t;
-          tile_code = code;
-        } else if (t == tile_t && code < tile_code) {
-          tile_code = code;
+      const Tri tri = mine[j];
+      bool inside[kR];
+      bool any_inside = false;
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        inside[q] = pair_margin(c.ray[q], tri);
+        any_inside = any_inside || inside[q];
+      }
+      if (!any_inside) continue;  // one branch a triangle, nearly always taken
+      // the rare pairs inside the margin: t, the eligibility and the code,
+      // read again from shared memory (from the registers, the compares
+      // were hoisted above the branch and every pair paid for them)
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        float t;
+        int front;
+        if (!inside[q] || !pair_t(c.ray[q], mine[j], t, front)) continue;
+        if (kAny && elig.any(mine[j])) c.any_hit[q] = 1;
+        if (kMatrix && elig.mat(mine[j])) {
+          const int code = static_cast<int>(mine[j].e1_code.w) + front;
+          if (t < tile_t[q]) {
+            tile_t[q] = t;
+            tile_code[q] = code;
+          } else if (t == tile_t[q] && code < tile_code[q]) {
+            tile_code[q] = code;
+          }
         }
       }
     }
   }
   if constexpr (kSplit > 1) {
-    // the next write of these slots comes after the next stage's barriers
-    if (kMatrix) {
-      sh.part_t[threadIdx.x] = tile_t;
-      sh.part_code[threadIdx.x] = tile_code;
-    }
-    if (kAny) sh.part_any[threadIdx.x] = any_hit;
-    __syncthreads();
-    const int r = split_ray<kSplit, kCta>();
-    tile_t = kInf;
-    tile_code = 1 << 30;
+    // the next write of these slots comes after the next stage's barrier
 #pragma unroll
-    for (int p = 0; p < kSplit; ++p) {
+    for (int q = 0; q < kR; ++q) {
+      const int at = L::part() * kCta + L::ray(q);
       if (kMatrix) {
-        const float t = sh.part_t[p * kCta + r];
-        const int code = sh.part_code[p * kCta + r];
-        if (t < tile_t) {
-          tile_t = t;
-          tile_code = code;
-        } else if (t == tile_t && code < tile_code) {
-          tile_code = code;
-        }
+        sh.part_t[at] = tile_t[q];
+        sh.part_code[at] = tile_code[q];
       }
-      if (kAny) any_hit |= sh.part_any[p * kCta + r];
+      if (kAny) sh.part_any[at] = c.any_hit[q];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const int r = L::ray(q);
+      tile_t[q] = kInf;
+      tile_code[q] = 1 << 30;
+#pragma unroll
+      for (int p = 0; p < kSplit; ++p) {
+        if (kMatrix) {
+          const float t = sh.part_t[p * kCta + r];
+          const int code = sh.part_code[p * kCta + r];
+          if (t < tile_t[q]) {
+            tile_t[q] = t;
+            tile_code[q] = code;
+          } else if (t == tile_t[q] && code < tile_code[q]) {
+            tile_code[q] = code;
+          }
+        }
+        if (kAny) c.any_hit[q] |= sh.part_any[p * kCta + r];
+      }
     }
   }
-  if (kMatrix && tile_t < best_t) {
-    best_t = tile_t;
-    best_code = tile_code;
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    if (kMatrix && tile_t[q] < c.best_t[q]) {
+      c.best_t[q] = tile_t[q];
+      c.best_code[q] = tile_code[q];
+    }
   }
 }
 
@@ -482,34 +594,47 @@ __device__ __forceinline__ void mark_swept(const Visits& v, size_t b, int it) {
   if ((atomicOr(v.swept + b * v.words + it / 32, bit) & bit) == 0u) atomicAdd(v.block + b, 1);
 }
 
-// One ray against the scene. Ungated: every active tile in order. Gated:
-// the visit list of the gate block this CTA serves, read ahead kAhead
-// positions at a time, each tile taken only when some live ray of the CTA
-// needs it (__syncthreads_or: one instruction for the TPU's any-reduce over
-// the block) and the list cut short at window starts once every ray of the
-// CTA is settled (__syncthreads_and). tiles_on, the visit list and both
-// votes are uniform across the CTA, so every thread takes the same branches
-// and reaches every barrier; threads past the last ray vote "not needed"
-// and "settled". Thread 0 writes the CTA's count of swept tiles to
-// `visits.cta[blockIdx.x]`, marks each tile it sweeps in the block's row of
-// `visits.swept` (see struct Visits), each when it is given, and a gated
-// CTA writes its times to row blockIdx.x of `gate.timeline`.
+// The next active tile of [from, end), or -1.
+__device__ __forceinline__ int next_on(const int* __restrict__ tiles_on, int from, int end) {
+  for (int it = from; it < end; ++it) {
+    if (tiles_on[it] != 0) return it;
+  }
+  return -1;
+}
+
+// The thread's rays against the scene. Ungated: every active tile in
+// order (a tile with no eligible triangle is an exact skip), each tile's
+// first stage copied during the last stage of the tile before. Gated: the visit list
+// of the gate block this CTA serves, read ahead kAhead positions at a time,
+// each tile taken only when some live ray of the CTA needs it
+// (__syncthreads_or: one instruction for the TPU's any-reduce over the
+// block) and the list cut short at window starts once every ray of the CTA
+// is settled (__syncthreads_and). tiles_on, the visit list and both votes
+// are uniform across the CTA, so every thread takes the same branches and
+// reaches every barrier; rays past the last vote "not needed" and
+// "settled". Thread 0 writes the CTA's count of swept tiles to
+// `visits.cta[blockIdx.x]`, marks each in the block's row of `visits.swept`
+// (see struct Visits), each when it is given, and a gated CTA writes its
+// times to row blockIdx.x of `gate.timeline`.
 template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, int kSplit, int kCta,
-          class Elig>
-__device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
-                                          const float* __restrict__ pack, int n_tri_pad,
-                                          const int* __restrict__ tiles_on, int tile,
-                                          const float* __restrict__ mask_row,
+          int kR, class Elig>
+__device__ __forceinline__ void sweep_ray(Carry<kR>& c, const float* __restrict__ pack,
+                                          int n_tri_pad, const int* __restrict__ tiles_on,
+                                          int tile, const float* __restrict__ mask_row,
                                           const Gate& gate, Shared<kSplit, kCta, kGate>& sh,
                                           Elig elig, int2 place, int n_segments,
-                                          float& t_out, int& code_out, int& any_out,
                                           const Visits& visits) {
   static_assert(kRays % kCta == 0, "a CTA serves a whole part of one gate block");
-  static_assert(!kGate || kCta * kSplit >= kAheadThreads, "the read-ahead's threads");
-  float best_t = kInf;
-  int best_code = -1;
-  int any_hit = 0;
+  using L = Layout<kSplit, kCta, kR>;
+  static_assert(!kGate || L::kThreads >= kAheadThreads, "the read-ahead's threads");
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    c.best_t[q] = kInf;
+    c.best_code[q] = -1;
+    c.any_hit[q] = 0;
+  }
   int n_swept = 0;
+  int buf = 0;
   const size_t b = cta_block<kCta>(place.x);
   const bool mark = visits.block != nullptr && threadIdx.x == 0;
   if constexpr (!kGate) {
@@ -517,12 +642,18 @@ __device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
     const int per = (n_tiles + n_segments - 1) / n_segments;  // tiles a segment
     const int first = place.y * per;
     const int end = first + per < n_tiles ? first + per : n_tiles;
-    for (int it = first; it < end; ++it) {
-      if (tiles_on[it] == 0) continue;  // no eligible triangle: exact skip
-      sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit, kCta>(
-          ray, pack, n_tri_pad, it, tile, mask_row, sh, elig, best_t, best_code, any_hit);
+    int it = next_on(tiles_on, first, end);
+    if (it >= 0) {
+      stage_async<kRows, kMaskRow, L::kThreads>(sh.stage[buf], pack, n_tri_pad, it * tile,
+                                                mask_row);
+    }
+    while (it >= 0) {
+      const int next = next_on(tiles_on, it + 1, end);
+      sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit, kCta, kR>(
+          c, pack, n_tri_pad, it, next, tile, mask_row, sh, buf, elig);
       ++n_swept;
       if (mark) mark_swept(visits, b, it);
+      it = next;
     }
   } else {
     const size_t row = blockIdx.x;
@@ -543,10 +674,10 @@ __device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
     }
     for (int p = 0; p < n_pos; ++p) {
       const int k = p % kAhead;
-      const int buf = (p / kAhead) & 1;
+      const int abuf = (p / kAhead) & 1;
       if (k == 0 && p > 0) {
         // this buffer was last read kAhead positions ago, before their barriers
-        ahead_store(sh, buf, word);
+        ahead_store(sh, abuf, word);
         if (p + kAhead < n_pos) {
           word = ahead_load(gate, order, suffmin, tiles_on, n_pos, p / kAhead + 1);
         }
@@ -554,25 +685,39 @@ __device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
       }
       // only the per-tile gate (group 1) has windows: position = box position
       if (gate.window > 0 && k % gate.window == 0) {
-        const float bound = sh.bound[buf][k / gate.window];
-        const bool settled = !live || (best_t <= bound && (!kAny || any_hit != 0));
+        const float bound = sh.bound[abuf][k / gate.window];
+        bool settled = true;
+#pragma unroll
+        for (int q = 0; q < kR; ++q) {
+          settled = settled && (!c.live[q] ||
+                                (c.best_t[q] <= bound && (!kAny || c.any_hit[q] != 0)));
+        }
         if (__syncthreads_and(settled)) break;  // no later box can pass
       }
-      const unsigned* at = sh.ahead[buf][k];
+      const unsigned* at = sh.ahead[abuf][k];
       const int box = static_cast<int>(at[7]);
       for (int g = 0; g < gate.group; ++g, ++n_walked) {
         const int it = box * gate.group + g;
         if (g < 32 ? (at[6] >> g & 1u) == 0u : tiles_on[it] == 0) continue;
-        const bool need = live && box_needed<kMatrix, kAny>(
-            ray, reinterpret_cast<const float*>(at), best_t, any_hit);
+        bool need = false;
+#pragma unroll
+        for (int q = 0; q < kR; ++q) {
+          need = need || (c.live[q] && box_needed<kMatrix, kAny>(
+                                           c.ray[q], reinterpret_cast<const float*>(at),
+                                           c.best_t[q], c.any_hit[q]));
+        }
         // no ray can improve: an exact skip, and of the rest of the group
         // too, whose tiles share this box and meet the same carries
         if (!__syncthreads_or(need)) {
           ++n_walked;
           break;
         }
-        sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit, kCta>(
-            ray, pack, n_tri_pad, it, tile, mask_row, sh, elig, best_t, best_code, any_hit);
+        // the buffer is free: its last stage was read before the barrier
+        // of the stage after it, or of this vote
+        stage_async<kRows, kMaskRow, L::kThreads>(sh.stage[buf], pack, n_tri_pad, it * tile,
+                                                  mask_row);
+        sweep_tile<kMatrix, kAny, kRows, kMaskRow, kSplit, kCta, kR>(
+            c, pack, n_tri_pad, it, -1, tile, mask_row, sh, buf, elig);
         ++n_swept;
         if (mark) mark_swept(visits, b, it);
       }
@@ -583,13 +728,11 @@ __device__ __forceinline__ void sweep_ray(const Ray& ray, bool live,
     }
   }
   if (visits.cta != nullptr && threadIdx.x == 0) visits.cta[blockIdx.x] = n_swept;
-  t_out = best_t;
-  code_out = best_code;  // -1 until a hit: best_t < kInf
-  any_out = any_hit;
 }
 
 // A ray's result: the launch's outputs, or its segment's row of the
-// partial results the fold kernel folds.
+// partial results the fold kernel folds. code is -1 until a hit (best_t <
+// kInf).
 __device__ __forceinline__ void put_ray(const Segments& seg, int g, int n, int ray, float t,
                                         int code, int any_hit, int* __restrict__ codes,
                                         int* __restrict__ any_out) {
@@ -604,18 +747,46 @@ __device__ __forceinline__ void put_ray(const Segments& seg, int g, int n, int r
   }
 }
 
-// CTAs an SM must hold at once: 1,536 threads' worth (six CTAs of 256
-// threads, three of 512: at most 40 registers a thread), which puts a
-// launch of 198 blocks or fewer in one wave at 64 or 128 rays x 4; a CTA of
-// 1,024 threads, one (at most 64 registers).
-constexpr int min_ctas(int threads) {
-  return threads >= 1024 ? 1 : 1536 / threads;
+// The thread's rays of CTA place.x: loaded (rays past n load ray 0 and
+// stay dead), and after the sweep written by the threads of part 0.
+template <int kSplit, int kCta, int kR>
+__device__ __forceinline__ void load_rays(Carry<kR>& c, const float* __restrict__ rays, int n,
+                                          int2 place) {
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    const int ray = place.x * kCta + Layout<kSplit, kCta, kR>::ray(q);
+    c.live[q] = ray < n;
+    c.ray[q] = load_ray(rays, n, c.live[q] ? ray : 0);
+  }
+}
+
+template <int kSplit, int kCta, int kR>
+__device__ __forceinline__ void put_rays(const Carry<kR>& c, const Segments& seg, int n,
+                                         int2 place, int* __restrict__ codes,
+                                         int* __restrict__ any_out) {
+  using L = Layout<kSplit, kCta, kR>;
+  if (L::part() != 0) return;
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    if (c.live[q]) {
+      put_ray(seg, place.y, n, place.x * kCta + L::ray(q), c.best_t[q], c.best_code[q],
+              c.any_hit[q], codes, any_out);
+    }
+  }
+}
+
+// CTAs an SM must hold at once, which bounds the registers a thread: at one
+// ray a thread 1,536 threads' worth (six CTAs of 256 threads: at most 40
+// registers), at four 512 (128); a CTA of 1,024 threads, one (64).
+constexpr int min_ctas(int threads, int rays_a_thread) {
+  return threads >= 1024 ? 1 : (rays_a_thread == 1 ? 1536 : 512) / threads;
 }
 
 // CTA c serves rays [c * kCta, (c + 1) * kCta): the grid is ceil(n / kCta)
 // CTAs, and the last may be partial.
-template <bool kMatrix, bool kAny, bool kBaked, bool kGate, int kSplit, int kCta>
-__global__ void __launch_bounds__(kCta * kSplit, min_ctas(kCta * kSplit))
+template <bool kMatrix, bool kAny, bool kBaked, bool kGate, int kSplit, int kCta, int kR>
+__global__ void __launch_bounds__(Layout<kSplit, kCta, kR>::kThreads,
+                                  min_ctas(Layout<kSplit, kCta, kR>::kThreads, kR))
 sweep_kernel(const float* __restrict__ rays, int n,
              const float* __restrict__ pack, int n_tri_pad,
              const int* __restrict__ tiles_on, int tile, Gate gate,
@@ -623,22 +794,18 @@ sweep_kernel(const float* __restrict__ rays, int n,
              Visits visits, Segments seg) {
   __shared__ Shared<kSplit, kCta, kGate> sh;
   const int2 place = cta_place<kGate>(seg);
-  const int ray = place.x * kCta + split_ray<kSplit, kCta>();
-  const bool live = ray < n;
   // threads past the last ray still load stages and reach every barrier
-  const Ray r = load_ray(rays, n, live ? ray : 0);
-  float t;
-  int code, any_hit;
+  Carry<kR> c;
+  load_rays<kSplit, kCta>(c, rays, n, place);
   sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit, kCta>(
-      r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
-      PackMasks<!kBaked, !(kBaked && !kAny)>{}, place, seg.count, t, code, any_hit, visits);
-  if (live && split_part<kSplit, kCta>() == 0) {
-    put_ray(seg, place.y, n, ray, t, code, any_hit, codes, any_out);
-  }
+      c, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
+      PackMasks<!kBaked, !(kBaked && !kAny)>{}, place, seg.count, visits);
+  put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
-__global__ void __launch_bounds__(kCta * kSplit, min_ctas(kCta * kSplit))
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta, int kR>
+__global__ void __launch_bounds__(Layout<kSplit, kCta, kR>::kThreads,
+                                  min_ctas(Layout<kSplit, kCta, kR>::kThreads, kR))
 sweep_code_kernel(const float* __restrict__ rays, int n,
                   const float* __restrict__ pack, int n_tri_pad,
                   const int* __restrict__ tiles_on, int tile, float emit_code,
@@ -646,23 +813,19 @@ sweep_code_kernel(const float* __restrict__ rays, int n,
                   int* __restrict__ any_out, Visits visits, Segments seg) {
   __shared__ Shared<kSplit, kCta, kGate> sh;
   const int2 place = cta_place<kGate>(seg);
-  const int ray = place.x * kCta + split_ray<kSplit, kCta>();
-  const bool live = ray < n;
-  const Ray r = load_ray(rays, n, live ? ray : 0);
-  float t;
-  int code, any_hit;
+  Carry<kR> c;
+  load_rays<kSplit, kCta>(c, rays, n, place);
   sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit, kCta>(
-      r, live, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
-      CodeBounds{emit_code, min_code}, place, seg.count, t, code, any_hit, visits);
-  if (live && split_part<kSplit, kCta>() == 0) {
-    put_ray(seg, place.y, n, ray, t, code, any_hit, codes, any_out);
-  }
+      c, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
+      CodeBounds{emit_code, min_code}, place, seg.count, visits);
+  put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
 // n is a multiple of kRays, so every CTA is whole; CTA c serves gate block
 // c * kCta / 256 and emitter row emap[that block].
-template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
-__global__ void __launch_bounds__(kCta * kSplit, min_ctas(kCta * kSplit))
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta, int kR>
+__global__ void __launch_bounds__(Layout<kSplit, kCta, kR>::kThreads,
+                                  min_ctas(Layout<kSplit, kCta, kR>::kThreads, kR))
 sweep_sched_kernel(const float* __restrict__ rays, int n,
                    const float* __restrict__ pack, int n_tri_pad,
                    const float* __restrict__ masks, int n_emit,
@@ -671,61 +834,62 @@ sweep_sched_kernel(const float* __restrict__ rays, int n,
                    int* __restrict__ any_out, Visits visits, Segments seg) {
   __shared__ Shared<kSplit, kCta, kGate> sh;
   const int2 place = cta_place<kGate>(seg);
-  const int ray = place.x * kCta + split_ray<kSplit, kCta>();
-  const size_t c = blockIdx.x;
+  const size_t cta = blockIdx.x;
   const int e = emap[cta_block<kCta>(place.x)];
+  Carry<kR> c;
   if (e < 0 || e >= n_emit) {  // a row the masks do not hold sweeps nothing;
-    if (split_part<kSplit, kCta>() == 0) {  // CTA-uniform, and before any barrier
-      put_ray(seg, place.y, n, ray, kInf, -1, 0, codes, any_out);
+#pragma unroll                 // CTA-uniform, and before any barrier
+    for (int q = 0; q < kR; ++q) {
+      c.live[q] = true;
+      c.best_t[q] = kInf;
+      c.best_code[q] = -1;
+      c.any_hit[q] = 0;
     }
+    put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
     if (threadIdx.x == 0) {
-      if (visits.cta != nullptr) visits.cta[c] = 0;
+      if (visits.cta != nullptr) visits.cta[cta] = 0;
       if (kGate && gate.timeline != nullptr) {
         const long long now = global_ns();
-        gate.timeline[4 * c] = now;
-        gate.timeline[4 * c + 1] = now;
-        gate.timeline[4 * c + 2] = sm_id();
-        gate.timeline[4 * c + 3] = 0;
+        gate.timeline[4 * cta] = now;
+        gate.timeline[4 * cta + 1] = now;
+        gate.timeline[4 * cta + 2] = sm_id();
+        gate.timeline[4 * cta + 3] = 0;
       }
     }
     return;
   }
   const size_t row = static_cast<size_t>(e);
-  const Ray r = load_ray(rays, n, ray);
-  float t;
-  int code, any_hit;
+  load_rays<kSplit, kCta>(c, rays, n, place);
   sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit, kCta>(
-      r, true, pack, n_tri_pad, tiles_on + row * tiles_stride, tile,
-      masks + row * n_tri_pad, gate, sh, CombinedMask{}, place, seg.count, t, code, any_hit,
-      visits);
-  if (split_part<kSplit, kCta>() == 0) {
-    put_ray(seg, place.y, n, ray, t, code, any_hit, codes, any_out);
-  }
+      c, pack, n_tri_pad, tiles_on + row * tiles_stride, tile, masks + row * n_tri_pad, gate,
+      sh, CombinedMask{}, place, seg.count, visits);
+  put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta, int kR>
 void launch_masks(const Masks& m, const Args& a) {
   const dim3 grid((a.n + kCta - 1) / kCta * a.seg.count);
-  const int threads = kCta * kSplit;
+  const int threads = Layout<kSplit, kCta, kR>::kThreads;
   if (m.mode == kCodeMode) {
-    sweep_code_kernel<kMatrix, kAny, kGate, kSplit, kCta><<<grid, threads, 0, a.stream>>>(
+    sweep_code_kernel<kMatrix, kAny, kGate, kSplit, kCta, kR><<<grid, threads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, m.emit_code, m.min_code,
         a.gate, a.codes, a.any_out, a.visits, a.seg);
   } else if (m.mode == kBakedMode) {
-    sweep_kernel<kMatrix, kAny, true, kGate, kSplit, kCta><<<grid, threads, 0, a.stream>>>(
+    sweep_kernel<kMatrix, kAny, true, kGate, kSplit, kCta, kR><<<grid, threads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
         a.visits, a.seg);
   } else {
-    sweep_kernel<kMatrix, kAny, false, kGate, kSplit, kCta><<<grid, threads, 0, a.stream>>>(
+    sweep_kernel<kMatrix, kAny, false, kGate, kSplit, kCta, kR><<<grid, threads, 0, a.stream>>>(
         a.rays, a.n, a.pack, a.n_tri_pad, a.tiles_on, a.tile, a.gate, a.codes, a.any_out,
         a.visits, a.seg);
   }
 }
 
-template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta>
+template <bool kMatrix, bool kAny, bool kGate, int kSplit, int kCta, int kR>
 void launch_sched_gate(const Sched& s, const Args& a) {
-  sweep_sched_kernel<kMatrix, kAny, kGate, kSplit, kCta>
-      <<<a.n / kCta * a.seg.count, kCta * kSplit, 0, a.stream>>>(
+  const int threads = Layout<kSplit, kCta, kR>::kThreads;
+  sweep_sched_kernel<kMatrix, kAny, kGate, kSplit, kCta, kR>
+      <<<a.n / kCta * a.seg.count, threads, 0, a.stream>>>(
           a.rays, a.n, a.pack, a.n_tri_pad, s.masks, s.n_emit, s.emap, a.tiles_on,
           s.tiles_stride, a.tile, a.gate, a.codes, a.any_out, a.visits, a.seg);
 }
@@ -733,25 +897,25 @@ void launch_sched_gate(const Sched& s, const Args& a) {
 }  // namespace
 
 // The instantiation a launch's wanted outputs select.
-template <int kSplit, int kCta, bool kGate>
+template <int kSplit, int kCta, bool kGate, int kR>
 void launch_sweep(const Masks& m, const Args& a) {
   if (a.want_matrix && a.want_any) {
-    launch_masks<true, true, kGate, kSplit, kCta>(m, a);
+    launch_masks<true, true, kGate, kSplit, kCta, kR>(m, a);
   } else if (a.want_matrix) {
-    launch_masks<true, false, kGate, kSplit, kCta>(m, a);
+    launch_masks<true, false, kGate, kSplit, kCta, kR>(m, a);
   } else {
-    launch_masks<false, true, kGate, kSplit, kCta>(m, a);
+    launch_masks<false, true, kGate, kSplit, kCta, kR>(m, a);
   }
 }
 
-template <int kSplit, int kCta, bool kGate>
+template <int kSplit, int kCta, bool kGate, int kR>
 void launch_sweep_sched(const Sched& s, const Args& a) {
   if (a.want_matrix && a.want_any) {
-    launch_sched_gate<true, true, kGate, kSplit, kCta>(s, a);
+    launch_sched_gate<true, true, kGate, kSplit, kCta, kR>(s, a);
   } else if (a.want_matrix) {
-    launch_sched_gate<true, false, kGate, kSplit, kCta>(s, a);
+    launch_sched_gate<true, false, kGate, kSplit, kCta, kR>(s, a);
   } else {
-    launch_sched_gate<false, true, kGate, kSplit, kCta>(s, a);
+    launch_sched_gate<false, true, kGate, kSplit, kCta, kR>(s, a);
   }
 }
 

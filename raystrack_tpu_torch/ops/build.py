@@ -130,8 +130,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     # the gate: boxes, order, counts, suffmin; n_boxes, group, window,
     # n_windows; then the geometry: threads a ray, rays a CTA, tile
-    # segments and their partial results (t, code, any)
-    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    # segments, rays a thread and the segments' partial results (t, code,
+    # any)
+    gate = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
     # the block visit counts, their bitmap, its words a block
     block_visits = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     fn = lib.raystrack_sweep_rays

@@ -53,6 +53,7 @@ depends on neither (:func:`sweep_split` picks the launch's
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from functools import lru_cache
 from typing import Optional, Tuple
@@ -213,12 +214,15 @@ class SweepGeometry:
     ``kSplit``) and ``segments``, the contiguous parts a block's walk is cut
     into, each swept by a CTA of its own from a fresh carry and folded in
     order (the kernels cut an ungated launch's tiles; the plain versions a
-    gated walk's visit positions too). Every geometry gives the codes and
-    flags of the 256-ray, one-segment walk."""
+    gated walk's visit positions too), and ``per_thread``, the rays a
+    thread holds, each tested against every staged triangle the thread
+    reads: a CTA is ``rays * split // per_thread`` threads. Every geometry
+    gives the codes and flags of the 256-ray, one-segment walk."""
 
     rays: int = RAY_SUBBLOCK
     split: int = 1
     segments: int = 1
+    per_thread: int = 1  # rays a thread holds (the kernels' kR)
 
     def units(self, n_rays: int) -> int:
         """CTAs (times segments) of a launch of ``n_rays`` rays: the rows
@@ -231,24 +235,30 @@ class SweepGeometry:
         return RAY_SUBBLOCK // self.rays * self.segments
 
     @property
+    def threads(self) -> int:
+        """Threads of a CTA."""
+        return self.rays * self.split // self.per_thread
+
+    @property
     def name(self) -> str:
-        """``"64x8"``: rays a CTA x threads a ray, and ``"s2"`` after it
-        for 2 segments."""
-        return f"{self.rays}x{self.split}" + (f"s{self.segments}" if self.segments > 1 else "")
+        """``"64x8"``: rays a CTA x threads a ray, ``"r4"`` after it for 4
+        rays a thread and ``"s2"`` for 2 segments."""
+        return (f"{self.rays}x{self.split}" + (f"r{self.per_thread}" if self.per_thread > 1 else "")
+                + (f"s{self.segments}" if self.segments > 1 else ""))
 
 
 # The geometries the kernels are built at (csrc/sweep.cuh
 # RAYSTRACK_SWEEP_GEOMETRIES): a whole block a CTA at 1 or 4 threads a ray
-# ungated and at 4 gated (the geometry before CTAs served part of a block,
-# which a test or measurement forces as a bare int: the splits of the
-# whole-block CTA), and the parts of a block the rule picks.
+# ungated and at 4 gated, one ray a thread (the geometry before CTAs served
+# part of a block, which a test or measurement forces as a bare int: the
+# splits of the whole-block CTA), and the geometries the rule picks.
 UNGATED_SPLITS = (1, 4)
 GATED_SPLIT = 4
 BUILT_GEOMETRIES = {
-    False: (SweepGeometry(RAY_SUBBLOCK, 1),) + tuple(
-        SweepGeometry(RAY_SUBBLOCK, 4, g) for g in range(1, 5)),
-    True: tuple(SweepGeometry(r, k) for r, k in ((RAY_SUBBLOCK, GATED_SPLIT), (64, 8),
-                                                   (64, 16))),
+    False: (SweepGeometry(RAY_SUBBLOCK, 1), SweepGeometry(RAY_SUBBLOCK, 4),
+            SweepGeometry(RAY_SUBBLOCK, 2, 1, 4)) + tuple(
+        SweepGeometry(RAY_SUBBLOCK, 8, g, 4) for g in range(1, 5)),
+    True: (SweepGeometry(RAY_SUBBLOCK, GATED_SPLIT), SweepGeometry(64, 16, 1, 4)),
 }
 _SPLIT_BLOCKS_PER_SM = 4
 
@@ -258,64 +268,62 @@ def sweep_split(n_blocks: int, gated: bool, n_sms: int) -> SweepGeometry:
     blocks of 256 rays, gated or not, on a card of ``n_sms`` SMs: a pure
     function of the launch's shape.
 
-    A CTA of 256 threads or of 1,024 fits an SM six times or once as
-    before; one of 512 threads three times (the kernels are held to 40
-    registers a thread below 1,024 threads). A CTA serving part of a block
-    spreads its block over several SMs, and more threads a ray give the
-    rays of a heavy part more of its SM. Measured by ``chip_profile.py
-    --splits`` (my chip call 3, PR 16: NVIDIA H100 80GB HBM3, 700 W, 132
-    SMs; ms, best of 3; rays a CTA x threads a ray):
+    Every geometry it picks holds 4 rays a thread (up to 128 registers: a
+    CTA of 128 threads fits an SM four times, one of 256 twice, one of 512
+    once). Measured by ``chip_profile.py --splits`` and ``--launches
+    --force-split`` on an NVIDIA H100 80GB HBM3 at 700 W, 132 SMs (ms,
+    best of 3 and of 5):
 
-    - Gated: 64 x 16 up to a block an SM, else 64 x 8. On the 1M city's
-      ground -> city chunk, leading 32 / 132 / 192 / 264 / 528 / 1,024
-      blocks: 64 x 16 2.776 / 9.754 / 14.174 / 18.089 / 34.194 / 58.509;
-      64 x 8 3.993 / 10.970 / 15.879 / 17.871 / 33.624 / 56.920; 64 x 4
-      6.305 / 13.820 / 19.673 / 21.969 / 37.374 / 59.379; 128 x 8 4.862 /
-      11.616 / 16.730 / 18.989 / 34.859 / 55.248; 256 x 4 (the geometry
-      before) 9.065 / 15.906 / 24.783 / 24.955 / 42.719 / 60.994. The
-      ``city_plates`` round (960 blocks): 64 x 8 73.851, 64 x 4 72.496, 64 x
-      16 81.234, 128 x 8 80.838, 256 x 4 91.401. The 3e7 city's chunk (192
-      blocks, the two-level gate): 64 x 8 177.293, 64 x 16 186.226, 64 x 4
-      200.589, 128 x 8 206.963, 256 x 4 303.782. A 64-ray CTA tests 0.64-0.86
-      of the 256-ray walk's pairs: its own votes prune more.
-    - Ungated, more than four blocks an SM: a whole block at one thread a
-      ray, as before (the soup's 1,024 blocks, the rounds of thousands,
-      ex06's 6,144: small scenes' rounds lose 5-19% at four threads a ray).
-    - Ungated, up to four blocks an SM: 64 x 16 up to a quarter of a block
-      an SM; else whole blocks at 4 threads a ray when the last wave of
-      such CTAs (one an SM) is more than half full, else 128 x 8. On the
-      soup chunk's leading blocks (98,304 triangles), 256 x 4 / 128 x 8 /
-      64 x 16 (/ 256 x 1): 32 blocks 7.271 / 3.938 / 2.296 (13.927); 66:
-      7.272 / 3.937 / 4.576; 132: 7.274 / 7.862 / 9.138; 160: 14.489 /
-      11.730 / 11.373; 192: 14.506 / 11.761 / 13.640; 200: 14.502 / 15.602 /
-      15.807; 264: 14.532 / 15.709 / 18.267; 300: 21.726 / 19.556 / 22.583;
-      396: 21.789 / 23.560 / 27.390; 528: 29.049 / 31.407 / 36.514 (32.054);
-      the 3e7 city's ungated chunk (192 blocks) 4,599.8 / 3,848.4 / 4,737.2
-      ms (256 x 1: 5,607.3).
+    - Gated: 64 rays x 16 threads a ray x 4 rays a thread at every size. On
+      the 1M city's ground -> city chunk, leading 32 / 132 / 192 / 264 / 528
+      / 1,024 blocks: 64 x 16 r4 2.622 / 8.312 / 11.796 / 14.084 / 26.373 /
+      45.618; 64 x 16 2.620 / 9.194 / 13.323 / 17.189 / 32.422 / 55.530;
+      256 x 4 (whole blocks) 8.707 / 14.895 / 23.320 / 23.306 / 40.282 /
+      57.773. The ``city_plates`` round (960 blocks): 64 x 16 r4 60.826, 64 x
+      16 74.719, 256 x 4 85.098. The 3e7 city's chunk (192 blocks, the
+      two-level gate): 141.211, 160.405, 282.913.
+    - Ungated, up to four blocks an SM: whole blocks at 8 threads a ray and
+      4 rays a thread (512 threads, one CTA an SM), cut into the 1-4 tile
+      segments whose CTAs fill their last wave best (ties: the most). On
+      the soup chunk's leading blocks (98,304 triangles), 256 x 8 r4 at the
+      rule's segments / 256 x 4 / 256 x 1: 32 blocks 1.594 / 6.939 /
+      11.828; 66: 3.168 / 6.948 / 11.841; 160: 7.888 / 13.860 / 15.670;
+      192: 9.461 / 13.893 / 15.626; 200: 10.516 / 13.865 / 15.668; 300:
+      14.599 / 20.629 / 21.805; 528: 25.017 / 27.511 / 28.681; the 3e7
+      city's ungated chunk (192 blocks) 2,999.2 ms (256 x 4 4,522.5; 256 x
+      1 5,097.7).
+    - Ungated, past four blocks an SM: whole blocks at 2 threads a ray and 4
+      rays a thread (128 threads), one segment: 256 x 8 r4's CTAs of 512
+      threads each load their rays eight times and merge eight parts a
+      tile, which a scene of one or two tiles pays at every block. Soup
+      chunk (1,024 blocks) / soup8 round / ex06's row (6,144 blocks, a
+      launch) / the canyon sky's round, any-only: 256 x 2 r4 49.714 /
+      49.775 / 0.880 / 1.070; 256 x 4 r4 49.505 / 49.675 / 0.949 / 1.209;
+      256 x 8 r4 50.407 / 51.374 / 1.080 / 1.521; 256 x 1 54.554 / 58.425 /
+      0.893 / 1.117.
     """
     if n_blocks <= 0 or n_sms <= 0:
         return SweepGeometry(RAY_SUBBLOCK, 1)
     if gated:
-        return SweepGeometry(64, 16) if n_blocks <= n_sms else SweepGeometry(64, 8)
+        return SweepGeometry(64, 16, 1, 4)
     if n_blocks > _SPLIT_BLOCKS_PER_SM * n_sms:
-        return SweepGeometry(RAY_SUBBLOCK, 1)
+        return SweepGeometry(RAY_SUBBLOCK, 2, 1, 4)
 
     def fill(segments):  # the CTAs' share of the waves' slots, one CTA an SM
         ctas = n_blocks * segments
         return ctas / (-(-ctas // n_sms) * n_sms)
 
-    return SweepGeometry(RAY_SUBBLOCK, 4, max(range(1, 5), key=lambda g: (fill(g), -g)))
+    return SweepGeometry(RAY_SUBBLOCK, 8, max(range(1, 5), key=lambda g: (fill(g), g)), 4)
 
 
-def _whole_block(geo: SweepGeometry) -> SweepGeometry:
-    """The geometry the rule gave a launch before CTAs served part of a
-    block, for a launch it now gives ``geo``: a whole block a CTA at 4
-    threads a ray, one segment, where ``geo`` takes part of a block's rays
-    or tiles (every gated launch, and ungated ones up to four blocks an
-    SM), else ``geo``."""
-    if geo.rays < RAY_SUBBLOCK or geo.segments > 1:
+def _whole_block(n_blocks: int, gated: bool, n_sms: int) -> SweepGeometry:
+    """The geometry the rule gave a launch of ``n_blocks`` blocks before CTAs
+    served part of a block or held several rays a thread: a whole
+    block a CTA, one segment, one ray a thread, at 4 threads a ray gated or
+    up to four blocks an SM, else at 1."""
+    if gated or n_blocks <= _SPLIT_BLOCKS_PER_SM * n_sms:
         return SweepGeometry(RAY_SUBBLOCK, 4)
-    return geo
+    return SweepGeometry(RAY_SUBBLOCK, 1)
 
 
 def _geometry(split) -> SweepGeometry:
@@ -509,17 +517,20 @@ def _gate_tables(accel, rays: torch.Tensor, n_tiles: int, tile: int, *,
 # Kernel #1's mask modes, in the order of the C entry's ``mask_mode`` argument.
 _MASK_MODES = ("rows", "baked", "code")
 
-# The triangle splits, rays a CTA and segments the plain versions take: the
-# kernels' splits, and 2, another partition the merge must be exact on;
-# every part of a block of 256 rays down to 64; any count of segments.
+# The triangle splits, rays a CTA, rays a thread and segments the plain
+# versions take: the kernels' splits, and 2, another partition the merge
+# must be exact on; every part of a block of 256 rays down to 64; the
+# kernels' rays a thread; any count of segments.
 _SPLITS = (1, 2, 4, 8, 16)
 _CTA_RAYS = (64, 128, RAY_SUBBLOCK)
+_PER_THREAD = (1, 4)
 
 
 def _check_geometry(geo: SweepGeometry) -> None:
-    if geo.split not in _SPLITS or geo.rays not in _CTA_RAYS or geo.segments < 1:
-        raise ValueError(f"a plain sweep takes split in {_SPLITS}, rays a CTA in {_CTA_RAYS} "
-                         f"and segments >= 1 (got {geo})")
+    if (geo.split not in _SPLITS or geo.rays not in _CTA_RAYS or geo.segments < 1
+            or geo.per_thread not in _PER_THREAD):
+        raise ValueError(f"a plain sweep takes split in {_SPLITS}, rays a CTA in {_CTA_RAYS}, "
+                         f"rays a thread in {_PER_THREAD} and segments >= 1 (got {geo})")
 
 
 def _mask_mode(masks_baked: bool, code_bounds) -> str:
@@ -835,6 +846,8 @@ def sweep_rays_reference(
     swept, or the tiles any unit of each block swept: the 256-ray,
     one-segment walk's count at every geometry of one segment
     (:func:`_store_visits`; a test and measurement aid, as in the kernel).
+    ``split``'s ``per_thread`` (the rays a kernel thread holds) changes
+    nothing here: each ray's carry is its own.
     """
     geo = _geometry(split)
     _check_geometry(geo)
@@ -949,8 +962,9 @@ def _gate_args(gate: Optional[GateTables], geo: SweepGeometry, n: int,
                device: torch.device) -> tuple:
     """The C entries' gate arguments, table pointers and sizes (NULL
     pointers for an ungated sweep), then the geometry: threads a ray, rays
-    a CTA, tile segments and, past one, their partial results' buffers
-    (kept alive by the tensors returned with the arguments)."""
+    a CTA, tile segments, rays a thread and, past one segment, their
+    partial results' buffers (kept alive by the tensors returned with the
+    arguments)."""
     if gate is not None and geo.segments != 1:
         raise ValueError(f"a gated sweep runs one segment (got {geo.segments}): a later "
                          f"segment would start without the carry the gate's votes need")
@@ -961,7 +975,7 @@ def _gate_args(gate: Optional[GateTables], geo: SweepGeometry, n: int,
                  *(torch.empty((geo.segments, n), dtype=torch.int32, device=device)
                    for _ in range(2)))
         ptrs = tuple(t.data_ptr() for t in parts)
-    shape = (geo.split, geo.rays, geo.segments, *ptrs)
+    shape = (geo.split, geo.rays, geo.segments, geo.per_thread, *ptrs)
     if gate is None:
         return (None, None, None, None, 0, 1, 0, 0, *shape), parts
     return (gate.boxes.data_ptr(), gate.order.data_ptr(), gate.counts.data_ptr(),
@@ -1044,8 +1058,9 @@ def sweep_rays(
     CUDA tensors go to kernel #1 of ``csrc/sweep_kernels.cuh``, at the
     geometry :func:`sweep_split` gives for the launch's shape (launched on
     the current stream, not synchronised; ``sweep_rays.launches`` counts the
-    launches, ``sweep_rays.gated_launches`` the gated ones and
-    ``sweep_rays.code_launches`` those in code mode); CPU tensors go to
+    launches, ``sweep_rays.gated_launches`` the gated ones,
+    ``sweep_rays.code_launches`` those in code mode and
+    ``sweep_rays.geometries`` each geometry's); CPU tensors go to
     :func:`sweep_rays_reference` at the geometry an H100 launch of their
     shape would take.
     """
@@ -1091,12 +1106,14 @@ def sweep_rays(
     sweep_rays.launches += 1
     sweep_rays.gated_launches += gate is not None
     sweep_rays.code_launches += mode == "code"
+    sweep_rays.geometries[geo.name] += 1
     return codes, any_hit
 
 
 sweep_rays.launches = 0
 sweep_rays.gated_launches = 0
 sweep_rays.code_launches = 0
+sweep_rays.geometries = collections.Counter()  # launches by geometry name
 
 
 def scheduled_tiles_on(masks: torch.Tensor, tile: int, *, want_matrix: bool,
@@ -1188,7 +1205,8 @@ def sweep_rays_scheduled(
     geometry of :func:`sweep_rays` (launched on the
     current stream, not synchronised; ``sweep_rays_scheduled.launches``
     counts the launches, ``sweep_rays_scheduled.gated_launches`` the gated
-    ones); CPU tensors go to :func:`sweep_rays_scheduled_reference`.
+    ones, ``sweep_rays_scheduled.geometries`` each geometry's); CPU tensors
+    go to :func:`sweep_rays_scheduled_reference`.
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays_scheduled",
@@ -1236,11 +1254,13 @@ def sweep_rays_scheduled(
     fold()
     sweep_rays_scheduled.launches += 1
     sweep_rays_scheduled.gated_launches += gate is not None
+    sweep_rays_scheduled.geometries[geo.name] += 1
     return codes, any_hit
 
 
 sweep_rays_scheduled.launches = 0
 sweep_rays_scheduled.gated_launches = 0
+sweep_rays_scheduled.geometries = collections.Counter()  # launches by geometry name
 
 __all__ = [
     "GateTables", "SweepGeometry", "build_tri_pack", "gate_cross", "gate_cross_reference",

@@ -1683,7 +1683,7 @@ def test_every_built_geometry_equals_plain_and_whole_blocks(geometry_cases, monk
             assert sweep_rays.launches + sweep_rays_scheduled.launches == before + 1
         return codes, any_hit, v
 
-    whole = run(tcuda._whole_block(tcuda._launch_geometry(n, gated, dev)), nb)
+    whole = run(tcuda._whole_block(nb, gated, tcuda._sm_count(dev)), nb)
     got = run(geo, nb)
     for a, b in zip(got, whole):
         assert torch.equal(a, b)

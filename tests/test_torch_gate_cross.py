@@ -328,16 +328,17 @@ def test_gate_tables_blocks_are_the_named_rows_in_order():
 @pytest.mark.parametrize(
     "n_blocks,gated,n_sms,split",
     [
-        # ungated: four threads a ray up to four blocks an SM, then one
-        (1, False, 132, 4), (32, False, 132, 4), (132, False, 132, 4),
-        (133, False, 132, 4), (264, False, 132, 4), (528, False, 132, 4),
-        (529, False, 132, 1),
-        (1024, False, 132, 1),  # the soup and soup8 launches keep one thread a ray
-        (960, False, 132, 1), (60, False, 60, 4), (240, False, 60, 4), (241, False, 60, 1),
-        # gated: the blocks are uneven: 16 threads a ray up to a block an SM,
-        # then 8, at 64 rays a CTA
-        (32, True, 132, 16), (1024, True, 132, 8), (960, True, 132, 8), (3104, True, 132, 8),
-        (100000, True, 60, 8), (0, False, 132, 1), (0, True, 132, 1),
+        # ungated (four rays a thread): eight threads a ray up to four
+        # blocks an SM, then two
+        (1, False, 132, 8), (32, False, 132, 8), (132, False, 132, 8),
+        (133, False, 132, 8), (264, False, 132, 8), (528, False, 132, 8),
+        (529, False, 132, 2),
+        (1024, False, 132, 2),  # the soup and soup8 launches
+        (960, False, 132, 2), (60, False, 60, 8), (240, False, 60, 8), (241, False, 60, 2),
+        # gated: the blocks are uneven: 16 threads a ray at 64 rays a CTA
+        # (and four rays a thread)
+        (32, True, 132, 16), (1024, True, 132, 16), (960, True, 132, 16), (3104, True, 132, 16),
+        (100000, True, 60, 16), (0, False, 132, 1), (0, True, 132, 1),
     ],
 )
 def test_sweep_split_is_the_stated_function_of_the_shape(n_blocks, gated, n_sms, split):
@@ -348,15 +349,15 @@ def test_sweep_split_is_the_stated_function_of_the_shape(n_blocks, gated, n_sms,
 
 
 def test_sweep_split_never_grows_with_the_grid():
-    """The threads a CTA (rays a CTA x threads a ray) never grow with the
-    grid: 1,024 at the smallest launches, 256 ungated (512 gated) at full
-    grids."""
+    """The threads a CTA (rays a CTA x threads a ray / rays a thread) never
+    grow with the grid: gated, 256 at every size; ungated, 512 up to four
+    blocks an SM and 128 past it."""
     for gated in (False, True):
         for n_sms in (7, 60, 132):
             geos = [sweep_split(n, gated, n_sms) for n in range(7, 40 * n_sms, 7)]
-            threads = [g.rays * g.split for g in geos]
+            threads = [g.threads for g in geos]
             assert all(a >= b for a, b in zip(threads, threads[1:])), (gated, n_sms)
-            assert threads[0] == 1024 and threads[-1] == (512 if gated else 256)
+            assert (threads[0], threads[-1]) == ((256, 256) if gated else (512, 128))
 
 
 # ---------------------------------------------------------------------------

@@ -342,7 +342,7 @@ def test_geometry_units_and_forcing():
     for n_blocks in (1, 66, 160, 192, 528, 529, 1024):  # before: 4 gated, 4 or 1 ungated
         for gated in (False, True):
             before = 4 if gated or n_blocks <= 4 * 132 else 1
-            assert tcuda._whole_block(sweep_split(n_blocks, gated, 132)) == SweepGeometry(
+            assert tcuda._whole_block(n_blocks, gated, 132) == SweepGeometry(
                 256, before)
     rays = torch.zeros((9, 256))
     pack = torch.zeros((24, 128))
@@ -370,28 +370,38 @@ def test_a_gated_sweep_takes_one_segment(street):
 
 
 @pytest.mark.parametrize(
-    "n_blocks,gated,n_sms,rays,split,segments",
+    "n_blocks,gated,n_sms,rays,split,segments,per_thread",
     [
-        # ungated, up to four blocks an SM: whole blocks at 4 threads a ray,
-        # cut into the 1-4 tile segments whose CTAs fill their last wave best
-        (1, False, 132, 256, 4, 4), (33, False, 132, 256, 4, 4), (34, False, 132, 256, 4, 3),
-        (66, False, 132, 256, 4, 2), (67, False, 132, 256, 4, 3), (128, False, 132, 256, 4, 1),
-        (132, False, 132, 256, 4, 1), (160, False, 132, 256, 4, 4),
-        (192, False, 132, 256, 4, 2), (199, False, 132, 256, 4, 3),
-        (264, False, 132, 256, 4, 1), (300, False, 132, 256, 4, 3),
-        (396, False, 132, 256, 4, 1), (528, False, 132, 256, 4, 1),
-        # past four blocks an SM: whole blocks at one thread a ray
-        (529, False, 132, 256, 1, 1), (1024, False, 132, 256, 1, 1),
-        (6144, False, 132, 256, 1, 1), (60, False, 60, 256, 4, 1), (90, False, 60, 256, 4, 2),
-        (241, False, 60, 256, 1, 1),
-        # gated: 64 x 16 up to a block an SM, else 64 x 8
-        (1, True, 132, 64, 16, 1), (132, True, 132, 64, 16, 1), (133, True, 132, 64, 8, 1),
-        (192, True, 132, 64, 8, 1), (1024, True, 132, 64, 8, 1), (100000, True, 60, 64, 8, 1),
-        (0, False, 132, 256, 1, 1), (0, True, 132, 256, 1, 1),
+        # ungated, up to four blocks an SM: whole blocks at 8 threads a ray
+        # and 4 rays a thread (512 threads, one CTA an SM), cut into the 1-4
+        # tile segments whose CTAs fill their last wave best (ties: the most)
+        (1, False, 132, 256, 8, 4, 4), (32, False, 132, 256, 8, 4, 4),
+        (34, False, 132, 256, 8, 3, 4), (66, False, 132, 256, 8, 4, 4),
+        (67, False, 132, 256, 8, 3, 4), (128, False, 132, 256, 8, 4, 4),
+        (160, False, 132, 256, 8, 4, 4), (192, False, 132, 256, 8, 4, 4),
+        (200, False, 132, 256, 8, 3, 4), (300, False, 132, 256, 8, 3, 4),
+        (528, False, 132, 256, 8, 4, 4), (16, False, 60, 256, 8, 3, 4),
+        (240, False, 60, 256, 8, 4, 4), (2, False, 132, 256, 8, 4, 4),
+        (44, False, 132, 256, 8, 3, 4), (99, False, 132, 256, 8, 4, 4),
+        (400, False, 132, 256, 8, 4, 4), (28, False, 7, 256, 8, 4, 4),
+        # past four blocks an SM: whole blocks at 2 threads a ray, 4 rays a
+        # thread, one segment
+        (529, False, 132, 256, 2, 1, 4), (1024, False, 132, 256, 2, 1, 4),
+        (6144, False, 132, 256, 2, 1, 4), (241, False, 60, 256, 2, 1, 4),
+        (29, False, 7, 256, 2, 1, 4),
+        # gated: 64 x 16 at 4 rays a thread at every size
+        (1, True, 132, 64, 16, 1, 4), (132, True, 132, 64, 16, 1, 4),
+        (133, True, 132, 64, 16, 1, 4), (1024, True, 132, 64, 16, 1, 4),
+        (100000, True, 60, 64, 16, 1, 4), (7, True, 7, 64, 16, 1, 4),
+        # no blocks or no SMs: the whole block at one thread a ray
+        (0, False, 132, 256, 1, 1, 1), (0, True, 132, 256, 1, 1, 1),
+        (5, False, 0, 256, 1, 1, 1),
     ],
 )
-def test_the_rule_on_a_table_of_launch_shapes(n_blocks, gated, n_sms, rays, split, segments):
-    assert sweep_split(n_blocks, gated, n_sms) == SweepGeometry(rays, split, segments)
+def test_the_rule_on_a_table_of_launch_shapes(n_blocks, gated, n_sms, rays, split, segments,
+                                              per_thread):
+    assert sweep_split(n_blocks, gated, n_sms) == SweepGeometry(rays, split, segments,
+                                                                per_thread)
 
 
 def test_the_rule_returns_built_geometries_only():
