@@ -1,0 +1,6 @@
+"""``torch.cuda.max_memory_allocated()`` over set-up and window, GiB: how
+large a scene one card holds."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30 if run.peak_bytes else None
