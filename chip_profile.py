@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA card:
                             [--count kernel|plain] [--bvh auto|off] [--slim] [--timeline]
                             [--splits] [--variants] [--halton] [--force-split N|GEOMETRY]
                             [--launches [--tree DIR]] [--sass [--loop NAME]] [--range N]
-                            [--dump FILE]
+                            [--dump FILE [--dump-traced]]
                             [plates canyon district soup soup8 city city_matrix city_plates
                              city10m]
 
@@ -22,10 +22,14 @@ split into ten plates, ``city10m`` the ground -> city solve of the
   the device busy time (the union of CUDA kernel intervals), busy as a
   share of that traced wall time and of the untraced median, the sweep
   kernels' share of busy time, the device time of the count kernel and of
-  the torch ops under ``ops.trace.count_codes`` ("histogram": the zero
-  fill, or the whole count with ``--count plain``), of ray generation and
-  of the masks, the per-emitter chunks and scheduled rounds dispatched
-  with their rows of ``RAY_BLOCK`` rays, and device kernels per dispatch;
+  the torch ops under the program's spans (``raystrack_tpu_torch/tracing.py``):
+  ``raystrack.ops.count`` ("histogram": the count kernel, or the whole
+  count in torch ops with ``--count plain``), ray generation, the masks
+  and the gate (its tables, the crossing kernel and the ray sort), the per-emitter
+  chunks and scheduled rounds dispatched (its ``raystrack.chunk.dispatch``
+  spans, and the ``raystrack.round.build`` spans that launched a sweep),
+  the rows of ``RAY_BLOCK`` rays, real rays, pairs tested and tiles swept
+  of the program's counters, and device kernels per dispatch;
 - the largest device kernels of the last traced solve.
 
 ``--route`` picks the multi-emitter route (``RAYSTRACK_TPU_SCHEDULER``):
@@ -57,7 +61,8 @@ at one sample per m², with the Halton tables built on the card and on the host
 instantiation's registers and spills and the SASS instructions a pair of
 the sweeps' pair loops (``--loop NAME`` prints that loop). ``--dump FILE``
 instead solves each named case once and writes the dicts to FILE (run in
-two trees, equal files mean bitwise equal solves). ``--force-split N`` solves (and times
+two trees, equal files mean bitwise equal solves; with ``--dump-traced``
+each solve runs under ``torch.profiler``, so the program's tracing is on). ``--force-split N`` solves (and times
 ``--launches``) with every ungated sweep at N threads a ray, a whole block a
 CTA, or at the geometry named (``256x2r4``), instead of the rule's choice. The card's name
 and power limit come first; one JSON line ends each solve's block.
@@ -88,44 +93,56 @@ def busy_seconds(intervals) -> float:
     return total / 1e6
 
 
-# functions whose device time is reported apart: label -> names, in ops.trace
-# unless prefixed "trace_cuda."
+# the program's spans whose device time is reported apart, by label
 STAGES = {
-    "histogram": ("count_codes",),
-    "raygen": ("generate_rays", "scheduled_rays"),
-    "masks": ("emitter_operands", "slim_operands", "combined_masks"),
-    "gate": ("_sorted_for_gate", "trace_cuda._gate_tables"),
+    "histogram": "raystrack.ops.count",
+    "raygen": "raystrack.ops.raygen",
+    "masks": "raystrack.ops.masks",
+    "gate": "raystrack.ops.gate",
 }
 
 
 def stage_device_us(event) -> float:
-    """Device microseconds of the torch kernels launched under a CPU event
-    and its descendants. The profiler also files a stage annotation's own
-    device-side span under it: left out. It files the kernels launched
-    through ctypes under no op, so those are timed by name instead."""
-    own = sum(k.duration for k in event.kernels if k.name not in STAGES)
-    return own + sum(stage_device_us(ch) for ch in event.cpu_children)
+    """Device microseconds of the kernels launched under a CPU event and its
+    descendants: the torch ops' and, under a program span, the hand-written
+    kernels' launched through ctypes (outside every span the profiler files
+    those under no op)."""
+    return (sum(k.duration for k in event.kernels)
+            + sum(stage_device_us(ch) for ch in event.cpu_children))
+
+
+def _holds(event, name: str) -> bool:
+    """Whether a CPU event has a descendant named ``name``."""
+    return any(ch.name == name or _holds(ch, name) for ch in event.cpu_children)
 
 
 def traced_solve(solve):
     """One solve under torch.profiler: (wall s, device kernel events, device
-    seconds per STAGES label)."""
+    seconds per STAGES label, chunks and rounds dispatched, the change of
+    the program's counters). Chunks and rounds are the program's
+    ``raystrack.chunk.dispatch`` spans and its ``raystrack.round.build``
+    spans that launched a sweep."""
     from torch.profiler import ProfilerActivity, profile
 
+    from raystrack_tpu_torch import tracing
+
+    before = tracing.counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    moved = tracing.since(before)
     events = prof.events()
-    # the stage annotations also appear as device-side spans: not kernels
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in STAGES]
-    stages = {label: sum(stage_device_us(e) for e in events if e.name == label
-                         and e.device_type == torch.autograd.DeviceType.CPU) / 1e6
-              for label in STAGES}
-    return wall, kernels, stages
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    stages = {label: sum(stage_device_us(e) for e in cpu if e.name == span) / 1e6
+              for label, span in STAGES.items()}
+    chunks = sum(e.name == "raystrack.chunk.dispatch" for e in cpu)
+    rounds = sum(e.name == "raystrack.round.build" and _holds(e, "raystrack.ops.sweep")
+                 for e in cpu)
+    return wall, kernels, stages, chunks, rounds, moved
 
 
 def plain_count(codes, n_valid, n_surf, *, valid=None):
@@ -160,45 +177,10 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
     print(f"[{name}] route {route}, count {count}, {'slim' if slim else 'full'} pack: "
           f"untraced warm solve {chip_smoke.spread(warm)}")
 
-    chunks, chunk_rows, rounds = [], [], []
-    dispatch = solver_mod._EmitterRun.dispatch_chunk
-    real_round = trace_mod.scheduled_trace
-    from raystrack_tpu_torch.ops import trace_cuda
-
-    def owner(fn):
-        """(module, attribute) of a STAGES name."""
-        mod, _, attr = fn.rpartition(".")
-        return (trace_cuda if mod == "trace_cuda" else trace_mod), attr
-
-    real_stage = {fn: getattr(*owner(fn)) for names in STAGES.values() for fn in names}
-
-    def counted(self, chunk, **kwargs):
-        chunks.append(chunk)
-        chunk_rows.append(chunk * self.em_pack.n_rays_pad // RAY_BLOCK)
-        return dispatch(self, chunk, **kwargs)
-
-    def counted_round(*args, **kwargs):
-        rounds.append(int(args[10].shape[0]))  # schedule rows
-        return real_round(*args, **kwargs)
-
-    def labelled(label, fn):
-        def run(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        return run
-
     runs = []
-    solver_mod._EmitterRun.dispatch_chunk = counted
-    trace_mod.scheduled_trace = counted_round
-    for label, names in STAGES.items():
-        for fn in names:
-            setattr(*owner(fn), labelled(label, real_stage[fn]))
     try:
         for i in range(n_traced):
-            chunks.clear()
-            chunk_rows.clear()
-            rounds.clear()
-            wall, kernels, stages = traced_solve(solve)
+            wall, kernels, stages, chunks, rounds, moved = traced_solve(solve)
             if not kernels:
                 raise SystemExit(f"FAILED: {name}: the trace holds no device kernel")
             busy = busy_seconds((e.time_range.start, e.time_range.end) for e in kernels)
@@ -206,22 +188,23 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                         if any(k in e.name for k in ("sweep_kernel", "sweep_code_kernel",
                                                      "sweep_sched_kernel"))) / 1e6
             # the gate's per-call tables and the coherence sort: torch ops and
-            # the crossing kernel, which the profiler files under no op
+            # the crossing kernel (also timed by name)
             cross = sum(e.time_range.elapsed_us() for e in kernels
                         if "gate_cross_kernel" in e.name) / 1e6
-            gate = stages["gate"] + cross
+            gate = stages["gate"]
             count_k = sum(e.time_range.elapsed_us() for e in kernels
                           if "count_codes_kernel" in e.name) / 1e6
-            dispatches = len(chunks) + len(rounds)
+            rows = moved["rays_padded"] // RAY_BLOCK
             run = dict(wall_s=wall, busy_s=busy, busy_share=busy / wall,
                        busy_share_of_untraced_median=busy / median,
                        sweep_s=sweep, sweep_share_of_busy=sweep / busy,
                        histogram_s=stages["histogram"], count_kernel_s=count_k,
                        raygen_s=stages["raygen"],
                        masks_s=stages["masks"], gate_s=gate, gate_cross_kernel_s=cross,
-                       chunks=len(chunks), chunk_rows=sum(chunk_rows), rounds=len(rounds),
-                       round_rows=list(rounds),
-                       kernels_per_dispatch=len(kernels) / max(1, dispatches))
+                       chunks=chunks, rounds=rounds, rows=rows,
+                       rays_real=moved["rays_real"], pairs_tested=moved["pairs_tested"],
+                       tiles_swept=moved["tiles_swept"], tiles_offered=moved["tiles_offered"],
+                       kernels_per_dispatch=len(kernels) / max(1, chunks + rounds))
             runs.append(run)
             print(f"[{name}] traced run {i + 1}: wall {wall:.4f} s, busy {busy:.4f} s "
                   f"= {run['busy_share']:.1%} of it ({run['busy_share_of_untraced_median']:.1%} "
@@ -231,15 +214,11 @@ def profile_case(name, meshes, params, reps: int, n_traced: int, card: str,
                   f"raygen {stages['raygen'] * 1e3:.3f} ms, "
                   f"masks {stages['masks'] * 1e3:.3f} ms, gate tables and ray sort "
                   f"{gate * 1e3:.3f} ms (crossing kernel {cross * 1e3:.3f} ms); "
-                  f"{len(chunks)} chunks "
-                  f"({sum(chunks)} iterations, {sum(chunk_rows)} rows), {len(rounds)} rounds "
-                  f"({sum(rounds)} rows), "
+                  f"{chunks} chunks and {rounds} rounds ({rows} rows of {RAY_BLOCK} rays, "
+                  f"{moved['rays_real']} real rays), {moved['pairs_tested'] / 1e9:.4f} Gpairs "
+                  f"tested on {moved['tiles_swept']} of {moved['tiles_offered']} tiles offered, "
                   f"{run['kernels_per_dispatch']:.1f} device kernels per chunk or round")
     finally:
-        solver_mod._EmitterRun.dispatch_chunk = dispatch
-        trace_mod.scheduled_trace = real_round
-        for fn, f in real_stage.items():
-            setattr(*owner(fn), f)
         trace_mod.count_codes = real_count
 
     by_name = {}
@@ -775,19 +754,29 @@ def profile_variants(card: str) -> None:
     print(json.dumps({"variants": rows, "card": card}))
 
 
-def dump_solves(names, cases, path: str, card: str) -> None:
+def dump_solves(names, cases, path: str, card: str, traced: bool = False) -> None:
     """Solve each case once with ``view_factor_matrix`` (a fresh
     ``PreparedSolver``) and write the dicts to ``path`` as JSON (keys
     sorted, floats as Python prints them, so two trees' files are equal
     exactly when every entry is): the check that a kernel change left every
-    solve's result bitwise as it was."""
+    solve's result bitwise as it was. ``traced`` runs each solve under
+    ``torch.profiler`` (host and card), which turns the program's tracing
+    on: equal files then mean tracing changes no result."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
     from raystrack_tpu_torch import PreparedSolver, view_factor_matrix
 
     out = {}
     for name in names:
         meshes, params = cases[name]
-        out[name] = view_factor_matrix(meshes, params, prepared=PreparedSolver(meshes))
-        print(f"[dump] {name}: {len(out[name])} rows", flush=True)
+        prepared = PreparedSolver(meshes)
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()):
+            out[name] = view_factor_matrix(meshes, params, prepared=prepared)
+        print(f"[dump] {name}: {len(out[name])} rows{' (traced)' if traced else ''}",
+              flush=True)
     Path(path).write_text(json.dumps({"solves": out, "card": card}, sort_keys=True))
 
 
@@ -843,6 +832,8 @@ def main() -> int:
     parser.add_argument("--sass", action="store_true")
     parser.add_argument("--dump", default=None,
                         help="solve the named cases once and write their dicts to this file")
+    parser.add_argument("--dump-traced", action="store_true",
+                        help="with --dump, solve under torch.profiler (tracing on)")
     parser.add_argument("--loop", action="append", default=[],
                         help="with --sass, print this instantiation's pair loop")
     parser.add_argument("--tree", default=None,
@@ -904,7 +895,7 @@ def main() -> int:
     if "city10m" in args.solves:  # built only on request: 10M triangles on the host
         cases["city10m"] = (chip_smoke.city_meshes(chip_smoke.BIG_CITY_TRIS), cases["city"][1])
     if args.dump:
-        dump_solves(args.solves, cases, args.dump, card)
+        dump_solves(args.solves, cases, args.dump, card, args.dump_traced)
         return 0
     for name in args.solves:
         meshes, params = cases[name]

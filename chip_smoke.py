@@ -2006,9 +2006,12 @@ def logged(fn):
 
 def trace_kernels(trace_dir: Path) -> dict:
     """{kernel name: launches} of the CUDA kernels in the Chrome traces
-    ``RAYSTRACK_TPU_PROFILE`` wrote into ``trace_dir``."""
+    ``RAYSTRACK_TPU_PROFILE`` wrote into ``trace_dir`` (not the counters
+    beside them)."""
     counts = {}
-    for path in trace_dir.glob("matrix_solve.*.json"):
+    for path in trace_dir.glob("raystrack.solve.matrix.*.json"):
+        if path.name.endswith(".counts.json"):
+            continue
         for ev in json.loads(path.read_text())["traceEvents"]:
             if ev.get("cat") == "kernel":
                 counts[ev["name"]] = counts.get(ev["name"], 0) + 1
@@ -3036,7 +3039,7 @@ def sweep_replay(args, kwargs) -> tuple:
         return lib.raystrack_sweep_rays(
             rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad, tiles_on.data_ptr(), tile,
             int(wm), int(wa), tc._MASK_MODES.index(mode), 0.0, 0.0, *shape,
-            codes.data_ptr(), any_hit.data_ptr(), None, None, None, 0, None, stream)
+            codes.data_ptr(), any_hit.data_ptr(), None, None, None, 0, None, None, stream)
 
     launch.parts = parts  # the tile segments' buffers live as long as the launch
 

@@ -14,6 +14,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import tracing as _tracing
 from .params import MatrixParams, SkyParams
 from .prepared import PreparedSolver
 from .solver import (
@@ -52,6 +53,7 @@ def _scale_sky_row(sky_row: Dict[str, float], scale: float, discrete: bool) -> f
     return float(sky_row["Sky"])
 
 
+@_tracing.solve("workflow")
 def view_factor_outside_workflow(
     meshes: List[Mesh],
     *,
@@ -120,58 +122,59 @@ def view_factor_outside_workflow(
         for name, _, _ in meshes:
             stats[name] = {**m_stats.get(name, {}), **s_stats.get(name, {})}
 
-    mesh_names = [name for name, _, _ in meshes]
+    with _tracing.span("raystrack.solve.rows"):
+        mesh_names = [name for name, _, _ in meshes]
 
-    if enforce_scene:
-        scene_totals = [max(0.0, _row_sum(vf_scene.get(n, {}))) for n in mesh_names]
-        _enforce_reciprocity_and_rowsum(vf_scene, meshes, None, row_targets=scene_totals)
+        if enforce_scene:
+            scene_totals = [max(0.0, _row_sum(vf_scene.get(n, {}))) for n in mesh_names]
+            _enforce_reciprocity_and_rowsum(vf_scene, meshes, None, row_targets=scene_totals)
 
-    # First clamp pass: cap sky so scene + sky <= 1 (+threshold).
-    sky_totals: Dict[str, float] = {}
-    for emitter in mesh_names:
-        scene_sum = _row_sum(vf_scene.get(emitter, {}))
-        sky_row = dict(sky_vf.get(emitter, {}))
-        sky_total = _sky_row_total(sky_row, discrete)
-        if scene_sum + sky_total > 1.0 + threshold and sky_total > 0.0:
-            allowed = max(0.0, 1.0 - scene_sum)
-            sky_total = _scale_sky_row(sky_row, min(1.0, allowed / sky_total), discrete)
-            sky_vf[emitter] = sky_row
-        sky_totals[emitter] = max(0.0, sky_total)
+        # First clamp pass: cap sky so scene + sky <= 1 (+threshold).
+        sky_totals: Dict[str, float] = {}
+        for emitter in mesh_names:
+            scene_sum = _row_sum(vf_scene.get(emitter, {}))
+            sky_row = dict(sky_vf.get(emitter, {}))
+            sky_total = _sky_row_total(sky_row, discrete)
+            if scene_sum + sky_total > 1.0 + threshold and sky_total > 0.0:
+                allowed = max(0.0, 1.0 - scene_sum)
+                sky_total = _scale_sky_row(sky_row, min(1.0, allowed / sky_total), discrete)
+                sky_vf[emitter] = sky_row
+            sky_totals[emitter] = max(0.0, sky_total)
 
-    if enforce_scene:
-        targets = [max(0.0, 1.0 - sky_totals.get(n, 0.0)) for n in mesh_names]
-        _enforce_reciprocity_and_rowsum(vf_scene, meshes, None, row_targets=targets)
-    elif reciprocity_flag:
-        _enforce_reciprocity_only(vf_scene, meshes)
+        if enforce_scene:
+            targets = [max(0.0, 1.0 - sky_totals.get(n, 0.0)) for n in mesh_names]
+            _enforce_reciprocity_and_rowsum(vf_scene, meshes, None, row_targets=targets)
+        elif reciprocity_flag:
+            _enforce_reciprocity_only(vf_scene, meshes)
 
-    # Second pass after enforcement: re-clamp and compute the residual.
-    rest_vf: VFDict = {}
-    for emitter in mesh_names:
-        scene_sum = _row_sum(vf_scene.get(emitter, {}))
-        sky_row = dict(sky_vf.get(emitter, {}))
-        sky_total = _sky_row_total(sky_row, discrete)
+        # Second pass after enforcement: re-clamp and compute the residual.
+        rest_vf: VFDict = {}
+        for emitter in mesh_names:
+            scene_sum = _row_sum(vf_scene.get(emitter, {}))
+            sky_row = dict(sky_vf.get(emitter, {}))
+            sky_total = _sky_row_total(sky_row, discrete)
 
-        combined = scene_sum + sky_total
-        if combined > 1.0 + threshold and sky_total > 0.0:
-            allowed = max(0.0, 1.0 - scene_sum)
-            if allowed <= 0.0:
-                sky_row = {key: 0.0 for key in sky_row}
-                sky_total = 0.0
-            else:
-                sky_total = _scale_sky_row(
-                    sky_row, min(1.0, allowed / sky_total), discrete
-                )
-            sky_vf[emitter] = sky_row
             combined = scene_sum + sky_total
+            if combined > 1.0 + threshold and sky_total > 0.0:
+                allowed = max(0.0, 1.0 - scene_sum)
+                if allowed <= 0.0:
+                    sky_row = {key: 0.0 for key in sky_row}
+                    sky_total = 0.0
+                else:
+                    sky_total = _scale_sky_row(
+                        sky_row, min(1.0, allowed / sky_total), discrete
+                    )
+                sky_vf[emitter] = sky_row
+                combined = scene_sum + sky_total
 
-        residual = 1.0 - combined
-        if abs(residual) <= threshold:
-            residual = 0.0
-        rest_vf[emitter] = {"Rest": residual}
+            residual = 1.0 - combined
+            if abs(residual) <= threshold:
+                residual = 0.0
+            rest_vf[emitter] = {"Rest": residual}
 
-    if return_stats:
-        return vf_scene, sky_vf, rest_vf, stats
-    return vf_scene, sky_vf, rest_vf
+        if return_stats:
+            return vf_scene, sky_vf, rest_vf, stats
+        return vf_scene, sky_vf, rest_vf
 
 
 __all__ = ["view_factor_outside_workflow"]

@@ -111,6 +111,8 @@ bool bad_gate(const Gate& g) {
 // count of swept tiles; `block_visits` (NULL, or one int per block of 256 rays, zeroed)
 // each block's count of tiles any of its CTAs swept, through `swept` (then
 // a zeroed bitmap of `swept_words` >= ceil(tiles / 32) words a block);
+// `work` (NULL, or two int64 the launch adds to) the tiles its CTAs swept
+// and the pairs they tested (struct Visits);
 // `timeline` (NULL, or four int64 per CTA; gated launches only) each CTA's
 // start and end on the card's nanosecond timer, its SM and the visit
 // positions it walked.
@@ -125,19 +127,20 @@ extern "C" int raystrack_sweep_rays(const float* rays, int n, const float* pack,
                                     int* seg_any,
                                     int* codes, int* any_out, int* visits,
                                     int* block_visits, unsigned* swept, int swept_words,
-                                    long long* timeline, void* stream) {
+                                    unsigned long long* work, long long* timeline,
+                                    void* stream) {
   const Gate gate{boxes, order, counts, suffmin, timeline, n_boxes, group, window, n_windows};
   const bool gated = order != nullptr;
   if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any, split, rays_cta, gated,
                 per_thread) ||
       bad_gate(gate) || mask_mode < kRowsMode || mask_mode > kCodeMode ||
-      bad_visits(Visits{visits, block_visits, swept, swept_words}, reach(n_tri_pad, tile, gate)) ||
+      bad_visits(Visits{visits, block_visits, swept, swept_words, work}, reach(n_tri_pad, tile, gate)) ||
       bad_segments(Segments{segments, seg_t, seg_code, seg_any}, gated)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
   const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, want_matrix, want_any, gate,
-               codes, any_out, Visits{visits, block_visits, swept, swept_words},
+               codes, any_out, Visits{visits, block_visits, swept, swept_words, work},
                Segments{segments, seg_t, seg_code, seg_any}, static_cast<cudaStream_t>(stream)};
   const Masks m{mask_mode, emit_code, min_code};
 #define RAYSTRACK_LAUNCH(S, C, G, R)                                   \
@@ -161,19 +164,20 @@ extern "C" int raystrack_sweep_rays_scheduled(
     const int* counts, const float* suffmin, int n_boxes, int group, int window,
     int n_windows, int split, int rays_cta, int segments, int per_thread, float* seg_t,
     int* seg_code, int* seg_any, int* codes, int* any_out, int* visits, int* block_visits,
-    unsigned* swept, int swept_words, long long* timeline, void* stream) {
+    unsigned* swept, int swept_words, unsigned long long* work, long long* timeline,
+    void* stream) {
   const Gate gate{boxes, order, counts, suffmin, timeline, n_boxes, group, window, n_windows};
   const bool gated = order != nullptr;
   if (bad_shape(n, n_tri_pad, tile, want_matrix, want_any, split, rays_cta, gated,
                 per_thread) ||
       bad_gate(gate) || n % kRays != 0 || n_emit < 0 || tiles_stride < n_tri_pad / tile ||
-      bad_visits(Visits{visits, block_visits, swept, swept_words}, reach(n_tri_pad, tile, gate)) ||
+      bad_visits(Visits{visits, block_visits, swept, swept_words, work}, reach(n_tri_pad, tile, gate)) ||
       bad_segments(Segments{segments, seg_t, seg_code, seg_any}, gated)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
   const Args a{rays, n, pack, n_tri_pad, tiles_on, tile, want_matrix, want_any, gate,
-               codes, any_out, Visits{visits, block_visits, swept, swept_words},
+               codes, any_out, Visits{visits, block_visits, swept, swept_words, work},
                Segments{segments, seg_t, seg_code, seg_any}, static_cast<cudaStream_t>(stream)};
   const Sched s{masks, n_emit, emap, tiles_stride};
 #define RAYSTRACK_LAUNCH(S, C, G, R)                                   \

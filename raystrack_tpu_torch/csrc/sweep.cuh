@@ -34,12 +34,16 @@ struct Gate {
 // before the launch, the tiles any CTA serving the block swept (the
 // 256-ray walk's count at every geometry), tallied through `swept`, a
 // zeroed bitmap of `words` words a block: a CTA sets a tile's bit when it
-// sweeps it and counts the tile when the bit was clear.
+// sweeps it and counts the tile when the bit was clear. `work` (NULL, or
+// two int64) receives the launch's work, summed over its CTAs: the tiles
+// swept, and the pairs tested (each swept tile's triangles times the CTA's
+// rays below n); thread 0 of each CTA adds its share once, at its end.
 struct Visits {
   int* cta;
   int* block;
   unsigned* swept;
   int words;
+  unsigned long long* work;
 };
 
 // Tile segments of an ungated launch: `count` CTAs serve each part of a

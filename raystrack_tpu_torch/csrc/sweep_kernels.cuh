@@ -615,10 +615,11 @@ __device__ __forceinline__ int next_on(const int* __restrict__ tiles_on, int fro
 // "settled". Thread 0 writes the CTA's count of swept tiles to
 // `visits.cta[blockIdx.x]`, marks each in the block's row of `visits.swept`
 // (see struct Visits), each when it is given, and a gated CTA writes its
-// times to row blockIdx.x of `gate.timeline`.
+// times to row blockIdx.x of `gate.timeline`. Returns the count, the same
+// in every thread of the CTA.
 template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, int kSplit, int kCta,
           int kR, class Elig>
-__device__ __forceinline__ void sweep_ray(Carry<kR>& c, const float* __restrict__ pack,
+__device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__ pack,
                                           int n_tri_pad, const int* __restrict__ tiles_on,
                                           int tile, const float* __restrict__ mask_row,
                                           const Gate& gate, Shared<kSplit, kCta, kGate>& sh,
@@ -728,6 +729,20 @@ __device__ __forceinline__ void sweep_ray(Carry<kR>& c, const float* __restrict_
     }
   }
   if (visits.cta != nullptr && threadIdx.x == 0) visits.cta[blockIdx.x] = n_swept;
+  return n_swept;
+}
+
+// The CTA's share of the launch's work, when it is counted (`visits.work`):
+// its swept tiles, and the pairs they held, each tile's triangles against
+// the CTA's rays below n. Thread 0 adds both, once, at the CTA's end.
+template <int kCta>
+__device__ __forceinline__ void count_work(const Visits& visits, int n_swept, int tile, int n,
+                                           int2 place) {
+  if (visits.work == nullptr || threadIdx.x != 0 || n_swept == 0) return;
+  const int below = n - place.x * kCta;
+  const unsigned long long rays = below < kCta ? below : kCta;
+  atomicAdd(visits.work, static_cast<unsigned long long>(n_swept));
+  atomicAdd(visits.work + 1, static_cast<unsigned long long>(n_swept) * tile * rays);
 }
 
 // A ray's result: the launch's outputs, or its segment's row of the
@@ -797,9 +812,10 @@ sweep_kernel(const float* __restrict__ rays, int n,
   // threads past the last ray still load stages and reach every barrier
   Carry<kR> c;
   load_rays<kSplit, kCta>(c, rays, n, place);
-  sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit, kCta>(
+  const int n_swept = sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit, kCta>(
       c, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
       PackMasks<!kBaked, !(kBaked && !kAny)>{}, place, seg.count, visits);
+  count_work<kCta>(visits, n_swept, tile, n, place);
   put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
@@ -815,9 +831,10 @@ sweep_code_kernel(const float* __restrict__ rays, int n,
   const int2 place = cta_place<kGate>(seg);
   Carry<kR> c;
   load_rays<kSplit, kCta>(c, rays, n, place);
-  sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit, kCta>(
+  const int n_swept = sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit, kCta>(
       c, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
       CodeBounds{emit_code, min_code}, place, seg.count, visits);
+  count_work<kCta>(visits, n_swept, tile, n, place);
   put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
@@ -860,9 +877,10 @@ sweep_sched_kernel(const float* __restrict__ rays, int n,
   }
   const size_t row = static_cast<size_t>(e);
   load_rays<kSplit, kCta>(c, rays, n, place);
-  sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit, kCta>(
+  const int n_swept = sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit, kCta>(
       c, pack, n_tri_pad, tiles_on + row * tiles_stride, tile, masks + row * n_tri_pad, gate,
       sh, CombinedMask{}, place, seg.count, visits);
+  count_work<kCta>(visits, n_swept, tile, n, place);
   put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 

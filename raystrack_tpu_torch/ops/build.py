@@ -145,7 +145,7 @@ def load_library() -> ctypes.CDLL:
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
         *block_visits,
-        ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # work, timeline, stream
     ]
     fn.restype = ctypes.c_int
     fn = lib.raystrack_count_codes
@@ -174,7 +174,7 @@ def load_library() -> ctypes.CDLL:
         *gate,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, any, visits
         *block_visits,
-        ctypes.c_void_p, ctypes.c_void_p,  # timeline, stream
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # work, timeline, stream
     ]
     fn.restype = ctypes.c_int
     lib.raystrack_empty.argtypes = [ctypes.c_void_p]  # stream

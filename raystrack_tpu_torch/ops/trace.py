@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config import PALLAS_TRI_TILE
+from ..tracing import spanned
 from .count_cuda import count_bins, count_codes
 from .trace_cuda import (
     RAY_SUBBLOCK, build_tri_pack, gate_prunes, sweep_rays, sweep_rays_scheduled,
@@ -50,6 +51,7 @@ from .tregenza import TREGENZA_BINS, tregenza_patch_id
 TWO_PI = 6.283185307179586
 
 
+@spanned("raystrack.ops.raygen")
 def generate_rays(tables: Tuple, geom: Tuple, cp: torch.Tensor):
     """Ray origins and directions for ``chunk`` iterations.
 
@@ -147,6 +149,7 @@ def _gate_accel(accel, n_tri_pad: int, tri_tile: int):
     return accel if gate_prunes(accel, n_tri_pad, tri_tile) else None
 
 
+@spanned("raystrack.ops.gate")
 def _sorted_for_gate(o, d, valid, accel):
     """The rays sorted for the gate (:func:`sort_rays_for_coherence` within
     each row, against the scene box of ``accel``)."""
@@ -198,6 +201,7 @@ def compute_masks_slim(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_si
     return m_any, m_mat
 
 
+@spanned("raystrack.ops.masks")
 def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
                    plane_vec) -> torch.Tensor:
     """The (E, Tpad) f32 combined eligibility rows ``m_any + m_mat`` in
@@ -223,6 +227,7 @@ def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
     return (m_any & keep).to(torch.float32) + (m_mat & keep).to(torch.float32)
 
 
+@spanned("raystrack.ops.masks")
 def emitter_operands(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
                      plane_vec=None, *, want_any: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,6 +241,7 @@ def emitter_operands(scene: Tuple, surf_active_ext, emit_sid: int, min_sid: int,
     return build_tri_pack(scene, m_any, m_mat, bake=primary), primary
 
 
+@spanned("raystrack.ops.masks")
 def slim_operands(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_sid: int, *,
                   want_any: bool = False) -> Tuple[torch.Tensor, Tuple[float, float]]:
     """A slim scene's counterpart of :func:`emitter_operands`, beside the
@@ -256,6 +262,7 @@ def _count_rows(codes: torch.Tensor, valid, n_valid: torch.Tensor, n_surf: int):
     return count_codes(codes, n_valid, n_surf)
 
 
+@spanned("raystrack.ops.count")
 def _outputs(codes, any_hit, d, valid, n_valid, n_surf: int, *, want_matrix: bool,
              want_any: bool, discrete: bool) -> Dict[str, torch.Tensor]:
     """The per-row counts of one sweep's (rows, L) ``codes`` and ``any_hit``
@@ -348,6 +355,7 @@ def chunk_body(
                     discrete=discrete)
 
 
+@spanned("raystrack.ops.raygen")
 def scheduled_rays(tables_flat: Tuple, geom_stacked: Tuple, cp: torch.Tensor,
                    n_rays_once: torch.Tensor, schedule: torch.Tensor, sel: torch.Tensor,
                    *, sched_block: int):

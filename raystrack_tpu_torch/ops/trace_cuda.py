@@ -61,6 +61,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import config as _cfg
+from .. import tracing as _tracing
 
 INF = 1.0e20
 TRI_ROWS = 24  # 19 used; the pack keeps the JAX package's row count
@@ -754,6 +755,26 @@ def _store_visits(visits: Optional[torch.Tensor], n: int, geo: SweepGeometry, pe
                          f"got {visits.shape[0]}")
 
 
+def _count_work(per_unit: torch.Tensor, n: int, geo: SweepGeometry, tile: int) -> None:
+    """A plain sweep's ``tiles_swept`` and ``pairs_tested`` (``tracing``)
+    from its per-unit visits, as the kernels count theirs: each unit's
+    tiles, times the tile's triangles and the rays below ``n`` of its CTA."""
+    if not _tracing.on():
+        return
+    units = per_unit.long().cpu()
+    below = n - torch.arange(units.shape[0]) // geo.segments * geo.rays
+    _tracing.add(tiles_swept=int(units.sum()),
+                 pairs_tested=int((units * below.clamp(max=geo.rays)).sum()) * tile)
+
+
+def _count_launch(n: int, geo: SweepGeometry, n_tiles: int) -> None:
+    """A sweep launch's ``rays_padded`` and ``tiles_offered`` (``tracing``):
+    its rays, and its CTAs of rays times its tiles (the tile segments of a
+    CTA's rays share them)."""
+    if _tracing.on():
+        _tracing.add(rays_padded=n, tiles_offered=-(-n // geo.rays) * n_tiles)
+
+
 def _fold_timeline(rows: torch.Tensor, out: torch.Tensor, geo: SweepGeometry) -> None:
     """A per-block timeline ``out`` (blocks, 4) from the launch's per-CTA
     ``rows``: the earliest start, the latest end, the SM of the block's
@@ -856,6 +877,7 @@ def sweep_rays_reference(
         want_any=want_any, mode=_mask_mode(masks_baked, code_bounds),
         code_bounds=None if code_bounds is None else _code_bounds(code_bounds))
     _store_visits(visits, rays.shape[1], geo, per_unit, per_block)
+    _count_work(per_unit, rays.shape[1], geo, tile)
     return codes, any_out
 
 
@@ -912,8 +934,9 @@ def _gate_for(accel, rays: torch.Tensor, n_tri_pad: int, tile: int, tri_tile: in
             raise TypeError(f"accel {name} must be a torch.Tensor")
         _check(f"accel {name}", t, torch.float32, (grains, 3), device)
     n_tiles = n_tri_pad // tile
-    return _gate_tables(accel, rays, n_tiles, tile,
-                        window=_resolve_gate_window(gate_group_size(n_tiles)))
+    with _tracing.span("raystrack.ops.gate"):
+        return _gate_tables(accel, rays, n_tiles, tile,
+                            window=_resolve_gate_window(gate_group_size(n_tiles)))
 
 
 def _gated_tiles_on(tiles_on: torch.Tensor, gate: Optional[GateTables]) -> torch.Tensor:
@@ -983,11 +1006,14 @@ def _gate_args(gate: Optional[GateTables], geo: SweepGeometry, n: int,
             gate.group, gate.window, int(gate.suffmin.shape[1]), *shape), parts
 
 
-def _debug_args(visits, timeline, n: int, geo: SweepGeometry, n_tiles: int):
-    """The C entries' visit and timeline arguments for the caller's
+def _debug_args(visits, timeline, n: int, geo: SweepGeometry, n_tiles: int,
+                device: torch.device):
+    """The C entries' visit, work and timeline arguments for the caller's
     ``visits`` and ``timeline`` (each one row per block of 256 rays or one
-    per CTA; :func:`_store_visits`), what folds a per-CTA timeline into the
-    caller's per-block one after the launch, and the buffers the arguments
+    per CTA; :func:`_store_visits`) and, while tracing is on, the work
+    counters of ``device`` (``tracing.device_work``), what folds a per-CTA
+    timeline into the caller's per-block one after the launch, and the
+    buffers the arguments
     point into, which the caller holds until the launch is enqueued (freed
     earlier, the allocator would hand their memory to the next buffer the
     launch writes). A per-block count at a geometry of several CTAs a block
@@ -1007,11 +1033,14 @@ def _debug_args(visits, timeline, n: int, geo: SweepGeometry, n_tiles: int):
     if timeline is not None and timeline.shape[0] != n_units:
         rows = torch.zeros((n_units, 4), dtype=torch.int64, device=timeline.device)
 
+    work = _tracing.device_work(device) if _tracing.on() else None
+
     def fold():
         if rows is not timeline:
             _fold_timeline(rows, timeline, geo)
 
-    return (_ptr(cta), _ptr(block), _ptr(swept), words, _ptr(rows)), fold, (swept, rows)
+    return ((_ptr(cta), _ptr(block), _ptr(swept), words, _ptr(work), _ptr(rows)), fold,
+            (swept, rows))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -1062,7 +1091,11 @@ def sweep_rays(
     ``sweep_rays.code_launches`` those in code mode and
     ``sweep_rays.geometries`` each geometry's); CPU tensors go to
     :func:`sweep_rays_reference` at the geometry an H100 launch of their
-    shape would take.
+    shape would take. While a profiler records (``tracing``), the call is
+    the span ``raystrack.ops.sweep`` (the gate's tables before it,
+    ``raystrack.ops.gate``) and adds to the work counters: its rays and
+    tiles offered here, the tiles swept and pairs tested in the kernel (or
+    the plain version).
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays",
@@ -1072,42 +1105,46 @@ def sweep_rays(
     mode = _mask_mode(masks_baked, code_bounds)
     emit_code, min_code = _code_bounds(code_bounds) if mode == "code" else (0.0, 0.0)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
-    geo = _launch_geometry(n, gate is not None, device)
-    _check_visits(visits, n, device, geo, timeline, gate is not None)
-    tiles_on = _gated_tiles_on(sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
+    with _tracing.span("raystrack.ops.sweep"):
+        geo = _launch_geometry(n, gate is not None, device)
+        _check_visits(visits, n, device, geo, timeline, gate is not None)
+        _count_launch(n, geo, n_tri_pad // tile)
+        tiles_on = _gated_tiles_on(
+            sweep_mask.reshape(-1, tile).any(dim=1).to(torch.int32), gate)
 
-    if device.type == "cpu":
-        return sweep_rays_reference(
-            rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
-            want_any=want_any, masks_baked=masks_baked, code_bounds=code_bounds,
-            gate=gate, visits=visits, split=geo,
-        )
+        if device.type == "cpu":
+            return sweep_rays_reference(
+                rays, tri_pack, tiles_on, tile, want_matrix=want_matrix,
+                want_any=want_any, masks_baked=masks_baked, code_bounds=code_bounds,
+                gate=gate, visits=visits, split=geo,
+            )
 
-    from .build import load_library
+        from .build import load_library
 
-    lib = load_library()
-    codes = torch.empty((n,), dtype=torch.int32, device=device)
-    any_hit = torch.empty((n,), dtype=torch.int32, device=device)
-    if n == 0:  # nothing to launch
+        lib = load_library()
+        codes = torch.empty((n,), dtype=torch.int32, device=device)
+        any_hit = torch.empty((n,), dtype=torch.int32, device=device)
+        if n == 0:  # nothing to launch
+            return codes, any_hit
+        debug, fold, _held = _debug_args(visits, timeline, n, geo, int(tiles_on.shape[0]),
+                                         device)
+        shape, _parts = _gate_args(gate, geo, n, device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.raystrack_sweep_rays(
+                rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
+                tiles_on.data_ptr(), tile,
+                int(want_matrix), int(want_any), _MASK_MODES.index(mode), emit_code, min_code,
+                *shape, codes.data_ptr(), any_hit.data_ptr(), *debug, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
+        fold()
+        sweep_rays.launches += 1
+        sweep_rays.gated_launches += gate is not None
+        sweep_rays.code_launches += mode == "code"
+        sweep_rays.geometries[geo.name] += 1
         return codes, any_hit
-    debug, fold, _held = _debug_args(visits, timeline, n, geo, int(tiles_on.shape[0]))
-    shape, _parts = _gate_args(gate, geo, n, device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.raystrack_sweep_rays(
-            rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
-            tiles_on.data_ptr(), tile,
-            int(want_matrix), int(want_any), _MASK_MODES.index(mode), emit_code, min_code,
-            *shape, codes.data_ptr(), any_hit.data_ptr(), *debug, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
-    fold()
-    sweep_rays.launches += 1
-    sweep_rays.gated_launches += gate is not None
-    sweep_rays.code_launches += mode == "code"
-    sweep_rays.geometries[geo.name] += 1
-    return codes, any_hit
 
 
 sweep_rays.launches = 0
@@ -1175,6 +1212,7 @@ def sweep_rays_scheduled_reference(
         per_unit[(blocks[:, None] * per + torch.arange(per, device=device)).reshape(-1)] = units
         per_block[blocks] = block
     _store_visits(visits, n, geo, per_unit, per_block)
+    _count_work(per_unit, n, geo, tile)
     return codes, any_out
 
 
@@ -1206,7 +1244,8 @@ def sweep_rays_scheduled(
     current stream, not synchronised; ``sweep_rays_scheduled.launches``
     counts the launches, ``sweep_rays_scheduled.gated_launches`` the gated
     ones, ``sweep_rays_scheduled.geometries`` each geometry's); CPU tensors
-    go to :func:`sweep_rays_scheduled_reference`.
+    go to :func:`sweep_rays_scheduled_reference`. Traced as
+    :func:`sweep_rays`.
     """
     device, n, n_tri_pad, tile = _check_common(
         rays, tri_pack, want_matrix, want_any, tri_tile, "sweep_rays_scheduled",
@@ -1220,42 +1259,45 @@ def sweep_rays_scheduled(
         raise ValueError(f"sweep_rays_scheduled takes a multiple of {RAY_SUBBLOCK} rays")
     _check("emap", emap, torch.int32, (n // RAY_SUBBLOCK,), device)
     gate = _gate_for(accel, rays, n_tri_pad, tile, tri_tile, device)
-    geo = _launch_geometry(n, gate is not None, device)
-    _check_visits(visits, n, device, geo, timeline, gate is not None)
-    tiles_on = _gated_tiles_on(
-        scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
+    with _tracing.span("raystrack.ops.sweep"):
+        geo = _launch_geometry(n, gate is not None, device)
+        _check_visits(visits, n, device, geo, timeline, gate is not None)
+        _count_launch(n, geo, n_tri_pad // tile)
+        tiles_on = _gated_tiles_on(
+            scheduled_tiles_on(masks, tile, want_matrix=want_matrix, want_any=want_any), gate)
 
-    if device.type == "cpu":
-        return sweep_rays_scheduled_reference(
-            rays, tri_pack, masks, emap, tiles_on, tile,
-            want_matrix=want_matrix, want_any=want_any, gate=gate, visits=visits,
-            split=geo,
-        )
+        if device.type == "cpu":
+            return sweep_rays_scheduled_reference(
+                rays, tri_pack, masks, emap, tiles_on, tile,
+                want_matrix=want_matrix, want_any=want_any, gate=gate, visits=visits,
+                split=geo,
+            )
 
-    from .build import load_library
+        from .build import load_library
 
-    lib = load_library()
-    codes = torch.empty((n,), dtype=torch.int32, device=device)
-    any_hit = torch.empty((n,), dtype=torch.int32, device=device)
-    if n == 0:  # nothing to launch
+        lib = load_library()
+        codes = torch.empty((n,), dtype=torch.int32, device=device)
+        any_hit = torch.empty((n,), dtype=torch.int32, device=device)
+        if n == 0:  # nothing to launch
+            return codes, any_hit
+        debug, fold, _held = _debug_args(visits, timeline, n, geo, int(tiles_on.shape[1]),
+                                         device)
+        shape, _parts = _gate_args(gate, geo, n, device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.raystrack_sweep_rays_scheduled(
+                rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
+                masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(),
+                int(tiles_on.shape[1]), tile, int(want_matrix), int(want_any),
+                *shape, codes.data_ptr(), any_hit.data_ptr(), *debug, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"scheduled sweep kernel launch failed: CUDA error {err}")
+        fold()
+        sweep_rays_scheduled.launches += 1
+        sweep_rays_scheduled.gated_launches += gate is not None
+        sweep_rays_scheduled.geometries[geo.name] += 1
         return codes, any_hit
-    debug, fold, _held = _debug_args(visits, timeline, n, geo, int(tiles_on.shape[1]))
-    shape, _parts = _gate_args(gate, geo, n, device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.raystrack_sweep_rays_scheduled(
-            rays.data_ptr(), n, tri_pack.data_ptr(), n_tri_pad,
-            masks.data_ptr(), n_emit, emap.data_ptr(), tiles_on.data_ptr(),
-            int(tiles_on.shape[1]), tile, int(want_matrix), int(want_any),
-            *shape, codes.data_ptr(), any_hit.data_ptr(), *debug, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"scheduled sweep kernel launch failed: CUDA error {err}")
-    fold()
-    sweep_rays_scheduled.launches += 1
-    sweep_rays_scheduled.gated_launches += gate is not None
-    sweep_rays_scheduled.geometries[geo.name] += 1
-    return codes, any_hit
 
 
 sweep_rays_scheduled.launches = 0

@@ -47,7 +47,8 @@ package:
   seconds, a snapshot of each pending one's monitors; the JAX package's
   layout and fingerprint), ``row_sink=`` streams the matrix's rows as they
   complete (``_OrderedRowSink``), and ``RAYSTRACK_TPU_PROFILE=<dir>``
-  writes a ``torch.profiler`` trace of the matrix solve.
+  writes a ``torch.profiler`` trace of each public solve and its work
+  counters (``tracing.py``: the spans and counters a profiler records).
 
 A scene of ``SLIM_PACK_MIN_TRIS`` padded triangles or more is packed slim
 (``prepared.pack_scene``): the device holds one operand pack for the whole
@@ -62,7 +63,6 @@ the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 import os
@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from . import config as _cfg
+from . import tracing as _tracing
 from .config import RAY_BLOCK
 from .convergence import MatrixMonitor, SkyMonitor, plan_chunk
 from .ops import trace as _trace
@@ -284,37 +285,6 @@ class _OrderedRowSink:
             self._next += 1
 
 
-def _maybe_profiler():
-    """Optional ``torch.profiler`` capture, enabled by
-    ``RAYSTRACK_TPU_PROFILE=<dir>``.
-
-    Returns a callable producing a context manager: while it is open the
-    profiler records CPU and (with a card) CUDA activity under
-    ``record_function(name)``, and on exit it writes a Chrome trace
-    ``<dir>/<name>.<pid>.<ns>.json``. Unset, the context manager does
-    nothing.
-    """
-    trace_dir = os.environ.get("RAYSTRACK_TPU_PROFILE")
-    if not trace_dir:
-        return lambda name: contextlib.nullcontext()
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    @contextlib.contextmanager
-    def annotated(name: str):
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            with record_function(name):
-                yield
-        out = Path(trace_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / f"{name}.{os.getpid()}.{time.time_ns()}.json"))
-
-    return annotated
-
-
 def _build_emitter_surface_mask(
     idx_emit: int,
     emitter: PreparedEmitter,
@@ -453,6 +423,7 @@ class _EmitterRun:
         slim scene's resident pack stays with its scene pack."""
         self.packs.clear()
 
+    @_tracing.spanned("raystrack.chunk.dispatch")
     def dispatch_chunk(self, chunk: int, *, want_matrix: bool, want_any: bool,
                        discrete: bool) -> Callable[[], Dict[str, np.ndarray]]:
         """Queue ``chunk`` iterations of the outputs the three flags pick
@@ -468,6 +439,8 @@ class _EmitterRun:
             cp = cp.pin_memory()
         flags = dict(want_matrix=want_matrix, want_any=want_any, discrete=discrete)
         n_surf, n_once = self.scene_pack.n_surf, self.em_pack.n_rays_once
+        if _tracing.on():
+            _tracing.add(rays_real=chunk * n_once)
         devices = self.mesh.distinct
         ops = {d: self.operands(want_any, d) for d in devices}
         packs = {d: self._packs_on(d) for d in devices}
@@ -477,17 +450,19 @@ class _EmitterRun:
             {d: _emission_geometry(em) for d, (_, em) in packs.items()}, cp, n_surf,
             n_once, accel={d: sp.accel for d, (sp, _) in packs.items()},
             code_bounds=ops[self.device][2], **flags)
-        if not on_card:
-            return lambda: {k: v.numpy() for k, v in out.items()}
-        # copy now, behind this chunk's work only: waiting on the event
-        # leaves later emitters' chunks running on the card
-        host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
+        ready = None
+        if on_card:
+            # copy now, behind this chunk's work only: waiting on the event
+            # leaves later emitters' chunks running on the card
+            out = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
 
         def harvest() -> Dict[str, np.ndarray]:
-            ready.synchronize()
-            return {k: v.numpy() for k, v in host.items()}
+            with _tracing.span("raystrack.chunk.wait"):
+                if ready is not None:
+                    ready.synchronize()
+            return {k: v.numpy() for k, v in out.items()}
 
         return harvest
 
@@ -628,18 +603,19 @@ def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bo
             break
         entry, harvest, chunk = inflight.popleft()
         host = harvest()
-        mon = entry["monitor"]
-        for k in range(chunk):
+        with _tracing.span("raystrack.chunk.consume"):
+            mon = entry["monitor"]
+            for k in range(chunk):
+                if mon.done:
+                    break
+                consume(mon, host, k)
+            # rewind past discarded speculative iterations
+            entry["run"].itr_next = mon.iters_done
             if mon.done:
-                break
-            consume(mon, host, k)
-        # rewind past discarded speculative iterations
-        entry["run"].itr_next = mon.iters_done
-        if mon.done:
-            _entry_done(entry)
-        else:
-            _entry_progress(entry)
-            queue.append(entry)
+                _entry_done(entry)
+            else:
+                _entry_progress(entry)
+                queue.append(entry)
 
 
 def _consume_sky(mon: SkyMonitor, host, rows, discrete: bool) -> None:
@@ -735,14 +711,15 @@ def _drive_combined_pipelined(entries, *, discrete: bool, depth: int = 3) -> Non
             break
         entry, harvest, chunk, m_pending, s_pending = inflight.popleft()
         host = harvest()
-        for k in range(chunk):
-            _consume_both(entry, host, slice(k, k + 1), discrete, m_pending, s_pending)
-        entry["run"].itr_next = entry["trace_iters"]
-        if all(m.done for m in _entry_monitors(entry)):
-            _entry_done(entry)
-        else:
-            _entry_progress(entry)
-            queue.append(entry)
+        with _tracing.span("raystrack.chunk.consume"):
+            for k in range(chunk):
+                _consume_both(entry, host, slice(k, k + 1), discrete, m_pending, s_pending)
+            entry["run"].itr_next = entry["trace_iters"]
+            if all(m.done for m in _entry_monitors(entry)):
+                _entry_done(entry)
+            else:
+                _entry_progress(entry)
+                queue.append(entry)
 
 
 @dataclass
@@ -816,20 +793,21 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
     # device -> (scene operands, tri_pack, flat tables, geometry stack, accel)
     replicas: Dict[torch.device, Tuple] = {}
-    for dev in mesh.distinct:
-        sp = (scene_pack if dev == device
-              else prepared_solver.get_scene_pack(use_accel=use_bvh, device=dev))
-        # offsets and n_pad: host arrays, the same on every device
-        tables_flat, geom_stacked, offsets, n_pad = prepared_solver.get_flat_tables(
-            samples=p["samples"], rays=p["rays"], flip_faces=flip_faces,
-            align=align, device=dev,
-        )
-        scene_t = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
-        # one pack with zero mask rows serves every emitter of every round:
-        # kernel #2 takes eligibility from the per-round combined mask rows
-        no_mask = torch.zeros_like(sp.sid, dtype=torch.bool)
-        replicas[dev] = (scene_t, build_tri_pack(scene_t, no_mask, no_mask), tables_flat,
-                         geom_stacked, sp.accel)
+    with _tracing.span("raystrack.round.setup"):
+        for dev in mesh.distinct:
+            sp = (scene_pack if dev == device
+                  else prepared_solver.get_scene_pack(use_accel=use_bvh, device=dev))
+            # offsets and n_pad: host arrays, the same on every device
+            tables_flat, geom_stacked, offsets, n_pad = prepared_solver.get_flat_tables(
+                samples=p["samples"], rays=p["rays"], flip_faces=flip_faces,
+                align=align, device=dev,
+            )
+            scene_t = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
+            # one pack with zero mask rows serves every emitter of every round:
+            # kernel #2 takes eligibility from the per-round combined mask rows
+            no_mask = torch.zeros_like(sp.sid, dtype=torch.bool)
+            replicas[dev] = (scene_t, build_tri_pack(scene_t, no_mask, no_mask), tables_flat,
+                             geom_stacked, sp.accel)
 
     def entry_pending(entry) -> bool:
         return any(not m.done for m in _entry_monitors(entry))
@@ -865,6 +843,7 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     ]
     fuse_rounds = _cfg.SCHED_FUSE_ROUNDS or 1
 
+    @_tracing.spanned("raystrack.round.build")
     def build_round(pending) -> Optional[_Round]:
         """Plan the next convergence round(s) over ``pending`` and dispatch
         them without waiting. Returns None when no entry has plannable
@@ -913,6 +892,9 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                 break
         if not plan:
             return None
+        if _tracing.on():
+            _tracing.add(rays_real=sum(chunk * entry["run"].em_pack.n_rays_once
+                                       for entry, _, _, chunk in plan))
 
         # the round's emitter rows: only the emitters it references
         by_entry = {entry["idx"]: entry for entry, *_ in plan}
@@ -952,17 +934,19 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         return _Round(host, ready, plan, n_rows)
 
     def consume_round(round_: _Round) -> None:
-        if round_.ready is not None:
-            round_.ready.synchronize()
-        host = _trace.unpack_outputs(round_.host.numpy(), round_.n_rows, n_surf,
-                                     want_matrix=want_matrix, want_any=want_any,
-                                     discrete=discrete)
-        for entry, start_row, bpi, chunk in round_.plan:
-            consume(entry, host, start_row, bpi, chunk)
-            if not entry_pending(entry):
-                _entry_done(entry)
-            else:
-                _entry_progress(entry)
+        with _tracing.span("raystrack.round.wait"):
+            if round_.ready is not None:
+                round_.ready.synchronize()
+        with _tracing.span("raystrack.round.consume"):
+            host = _trace.unpack_outputs(round_.host.numpy(), round_.n_rows, n_surf,
+                                         want_matrix=want_matrix, want_any=want_any,
+                                         discrete=discrete)
+            for entry, start_row, bpi, chunk in round_.plan:
+                consume(entry, host, start_row, bpi, chunk)
+                if not entry_pending(entry):
+                    _entry_done(entry)
+                else:
+                    _entry_progress(entry)
 
     pipeline = _cfg.SCHED_PIPELINE > 0
     inflight: Optional[_Round] = None
@@ -1270,6 +1254,7 @@ def _sky_row(monitor: SkyMonitor, discrete: bool) -> Tuple[Dict, Dict]:
             {"Sky": float(monitor.sky_w.stderr())})
 
 
+@_tracing.solve("matrix")
 def view_factor_matrix(
     meshes: List[Mesh],
     params: MatrixParams,
@@ -1290,7 +1275,8 @@ def view_factor_matrix(
     solves; without it an implicit content-keyed cache does the same
     (``RAYSTRACK_TPU_PREPARED_CACHE=0`` turns it off). Set
     ``RAYSTRACK_TPU_PROFILE=<dir>`` to write a ``torch.profiler`` Chrome
-    trace of the solve into ``<dir>``.
+    trace of the solve and its work counters into ``<dir>``
+    (:func:`tracing.solve`).
 
     A CUDA solve of more than one emitter goes through the whole-scene
     scheduled driver; ``RAYSTRACK_TPU_SCHEDULER=grouped`` sends it emitter
@@ -1332,150 +1318,150 @@ def view_factor_matrix(
     if not isinstance(params, MatrixParams):
         raise TypeError("params must be a MatrixParams instance")
     p = params.as_dict()
-    device, mesh = _placements(mesh, p["device"])
-    # CPU solves check convergence every iteration; the interval only
-    # batches checks on the card
-    interval = 1 if device.type == "cpu" else p["convergence_interval"]
-    prepared_solver = _ensure_prepared(meshes, prepared)
-    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
-    reciprocity = bool(p["reciprocity"])
-    flip_faces = bool(p["flip_faces"])
+    with _tracing.span("raystrack.solve.entries"):
+        device, mesh = _placements(mesh, p["device"])
+        # CPU solves check convergence every iteration; the interval only
+        # batches checks on the card
+        interval = 1 if device.type == "cpu" else p["convergence_interval"]
+        prepared_solver = _ensure_prepared(meshes, prepared)
+        use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+        reciprocity = bool(p["reciprocity"])
+        flip_faces = bool(p["flip_faces"])
 
-    result: VFDict = {name: {} for name, _, _ in meshes}
-    stats_result: VFDict = {}
-    profiler = _maybe_profiler()
-    store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
-    emitters = prepared_solver.get_emitters(
-        samples=p["samples"], rays=p["rays"], flip_faces=flip_faces
-    )
-    areas = [e.total_area for e in emitters] if reciprocity else None
-    bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-    align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
-    scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
-    # a slim (pack-resident) scene goes emitter by emitter: that driver
-    # sweeps the resident pack as it is, where the scheduled one would
-    # assemble a second pack from per-triangle fields a slim scene does
-    # not hold
-    use_scheduler = not scene_pack.slim and _use_scheduler(
-        device, emitters, p["rays"], align)
+        result: VFDict = {name: {} for name, _, _ in meshes}
+        stats_result: VFDict = {}
+        store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
+        emitters = prepared_solver.get_emitters(
+            samples=p["samples"], rays=p["rays"], flip_faces=flip_faces
+        )
+        areas = [e.total_area for e in emitters] if reciprocity else None
+        bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
+        align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
+        scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+        # a slim (pack-resident) scene goes emitter by emitter: that driver
+        # sweeps the resident pack as it is, where the scheduled one would
+        # assemble a second pack from per-triangle fields a slim scene does
+        # not hold
+        use_scheduler = not scene_pack.slim and _use_scheduler(
+            device, emitters, p["rays"], align)
 
-    n_surf = len(meshes)
-    n_restored = 0
-    # Reciprocity lands back-fill in other emitters' rows; the ordered
-    # coordinator defers each sink until its row's back-fill is complete.
-    ordered_sink = (
-        _OrderedRowSink(row_sink, [name for name, _, _ in meshes])
-        if (row_sink is not None and reciprocity)
-        else None
-    )
-    # Phase 1: restore checkpoints, skip emitters with no receivers, build
-    # the work list
-    entries: List[Dict] = []
-    for idx_emit, (name_e, _, _) in enumerate(meshes):
-        saved = store.load(idx_emit) if store is not None else None
-        if saved is not None:
-            result[name_e].update(saved["row"])
-            for other, back_entries in saved.get("backfill", {}).items():
-                result[other].update(back_entries)
-            stats_result[name_e] = saved.get("stats", {})
-            n_restored += 1
-            # re-sunk: the stream of the stopped solve did not outlive it
-            if ordered_sink is not None:
-                ordered_sink.finish(idx_emit, saved["row"], saved.get("backfill", {}))
-            elif row_sink is not None:
-                row_sink(name_e, saved["row"])
-            _log(
-                f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from "
-                f"checkpoint ({len(saved['row'])} receivers)"
+        n_surf = len(meshes)
+        n_restored = 0
+        # Reciprocity lands back-fill in other emitters' rows; the ordered
+        # coordinator defers each sink until its row's back-fill is complete.
+        ordered_sink = (
+            _OrderedRowSink(row_sink, [name for name, _, _ in meshes])
+            if (row_sink is not None and reciprocity)
+            else None
+        )
+        # Phase 1: restore checkpoints, skip emitters with no receivers, build
+        # the work list
+        entries: List[Dict] = []
+        for idx_emit, (name_e, _, _) in enumerate(meshes):
+            saved = store.load(idx_emit) if store is not None else None
+            if saved is not None:
+                result[name_e].update(saved["row"])
+                for other, back_entries in saved.get("backfill", {}).items():
+                    result[other].update(back_entries)
+                stats_result[name_e] = saved.get("stats", {})
+                n_restored += 1
+                # re-sunk: the stream of the stopped solve did not outlive it
+                if ordered_sink is not None:
+                    ordered_sink.finish(idx_emit, saved["row"], saved.get("backfill", {}))
+                elif row_sink is not None:
+                    row_sink(name_e, saved["row"])
+                _log(
+                    f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from "
+                    f"checkpoint ({len(saved['row'])} receivers)"
+                )
+                continue
+            emitter = emitters[idx_emit]
+            surf_active = _build_emitter_surface_mask(
+                idx_emit, emitter, bounds_center, bounds_extent
             )
-            continue
-        emitter = emitters[idx_emit]
-        surf_active = _build_emitter_surface_mask(
-            idx_emit, emitter, bounds_center, bounds_extent
-        )
-        receivers, recv_idx = _matrix_active_receivers(
-            idx_emit, n_surf, reciprocity, surf_active
-        )
-        if not receivers:
-            _log(_progress_line(idx_emit, n_surf, name_e, 0, 0, 0.0, use_bvh, device))
-            stats_result[name_e] = {}
+            receivers, recv_idx = _matrix_active_receivers(
+                idx_emit, n_surf, reciprocity, surf_active
+            )
+            if not receivers:
+                _log(_progress_line(idx_emit, n_surf, name_e, 0, 0, 0.0, use_bvh, device))
+                stats_result[name_e] = {}
+                if store is not None:
+                    store.save(idx_emit, name_e, {}, {}, {})
+                if ordered_sink is not None:
+                    # traces nothing itself, but its row still collects earlier
+                    # emitters' back-fill (e.g. the LAST emitter under
+                    # reciprocity, whose whole row is back-fill)
+                    ordered_sink.finish(idx_emit, {}, {})
+                continue
+
+            emit_sid, min_sid = _matrix_skip(idx_emit, reciprocity)
+            run = _emitter_run(prepared_solver, p, idx_emit, surf_active, emit_sid, min_sid,
+                               flip_faces=flip_faces, scene_pack=scene_pack, device=device,
+                               mesh=mesh, lazy=use_scheduler)
+            monitor = MatrixMonitor(
+                n_surf, recv_idx,
+                n_rays_once=run.em_pack.n_rays_once,
+                tol=p["tol"], tol_mode=p["tol_mode"],
+                min_iters=p["min_iters"], interval=interval,
+                max_iters=p["max_iters"],
+            )
+            entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
+                         receivers=receivers, surf_active=surf_active,
+                         emit_sid=emit_sid, min_sid=min_sid)
             if store is not None:
-                store.save(idx_emit, name_e, {}, {}, {})
+                store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
+            entries.append(entry)
+
+        def _assemble(entry) -> None:
+            """Build the emitter's row, back-fill and stats as it converges,
+            checkpoint it and sink its row, so a solve stopped later keeps every
+            finished emitter."""
+            idx_emit, name_e = entry["idx"], entry["name"]
+            row, stats_row, backfill = _matrix_row(
+                entry["monitor"], entry["receivers"], meshes, idx_emit, reciprocity, areas)
+            entry.update(row=row, stats=stats_row, backfill=backfill)
+            if store is not None:
+                store.save(idx_emit, name_e, row, backfill, stats_row)
             if ordered_sink is not None:
-                # traces nothing itself, but its row still collects earlier
-                # emitters' back-fill (e.g. the LAST emitter under
-                # reciprocity, whose whole row is back-fill)
-                ordered_sink.finish(idx_emit, {}, {})
-            continue
+                ordered_sink.finish(idx_emit, row, backfill)
+            elif row_sink is not None:
+                row_sink(name_e, row)
 
-        emit_sid, min_sid = _matrix_skip(idx_emit, reciprocity)
-        run = _emitter_run(prepared_solver, p, idx_emit, surf_active, emit_sid, min_sid,
-                           flip_faces=flip_faces, scene_pack=scene_pack, device=device,
-                           mesh=mesh, lazy=use_scheduler)
-        monitor = MatrixMonitor(
-            n_surf, recv_idx,
-            n_rays_once=run.em_pack.n_rays_once,
-            tol=p["tol"], tol_mode=p["tol_mode"],
-            min_iters=p["min_iters"], interval=interval,
-            max_iters=p["max_iters"],
-        )
-        entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
-                     receivers=receivers, surf_active=surf_active,
-                     emit_sid=emit_sid, min_sid=min_sid)
-        if store is not None:
-            store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
-        entries.append(entry)
-
-    def _assemble(entry) -> None:
-        """Build the emitter's row, back-fill and stats as it converges,
-        checkpoint it and sink its row, so a solve stopped later keeps every
-        finished emitter."""
-        idx_emit, name_e = entry["idx"], entry["name"]
-        row, stats_row, backfill = _matrix_row(
-            entry["monitor"], entry["receivers"], meshes, idx_emit, reciprocity, areas)
-        entry.update(row=row, stats=stats_row, backfill=backfill)
-        if store is not None:
-            store.save(idx_emit, name_e, row, backfill, stats_row)
-        if ordered_sink is not None:
-            ordered_sink.finish(idx_emit, row, backfill)
-        elif row_sink is not None:
-            row_sink(name_e, row)
-
-    t_solve = _start_entries(entries, _assemble)
+        t_solve = _start_entries(entries, _assemble)
 
     # Phase 2: whole-scene scheduled dispatches when possible, then the
     # pipelined per-emitter driver for whatever is left (single emitters,
     # emitters too big for a round)
-    with profiler("matrix_solve"):
-        if len(entries) > 1 and use_scheduler:
-            _drive_matrix_scheduled(
-                entries, prepared_solver, p, flip_faces, align, scene_pack, device, n_surf,
-                mesh=mesh,
-            )
-        _drive_matrix_pipelined(entries)
+    if len(entries) > 1 and use_scheduler:
+        _drive_matrix_scheduled(
+            entries, prepared_solver, p, flip_faces, align, scene_pack, device, n_surf,
+            mesh=mesh,
+        )
+    _drive_matrix_pipelined(entries)
     solve_s = time.time() - t_solve
 
-    # Phase 3: merge rows into the result in emitter order
-    for entry in entries:
-        idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
-        result[name_e].update(entry["row"])
-        for name_r, back_entries in entry["backfill"].items():
-            result[name_r].update(back_entries)
-        stats_result[name_e] = entry["stats"]
-        _log(
-            _progress_line(
-                idx_emit, n_surf, name_e, monitor.iters_done,
-                monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
+    with _tracing.span("raystrack.solve.rows"):
+        # Phase 3: merge rows into the result in emitter order
+        for entry in entries:
+            idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
+            result[name_e].update(entry["row"])
+            for name_r, back_entries in entry["backfill"].items():
+                result[name_r].update(back_entries)
+            stats_result[name_e] = entry["stats"]
+            _log(
+                _progress_line(
+                    idx_emit, n_surf, name_e, monitor.iters_done,
+                    monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
+                )
             )
-        )
-    if n_restored:
-        _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
+        if n_restored:
+            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
 
-    if p["enforce_reciprocity_rowsum"]:
-        _enforce_reciprocity_and_rowsum(result, meshes, areas)
-    if return_stats:
-        return result, stats_result
-    return result
+        if p["enforce_reciprocity_rowsum"]:
+            _enforce_reciprocity_and_rowsum(result, meshes, areas)
+        if return_stats:
+            return result, stats_result
+        return result
 
 
 def view_factor(
@@ -1492,6 +1478,7 @@ def view_factor(
     return {name: vf_all.get(name, {}) for name in (s[0] for s in senders)}
 
 
+@_tracing.solve("sky")
 def view_factor_to_tregenza_sky(
     meshes: List[Mesh],
     params: SkyParams,
@@ -1526,62 +1513,63 @@ def view_factor_to_tregenza_sky(
     if len(meshes) == 0:
         raise ValueError("meshes must not be empty")
 
-    p = params.as_dict()
-    discrete = bool(p["discrete"])
-    device, mesh = _placements(mesh, p["device"])
-    interval = 1 if device.type == "cpu" else p["convergence_interval"]
-    prepared_solver = _ensure_prepared(meshes, prepared)
-    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
-    emitters = prepared_solver.get_emitters(
-        samples=p["samples"], rays=p["rays"], flip_faces=False
-    )
-    bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-    align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
-    scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
-    # slim (pack-resident) scenes take the per-emitter driver only
-    use_scheduler = not scene_pack.slim and _use_scheduler(
-        device, emitters, p["rays"], align)
+    with _tracing.span("raystrack.solve.entries"):
+        p = params.as_dict()
+        discrete = bool(p["discrete"])
+        device, mesh = _placements(mesh, p["device"])
+        interval = 1 if device.type == "cpu" else p["convergence_interval"]
+        prepared_solver = _ensure_prepared(meshes, prepared)
+        use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+        emitters = prepared_solver.get_emitters(
+            samples=p["samples"], rays=p["rays"], flip_faces=False
+        )
+        bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
+        align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
+        scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+        # slim (pack-resident) scenes take the per-emitter driver only
+        use_scheduler = not scene_pack.slim and _use_scheduler(
+            device, emitters, p["rays"], align)
 
-    result: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
-    stats_result: VFDict = {}
-    store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
-    n_surf = len(meshes)
-    n_restored = 0
-    entries: List[Dict] = []
-    if n_surf > 1:
-        for idx_emit, (name_e, _, _) in enumerate(meshes):
-            saved = store.load(idx_emit) if store is not None else None
-            if saved is not None:
-                result[name_e].update(saved["row"])
-                stats_result[name_e] = saved.get("stats", {})
-                n_restored += 1
-                _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
-                continue
-            surf_active = _build_emitter_surface_mask(
-                idx_emit, emitters[idx_emit], bounds_center, bounds_extent
-            )
-            run = _emitter_run(prepared_solver, p, idx_emit, surf_active, idx_emit, 0,
-                               flip_faces=False, scene_pack=scene_pack, device=device,
-                               mesh=mesh, lazy=use_scheduler)
-            monitor = SkyMonitor(
-                discrete=discrete,
-                n_rays_once=run.em_pack.n_rays_once,
-                tol=p["tol"], tol_mode=p["tol_mode"],
-                min_iters=p["min_iters"], interval=interval,
-                max_iters=p["max_iters"],
-            )
-            entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
-                         surf_active=surf_active, emit_sid=idx_emit, min_sid=0)
+        result: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
+        stats_result: VFDict = {}
+        store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
+        n_surf = len(meshes)
+        n_restored = 0
+        entries: List[Dict] = []
+        if n_surf > 1:
+            for idx_emit, (name_e, _, _) in enumerate(meshes):
+                saved = store.load(idx_emit) if store is not None else None
+                if saved is not None:
+                    result[name_e].update(saved["row"])
+                    stats_result[name_e] = saved.get("stats", {})
+                    n_restored += 1
+                    _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
+                    continue
+                surf_active = _build_emitter_surface_mask(
+                    idx_emit, emitters[idx_emit], bounds_center, bounds_extent
+                )
+                run = _emitter_run(prepared_solver, p, idx_emit, surf_active, idx_emit, 0,
+                                   flip_faces=False, scene_pack=scene_pack, device=device,
+                                   mesh=mesh, lazy=use_scheduler)
+                monitor = SkyMonitor(
+                    discrete=discrete,
+                    n_rays_once=run.em_pack.n_rays_once,
+                    tol=p["tol"], tol_mode=p["tol_mode"],
+                    min_iters=p["min_iters"], interval=interval,
+                    max_iters=p["max_iters"],
+                )
+                entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
+                             surf_active=surf_active, emit_sid=idx_emit, min_sid=0)
+                if store is not None:
+                    store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
+                entries.append(entry)
+
+        def _assemble(entry) -> None:
+            entry["row"], entry["stats"] = _sky_row(entry["monitor"], discrete)
             if store is not None:
-                store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
-            entries.append(entry)
+                store.save(entry["idx"], entry["name"], entry["row"], {}, entry["stats"])
 
-    def _assemble(entry) -> None:
-        entry["row"], entry["stats"] = _sky_row(entry["monitor"], discrete)
-        if store is not None:
-            store.save(entry["idx"], entry["name"], entry["row"], {}, entry["stats"])
-
-    t_solve = _start_entries(entries, _assemble)
+        t_solve = _start_entries(entries, _assemble)
     if len(entries) > 1 and use_scheduler:
         _drive_sky_scheduled(
             entries, prepared_solver, p, align, scene_pack, device, n_surf,
@@ -1589,22 +1577,23 @@ def view_factor_to_tregenza_sky(
         )
     _drive_sky_pipelined(entries, discrete=discrete)
     solve_s = time.time() - t_solve
+    with _tracing.span("raystrack.solve.rows"):
 
-    for entry in entries:
-        idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
-        result[name_e].update(entry["row"])
-        stats_result[name_e] = entry["stats"]
-        _log(
-            _progress_line(
-                idx_emit, n_surf, name_e, monitor.iters_done,
-                monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
+        for entry in entries:
+            idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
+            result[name_e].update(entry["row"])
+            stats_result[name_e] = entry["stats"]
+            _log(
+                _progress_line(
+                    idx_emit, n_surf, name_e, monitor.iters_done,
+                    monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
+                )
             )
-        )
-    if n_restored:
-        _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
-    if return_stats:
-        return result, stats_result
-    return result
+        if n_restored:
+            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
+        if return_stats:
+            return result, stats_result
+        return result
 
 
 def outside_workflow_shareable(matrix_params: MatrixParams, sky_params: SkyParams) -> bool:
@@ -1620,6 +1609,7 @@ def outside_workflow_shareable(matrix_params: MatrixParams, sky_params: SkyParam
     return all(getattr(matrix_params, k) == getattr(sky_params, k) for k in shared)
 
 
+@_tracing.solve("workflow")
 def view_factor_matrix_and_sky(
     meshes: List[Mesh],
     *,
@@ -1659,117 +1649,118 @@ def view_factor_matrix_and_sky(
     if not outside_workflow_shareable(matrix_params, sky_params):
         raise ValueError("matrix_params and sky_params are not compatible for shared tracing")
 
-    mp = matrix_params.as_dict()
-    sp = sky_params.as_dict()
-    store = (
-        _CheckpointStore(
-            checkpoint_dir,
-            {**{f"m.{k}": v for k, v in mp.items()},
-             **{f"s.{k}": v for k, v in sp.items()}},
-            meshes,
-        )
-        if checkpoint_dir
-        else None
-    )
-    discrete = bool(sp["discrete"])
-    reciprocity = bool(mp["reciprocity"])
-    device, mesh = _placements(mesh, mp["device"])
-    on_cpu = device.type == "cpu"
-    prepared_solver = _ensure_prepared(meshes, prepared)
-    use_bvh = _select_bvh(mp["bvh"], prepared_solver.total_faces)
-    emitters = prepared_solver.get_emitters(
-        samples=mp["samples"], rays=mp["rays"], flip_faces=False
-    )
-    areas = [e.total_area for e in emitters] if reciprocity else None
-    bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-    align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
-    scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
-    use_scheduler = not scene_pack.slim and _use_scheduler(
-        device, emitters, mp["rays"], align)
-
-    vf_scene: VFDict = {name: {} for name, _, _ in meshes}
-    sky_vf: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
-    stats_result: VFDict = {}
-    n_surf = len(meshes)
-    n_restored = 0
-    entries: List[Dict] = []
-    for idx_emit, (name_e, _, _) in enumerate(meshes):
-        saved = store.load(idx_emit) if store is not None else None
-        if saved is not None:
-            vf_scene[name_e].update(saved["row"])
-            for other, back_entries in saved.get("backfill", {}).items():
-                vf_scene[other].update(back_entries)
-            if "sky" in saved:
-                sky_vf[name_e].update(saved["sky"])
-                # the stats slot carries a duplicate of the sky row under
-                # "sky" for readers of the older layout; strip it
-                stats_result[name_e] = {
-                    k: v for k, v in saved.get("stats", {}).items() if k != "sky"
-                }
-            else:
-                # the older layout parked the sky row in the stats slot
-                sky_vf[name_e].update(saved.get("stats", {}).get("sky", {}))
-                stats_result[name_e] = {}
-            n_restored += 1
-            _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
-            continue
-        surf_active = _build_emitter_surface_mask(
-            idx_emit, emitters[idx_emit], bounds_center, bounds_extent
-        )
-        receivers, recv_idx = _matrix_active_receivers(
-            idx_emit, n_surf, reciprocity, surf_active
-        )
-        emit_sid, matrix_min_sid = _matrix_skip(idx_emit, reciprocity)
-        run = _emitter_run(prepared_solver, mp, idx_emit, surf_active, emit_sid,
-                           matrix_min_sid, flip_faces=False, scene_pack=scene_pack,
-                           device=device, mesh=mesh, lazy=use_scheduler)
-        em_pack = run.em_pack
-        matrix_mon = (
-            MatrixMonitor(
-                n_surf, recv_idx,
-                n_rays_once=em_pack.n_rays_once,
-                tol=mp["tol"], tol_mode=mp["tol_mode"],
-                min_iters=mp["min_iters"],
-                interval=1 if on_cpu else mp["convergence_interval"],
-                max_iters=mp["max_iters"],
+    with _tracing.span("raystrack.solve.entries"):
+        mp = matrix_params.as_dict()
+        sp = sky_params.as_dict()
+        store = (
+            _CheckpointStore(
+                checkpoint_dir,
+                {**{f"m.{k}": v for k, v in mp.items()},
+                 **{f"s.{k}": v for k, v in sp.items()}},
+                meshes,
             )
-            if receivers
+            if checkpoint_dir
             else None
         )
-        sky_mon = SkyMonitor(
-            discrete=discrete,
-            n_rays_once=em_pack.n_rays_once,
-            tol=sp["tol"], tol_mode=sp["tol_mode"],
-            min_iters=sp["min_iters"],
-            interval=1 if on_cpu else sp["convergence_interval"],
-            max_iters=sp["max_iters"],
+        discrete = bool(sp["discrete"])
+        reciprocity = bool(mp["reciprocity"])
+        device, mesh = _placements(mesh, mp["device"])
+        on_cpu = device.type == "cpu"
+        prepared_solver = _ensure_prepared(meshes, prepared)
+        use_bvh = _select_bvh(mp["bvh"], prepared_solver.total_faces)
+        emitters = prepared_solver.get_emitters(
+            samples=mp["samples"], rays=mp["rays"], flip_faces=False
         )
-        entry = dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon,
-                     idx=idx_emit, name=name_e, receivers=receivers,
-                     surf_active=surf_active, emit_sid=emit_sid, min_sid=matrix_min_sid)
-        if store is not None:
-            store.resume(entry, n_surf, _load_combined_state, _combined_state)
-        # the shared stream resumes past the iterations either monitor used
-        entry["trace_iters"] = run.itr_next
-        entries.append(entry)
+        areas = [e.total_area for e in emitters] if reciprocity else None
+        bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
+        align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
+        scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+        use_scheduler = not scene_pack.slim and _use_scheduler(
+            device, emitters, mp["rays"], align)
 
-    def _assemble(entry) -> None:
-        """The emitter's matrix row, back-fill and sky row, and one stats
-        row over both outputs' keys."""
-        row, stats_row, backfill = _matrix_row(
-            entry["matrix_mon"], entry["receivers"], meshes, entry["idx"], reciprocity, areas)
-        sky_row: Dict[str, float] = {}
-        if entry["sky_mon"].total_rays > 0:
-            sky_row, sky_stats = _sky_row(entry["sky_mon"], discrete)
-            stats_row.update(sky_stats)
-        entry.update(row=row, stats=stats_row, backfill=backfill, sky_row=sky_row)
-        if store is not None:
-            # the top-level "sky" is the layout; the duplicate inside stats
-            # keeps the file readable by readers of the older layout
-            store.save(entry["idx"], entry["name"], row, backfill,
-                       {**stats_row, "sky": sky_row}, sky=sky_row)
+        vf_scene: VFDict = {name: {} for name, _, _ in meshes}
+        sky_vf: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
+        stats_result: VFDict = {}
+        n_surf = len(meshes)
+        n_restored = 0
+        entries: List[Dict] = []
+        for idx_emit, (name_e, _, _) in enumerate(meshes):
+            saved = store.load(idx_emit) if store is not None else None
+            if saved is not None:
+                vf_scene[name_e].update(saved["row"])
+                for other, back_entries in saved.get("backfill", {}).items():
+                    vf_scene[other].update(back_entries)
+                if "sky" in saved:
+                    sky_vf[name_e].update(saved["sky"])
+                    # the stats slot carries a duplicate of the sky row under
+                    # "sky" for readers of the older layout; strip it
+                    stats_result[name_e] = {
+                        k: v for k, v in saved.get("stats", {}).items() if k != "sky"
+                    }
+                else:
+                    # the older layout parked the sky row in the stats slot
+                    sky_vf[name_e].update(saved.get("stats", {}).get("sky", {}))
+                    stats_result[name_e] = {}
+                n_restored += 1
+                _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
+                continue
+            surf_active = _build_emitter_surface_mask(
+                idx_emit, emitters[idx_emit], bounds_center, bounds_extent
+            )
+            receivers, recv_idx = _matrix_active_receivers(
+                idx_emit, n_surf, reciprocity, surf_active
+            )
+            emit_sid, matrix_min_sid = _matrix_skip(idx_emit, reciprocity)
+            run = _emitter_run(prepared_solver, mp, idx_emit, surf_active, emit_sid,
+                               matrix_min_sid, flip_faces=False, scene_pack=scene_pack,
+                               device=device, mesh=mesh, lazy=use_scheduler)
+            em_pack = run.em_pack
+            matrix_mon = (
+                MatrixMonitor(
+                    n_surf, recv_idx,
+                    n_rays_once=em_pack.n_rays_once,
+                    tol=mp["tol"], tol_mode=mp["tol_mode"],
+                    min_iters=mp["min_iters"],
+                    interval=1 if on_cpu else mp["convergence_interval"],
+                    max_iters=mp["max_iters"],
+                )
+                if receivers
+                else None
+            )
+            sky_mon = SkyMonitor(
+                discrete=discrete,
+                n_rays_once=em_pack.n_rays_once,
+                tol=sp["tol"], tol_mode=sp["tol_mode"],
+                min_iters=sp["min_iters"],
+                interval=1 if on_cpu else sp["convergence_interval"],
+                max_iters=sp["max_iters"],
+            )
+            entry = dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon,
+                         idx=idx_emit, name=name_e, receivers=receivers,
+                         surf_active=surf_active, emit_sid=emit_sid, min_sid=matrix_min_sid)
+            if store is not None:
+                store.resume(entry, n_surf, _load_combined_state, _combined_state)
+            # the shared stream resumes past the iterations either monitor used
+            entry["trace_iters"] = run.itr_next
+            entries.append(entry)
 
-    t_solve = _start_entries(entries, _assemble)
+        def _assemble(entry) -> None:
+            """The emitter's matrix row, back-fill and sky row, and one stats
+            row over both outputs' keys."""
+            row, stats_row, backfill = _matrix_row(
+                entry["matrix_mon"], entry["receivers"], meshes, entry["idx"], reciprocity, areas)
+            sky_row: Dict[str, float] = {}
+            if entry["sky_mon"].total_rays > 0:
+                sky_row, sky_stats = _sky_row(entry["sky_mon"], discrete)
+                stats_row.update(sky_stats)
+            entry.update(row=row, stats=stats_row, backfill=backfill, sky_row=sky_row)
+            if store is not None:
+                # the top-level "sky" is the layout; the duplicate inside stats
+                # keeps the file readable by readers of the older layout
+                store.save(entry["idx"], entry["name"], row, backfill,
+                           {**stats_row, "sky": sky_row}, sky=sky_row)
+
+        t_solve = _start_entries(entries, _assemble)
     if len(entries) > 1 and use_scheduler:
         _drive_combined_scheduled(
             entries, prepared_solver, mp, align, scene_pack, device, n_surf,
@@ -1777,30 +1768,31 @@ def view_factor_matrix_and_sky(
         )
     _drive_combined_pipelined(entries, discrete=discrete)
     solve_s = time.time() - t_solve
+    with _tracing.span("raystrack.solve.rows"):
 
-    for entry in entries:
-        idx_emit, name_e = entry["idx"], entry["name"]
-        matrix_mon, sky_mon = entry["matrix_mon"], entry["sky_mon"]
-        trace_iters = entry["trace_iters"]
-        vf_scene[name_e].update(entry["row"])
-        for name_r, back_entries in entry["backfill"].items():
-            vf_scene[name_r].update(back_entries)
-        sky_vf[name_e].update(entry["sky_row"])
-        stats_result[name_e] = entry["stats"]
-        matrix_iters = matrix_mon.iters_done if matrix_mon is not None else 0
-        _log(
-            f"({idx_emit + 1}/{n_surf}) [{name_e}] traced {trace_iters} iter, "
-            f"{trace_iters * entry['run'].em_pack.n_rays_once:,} rays -> "
-            f"{entry.get('elapsed', solve_s):0.3f}s  "
-            f"(scene={matrix_iters} iter, sky={sky_mon.iters_done} iter, "
-            f"BVH={'builtin' if use_bvh else 'off'}, device={_device_label(device)})"
-        )
-    if n_restored:
-        _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
+        for entry in entries:
+            idx_emit, name_e = entry["idx"], entry["name"]
+            matrix_mon, sky_mon = entry["matrix_mon"], entry["sky_mon"]
+            trace_iters = entry["trace_iters"]
+            vf_scene[name_e].update(entry["row"])
+            for name_r, back_entries in entry["backfill"].items():
+                vf_scene[name_r].update(back_entries)
+            sky_vf[name_e].update(entry["sky_row"])
+            stats_result[name_e] = entry["stats"]
+            matrix_iters = matrix_mon.iters_done if matrix_mon is not None else 0
+            _log(
+                f"({idx_emit + 1}/{n_surf}) [{name_e}] traced {trace_iters} iter, "
+                f"{trace_iters * entry['run'].em_pack.n_rays_once:,} rays -> "
+                f"{entry.get('elapsed', solve_s):0.3f}s  "
+                f"(scene={matrix_iters} iter, sky={sky_mon.iters_done} iter, "
+                f"BVH={'builtin' if use_bvh else 'off'}, device={_device_label(device)})"
+            )
+        if n_restored:
+            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
 
-    if return_stats:
-        return vf_scene, sky_vf, stats_result
-    return vf_scene, sky_vf
+        if return_stats:
+            return vf_scene, sky_vf, stats_result
+        return vf_scene, sky_vf
 
 
 def _progress_line(

@@ -499,6 +499,86 @@ def test_gated_solves_on_card_equal_ungated(card, monkeypatch):
         assert on == off, route
 
 
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize("kernel", ["kernel1", "kernel2"])
+def test_work_counters_equal_the_visits_of_the_same_launches(street, kernel, gated):
+    """While a profiler records, kernels #1 and #2 add their tiles swept and
+    pairs tested to the device's counters: equal to the per-CTA visits of
+    the same launches (a CTA's pairs: its tiles times the tile times its
+    rays below N); with no profiler the counters do not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raystrack_tpu_torch import tracing
+
+    sp, scene, (m_any, m_mat), rays_all = street
+    dev = rays_all.device
+    tile = sweep_tile_width(sp.n_tri_pad, 128)
+    accel = sp.accel if gated else None
+    for n in ((257, 6000) if kernel == "kernel1" else (20 * 256,)):
+        rays = rays_all[:, :n].contiguous()
+        geo = tcuda._launch_geometry(n, gated, dev)
+        visits = torch.full((geo.units(n),), -1, dtype=torch.int32, device=dev)
+        if kernel == "kernel1":
+            pack = build_tri_pack(scene, m_any, m_mat, bake=m_mat)
+            launch = lambda: sweep_rays(  # noqa: E731, B023
+                rays, pack, m_mat, tri_tile=128, want_matrix=True, want_any=False,
+                masks_baked=True, accel=accel, visits=visits)
+        else:
+            masks = torch.stack([m_mat.float() * 2, m_any.float() + m_mat.float()])
+            emap = torch.from_numpy(
+                np.random.default_rng(5).integers(0, 3, n // 256).astype(np.int32)).to(dev)
+            zeros = torch.zeros_like(m_any)
+            pack = build_tri_pack(scene, zeros, zeros)
+            launch = lambda: sweep_rays_scheduled(  # noqa: E731, B023
+                rays, pack, masks, emap, tri_tile=128, want_matrix=True, want_any=True,
+                accel=accel, visits=visits)
+        before = tracing.counts()
+        launch()
+        assert tracing.since(before)["pairs_tested"] == 0
+        before = tracing.counts()
+        with profile(activities=[ProfilerActivity.CPU]):
+            launch()
+        moved = tracing.since(before)
+        held = (n - torch.arange(geo.units(n)) // geo.segments * geo.rays).clamp(max=geo.rays)
+        units = visits.long().cpu()
+        assert moved["tiles_swept"] == int(units.sum()) > 0, n
+        assert moved["pairs_tested"] == int((units * held).sum()) * tile, n
+        assert moved["rays_padded"] == n
+        assert moved["tiles_offered"] == -(-n // geo.rays) * (sp.n_tri_pad // tile)
+
+
+def test_traced_solve_leaves_no_span_on_the_device(card, monkeypatch):
+    """A solve under a profiler of the host and the card, on both routes:
+    the host holds the program's spans, no device event is named after one
+    (the spans are host cpu_ops, with no device shadow), the sweeps' work
+    is counted, and the dicts equal the untraced solve's."""
+    import raystrack_tpu_torch.ops.trace as ttrace
+    from torch.profiler import ProfilerActivity, profile
+
+    from raystrack_tpu_torch import tracing
+
+    monkeypatch.setattr(ttrace, "PALLAS_TRI_TILE", 128)
+    meshes = _street_scene(seed=2)
+    params = raystrack_tpu_torch.MatrixParams(samples=2, rays=8, seed=4, device="gpu",
+                                              max_iters=3, min_iters=2, tol=1e-3)
+    cuda = torch.autograd.DeviceType.CUDA
+    for route in ("grouped", "scheduled"):
+        monkeypatch.setattr(tconfig, "SCHEDULER", route)
+        plain = raystrack_tpu_torch.view_factor_matrix(meshes, params)
+        before = tracing.counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = raystrack_tpu_torch.view_factor_matrix(meshes, params)
+            torch.cuda.synchronize()
+        moved = tracing.since(before)
+        events = list(prof.profiler.kineto_results.events())
+        host = {ev.name() for ev in events if ev.device_type() != cuda}
+        device = [ev.name() for ev in events if ev.device_type() == cuda]
+        assert traced == plain, route
+        assert {"raystrack.solve.matrix", "raystrack.ops.sweep", "raystrack.ops.gate"} <= host
+        assert device and not [n for n in device if n.startswith("raystrack.")], route
+        assert moved["pairs_tested"] > 0 and moved["tiles_swept"] > 0, route
+
+
 @pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
                          ids=["per_tile", "two_level"])
 @pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])

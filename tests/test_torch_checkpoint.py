@@ -564,20 +564,39 @@ def test_row_sink_resume_streams_rows_never_streamed(tmp_path, monkeypatch, rout
 
 
 def test_profile_hook(tmp_path, monkeypatch):
-    """``RAYSTRACK_TPU_PROFILE=<dir>`` writes a Chrome trace of the solve
-    holding its ``matrix_solve`` span; unset, the hook is a null context."""
+    """``RAYSTRACK_TPU_PROFILE=<dir>`` writes, for each public solve, a
+    Chrome trace holding its ``raystrack.solve.<kind>`` span and the spans
+    under it, and beside it the change of ``tracing.counts()`` over the
+    solve; unset, no profiler runs and nothing is written."""
+    from raystrack_tpu_torch import tracing
+
     monkeypatch.delenv("RAYSTRACK_TPU_PROFILE", raising=False)
-    hook = solver_mod._maybe_profiler()
-    with hook("matrix_solve") as ctx:
-        assert ctx is None
+    seen = []
+    monkeypatch.setattr(solver_mod, "_drive_matrix_pipelined",
+                        lambda *a, real=solver_mod._drive_matrix_pipelined, **k: (
+                            seen.append(tracing.on()), real(*a, **k))[1])
     plain = view_factor_matrix(MESHES, params=PARAMS)
+    assert seen == [False]
     trace_dir = tmp_path / "prof"
     monkeypatch.setenv("RAYSTRACK_TPU_PROFILE", str(trace_dir))
     assert view_factor_matrix(MESHES, params=PARAMS) == plain
-    traces = list(trace_dir.glob("matrix_solve.*.json"))
-    assert len(traces) >= 1
-    events = json.loads(traces[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "matrix_solve" for e in events)
+    assert seen == [False, True]
+    m_params, s_params = _workflow_params()
+    view_factor_outside_workflow(MESHES, matrix_params=m_params, sky_params=s_params)
+    view_factor_to_tregenza_sky(MESHES, params=s_params)
+    for kind in ("matrix", "workflow", "sky"):
+        files = sorted(trace_dir.glob(f"raystrack.solve.{kind}.*.json"))
+        traces = [f for f in files if not f.name.endswith(".counts.json")]
+        assert len(traces) == 1 and len(files) == 2, files
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        names = {e.get("name") for e in events}
+        assert {f"raystrack.solve.{kind}", "raystrack.solve.entries",
+                "raystrack.ops.sweep", "raystrack.chunk.dispatch"} <= names
+        counts = json.loads(traces[0].with_name(traces[0].name[:-5] + ".counts.json")
+                            .read_text())
+        assert set(tracing.COUNTERS) <= set(counts)
+        assert counts["pairs_tested"] > 0 and counts["rays_padded"] >= counts["rays_real"] > 0
+    assert not tracing.on()
 
 
 # ---------------------------------------------------------------------------
