@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_profile.py [--reps 5] [--traced 3] [--route auto|scheduled|grouped]
                             [--count kernel|plain] [--bvh auto|off] [--slim] [--timeline]
-                            [--splits] [--variants] [--halton] [--force-split N|GEOMETRY]
+                            [--splits] [--variants] [--halton] [--masks]
+                            [--force-split N|GEOMETRY]
                             [--launches [--tree DIR]] [--sass [--loop NAME]] [--range N]
                             [--dump FILE [--dump-traced]]
                             [plates canyon district soup soup8 city city_matrix city_plates
@@ -57,9 +58,12 @@ instructions a pair: the sky's and the workflow's launches, and the A/B of
 a kernel change when run in two trees in one call. ``--halton`` instead measures the
 set-up of ex02's matrix (the canyon and its 89M-ray ground) and of ``city_plates``
 at one sample per m², with the Halton tables built on the card and on the host
-(``RAYSTRACK_TPU_DEVICE_HALTON=0``). ``--sass`` instead prints every kernel
-instantiation's registers and spills and the SASS instructions a pair of
-the sweeps' pair loops (``--loop NAME`` prints that loop). ``--dump FILE``
+(``RAYSTRACK_TPU_DEVICE_HALTON=0``). ``--masks`` instead times the mask rows
+kernel of a scheduled round against its bytes bound and its plain version,
+and their device memory a call, on the round of the most rows of the
+benchmark's ``canyon_matrix`` and ``city_buildings`` (:func:`profile_masks`).
+``--sass`` instead prints every kernel instantiation's registers and spills
+and the SASS instructions a pair of the sweeps' pair loops (``--loop NAME`` prints that loop). ``--dump FILE``
 instead solves each named case once and writes the dicts to FILE (run in
 two trees, equal files mean bitwise equal solves; with ``--dump-traced``
 each solve runs under ``torch.profiler``, so the program's tracing is on). ``--force-split N`` solves (and times
@@ -812,6 +816,78 @@ def profile_halton(card: str) -> None:
             print(json.dumps(stats))
 
 
+def profile_masks(card: str, seed: int = 2200000020) -> None:
+    """The mask rows kernel (``csrc/masks.cu``) on the round of the most
+    rows of one solve of the benchmark's ``canyon_matrix`` and
+    ``city_buildings`` (``vfbench``'s scene and traffic from ``seed``): its
+    device ms a launch (``chip_smoke.launch_times``: 200 launches behind the
+    spin kernel) beside its bytes bound (``chip_smoke.mask_bytes`` at
+    ``chip_smoke.PEAK_BYTES``), the wrapper's host ms a call, the
+    plain version's device ms (best of 5 by CUDA events) and host ms a
+    call, the device memory each allocates over the call's start (the rows
+    and the plain version's temporaries), and whether the rows are equal."""
+    import chip_smoke
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.build import load_library
+    from vfbench import harness
+
+    lib = load_library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name in ("canyon_matrix", "city_buildings"):
+        cell = harness.Cell.load(name)
+        solve = harness.program_solver(cell.traffic, cell.meshes(seed), "gpu")
+        rounds = []
+        real = T.combined_masks
+        T.combined_masks = lambda *a: rounds.append(a) or real(*a)  # noqa: B023
+        try:
+            solve(harness.solve_seed(seed, 1))
+        finally:
+            T.combined_masks = real
+        args = max(rounds, key=lambda a: a[1].shape[0])  # the round of the most rows
+        scene, ext, emit, mins, plane = args
+        n_bytes = chip_smoke.mask_bytes(scene, ext, plane)
+        n_emit, n_tri = ext.shape[0], scene[7].shape[0]
+        out = torch.empty((n_emit, n_tri), dtype=torch.float32, device=dev)
+        ptrs = (scene[0].data_ptr(), scene[1].data_ptr(), scene[2].data_ptr(),
+                scene[7].data_ptr(), ext.data_ptr(), ext.shape[1], emit.data_ptr(),
+                mins.data_ptr(), plane.data_ptr(), n_emit, n_tri, out.data_ptr(), stream)
+        times = chip_smoke.launch_times(lambda: lib.raystrack_mask_rows(*ptrs),  # noqa: B023
+                                        lambda: T.combined_masks(*args))  # noqa: B023
+        plain_ms, want = chip_smoke.cuda_ms(lambda: T.combined_masks_reference(*args), 5)  # noqa
+        calls = 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            T.combined_masks_reference(*args)
+        plain_host_ms = (time.perf_counter() - t0) / calls * 1e3
+        torch.cuda.synchronize()
+        peaks = {}
+        for label, fn in (("kernel", T.combined_masks), ("plain", T.combined_masks_reference)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(*args)
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        bound_ms = chip_smoke.bound(n_bytes)[0]
+        row = dict(cell=name, rows=n_emit, triangles=n_tri, bytes=n_bytes,
+                   bound_ms=bound_ms, ms=times["device_ms"],
+                   share=bound_ms / times["device_ms"], floor_ms=times["floor_ms"],
+                   call_device_ms=times["call_device_ms"], enqueue_ms=times["enqueue_ms"],
+                   plain_ms=plain_ms, plain_host_ms=plain_host_ms,
+                   call_gib=peaks["kernel"], plain_call_gib=peaks["plain"],
+                   equal=bool(torch.equal(T.combined_masks(*args), want)), card=card)
+        print(f"[masks] {name} ({n_emit}, {n_tri}): {row['ms']:.4f} ms a launch against a "
+              f"bound of {bound_ms:.4f} ms ({row['share']:.1%}); plain {plain_ms:.4f} ms; "
+              f"host {row['enqueue_ms']:.4f} / {plain_host_ms:.4f} ms a call; "
+              f"{peaks['kernel']:.3f} / {peaks['plain']:.3f} GiB a call; equal {row['equal']}",
+              flush=True)
+        print(json.dumps(row), flush=True)
+        del solve, args, scene, ext, emit, mins, plane, out, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("solves", nargs="*",
@@ -825,6 +901,7 @@ def main() -> int:
     parser.add_argument("--splits", action="store_true")
     parser.add_argument("--variants", action="store_true")
     parser.add_argument("--halton", action="store_true")
+    parser.add_argument("--masks", action="store_true")
     parser.add_argument("--force-split", default=None,
                         help="N (a whole block at N threads a ray) or a geometry's name "
                              "(256x2r4, 256x8r4s2): every ungated sweep at it")
@@ -890,6 +967,9 @@ def main() -> int:
         return 0
     if args.halton:
         profile_halton(card)
+        return 0
+    if args.masks:
+        profile_masks(card)
         return 0
     cases = chip_smoke.solve_cases()
     if "city10m" in args.solves:  # built only on request: 10M triangles on the host

@@ -67,7 +67,10 @@ settings, and checks each against its analytic or plain reference:
               plain version on the leading blocks, gated and ungated, with
               times beside the baked kernel's and its SASS count per pair;
               and 32 blocks alone (a slim chunk that under-fills the card)
-              ungated at 1 and at 4 threads a ray, equal and timed
+              ungated at 1 and at 4 threads a ray, equal and timed; the
+              mask rows kernel == its plain version on soup8's round and
+              the ten plates' round, timed as the count kernel is beside
+              its bytes bound
 6. plates     two parallel unit squares vs 0.1998249 (|err| <= 3e-4), scheduled
 7. canyon     11-surface street canyon vs the analytic matrix (max |dF| <= 1e-4),
               scheduled
@@ -75,9 +78,10 @@ settings, and checks each against its analytic or plain reference:
               per-emitter route's; rounds and warm solve times of both
 9. soup       one emitter (per-emitter route); equals phase 3's counts
 10. soup8     8 emitters: scheduled dict == per-emitter dict == phase 4's counts
-11. launches  kernel #1 once per per-emitter chunk, kernel #2 once per
-              scheduled round, the count kernel once per chunk or round, all
-              on card tensors, none of them gated, during phases 6-10
+11. launches  kernel #1 once per per-emitter chunk, kernel #2 and the mask
+              rows kernel once per scheduled round, the count kernel once
+              per chunk or round, all on card tensors, none of them gated,
+              during phases 6-10
 12. city      ``view_factor`` ground -> city (per-emitter route, kernel #1)
               and ``view_factor_matrix`` of both meshes and of the ten
               plates and the boxes (scheduled route, kernel #2), each with
@@ -658,6 +662,23 @@ def timed_once(fn):
     return cuda_ms(fn, reps=1)
 
 
+def mask_args(round_args) -> tuple:
+    """The mask rows' operands of a ``scheduled_trace`` call's positional
+    arguments: (scene, surf_active_ext, emit_sid, min_sid, plane_vec)."""
+    return tuple(round_args[i] for i in (0, 5, 6, 7, 9))
+
+
+def mask_bytes(scene, surf_active_ext, plane_vec) -> int:
+    """Bytes the mask rows kernel must move on a round: each triangle's
+    sid, its v0, e1 and e2 only when a row of the round is planar (the
+    plane test is their one reader), the rows' tables and the (E, Tpad) f32
+    rows once."""
+    n_emit, n_tri = surf_active_ext.shape[0], scene[7].shape[0]
+    planar = bool((plane_vec[:, 7] > 0).any())
+    return (n_tri * (4 + (36 if planar else 0)) + 4 * n_emit * n_tri
+            + 4 * surf_active_ext.numel() + 40 * n_emit)
+
+
 def soup_inputs(dev, soup_ps, seed: int):
     """The operands of the soup solve's one chunk: (scene fields, rays
     (9, 262144), m_any, m_mat, padded triangles, the emitter's real rays per
@@ -931,6 +952,54 @@ def phase_count(cases):
     return max_err, times
 
 
+def phase_mask_rows(cases) -> dict:
+    """The mask rows kernel (``csrc/masks.cu``) vs its plain version on
+    rounds the main path dispatched, name -> a ``scheduled_trace`` call's
+    (args, kwargs): the wrapper's rows and the raw launches' rows must equal
+    the plain version's (``torch.equal``). The kernel measured as a kernel
+    (:func:`launch_times`) beside its bytes bound (:func:`mask_bytes`) and
+    the plain version's one call."""
+    from raystrack_tpu_torch.ops.build import load_library
+    from raystrack_tpu_torch.ops.masks_cuda import mask_rows
+    from raystrack_tpu_torch.ops.trace import combined_masks_reference
+
+    lib = load_library()
+    times = {}
+    for name, (args, _) in cases.items():
+        scene, ext, emit, mins, plane = margs = mask_args(args)
+        n_emit, n_tri = ext.shape[0], scene[7].shape[0]
+        out = torch.full((n_emit, n_tri), -7.0, dtype=torch.float32, device=ext.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        with uncounted():
+            got = mask_rows(*margs)
+            launch = launch_times(
+                lambda: lib.raystrack_mask_rows(  # noqa: B023
+                    scene[0].data_ptr(), scene[1].data_ptr(), scene[2].data_ptr(),  # noqa: B023
+                    scene[7].data_ptr(), ext.data_ptr(), ext.shape[1],  # noqa: B023
+                    emit.data_ptr(), mins.data_ptr(), plane.data_ptr(),  # noqa: B023
+                    n_emit, n_tri, out.data_ptr(), stream),  # noqa: B023
+                lambda: mask_rows(*margs))  # noqa: B023
+        plain_ms, want = timed_once(lambda: combined_masks_reference(*margs))  # noqa: B023
+        # every raw launch writes every entry: the rows, which started as -7
+        same = torch.equal(got, want) and torch.equal(out, want)
+        err = float((got - want).abs().max())
+        n_bytes = mask_bytes(scene, ext, plane)
+        bnd = bound(n_bytes)
+        times[name] = dict(rows=n_emit, triangles=n_tri, bytes=n_bytes, ms=launch["device_ms"],
+                           plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                           share=bnd[0] / launch["device_ms"], max_abs_err=err,
+                           **{k: launch[k] for k in ("call_device_ms", "enqueue_ms",
+                                                     "floor_ms")})
+        print(f"[masks] {name}: ({n_emit}, {n_tri}) rows, planar rows "
+              f"{int((plane[:, 7] > 0).sum())}: equal={same}; kernel "
+              f"{launch['device_ms']:.4f} ms a launch ({launch['call_device_ms']:.4f} ms a "
+              f"wrapper call), bound {bnd[0]:.4f} ms ({n_bytes} bytes, "
+              f"{bnd[0] / launch['device_ms']:.1%}), launch floor {launch['floor_ms']:.4f} ms, "
+              f"host enqueue {launch['enqueue_ms']:.4f} ms a call; plain {plain_ms:.3f} ms")
+        check(same, f"mask rows kernel != plain version on {name}")
+    return times
+
+
 @contextlib.contextmanager
 def recording(mod, name: str, calls: list, keep=lambda args, kwargs, out: (args, kwargs, out)):
     """Inside the block ``mod.<name>`` appends ``keep(args, kwargs, result)``
@@ -964,15 +1033,16 @@ def first_call(mod, name: str, fn):
 
 @contextlib.contextmanager
 def uncounted():
-    """Inside the block launches of the sweeps, the count and the crossing
-    are made to compare a kernel with its plain version or with another
-    geometry: the wrappers' counters are restored after it."""
+    """Inside the block launches of the sweeps, the count, the crossing and
+    the mask rows are made to compare a kernel with its plain version or
+    with another geometry: the wrappers' counters are restored after it."""
     from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.masks_cuda import mask_rows
     from raystrack_tpu_torch.ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
 
     names = {sweep_rays: ("launches", "gated_launches", "code_launches", "geometries"),
              sweep_rays_scheduled: ("launches", "gated_launches", "geometries"),
-             count_bins: ("launches",), gate_cross: ("launches",)}
+             count_bins: ("launches",), gate_cross: ("launches",), mask_rows: ("launches",)}
     saved = {(fn, a): copy.copy(getattr(fn, a)) for fn, attrs in names.items() for a in attrs}
     try:
         yield
@@ -3375,6 +3445,7 @@ def main() -> int:
     from raystrack_tpu_torch.ops import build, trace_cuda
     from raystrack_tpu_torch.ops import trace as trace_mod
     from raystrack_tpu_torch.ops.count_cuda import count_bins
+    from raystrack_tpu_torch.ops.masks_cuda import mask_rows
     from raystrack_tpu_torch.ops.trace_cuda import (
         SweepGeometry, gate_cross, sweep_rays, sweep_rays_scheduled,
     )
@@ -3435,6 +3506,7 @@ def main() -> int:
     check(len(captured) == 1, f"soup8 took {len(captured)} scheduled rounds, not 1")
     (max_err2, ms2, plain_ms2, soup8_fronts, soup8_codes, pairs2, bytes2, sky2,
      (sky_ids, sky_valid), geos2) = phase_sched_kernel(*captured[0], ms)
+    soup8_round = captured[0]
     del captured
     bound2 = bound(bytes2, pairs2, pair_ops["sweep_sched_kernel<1,0,0>"][0])
     geos2 = geometry_rows(geos2, bytes2, pairs2, pair_ops)
@@ -3471,6 +3543,8 @@ def main() -> int:
           f"with set-up: ground -> city {t1 - t0:.2f} s, ten-plate matrix "
           f"{time.perf_counter() - t1:.2f} s")
     city_k1, city_k2, cross = phase_city_kernels(chunk_call, round_call, pair_ops)
+    mask_times = phase_mask_rows({"soup8 round": soup8_round, "city_plates round": round_call})
+    del soup8_round
     (codes, n_valid, n_surf), kw, _ = count_calls[0]
     check(n_valid is None and kw.get("valid") is not None,
           "the gated chunk's count did not take the valid flags")
@@ -3530,15 +3604,18 @@ def main() -> int:
     # the geometries the main path's sweeps took, launches by name, folded
     # in at each reset after the first (the kernel phases' launches before)
     main_geometries = (collections.Counter(), collections.Counter())
+    mask_launches = [0]  # the mask rows kernel's, folded in the same way
 
     def reset_launches(fold=True):
         for total, fn in zip(main_geometries, (sweep_rays, sweep_rays_scheduled)):
             if fold:
                 total.update(fn.geometries)
             fn.geometries.clear()
+        if fold:
+            mask_launches[0] += mask_rows.launches
         sweep_rays.launches = sweep_rays.gated_launches = sweep_rays.code_launches = 0
         sweep_rays_scheduled.launches = sweep_rays_scheduled.gated_launches = 0
-        count_bins.launches = gate_cross.launches = 0
+        count_bins.launches = gate_cross.launches = mask_rows.launches = 0
 
     reset_launches(fold=False)
 
@@ -3660,6 +3737,10 @@ def main() -> int:
     check(launches3 == len(dispatches) + len(rounds),
           f"{launches3} count kernel launches != {len(dispatches) + len(rounds)} "
           f"chunks and rounds")
+    print(f"[launches] mask rows kernel: {mask_rows.launches} launches for {len(rounds)} "
+          f"scheduled rounds")
+    check(mask_rows.launches == len(rounds),
+          f"{mask_rows.launches} mask rows kernel launches != {len(rounds)} rounds")
     check(all(dispatches) and all(rounds), "a chunk or round ran with a tensor off the card")
 
     # 12. the city through both entry points, gated (bvh="auto") and not
@@ -4147,6 +4228,22 @@ def main() -> int:
             **cross,
             # no one PyTorch call reduces a ray-box slab test over blocks of rays
             "library_ms": None,
+        }, {
+            "name": "mask_rows",
+            "route": "cuda",
+            "source": "raystrack_tpu_torch/csrc/masks.cu",
+            # not a Pallas kernel: compute_masks' XLA code under jax.vmap
+            "replaces": "raystrack_tpu/ops/trace.py:101",
+            # this process's main-path launches (phases 6-24); the child
+            # processes of phases 19, 20 and 25 count their own
+            "launches": mask_launches[0] + mask_rows.launches,
+            "max_abs_err": max(v["max_abs_err"] for v in mask_times.values()),
+            # the kernel's device time a launch on the ten plates' round
+            **{k: mask_times["city_plates round"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "enqueue_ms", "floor_ms")},
+            # no one PyTorch call builds the rows
+            "library_ms": None,
+            "times": mask_times,
         }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -188,6 +188,15 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # crossed, minnear, stream
     ]
     fn.restype = ctypes.c_int
+    fn = lib.raystrack_mask_rows
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # v0, e1, e2, sid
+        ctypes.c_void_p, ctypes.c_int,  # surf_active_ext, its columns
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # emit_sid, min_sid, plane_vec
+        ctypes.c_int, ctypes.c_int,  # rows, triangles
+        ctypes.c_void_p, ctypes.c_void_p,  # out, stream
+    ]
+    fn.restype = ctypes.c_int
     return lib
 
 

@@ -23,8 +23,8 @@ and return only int32 count tensors. ``want_matrix`` / ``want_any`` /
 ``discrete`` pick the outputs as in the JAX package: ``counts_f`` and
 ``counts_b`` for the matrix, ``upward`` or ``sky_bins`` for the sky, both
 from one sweep of the same rays in the shared-ray workflow. Everything here
-is plain PyTorch on the solve's device; the sweeps and the count are the
-kernels.
+is plain PyTorch on the solve's device; the sweeps, the count and a
+scheduled round's mask rows are the kernels.
 
 With the scene's acceleration boxes (``accel``) on a scene of more than
 one sweep tile, both first sort each iteration's (or schedule row's) rays
@@ -43,6 +43,7 @@ import torch
 from ..config import PALLAS_TRI_TILE
 from ..tracing import spanned
 from .count_cuda import count_bins, count_codes
+from .masks_cuda import check_mask_args, mask_rows
 from .trace_cuda import (
     RAY_SUBBLOCK, build_tri_pack, gate_prunes, sweep_rays, sweep_rays_scheduled,
 )
@@ -201,16 +202,18 @@ def compute_masks_slim(sid: torch.Tensor, surf_active_ext, emit_sid: int, min_si
     return m_any, m_mat
 
 
-@spanned("raystrack.ops.masks")
-def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
-                   plane_vec) -> torch.Tensor:
-    """The (E, Tpad) f32 combined eligibility rows ``m_any + m_mat`` in
-    {0, 1, 2} of E emitters at once (m_mat is a subset of m_any).
+def combined_masks_reference(scene: Tuple, surf_active_ext, emit_sid, min_sid,
+                             plane_vec) -> torch.Tensor:
+    """Plain version of the mask rows kernel (``csrc/masks.cu``): the (E,
+    Tpad) f32 combined eligibility rows ``m_any + m_mat`` in {0, 1, 2} of E
+    emitters at once (m_mat is a subset of m_any).
 
     Row e equals :func:`compute_masks` of emitter e bitwise: the same ops
-    in the same order, broadcast over (E, Tpad), so the number of launches
-    does not grow with E. ``surf_active_ext`` is (E, S+1) int32,
-    ``emit_sid``/``min_sid`` (E,) int32 and ``plane_vec`` (E, 8) f32.
+    in the same order, broadcast over (E, Tpad). ``surf_active_ext`` is (E,
+    S+1) int32, ``emit_sid``/``min_sid`` (E,) int32 and ``plane_vec`` (E,
+    8) f32. Each product, sum and difference rounds on its own, and the
+    maximum of the three signed distances is NaN where one is, so a
+    triangle with a NaN distance is unreachable from a planar emitter.
     """
     v0, e1, e2, cross_e, w_u, w_v, d0, sid = scene
     col = lambda t: t[:, None]  # noqa: E731 - (E, 1) per-emitter column
@@ -225,6 +228,23 @@ def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
     reachable = torch.maximum(torch.maximum(s0, s1), s2) > col(plane_vec[:, 6])
     keep = reachable | ~(col(plane_vec[:, 7]) > 0.0)
     return (m_any & keep).to(torch.float32) + (m_mat & keep).to(torch.float32)
+
+
+@spanned("raystrack.ops.masks")
+def combined_masks(scene: Tuple, surf_active_ext, emit_sid, min_sid,
+                   plane_vec) -> torch.Tensor:
+    """A scheduled round's (E, Tpad) f32 mask rows, as
+    :func:`combined_masks_reference` defines them, bitwise.
+
+    CUDA tensors go to the kernel of ``csrc/masks.cu`` (:func:`mask_rows`:
+    one launch on the current stream, not synchronised, counted in
+    ``mask_rows.launches``); CPU tensors go to the plain version. Both
+    check their arguments (:func:`check_mask_args`).
+    """
+    if scene[7].device.type == "cuda":
+        return mask_rows(scene, surf_active_ext, emit_sid, min_sid, plane_vec)
+    check_mask_args(scene, surf_active_ext, emit_sid, min_sid, plane_vec)
+    return combined_masks_reference(scene, surf_active_ext, emit_sid, min_sid, plane_vec)
 
 
 @spanned("raystrack.ops.masks")
@@ -370,9 +390,16 @@ def scheduled_rays(tables_flat: Tuple, geom_stacked: Tuple, cp: torch.Tensor,
     are those of :func:`generate_rays`, with the tables taken per row and
     the geometry gathered per ray (the JAX package's gather formulation),
     so a ray equals its per-emitter twin bitwise on one device.
+
+    Each schedule row searches its own copy of its emitter's CDF, so the
+    stack's CDF (``geom_stacked[0]``) may be given narrower than the other
+    stacks: its first F columns, F at least the faces of every emitter the
+    schedule names. A CDF ends in 1.0 and its padding is 1.0, so a query in
+    [0, 1] finds the same face there as in the whole row, and the copy
+    spans the round's faces, not the stack's widest emitter's.
     """
     cdf_s, tri_a, tri_e1, tri_e2, tri_u, tri_v, tri_n, tri_eps = geom_stacked
-    n_geom, f_max = cdf_s.shape
+    n_geom, f_max = tri_a.shape[:2]
     emit = sel[schedule[:, 0].long()].long()  # (nb,) rows of the geometry stack
     row_ids = (schedule[:, 2] // sched_block).long()
     u_cell, v_cell, h_tri, h_u, h_v, h_r1, h_r2 = (
@@ -515,5 +542,7 @@ def unpack_outputs(flat: np.ndarray, nb: int, n_surf: int, *, want_matrix: bool 
 
 __all__ = [
     "generate_rays", "ray_pack", "sort_rays_for_coherence", "compute_masks",
-    "compute_masks_slim", "combined_masks", "emitter_operands", "slim_operands", "chunk_body", "scheduled_rays", "scheduled_trace", "pack_outputs", "unpack_outputs",
+    "compute_masks_slim", "combined_masks", "combined_masks_reference", "emitter_operands",
+    "slim_operands", "chunk_body", "scheduled_rays", "scheduled_trace", "pack_outputs",
+    "unpack_outputs",
 ]

@@ -808,6 +808,10 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
             no_mask = torch.zeros_like(sp.sid, dtype=torch.bool)
             replicas[dev] = (scene_t, build_tri_pack(scene_t, no_mask, no_mask), tables_flat,
                              geom_stacked, sp.accel)
+        # each emitter's faces: a round searches its rows' CDFs in the stack's
+        # first columns only (ops.trace.scheduled_rays)
+        n_faces = np.array([em.cdf.shape[0] for em in prepared_solver.get_emitters(
+            samples=p["samples"], rays=p["rays"], flip_faces=flip_faces)])
 
     def entry_pending(entry) -> bool:
         return any(not m.done for m in _entry_monitors(entry))
@@ -923,6 +927,8 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                      discrete=discrete)
         round_rows = (cp_t, surf_t, emit_t, min_t, once_t, plane_t, schedule, sel_t)
         per_dev = [{d: r[i] for d, r in replicas.items()} for i in range(5)]
+        faces = int(n_faces[sel].max())  # the CDF columns the round's emitters fill
+        per_dev[3] = {d: (g[0][:, :faces],) + tuple(g[1:]) for d, g in per_dev[3].items()}
         flat = _sharding.scheduled_trace_sharded(mesh, *per_dev[:4], *round_rows,
                                                  accel=per_dev[4], **flags)
         if device.type != "cuda":

@@ -114,9 +114,11 @@ def counts() -> Dict[str, int]:
     """Every counter since the process started: :data:`COUNTERS` and the
     launch counters where they live (``sweep_rays.launches``, ``.gated_launches``,
     ``.code_launches`` and ``.geometries`` by name; ``sweep_rays_scheduled``'s;
-    ``gate_cross.launches``, ``count_bins.launches``, ``fma_peak.launches``).
+    ``gate_cross.launches``, ``count_bins.launches``, ``fma_peak.launches``,
+    ``mask_rows.launches``).
     Synchronises every device that holds a counter buffer."""
     from .ops.count_cuda import count_bins
+    from .ops.masks_cuda import mask_rows
     from .ops.peak_cuda import fma_peak
     from .ops.trace_cuda import gate_cross, sweep_rays, sweep_rays_scheduled
 
@@ -133,7 +135,7 @@ def counts() -> Dict[str, int]:
                 out[f"{fn.__name__}.{attr}"] = int(getattr(fn, attr))
         for geo, n in fn.geometries.items():
             out[f"{fn.__name__}.geometries.{geo}"] = int(n)
-    for fn in (gate_cross, count_bins, fma_peak):
+    for fn in (gate_cross, count_bins, fma_peak, mask_rows):
         out[f"{fn.__name__}.launches"] = int(fn.launches)
     return out
 

@@ -20,7 +20,9 @@ them, kernel #1 in code mode behind the two-level gate with a ragged
 last group on a 2M-triangle slim city against its plain version, and the
 two measurement scripts: ``bench_torch.run_chunk`` on the card against the
 CPU with its launches, ``head_to_head_torch.materialize_rays`` == the rays
-the card traced, and ``bench_torch.main`` exiting 1 when a stage raises.
+the card traced, ``bench_torch.main`` exiting 1 when a stage raises, and
+the mask rows kernel of a scheduled round against its plain version on
+synthetic cases and on the benchmark's canyon and ten-building city rounds.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1779,3 +1781,87 @@ def test_every_built_geometry_equals_plain_and_whole_blocks(geometry_cases, monk
     assert int((got[0] >= 0).sum()) > n // 10
     if gated and geo.rays < 256:  # its CTAs test no more pairs than the walk
         assert int(per_cta.sum()) * geo.rays <= int(whole[2].sum()) * 256
+
+
+# ---------------------------------------------------------------------------
+# a scheduled round's mask rows: the kernel of csrc/masks.cu against its
+# plain version
+# ---------------------------------------------------------------------------
+
+
+MASK_SHAPES = [(e, t) for e in (1, 2, 11, 97) for t in (2048, 6144, 1_000_000)]
+MASK_CASES = ([f"E{e}-T{t}" for e, t in MASK_SHAPES]
+              + ["E11-T6144-nonplanar", "E97-T1000000-nonplanar", "canyon_matrix",
+                 "city_buildings"])
+
+
+def _benchmark_rounds(cell_name: str, seed: int = 2200000020):
+    """Every ``combined_masks`` call of one solve of the benchmark's cell
+    ``cell_name`` (``vfbench``'s scene and traffic from ``seed``), with the
+    rows it returned, and the launches of the mask kernel and of kernel #2
+    over the solve."""
+    import raystrack_tpu_torch.solver as solver
+    from raystrack_tpu_torch.ops import trace as T
+    from raystrack_tpu_torch.ops.masks_cuda import mask_rows
+    from vfbench import harness
+
+    cell = harness.Cell.load(cell_name)
+    meshes = cell.meshes(seed)
+    calls = []
+    real, quiet = T.combined_masks, solver._log
+    try:
+        solve = harness.program_solver(cell.traffic, meshes, "gpu")
+        T.combined_masks = lambda *args: calls.append((args, real(*args))) or calls[-1][1]
+        launches = (mask_rows.launches, sweep_rays_scheduled.launches)
+        solve(harness.solve_seed(seed, 1))
+        launches = (mask_rows.launches - launches[0],
+                    sweep_rays_scheduled.launches - launches[1])
+    finally:
+        T.combined_masks, solver._log = real, quiet
+    return calls, launches
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_mask_rows_kernel_equals_plain_version(card, case):
+    """The kernel's (E, Tpad) rows == the plain version's on the card and ==
+    the rows numpy computes one float32 operation at a time, bitwise, one
+    launch a call: on the synthetic cases of ``tests/_mask_cases.py`` (E of
+    1 to 97 rows over 2,048 to 10^6 triangles; planar and non-planar
+    emitters, tol 0 and not, inactive surfaces and rows, sid == emit_sid,
+    min_sid at both ends, padding, NaN, infinite, overflowing and
+    subnormal coordinates; and rounds with no planar row, where the kernel
+    leaves the geometry unread), and on every round of one solve of the
+    benchmark's ``canyon_matrix`` (about 34 rounds of up to 11 rows over
+    128 padded triangles) and ``city_buildings`` (one round of (10,
+    10,000,384)), where the kernel launched once a round: as often as
+    kernel #2."""
+    from raystrack_tpu_torch.ops.masks_cuda import mask_rows
+    from raystrack_tpu_torch.ops.trace import combined_masks, combined_masks_reference
+    from _mask_cases import mask_case, on, spec_rows
+
+    if case.startswith("E"):
+        n_emit, n_tri = (int(x[1:]) for x in case.split("-")[:2])
+        host = mask_case(n_emit, n_tri, seed=n_emit + n_tri,
+                         planar=not case.endswith("nonplanar"))
+        args = on(host, card)
+        before = mask_rows.launches
+        got = combined_masks(*args)
+        assert mask_rows.launches == before + 1
+        calls = [(args, got)]
+        assert np.array_equal(got.cpu().numpy(), spec_rows(*host))
+    else:
+        calls, (n_masks, n_rounds) = _benchmark_rounds(case)
+        assert n_masks == n_rounds == len(calls) and n_rounds >= 1
+        shapes = {tuple(got.shape) for _, got in calls}
+        if case == "canyon_matrix":  # 22 triangles padded to 128; a round's rows vary
+            assert {t for _, t in shapes} == {128} and max(e for e, _ in shapes) > 1
+        else:
+            assert shapes == {(10, 10_000_384)}
+    for args, got in calls:
+        assert got.device == card and got.dtype == torch.float32
+        want = combined_masks_reference(*args)
+        assert torch.equal(got, want)
+        assert bool((want == 2).any())
+    if case == "canyon_matrix":
+        for args, got in calls:
+            assert np.array_equal(got.cpu().numpy(), spec_rows(*args))

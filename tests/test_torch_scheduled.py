@@ -457,16 +457,24 @@ def test_scheduled_trace_matches_pallas_interpret(reciprocity):
     assert np.asarray(want["counts_f"]).sum() > 1000
 
 
-def test_scheduled_rays_equal_generate_rays():
+@pytest.mark.parametrize("narrow", [False, True], ids=["whole_cdf", "round_faces_cdf"])
+def test_scheduled_rays_equal_generate_rays(narrow):
     """The batched raygen gives every schedule row the rays, bitwise, that
     generate_rays gives its emitter's iteration: the ground of the equality
-    of the two routes' dicts."""
+    of the two routes' dicts. The same with the stack's CDF cut to the
+    columns the schedule's emitters fill, as the scheduled driver passes it:
+    the two plates' 2 faces of the cloud's 300."""
     ps = tprep.PreparedSolver(_cloud_scene(300, seed=6))
     cp, stacks, schedule = _schedule(ps, [1, 0], samples=2, rays=32, iters=3,
                                      seed=3, reciprocity=False)
     tt, tg, offsets, _ = ps.get_flat_tables(samples=2, rays=32, flip_faces=False,
                                             align=RAY_BLOCK, device=CPU)
     sel = torch.tensor([1, 0], dtype=torch.int32)
+    if narrow:
+        faces = max(ps.get_emitters(samples=2, rays=32, flip_faces=False)[int(e)].cdf.shape[0]
+                    for e in sel)
+        assert faces < tg[0].shape[1]
+        tg = (tg[0][:, :faces],) + tuple(tg[1:])
     o, d, n_valid = ttrace.scheduled_rays(
         tt, tg, torch.from_numpy(cp), torch.from_numpy(stacks[3]),
         torch.from_numpy(schedule), sel, sched_block=RAY_BLOCK)

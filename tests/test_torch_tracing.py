@@ -314,5 +314,5 @@ def test_counts_hold_every_launch_counter():
     assert got["sweep_rays.launches"] == tcuda.sweep_rays.launches
     assert got["sweep_rays_scheduled.gated_launches"] == tcuda.sweep_rays_scheduled.gated_launches
     assert got["gate_cross.launches"] == tcuda.gate_cross.launches
-    assert {"count_bins.launches", "fma_peak.launches", "sweep_rays.code_launches",
-            *tracing.COUNTERS} <= set(got)
+    assert {"count_bins.launches", "fma_peak.launches", "mask_rows.launches",
+            "sweep_rays.code_launches", *tracing.COUNTERS} <= set(got)
