@@ -7,7 +7,7 @@ is a file found by name: ``configs/<config>.json`` (its ``scene`` names
 ``scenes/<scene>.py``), ``traffic/<traffic>.json``, ``metrics/<metric>.py``
 and ``limits/<cell>.json``. The program, ``raystrack_tpu_torch``, is only
 called through its public solves and read through its public launch
-counters.
+counters. A cell of ``chips`` cards solves over ``ray_mesh()`` of them.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ class Cell:
     limits: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    chips: int = 1
 
     @classmethod
     def load(cls, name: str, benchmark: Optional[dict] = None) -> "Cell":
@@ -67,7 +68,8 @@ class Cell:
                    traffic=_json(HERE / "traffic" / f"{w['traffic']}.json"),
                    limits=_json(HERE / "limits" / f"{name}.json"),
                    end_to_end=[m for m in bench["end_to_end"] if applies(m)],
-                   per_layer=[m for m in bench["per_layer"] if applies(m)])
+                   per_layer=[m for m in bench["per_layer"] if applies(m)],
+                   chips=int(w["chips"]))
 
     def meshes(self, seed: int):
         scene = _module(HERE / "scenes" / f"{self.config['scene']}.py")
@@ -90,27 +92,44 @@ def params(traffic: dict, qmc_seed: int, device: str) -> dict:
     return {s: {**traffic[s], "seed": qmc_seed, "device": device} for s in sides}
 
 
-def program_solver(traffic: dict, meshes, device: str) -> Callable[[int], object]:
+def cards(device: str, chips: int) -> List[torch.device]:
+    """The devices a cell of ``chips`` solves over: ``cuda:0`` ..
+    ``cuda:chips-1`` on the card; on the CPU the CPU ``chips`` times (a
+    logical mesh, so the sharded path runs in the CPU tests)."""
+    if device == "cpu":
+        return [torch.device("cpu")] * chips
+    return [torch.device("cuda", i) for i in range(chips)]
+
+
+def program_solver(traffic: dict, meshes, device: str, chips: int = 1
+                   ) -> Callable[[int], object]:
     """The timed entry: one ``PreparedSolver`` and the public solve the
-    traffic names, called with a QMC seed."""
+    traffic names, called with a QMC seed. A cell of more than one chip
+    passes ``mesh=ray_mesh(cards(device, chips))``; one of one chip passes
+    no ``mesh=``."""
     import raystrack_tpu_torch as rt
     import raystrack_tpu_torch.solver as solver
 
     solver._log = lambda msg: None  # the progress lines' documented hook
     prepared = rt.PreparedSolver(meshes)
     kind = traffic["solve"]
+    on_mesh = {}
+    if chips > 1:
+        from raystrack_tpu_torch.parallel import ray_mesh
+
+        on_mesh["mesh"] = ray_mesh(cards(device, chips))
 
     def run(qmc_seed: int):
         p = params(traffic, qmc_seed, device)
         if kind == "matrix":
             return rt.view_factor_matrix(meshes, rt.MatrixParams(**p["matrix"]),
-                                         prepared=prepared)
+                                         prepared=prepared, **on_mesh)
         if kind == "sky":
             return rt.view_factor_to_tregenza_sky(meshes, rt.SkyParams(**p["sky"]),
-                                                  prepared=prepared)
+                                                  prepared=prepared, **on_mesh)
         return rt.view_factor_outside_workflow(
             meshes, matrix_params=rt.MatrixParams(**p["matrix"]),
-            sky_params=rt.SkyParams(**p["sky"]), prepared=prepared)
+            sky_params=rt.SkyParams(**p["sky"]), prepared=prepared, **on_mesh)
 
     return run
 
@@ -158,11 +177,16 @@ class Run:
     spans: Dict[str, float] = field(default_factory=dict)
     walls: List[float] = field(default_factory=list)
     window_s: float = 0.0
-    peak_bytes: int = 0
+    peak_bytes_per_card: List[int] = field(default_factory=list)
     trace: object = None
     failed: int = 0
     checked: int = 0
     checks: Dict[str, dict] = field(default_factory=dict)
+
+    @property
+    def peak_bytes(self) -> int:
+        """The fullest card's peak memory."""
+        return max(self.peak_bytes_per_card, default=0)
 
     @property
     def correct(self) -> bool:
@@ -184,15 +208,24 @@ def measure(cell: Cell, seed: int, seconds: float, *, trace: bool, t_start: floa
             device: str = "gpu") -> Run:
     """Set up, warm up, solve back to back for ``seconds`` (traced for the
     first ``TRACE_SECONDS`` with ``trace``), then check a sample of the
-    window's solves against the reference."""
+    window's solves against the reference. On the card every card of the
+    cell is synchronised after each solve and its peak memory read."""
     on_card = device == "gpu"
     run = Run(cell=cell, seed=seed)
+    used = cards(device, cell.chips) if on_card else []
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.init()  # a card's memory statistics exist once CUDA has started
+    for d in used:
+        torch.cuda.reset_peak_memory_stats(d)
     meshes = _span(run, "scene", lambda: cell.meshes(seed))
-    solve = _span(run, "prepare", lambda: program_solver(cell.traffic, meshes, device))
+    solve = _span(run, "prepare",
+                  lambda: program_solver(cell.traffic, meshes, device, cell.chips))
     _span(run, "warmup", lambda: solve(solve_seed(seed, 0)))
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def sync():
+        for d in used:
+            torch.cuda.synchronize(d)
+
     sync()
     run.setup_s = time.perf_counter() - t_start
 
@@ -219,7 +252,7 @@ def measure(cell: Cell, seed: int, seconds: float, *, trace: bool, t_start: floa
         from vfbench import tracing
 
         before = launches()
-        with tracing.profiled() as got:
+        with tracing.profiled(cell.chips) as got:
             t0 = time.perf_counter()  # the profiler's start-up stays outside the window
             while time.perf_counter() - t0 < TRACE_SECONDS:
                 _span(run, "solve", one)
@@ -231,8 +264,7 @@ def measure(cell: Cell, seed: int, seconds: float, *, trace: bool, t_start: floa
     while time.perf_counter() - t0 < seconds:
         one()
     run.window_s = time.perf_counter() - t0
-    if on_card:
-        run.peak_bytes = int(torch.cuda.max_memory_allocated())
+    run.peak_bytes_per_card = [int(torch.cuda.max_memory_allocated(d)) for d in used]
 
     del solve
     gc.collect()
@@ -277,8 +309,9 @@ def metric_values(run: Run, trace: bool) -> Dict[str, dict]:
 
 def result(run: Run, trace: bool) -> dict:
     """The run's result line."""
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
-              "memory_peak_bytes": run.peak_bytes}
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": run.cell.chips, "memory_peak_bytes": run.peak_bytes,
+              "memory_peak_bytes_per_card": run.peak_bytes_per_card}
     line = {"correct": run.correct, "attempted": len(run.walls), "failed": run.failed,
             "metrics": metric_values(run, trace), "device": device}
     if trace and run.trace is not None:

@@ -1,5 +1,6 @@
-"""Share of the traced window in which no operation ran on the device:
-1 - (union of the device events' intervals) / window, in %."""
+"""Share of the traced window in which no operation ran on a card, in %:
+the mean over the cell's cards of each card's 1 - (union of its device
+events' intervals) / window. On one card, 1 - the union / window."""
 
 
 def read(run):

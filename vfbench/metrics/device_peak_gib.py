@@ -1,5 +1,5 @@
-"""``torch.cuda.max_memory_allocated()`` over set-up and window, GiB: how
-large a scene one card holds."""
+"""``torch.cuda.max_memory_allocated(card)`` over set-up and window, GiB,
+of the cell's fullest card: how large a scene one card holds."""
 
 
 def read(run):

@@ -48,7 +48,7 @@ def test_names_units_and_lines():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and LINE.match(w["why"])
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         names.append(w["name"])
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower",
@@ -64,6 +64,8 @@ def test_names_units_and_lines():
     assert len(names) == len(set(names))
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(pairs) == len(set(pairs))
+    fours = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert fours <= max(1, len(BENCH["workloads"]) // 4)
     assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in BENCH["end_to_end"])
 
 

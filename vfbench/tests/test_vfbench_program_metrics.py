@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
 import pytest
 
 from vfbench import harness
@@ -30,7 +31,7 @@ def _trace():
     (a span inside it at 0.06-0.08 is its op), its wait and consume
     0.30-0.45 (consume 0.36-0.45), a second build 0.45-0.50 and a chunk
     dispatch 0.70-0.80, all under the solve span 0.0-0.9."""
-    device = [(SWEEP, 0.10, 0.30), (SWEEP, 0.50, 0.60), ("elementwise_kernel", 0.62, 0.70)]
+    device = [(SWEEP, 0.10, 0.30, 0), (SWEEP, 0.50, 0.60, 0), ("elementwise_kernel", 0.62, 0.70, 0)]
     host = [("raystrack.solve.matrix", 0.0, 0.9),
             ("raystrack.round.build", 0.05, 0.12), ("raystrack.ops.raygen", 0.06, 0.08),
             ("raystrack.round.wait", 0.30, 0.36), ("raystrack.round.consume", 0.36, 0.45),
@@ -101,10 +102,66 @@ def test_span_readers_take_outermost_spans_once(counts):
 def test_the_metrics_are_declared_with_their_cells():
     bench = harness._json(harness.ROOT / "BENCHMARK.json")
     declared = {m["name"]: m for m in bench["per_layer"]}
-    cities = ["city_building", "city_buildings"]
+    cities = ["city_building", "city_buildings", "city_building_x4"]
     for name in READERS:
         m = declared[name]
         assert m["moves"] == "solve_s" and (harness.HERE / "metrics" / f"{name}.py").is_file()
         cells = cities if name == "sweep_tile_share" else [w["name"] for w in bench["workloads"]]
         assert sorted(m["workloads"]) == sorted(cells)
         assert "roofline" not in name and "mfu" not in name
+
+
+# The per-card readings, on synthetic traces of one and of more cards.
+
+def _cards_trace(device, cards):
+    return Trace(window_s=1.0, device=device, host=[], cards=cards, solves=2)
+
+
+def test_one_card_busy_and_idle_are_the_union_of_its_events():
+    """On one card ``busy_s`` and ``device_idle_share`` read, bit for bit,
+    the union of every device event over the window, as before cards were
+    told apart."""
+    trace = _trace()
+    trace.device.append(("Memcpy HtoD (Pinned -> Device)", 0.25, 0.35, 0))  # overlaps
+    trace = _cards_trace(trace.device, 1)
+    union = sorted((s, e) for _, s, e, _ in trace.device)
+    merged = [list(union[0])]
+    for s, e in union[1:]:
+        if s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    iv = np.asarray(merged, dtype=np.float64)
+    busy = float((iv[:, 1] - iv[:, 0]).sum())
+    assert trace.busy_s == busy
+    assert _read("device_idle_share", _run(trace)) == 100.0 * (1.0 - busy / 1.0)
+
+
+def test_a_card_left_idle_shows_in_the_mean_and_not_in_the_union():
+    """Card 0 busy the whole window, card 1 its first half: 25% idle a
+    card on the mean, 0% in the union, whose gaps (no card busy) stay the
+    breakdown's and the idle readers'."""
+    trace = _cards_trace([(SWEEP, 0.0, 1.0, 0), (SWEEP, 0.0, 0.5, 1)], 2)
+    assert trace.card_busy_s() == [1.0, 0.5] and trace.busy_s == 0.75
+    assert _read("device_idle_share", _run(trace)) == pytest.approx(25.0)
+    assert float((trace.busy_intervals[:, 1] - trace.busy_intervals[:, 0]).sum()) == 1.0
+    assert trace.breakdown()["idle_gaps"] == []
+
+
+def test_shard_sweep_skew():
+    equal = _cards_trace([(SWEEP, 0.1, 0.3, c) for c in range(4)], 4)
+    assert _read("shard_sweep_skew", _run(equal)) == 0.0
+    uneven = _cards_trace([(SWEEP, 0.1, 0.4, 0), (SWEEP, 0.1, 0.2, 1),
+                           ("elementwise_kernel", 0.2, 0.9, 1)], 2)
+    assert _read("shard_sweep_skew", _run(uneven)) == pytest.approx(50.0)  # 0.3 / 0.2 - 1
+    assert _read("shard_sweep_skew", _run(_cards_trace(equal.device[:1], 1))) is None
+    assert _read("shard_sweep_skew", _run(_cards_trace([("fill", 0.1, 0.2, 0)] * 2, 2))) is None
+    assert _read("shard_sweep_skew", _run(None)) is None
+
+
+def test_the_card_metric_is_declared_with_the_cells_of_more_than_one_chip():
+    bench = harness._json(harness.ROOT / "BENCHMARK.json")
+    m = {m["name"]: m for m in bench["per_layer"]}["shard_sweep_skew"]
+    across = sorted(w["name"] for w in bench["workloads"] if w["chips"] > 1)
+    assert m["moves"] == "solve_s" and m["layer"] == "parallel.sharding"
+    assert m["source"] == "device_trace" and sorted(m["workloads"]) == across

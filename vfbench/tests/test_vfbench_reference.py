@@ -20,12 +20,15 @@ from vfbench import harness  # noqa: E402
 from vfbench.scenes import occluded_city, street_canyon  # noqa: E402
 
 # The cells' own traffic at a size the CPU holds: (cell, triangles of the
-# city, matrix/sky fields changed).
+# city, matrix/sky fields changed). city_building_x4 emits 16 x 160 = 2,560
+# rays an iteration, so that of its four shards of 2,048 (RAY_BLOCK x 4
+# padded) the second holds real rays, as the cell's do on four cards.
 SMALL = {
     "canyon_matrix": (None, dict(samples=1, rays=64, min_iters=5, max_iters=12)),
     "canyon_workflow": (None, dict(samples=1, rays=64, min_iters=5, max_iters=12)),
     "city_building": (12_002, dict(rays=64)),
-    "city_buildings": (12_002, dict(rays=16, min_iters=2, max_iters=2)),
+    "city_buildings": (12_002, dict(rays=8, min_iters=2, max_iters=2)),
+    "city_building_x4": (12_002, dict(rays=160)),
 }
 
 
@@ -92,7 +95,7 @@ def test_buildings_split_the_city(per_building):
 def test_reference_agrees_with_the_port_and_the_control_fails(name):
     cell = small_cell(name)
     meshes = cell.meshes(2147483901)
-    solve = harness.program_solver(cell.traffic, meshes, "cpu")
+    solve = harness.program_solver(cell.traffic, meshes, "cpu", cell.chips)
     limit = float(cell.limits["gap"])
     for qmc in (harness.solve_seed(7, 1), harness.solve_seed(7, 2)):
         got = solve(qmc)

@@ -1,11 +1,11 @@
-"""The traced part of a run: ``torch.profiler`` over the device and the host,
-read in memory (no trace file is written) into a :class:`Trace`."""
+"""The traced part of a run: ``torch.profiler`` over the devices and the
+host, read in memory (no trace file is written) into a :class:`Trace`."""
 from __future__ import annotations
 
 import contextlib
 import re
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,36 +16,51 @@ NAME_CHARS = 160  # a kernel's name is cut to this many characters in a breakdow
 
 @dataclass
 class Trace:
-    """Device events ``(name, start_s, end_s)`` (kernels, copies and fills),
-    host events likewise, the traced window's seconds, the solves completed
-    in it and the program's launch counters' change over it."""
+    """Device events ``(name, start_s, end_s, card)`` (kernels, copies and
+    fills; ``card`` is the CUDA device index), host events ``(name, start_s,
+    end_s)``, the traced window's seconds, the cell's cards (0 .. cards-1),
+    the solves completed in the window and the program's launch counters'
+    change over it. ``busy_intervals`` is the union over every card: a gap
+    in it is a time when no card works."""
 
     window_s: float
-    device: List[Tuple[str, float, float]]
+    device: List[Tuple[str, float, float, int]]
     host: List[Tuple[str, float, float]]
+    cards: int = 1
     solves: int = 0
     launches: int = 0
     busy_intervals: np.ndarray = field(default=None, repr=False)
 
     def __post_init__(self):
-        self.busy_intervals = _union([(s, e) for _, s, e in self.device])
+        self.busy_intervals = _union([(s, e) for _, s, e, _ in self.device])
+
+    def card_busy_s(self) -> List[float]:
+        """Each card's own busy seconds: the length of the union of its
+        events' intervals."""
+        return [_length(_union([(s, e) for _, s, e, c in self.device if c == card]))
+                for card in range(self.cards)]
 
     @property
     def busy_s(self) -> float:
-        iv = self.busy_intervals
-        return float((iv[:, 1] - iv[:, 0]).sum()) if iv.size else 0.0
+        """The mean over the cell's cards of each card's busy seconds (on
+        one card, the union's)."""
+        per_card = self.card_busy_s()
+        return sum(per_card) / len(per_card)
 
-    def device_seconds(self, pattern: str, *, invert: bool = False) -> float:
+    def device_seconds(self, pattern: str, *, invert: bool = False,
+                       card: Optional[int] = None) -> float:
         """Summed durations of the device events whose name matches
-        ``pattern`` (a regular expression), or with ``invert`` of the others."""
+        ``pattern`` (a regular expression), or with ``invert`` of the others,
+        on every card or on ``card`` alone."""
         rx = re.compile(pattern)
-        return float(sum(e - s for n, s, e in self.device if bool(rx.search(n)) != invert))
+        return float(sum(e - s for n, s, e, c in self.device
+                         if bool(rx.search(n)) != invert and card in (None, c)))
 
     def breakdown(self, top: int = 10) -> dict:
         """The device operations that took most time, and the idle gaps
         summed by the innermost host event under each gap's middle."""
         by_op = {}
-        for n, s, e in self.device:
+        for n, s, e, _ in self.device:
             key = n[:NAME_CHARS]
             by_op[key] = by_op.get(key, 0.0) + (e - s)
         ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:top]
@@ -66,6 +81,10 @@ def _union(intervals) -> np.ndarray:
         else:
             out.append([s, e])
     return np.asarray(out, dtype=np.float64).reshape(-1, 2)
+
+
+def _length(intervals: np.ndarray) -> float:
+    return float((intervals[:, 1] - intervals[:, 0]).sum()) if intervals.size else 0.0
 
 
 def _gaps(busy: np.ndarray) -> List[Tuple[float, float]]:
@@ -98,19 +117,24 @@ WINDOW = SPAN_PREFIX + "traced"
 
 
 @contextlib.contextmanager
-def profiled():
-    """Profile the block on the host and the CUDA device inside a span
-    ``vfbench.traced``; yields a list that holds the :class:`Trace` of that
-    span once the block has ended (``solves`` and ``launches`` are the
-    caller's to fill in). Device events are clipped to the span."""
+def profiled(cards: int):
+    """Profile the block on the host and CUDA devices 0 .. ``cards``-1
+    inside a span ``vfbench.traced``; yields a list that holds the
+    :class:`Trace` of that span once the block has ended (``solves`` and
+    ``launches`` are the caller's to fill in). Device events are clipped to
+    the span."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    def sync():
+        for card in range(cards):
+            torch.cuda.synchronize(card)
+
     out: list = []
-    torch.cuda.synchronize()
+    sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function(WINDOW):
             yield out
-            torch.cuda.synchronize()
+            sync()
     cpu = torch.autograd.DeviceType.CPU
     device, host, window = [], [], None
     for ev in prof.profiler.kineto_results.events():
@@ -121,9 +145,9 @@ def profiled():
                 window = rec
             host.append(rec)
         elif not name.startswith(SPAN_PREFIX):  # not a span's shadow on the device
-            device.append(rec)
+            device.append((*rec, ev.device_index()))
     if window is None:
         raise RuntimeError(f"the profile holds no {WINDOW} span")
     _, a, b = window
-    device = [(n, max(s, a), min(e, b)) for n, s, e in device if e > a and s < b]
-    out.append(Trace(window_s=b - a, device=device, host=host))
+    device = [(n, max(s, a), min(e, b), c) for n, s, e, c in device if e > a and s < b]
+    out.append(Trace(window_s=b - a, device=device, host=host, cards=cards))
