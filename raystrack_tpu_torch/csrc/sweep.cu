@@ -111,8 +111,9 @@ bool bad_gate(const Gate& g) {
 // count of swept tiles; `block_visits` (NULL, or one int per block of 256 rays, zeroed)
 // each block's count of tiles any of its CTAs swept, through `swept` (then
 // a zeroed bitmap of `swept_words` >= ceil(tiles / 32) words a block);
-// `work` (NULL, or two int64 the launch adds to) the tiles its CTAs swept
-// and the pairs they tested (struct Visits);
+// `work` (NULL, or four int64 the launch adds to) the tiles its CTAs swept,
+// the pairs they tested, and gated the boxes listed and walked (struct
+// Visits);
 // `timeline` (NULL, or four int64 per CTA; gated launches only) each CTA's
 // start and end on the card's nanosecond timer, its SM and the visit
 // positions it walked.

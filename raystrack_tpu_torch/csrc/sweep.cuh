@@ -35,9 +35,11 @@ struct Gate {
 // 256-ray walk's count at every geometry), tallied through `swept`, a
 // zeroed bitmap of `words` words a block: a CTA sets a tile's bit when it
 // sweeps it and counts the tile when the bit was clear. `work` (NULL, or
-// two int64) receives the launch's work, summed over its CTAs: the tiles
-// swept, and the pairs tested (each swept tile's triangles times the CTA's
-// rays below n); thread 0 of each CTA adds its share once, at its end.
+// four int64) receives the launch's work, summed over its CTAs: the tiles
+// swept, the pairs tested (each swept tile's triangles times the CTA's
+// rays below n) and, gated, the boxes on the visit lists of the CTAs'
+// blocks and the list positions the CTAs walked; thread 0 of each CTA adds
+// its share once, at its end.
 struct Visits {
   int* cta;
   int* block;

@@ -616,7 +616,9 @@ __device__ __forceinline__ int next_on(const int* __restrict__ tiles_on, int fro
 // `visits.cta[blockIdx.x]`, marks each in the block's row of `visits.swept`
 // (see struct Visits), each when it is given, and a gated CTA writes its
 // times to row blockIdx.x of `gate.timeline`. Returns the count, the same
-// in every thread of the CTA.
+// in every thread of the CTA, and sets `positions` to the visit-list
+// positions the CTA walked before the list ended or a window stopped it (0
+// ungated).
 template <bool kMatrix, bool kAny, bool kGate, int kRows, bool kMaskRow, int kSplit, int kCta,
           int kR, class Elig>
 __device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__ pack,
@@ -624,7 +626,7 @@ __device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__
                                           int tile, const float* __restrict__ mask_row,
                                           const Gate& gate, Shared<kSplit, kCta, kGate>& sh,
                                           Elig elig, int2 place, int n_segments,
-                                          const Visits& visits) {
+                                          const Visits& visits, int& positions) {
   static_assert(kRays % kCta == 0, "a CTA serves a whole part of one gate block");
   using L = Layout<kSplit, kCta, kR>;
   static_assert(!kGate || L::kThreads >= kAheadThreads, "the read-ahead's threads");
@@ -636,6 +638,7 @@ __device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__
   }
   int n_swept = 0;
   int buf = 0;
+  positions = 0;
   const size_t b = cta_block<kCta>(place.x);
   const bool mark = visits.block != nullptr && threadIdx.x == 0;
   if constexpr (!kGate) {
@@ -673,7 +676,8 @@ __device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__
       if (n_pos > kAhead) word = ahead_load(gate, order, suffmin, tiles_on, n_pos, 1);
       __syncthreads();
     }
-    for (int p = 0; p < n_pos; ++p) {
+    int p = 0;
+    for (; p < n_pos; ++p) {
       const int k = p % kAhead;
       const int abuf = (p / kAhead) & 1;
       if (k == 0 && p > 0) {
@@ -727,6 +731,7 @@ __device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__
       timeline[4 * row + 1] = global_ns();
       timeline[4 * row + 3] = n_walked;
     }
+    positions = p;
   }
   if (visits.cta != nullptr && threadIdx.x == 0) visits.cta[blockIdx.x] = n_swept;
   return n_swept;
@@ -734,15 +739,25 @@ __device__ __forceinline__ int sweep_ray(Carry<kR>& c, const float* __restrict__
 
 // The CTA's share of the launch's work, when it is counted (`visits.work`):
 // its swept tiles, and the pairs they held, each tile's triangles against
-// the CTA's rays below n. Thread 0 adds both, once, at the CTA's end.
-template <int kCta>
-__device__ __forceinline__ void count_work(const Visits& visits, int n_swept, int tile, int n,
-                                           int2 place) {
-  if (visits.work == nullptr || threadIdx.x != 0 || n_swept == 0) return;
-  const int below = n - place.x * kCta;
-  const unsigned long long rays = below < kCta ? below : kCta;
-  atomicAdd(visits.work, static_cast<unsigned long long>(n_swept));
-  atomicAdd(visits.work + 1, static_cast<unsigned long long>(n_swept) * tile * rays);
+// the CTA's rays below n; gated, the boxes on its block's visit list and
+// the positions it walked. Thread 0 adds each, once, at the CTA's end.
+template <int kCta, bool kGate>
+__device__ __forceinline__ void count_work(const Visits& visits, const Gate& gate, int n_swept,
+                                           int positions, int tile, int n, int2 place) {
+  if (visits.work == nullptr || threadIdx.x != 0) return;
+  if (n_swept > 0) {
+    const int below = n - place.x * kCta;
+    const unsigned long long rays = below < kCta ? below : kCta;
+    atomicAdd(visits.work, static_cast<unsigned long long>(n_swept));
+    atomicAdd(visits.work + 1, static_cast<unsigned long long>(n_swept) * tile * rays);
+  }
+  if constexpr (kGate) {
+    const int listed = gate.counts[cta_block<kCta>(place.x)];
+    if (listed > 0) {
+      atomicAdd(visits.work + 2, static_cast<unsigned long long>(listed));
+      atomicAdd(visits.work + 3, static_cast<unsigned long long>(positions));
+    }
+  }
 }
 
 // A ray's result: the launch's outputs, or its segment's row of the
@@ -812,10 +827,11 @@ sweep_kernel(const float* __restrict__ rays, int n,
   // threads past the last ray still load stages and reach every barrier
   Carry<kR> c;
   load_rays<kSplit, kCta>(c, rays, n, place);
+  int positions;
   const int n_swept = sweep_ray<kMatrix, kAny, kGate, kUsedRows, false, kSplit, kCta>(
       c, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
-      PackMasks<!kBaked, !(kBaked && !kAny)>{}, place, seg.count, visits);
-  count_work<kCta>(visits, n_swept, tile, n, place);
+      PackMasks<!kBaked, !(kBaked && !kAny)>{}, place, seg.count, visits, positions);
+  count_work<kCta, kGate>(visits, gate, n_swept, positions, tile, n, place);
   put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
@@ -831,10 +847,11 @@ sweep_code_kernel(const float* __restrict__ rays, int n,
   const int2 place = cta_place<kGate>(seg);
   Carry<kR> c;
   load_rays<kSplit, kCta>(c, rays, n, place);
+  int positions;
   const int n_swept = sweep_ray<kMatrix, kAny, kGate, kCodeRows, false, kSplit, kCta>(
       c, pack, n_tri_pad, tiles_on, tile, nullptr, gate, sh,
-      CodeBounds{emit_code, min_code}, place, seg.count, visits);
-  count_work<kCta>(visits, n_swept, tile, n, place);
+      CodeBounds{emit_code, min_code}, place, seg.count, visits, positions);
+  count_work<kCta, kGate>(visits, gate, n_swept, positions, tile, n, place);
   put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 
@@ -877,10 +894,11 @@ sweep_sched_kernel(const float* __restrict__ rays, int n,
   }
   const size_t row = static_cast<size_t>(e);
   load_rays<kSplit, kCta>(c, rays, n, place);
+  int positions;
   const int n_swept = sweep_ray<kMatrix, kAny, kGate, kCodeRows, true, kSplit, kCta>(
       c, pack, n_tri_pad, tiles_on + row * tiles_stride, tile, masks + row * n_tri_pad, gate,
-      sh, CombinedMask{}, place, seg.count, visits);
-  count_work<kCta>(visits, n_swept, tile, n, place);
+      sh, CombinedMask{}, place, seg.count, visits, positions);
+  count_work<kCta, kGate>(visits, gate, n_swept, positions, tile, n, place);
   put_rays<kSplit, kCta>(c, seg, n, place, codes, any_out);
 }
 

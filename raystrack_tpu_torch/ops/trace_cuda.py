@@ -661,7 +661,10 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, geo: SweepGeo
     decision against its own rays' current carry, the same tiles_on skip
     and two-level indexing), all units in step, each visit running
     :func:`_tile_step` on the units that take it; then the segments fold in
-    order. Returns (codes, flags, per-unit swept tiles)."""
+    order. Returns (codes, flags, per-unit swept tiles, per-block swept
+    tiles, per-unit (boxes listed, boxes walked)): a unit lists its block's
+    boxes when it is a CTA's first segment, and walks each box whose first
+    position it reaches before its part ends or a window stops it."""
     n = rays.shape[1]
     R, G = geo.rays, geo.segments
     per_cta = gate.ray_block // R
@@ -685,6 +688,7 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, geo: SweepGeo
     order, suffmin = gate.order[blk], gate.suffmin[blk]
     done = torch.zeros(U, dtype=torch.bool, device=device)
     n_done = torch.zeros(U, dtype=torch.int32, device=device)
+    walked = torch.zeros(U, dtype=torch.int64, device=device)
     block_done = torch.zeros(n_blocks, dtype=torch.int32, device=device)
     lanes = torch.arange(tile, device=device)
     step = max(1, _REF_PAIRS // (R * tile))
@@ -699,6 +703,8 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, geo: SweepGeo
             stop = act & (settled | ~live).all(dim=2).all(dim=1)
             done |= stop
             act &= ~stop
+        if j % gate.group == 0:
+            walked += act
         box = order[:, j // gate.group].long()
         it = box * gate.group + j % gate.group
         act &= tiles_on[it] > 0
@@ -731,7 +737,9 @@ def _sweep_gated(rays, tri_pack, tiles_on, tile, gate: GateTables, geo: SweepGeo
                 c.index_copy_(0, kb, v)
     best_t, best_code, any_hit = _fold_units(best_t, best_code, any_hit, G)
     codes = torch.where(best_t < INF, best_code, -1).view(-1)[:n]
-    return codes, any_hit.view(-1)[:n].to(torch.int32), n_done[: geo.units(n)], block_done
+    listed = torch.where(seg == 0, gate.counts.long()[blk], 0)
+    walk = torch.stack([listed, walked], dim=1)[: geo.units(n)]
+    return codes, any_hit.view(-1)[:n].to(torch.int32), n_done[: geo.units(n)], block_done, walk
 
 
 def _store_visits(visits: Optional[torch.Tensor], n: int, geo: SweepGeometry, per_unit,
@@ -755,16 +763,20 @@ def _store_visits(visits: Optional[torch.Tensor], n: int, geo: SweepGeometry, pe
                          f"got {visits.shape[0]}")
 
 
-def _count_work(per_unit: torch.Tensor, n: int, geo: SweepGeometry, tile: int) -> None:
-    """A plain sweep's ``tiles_swept`` and ``pairs_tested`` (``tracing``)
-    from its per-unit visits, as the kernels count theirs: each unit's
-    tiles, times the tile's triangles and the rays below ``n`` of its CTA."""
+def _count_work(per_unit: torch.Tensor, walk: torch.Tensor, n: int, geo: SweepGeometry,
+                tile: int) -> None:
+    """A plain sweep's ``tiles_swept``, ``pairs_tested``, ``boxes_listed``
+    and ``boxes_walked`` (``tracing``) from its per-unit visits and (boxes
+    listed, boxes walked), as the kernels count theirs: each unit's tiles,
+    times the tile's triangles and the rays below ``n`` of its CTA."""
     if not _tracing.on():
         return
     units = per_unit.long().cpu()
     below = n - torch.arange(units.shape[0]) // geo.segments * geo.rays
+    listed, walked = walk.sum(dim=0).tolist()
     _tracing.add(tiles_swept=int(units.sum()),
-                 pairs_tested=int((units * below.clamp(max=geo.rays)).sum()) * tile)
+                 pairs_tested=int((units * below.clamp(max=geo.rays)).sum()) * tile,
+                 boxes_listed=listed, boxes_walked=walked)
 
 
 def _count_launch(n: int, geo: SweepGeometry, n_tiles: int) -> None:
@@ -791,7 +803,8 @@ def _fold_timeline(rows: torch.Tensor, out: torch.Tensor, geo: SweepGeometry) ->
 
 def _sweep_plain(rays, tri_pack, tiles_on, tile, geo: SweepGeometry, *, gate, **kw):
     """Kernel #1's plain sweep at ``geo``: (codes, flags, tiles each unit
-    swept, tiles each block's units swept)."""
+    swept, tiles each block's units swept, each unit's (boxes listed, boxes
+    walked), zero ungated)."""
     if gate is not None:
         return _sweep_gated(rays, tri_pack, tiles_on, tile, gate, geo, **kw)
     n = rays.shape[1]
@@ -827,7 +840,8 @@ def _sweep_plain(rays, tri_pack, tiles_on, tile, geo: SweepGeometry, *, gate, **
             *(torch.stack(x, dim=1).flatten(0, 1) for x in zip(*carries)), geo.segments)
         codes[r0 : r0 + b] = torch.where(best_t < INF, best_code, -1)[:, 0]
         any_out[r0 : r0 + b] = any_hit[:, 0].to(torch.int32)
-    return codes, any_out, per_unit, per_block
+    walk = torch.zeros((geo.units(n), 2), dtype=torch.int64, device=device)
+    return codes, any_out, per_unit, per_block, walk
 
 
 def sweep_rays_reference(
@@ -872,12 +886,12 @@ def sweep_rays_reference(
     """
     geo = _geometry(split)
     _check_geometry(geo)
-    codes, any_out, per_unit, per_block = _sweep_plain(
+    codes, any_out, per_unit, per_block, walk = _sweep_plain(
         rays, tri_pack, tiles_on, tile, geo, gate=gate, want_matrix=want_matrix,
         want_any=want_any, mode=_mask_mode(masks_baked, code_bounds),
         code_bounds=None if code_bounds is None else _code_bounds(code_bounds))
     _store_visits(visits, rays.shape[1], geo, per_unit, per_block)
-    _count_work(per_unit, rays.shape[1], geo, tile)
+    _count_work(per_unit, walk, rays.shape[1], geo, tile)
     return codes, any_out
 
 
@@ -1193,6 +1207,7 @@ def sweep_rays_scheduled_reference(
     any_out = torch.zeros((n,), dtype=torch.int32, device=device)
     per_unit = torch.zeros(geo.units(n), dtype=torch.int32, device=device)
     per_block = torch.zeros(n // RAY_SUBBLOCK, dtype=torch.int32, device=device)
+    walk = torch.zeros((geo.units(n), 2), dtype=torch.int64, device=device)
     per = geo.per_block
     for e in torch.unique(emap).tolist():
         if not 0 <= e < masks.shape[0]:
@@ -1203,16 +1218,18 @@ def sweep_rays_scheduled_reference(
         pack = tri_pack.clone()
         pack[ROW_MASK_ANY] = (masks[e] > 0.0).to(torch.float32)
         pack[ROW_MASK_MAT] = (masks[e] > 1.0).to(torch.float32)
-        c, a, units, block = _sweep_plain(
+        c, a, units, block, unit_walk = _sweep_plain(
             rays.index_select(1, idx).contiguous(), pack, tiles_on[e], tile, geo,
             gate=None if gate is None else gate.blocks(blocks), want_matrix=want_matrix,
             want_any=want_any, mode="rows")
         codes[idx] = c
         any_out[idx] = a
-        per_unit[(blocks[:, None] * per + torch.arange(per, device=device)).reshape(-1)] = units
+        rows = (blocks[:, None] * per + torch.arange(per, device=device)).reshape(-1)
+        per_unit[rows] = units
+        walk[rows] = unit_walk
         per_block[blocks] = block
     _store_visits(visits, n, geo, per_unit, per_block)
-    _count_work(per_unit, n, geo, tile)
+    _count_work(per_unit, walk, n, geo, tile)
     return codes, any_out
 
 

@@ -45,12 +45,17 @@ thread; a solve's spans all lie under its public span:
 - ``tiles_swept``: the tiles the CTAs swept, summed (``visits=``' per-CTA
   rows, summed);
 - ``pairs_tested``: each CTA's swept tiles times the tile's triangles times
-  the launch's rays the CTA holds (padding rays included).
+  the launch's rays the CTA holds (padding rays included);
+- ``boxes_listed``: over every CTA of a gated launch that walks a visit
+  list, the boxes on its gate block's list (the gate's ``counts``);
+- ``boxes_walked``: over the same CTAs, the list positions each walked
+  before the list ended or an early-exit window stopped it (the two-level
+  gate has no window, so there it walks every listed box).
 
-The last two are counted on the card by kernels #1 and #2 (one atomic add
+The last four are counted on the card by kernels #1 and #2 (one atomic add
 of each a CTA, into an int64 buffer a device, made at its first use) and on
-the CPU by their plain versions from the same per-CTA visits; they are read
-only by :func:`counts`, which synchronises the devices.
+the CPU by their plain versions from the same walk; they are read only by
+:func:`counts`, which synchronises the devices.
 """
 from __future__ import annotations
 
@@ -66,14 +71,16 @@ from typing import Dict, Optional
 
 import torch
 
-COUNTERS = ("rays_real", "rays_padded", "tiles_offered", "tiles_swept", "pairs_tested")
+COUNTERS = ("rays_real", "rays_padded", "tiles_offered", "tiles_swept", "pairs_tested",
+            "boxes_listed", "boxes_walked")
+_DEVICE_COUNTERS = COUNTERS[3:]  # the kernels' buffer, in its order
 
 on = torch._C._autograd._profiler_enabled  # the switch: a profiler records this thread
 _Span = torch._C._profiler._RecordFunctionFast
 _OFF = contextlib.nullcontext()
 
 _host: collections.Counter = collections.Counter()
-_device_work: Dict[torch.device, torch.Tensor] = {}  # (tiles swept, pairs tested) int64
+_device_work: Dict[torch.device, torch.Tensor] = {}  # int64, _DEVICE_COUNTERS
 _solving = threading.local()  # depth: public solves open on this thread
 
 
@@ -102,11 +109,13 @@ def add(**counts: int) -> None:
 
 
 def device_work(device: torch.device) -> torch.Tensor:
-    """The sweep kernels' counter buffer on ``device``: two int64, the tiles
-    swept and the pairs tested, made zero at first use."""
+    """The sweep kernels' counter buffer on ``device``: four int64, the tiles
+    swept, the pairs tested, the boxes listed and the boxes walked, made
+    zero at first use."""
     buf = _device_work.get(device)
     if buf is None:
-        buf = _device_work[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        buf = _device_work[device] = torch.zeros(len(_DEVICE_COUNTERS), dtype=torch.int64,
+                                                 device=device)
     return buf
 
 
@@ -126,9 +135,8 @@ def counts() -> Dict[str, int]:
     for device, buf in _device_work.items():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        swept, pairs = buf.tolist()
-        out["tiles_swept"] += swept
-        out["pairs_tested"] += pairs
+        for key, value in zip(_DEVICE_COUNTERS, buf.tolist()):
+            out[key] += value
     for fn in (sweep_rays, sweep_rays_scheduled):
         for attr in ("launches", "gated_launches", "code_launches"):
             if hasattr(fn, attr):

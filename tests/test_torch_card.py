@@ -22,7 +22,9 @@ two measurement scripts: ``bench_torch.run_chunk`` on the card against the
 CPU with its launches, ``head_to_head_torch.materialize_rays`` == the rays
 the card traced, ``bench_torch.main`` exiting 1 when a stage raises, and
 the mask rows kernel of a scheduled round against its plain version on
-synthetic cases and on the benchmark's canyon and ten-building city rounds.
+synthetic cases and on the benchmark's canyon and ten-building city rounds,
+and the gate's walk counters of gated kernel #1 in code mode and gated
+kernel #2 against their plain versions'.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -547,6 +549,71 @@ def test_work_counters_equal_the_visits_of_the_same_launches(street, kernel, gat
         assert moved["pairs_tested"] == int((units * held).sum()) * tile, n
         assert moved["rays_padded"] == n
         assert moved["tiles_offered"] == -(-n // geo.rays) * (sp.n_tri_pad // tile)
+
+
+@pytest.mark.parametrize("max_tiles,tri_tile", [(8192, 128), (2, 512)],
+                         ids=["per_tile", "two_level"])
+@pytest.mark.parametrize("kernel", ["kernel1_code", "kernel2"])
+def test_gate_walk_counters_equal_the_plain_walk(street, monkeypatch, kernel, max_tiles,
+                                                 tri_tile):
+    """While a profiler records, gated kernel #1 in code mode (on the
+    street's slim pack) and gated kernel #2 add the boxes their CTAs listed
+    and walked: equal, with the tiles swept and pairs tested, to what their
+    plain versions count on the same card tensors at the launch's
+    geometry; with no profiler nothing moves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raystrack_tpu_torch import tracing
+
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", max_tiles)
+    sp, scene, (m_any, m_mat), rays_all = street
+    dev = rays_all.device
+    tile = sweep_tile_width(sp.n_tri_pad, tri_tile)
+    n_tiles = sp.n_tri_pad // tile
+    keys = ("tiles_swept", "pairs_tested", "boxes_listed", "boxes_walked")
+    n = 6000 if kernel == "kernel1_code" else 20 * 256
+    rays = rays_all[:, :n].contiguous()
+    gate = _gate_tables(sp.accel, rays, n_tiles, tile,
+                        window=_resolve_gate_window(gate_group_size(n_tiles)))
+    assert gate.group == (1 if max_tiles == 8192 else 2)
+    geo = tcuda._launch_geometry(n, True, dev)
+    kw = dict(want_matrix=True, want_any=kernel == "kernel2")
+    if kernel == "kernel1_code":
+        meshes = _street_scene()
+        slim = pack_scene(raystrack_tpu_torch.PreparedSolver(meshes).get_scene(use_accel=True),
+                          len(meshes), device=dev, slim=True)
+        mask, bounds = slim_operands(slim.sid, torch.tensor([0, 1, 0], dtype=torch.int32,
+                                                            device=dev), 0, 1, want_any=False)
+        launch = lambda: sweep_rays(  # noqa: E731
+            rays, slim.tri_pack, mask, tri_tile=tri_tile, accel=sp.accel, code_bounds=bounds,
+            **kw)
+        tiles_on = mask.reshape(-1, tile).any(dim=1).to(torch.int32)
+        plain = lambda: sweep_rays_reference(  # noqa: E731
+            rays, slim.tri_pack, _gated_tiles_on(tiles_on, gate), tile, gate=gate,
+            code_bounds=bounds, split=geo, **kw)
+    else:
+        masks = torch.stack([m_mat.float() * 2, m_any.float() + m_mat.float()])
+        emap = torch.from_numpy(
+            np.random.default_rng(5).integers(0, 3, n // 256).astype(np.int32)).to(dev)
+        pack = build_tri_pack(scene, torch.zeros_like(m_any), torch.zeros_like(m_any))
+        launch = lambda: sweep_rays_scheduled(  # noqa: E731
+            rays, pack, masks, emap, tri_tile=tri_tile, accel=sp.accel, **kw)
+        tiles_on = _gated_tiles_on(scheduled_tiles_on(masks, tile, **kw), gate)
+        plain = lambda: sweep_rays_scheduled_reference(  # noqa: E731
+            rays, pack, masks, emap, tiles_on, tile, gate=gate, split=geo, **kw)
+    moved = {}
+    for name, fn in (("card", launch), ("plain", plain)):
+        before = tracing.counts()
+        fn()
+        assert all(tracing.since(before)[k] == 0 for k in keys), name
+        before = tracing.counts()
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+        moved[name] = {k: tracing.since(before)[k] for k in keys}
+    assert moved["card"] == moved["plain"]
+    assert moved["card"]["boxes_listed"] >= moved["card"]["boxes_walked"] > 0
+    if gate.group > 1:
+        assert moved["card"]["boxes_walked"] == moved["card"]["boxes_listed"]
 
 
 def test_traced_solve_leaves_no_span_on_the_device(card, monkeypatch):

@@ -12,6 +12,9 @@ small sizes:
   ungated slim chunk: bitwise (the city's axis-aligned boxes put no ray
   near enough to an edge for the ulps between torch's and XLA's sin/cos to
   move it, as ``tests/test_torch_slim.py`` finds on its own boxes);
+- on the same two-level gate, the plain sweep's gate counters: every CTA
+  walks its block's whole visit list (no window), ``boxes_walked`` ==
+  ``boxes_listed``;
 - ``city_100m_torch.run``, the script's steps, at a tiny size on the CPU with slim
   and groups of 7 forced: its result keys, gated == ungated inside it, its
   sweep counts bitwise against ``trace_chunk`` on the same inputs, the
@@ -177,6 +180,43 @@ def test_two_level_slim_chunk_equals_jax_and_ungated(two_level, want_matrix, wan
         sweep_rays(rays, pack.tri_pack, mask, tri_tile=TILE, code_bounds=bounds,
                    accel=pack.accel if gated else None, visits=v, **flags)
     assert int(visits[True].sum()) < int(visits[False].sum())
+
+
+def test_two_level_gate_walks_every_listed_box(two_level):
+    """The plain code-mode sweep behind the two-level gate (groups of 7, no
+    early-exit window) under a profiler: every CTA walks its block's whole
+    visit list, so ``boxes_walked`` == ``boxes_listed`` == each CTA's
+    block's count, summed; each swept tile lies in a walked box's group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raystrack_tpu_torch import tracing
+    from raystrack_tpu_torch.ops import trace_cuda
+
+    ps = tprep.PreparedSolver(_meshes())
+    pack = ps.get_scene_pack(use_accel=True, device=CPU)
+    em = ps.get_emitter_pack(0, device=CPU, **SAMPLING)
+    ext = torch.zeros(3, dtype=torch.int32)
+    ext[1] = 1
+    mask, bounds = ttrace.slim_operands(pack.sid, ext, 0, 0, want_any=False)
+    o, d = ttrace.generate_rays(
+        (em.u_cell, em.v_cell, em.h_tri, em.h_u, em.h_v, em.h_r1, em.h_r2),
+        (em.cdf, em.tri_a, em.tri_e1, em.tri_e2, em.tri_u, em.tri_v, em.tri_n, em.tri_eps),
+        torch.from_numpy(_cp_rows(3, 0, 0, 1)))
+    valid = (torch.arange(em.n_rays_pad) < em.n_rays_once)[None]
+    o, d, _ = ttrace._sorted_for_gate(o, d, valid, pack.accel)
+    rays = ttrace.ray_pack(o, d)[:, :5000].contiguous()
+    n = rays.shape[1]
+    before = tracing.counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sweep_rays(rays, pack.tri_pack, mask, tri_tile=TILE, code_bounds=bounds,
+                   accel=pack.accel, want_matrix=True, want_any=False)
+    moved = tracing.since(before)
+    gate = trace_cuda._gate_for(pack.accel, rays, pack.n_tri_pad, TILE, TILE, CPU)
+    assert gate.group == 7 and gate.window == 0
+    geo = trace_cuda._launch_geometry(n, True, CPU)
+    per_cta = gate.counts.long()[torch.arange(geo.units(n)) // geo.per_block]
+    assert moved["boxes_listed"] == moved["boxes_walked"] == int(per_cta.sum()) > 0
+    assert 0 < moved["tiles_swept"] <= 7 * moved["boxes_walked"]
 
 
 # ---------------------------------------------------------------------------

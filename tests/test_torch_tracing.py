@@ -204,11 +204,11 @@ def test_solve_counts_rays_from_the_plan(route, monkeypatch):
     assert moved["rays_padded"] == sum(padded) > moved["rays_real"]
 
 
-def _chunk_rays(n):
+def _chunk_rays(n, meshes=MESHES):
     """The first ``n`` coherence-sorted rays of two iterations of the floor,
     the floor's operands (sky- and matrix-eligible masks, baked pack) and
     the scene pack."""
-    ps = rt.PreparedSolver(MESHES)
+    ps = rt.PreparedSolver(meshes)
     sc = ps.get_scene_pack(use_accel=True, device=CPU)
     em = ps.get_emitter_pack(0, samples=2, rays=24, flip_faces=False, device=CPU)
     scene = (sc.v0, sc.e1, sc.e2, sc.cross_e, sc.w_u, sc.w_v, sc.d0, sc.sid)
@@ -279,6 +279,57 @@ def test_kernel2_counts_equal_its_visits(gated):
     want = _expected(visits, n, geo, pack.shape[1])
     assert {k: moved[k] for k in want} == want
     assert int(visits.view(6, -1)[4].sum()) == 0 and moved["tiles_swept"] > 0
+
+
+def _listed(gate, n, geo):
+    """``boxes_listed`` of a gated launch of ``n`` rays at ``geo``: each
+    CTA (one segment) lists its block's boxes."""
+    units = torch.arange(geo.units(n))
+    return int(gate.counts.long()[units // geo.per_block].sum())
+
+
+@pytest.mark.parametrize("window", [16, 0], ids=["windows", "no_window"])
+@pytest.mark.parametrize("kernel", ["kernel1", "kernel2"])
+def test_per_tile_gate_walk_counts(monkeypatch, kernel, window):
+    """The plain gated sweeps' ``boxes_listed`` and ``boxes_walked`` on the
+    per-tile gate (128 tiles of 128, early-exit windows of 16): each CTA
+    lists its block's boxes and walks them until a window finds its rays
+    settled, so walked <= listed, with fewer walked here where windows are
+    checked and every listed box walked where none is; each swept tile lies
+    under a walked box. Ungated, neither moves."""
+    monkeypatch.setattr(ttrace, "PALLAS_TRI_TILE", 128)
+    monkeypatch.setattr(config, "GATE_WINDOW", window)
+    n = 2000 if kernel == "kernel1" else 1536
+    rays, pack, mask, sc = _chunk_rays(n, _street(n_tri=16000))
+    tile = tcuda.sweep_tile_width(pack.shape[1], 128)
+    assert pack.shape[1] // tile == 128
+    if kernel == "kernel1":
+        def launch(accel):
+            return sweep_rays(rays, pack, mask, tri_tile=128, want_matrix=True, want_any=True,
+                              masks_baked=True, accel=accel)
+    else:
+        masks = torch.from_numpy(np.where(sc.sid.numpy() == 2, 2, 0).astype(np.float32))[None]
+        emap = torch.tensor([0, 0, 0, 5, 0, 0], dtype=torch.int32)
+
+        def launch(accel):
+            return sweep_rays_scheduled(rays, pack, masks.expand(1, -1).contiguous(), emap,
+                                        tri_tile=128, want_matrix=True, want_any=False,
+                                        accel=accel)
+    _, _, moved = _profiled(lambda: launch(None))
+    assert moved["boxes_listed"] == moved["boxes_walked"] == 0 and moved["tiles_swept"] > 0
+    _, _, moved = _profiled(lambda: launch(sc.accel))
+    gate = tcuda._gate_for(sc.accel, rays, pack.shape[1], tile, 128, CPU)
+    assert gate.group == 1 and gate.window == window
+    geo = tcuda._launch_geometry(n, True, CPU)
+    listed = _listed(gate, n, geo)
+    if kernel == "kernel2":  # block 3 names no emitter row: its CTAs walk nothing
+        listed -= geo.per_block * int(gate.counts[3])
+    assert moved["boxes_listed"] == listed > 0
+    assert moved["tiles_swept"] <= moved["boxes_walked"]
+    if window:
+        assert 0 < moved["boxes_walked"] < moved["boxes_listed"]
+    else:
+        assert moved["boxes_walked"] == moved["boxes_listed"]
 
 
 def test_off_moves_no_counter_and_makes_no_span(monkeypatch):
