@@ -63,6 +63,7 @@ the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -333,6 +334,118 @@ def _cp_rows(seed: int, idx_emit: int, itr_start: int, chunk: int) -> np.ndarray
     return rows
 
 
+# (device index, slot) -> the per-emitter driver's stream of that slot on that
+# card (slots 1 and up), made at first use and kept for later solves
+_SIDE_STREAMS: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device, slot: int) -> "torch.cuda.Stream":
+    """Slot ``slot``'s own stream on the CUDA ``device``."""
+    key = (device.index, slot)
+    stream = _SIDE_STREAMS.get(key)
+    if stream is None:
+        stream = _SIDE_STREAMS[key] = torch.cuda.Stream(device=device)
+    return stream
+
+
+class _Slots:
+    """The per-emitter driver's ``depth`` in-flight slots. A chunk takes the
+    lowest free slot (:meth:`take`) and gives it back at its harvest
+    (:meth:`give`); on a CUDA device each slot enqueues on a stream of its
+    own on every card of the mesh, so chunks of different emitters run side
+    by side on the card. Slot 0 is the caller's current stream: a solve that
+    never has two chunks in flight runs on it alone. Slots 1 and up take
+    :func:`_side_stream`.
+
+    Ordering across the streams:
+
+    - the *fence* is an event on every card that covers what the caller
+      queued before the drive and what every dispatch since has built at
+      first use (an emitter's operands and packs, the counters' buffer). A
+      slot waits on it before it enqueues anything, and a dispatch records
+      the next one after its builds and before its sweep (:meth:`fence`),
+      so no slot waits for another's sweep, and no slot's allocation is
+      written before an earlier build has read what it held;
+    - an emitter's next chunk is dispatched only after its last one was
+      harvested, so its own state is complete on any slot;
+    - a chunk's inputs stay referenced until its harvest
+      (:meth:`_EmitterRun.dispatch_chunk`), so no memory that a stream
+      still reads goes back to the allocator;
+    - :meth:`join` makes the caller's streams wait on the side streams the
+      drive used, however it ended.
+
+    While tracing is on, :meth:`take` counts ``chunks_dispatched`` and
+    ``chunks_overlapped``, the chunks taken while another slot's chunk was
+    unharvested. On the CPU there are no streams: the slots only count.
+    """
+
+    def __init__(self, devices, depth: int):
+        cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+        self._depth = depth
+        self._streams = [{d: torch.cuda.current_stream(d) for d in cards}] + [
+            {d: _side_stream(d, k) for d in cards} for k in range(1, depth)]
+        self._free = list(range(depth))
+        self._used = set()
+        self.fence(0)
+
+    def take(self) -> "_Slot":
+        if _tracing.on():
+            _tracing.add(chunks_dispatched=1,
+                         chunks_overlapped=int(len(self._free) < self._depth))
+        k = min(self._free)
+        self._free.remove(k)
+        self._used.add(k)
+        return _Slot(self, k)
+
+    def give(self, slot: "_Slot") -> None:
+        self._free.append(slot.index)
+
+    @contextlib.contextmanager
+    def enter(self, k: int):
+        """Enqueue on slot ``k``'s streams, behind the fence."""
+        streams = self._streams[k]
+        if k != self._fence_slot:
+            for d, stream in streams.items():
+                stream.wait_event(self._fence[d])
+        with contextlib.ExitStack() as stack:
+            if k and streams:
+                current = torch.cuda.current_device()
+                for stream in streams.values():
+                    stack.enter_context(torch.cuda.stream(stream))
+                stack.enter_context(torch.cuda.device(current))
+            yield
+
+    def fence(self, k: int) -> None:
+        """Record the fence on slot ``k``'s streams."""
+        self._fence = {d: stream.record_event() for d, stream in self._streams[k].items()}
+        self._fence_slot = k
+
+    def join(self) -> None:
+        for k in self._used - {0}:
+            for d, stream in self._streams[k].items():
+                self._streams[0][d].wait_stream(stream)
+
+
+@dataclass(frozen=True)
+class _Slot:
+    """A slot taken from :class:`_Slots`; the default, no slots, is the
+    caller's current stream with no fence."""
+
+    slots: Optional[_Slots] = None
+    index: int = 0
+
+    def streams(self):
+        """The context that enqueues on this slot's streams."""
+        if self.slots is None:
+            return contextlib.nullcontext()
+        return self.slots.enter(self.index)
+
+    def fence(self) -> None:
+        """Later chunks on every slot wait for what this one queued so far."""
+        if self.slots is not None:
+            self.slots.fence(self.index)
+
+
 class _EmitterRun:
     """Dispatches chunked tracing for one emitter.
 
@@ -425,13 +538,15 @@ class _EmitterRun:
 
     @_tracing.spanned("raystrack.chunk.dispatch")
     def dispatch_chunk(self, chunk: int, *, want_matrix: bool, want_any: bool,
-                       discrete: bool) -> Callable[[], Dict[str, np.ndarray]]:
+                       discrete: bool, slot: _Slot = _Slot()
+                       ) -> Callable[[], Dict[str, np.ndarray]]:
         """Queue ``chunk`` iterations of the outputs the three flags pick
-        (:func:`ops.trace.chunk_body`) without synchronising, so the driver
-        can keep several emitters in flight; returns a function that waits
-        for this chunk's counts only and hands them back as NumPy arrays.
-        The counts are the mesh's shards' sum, gathered on the run's device
-        behind one copy."""
+        (:func:`ops.trace.chunk_body`) on ``slot``'s streams (default: the
+        current stream) without synchronising, so the driver can keep
+        several emitters in flight; returns a function that waits for this
+        chunk's counts only and hands them back as NumPy arrays. The counts
+        are the mesh's shards' sum, gathered on the run's device behind one
+        copy."""
         cp = torch.from_numpy(_cp_rows(self.seed, self.idx_emit, self.itr_next, chunk))
         self.itr_next += chunk
         on_card = self.device.type == "cuda"
@@ -442,26 +557,38 @@ class _EmitterRun:
         if _tracing.on():
             _tracing.add(rays_real=chunk * n_once)
         devices = self.mesh.distinct
-        ops = {d: self.operands(want_any, d) for d in devices}
-        packs = {d: self._packs_on(d) for d in devices}
-        out = _sharding.trace_chunk_sharded(
-            self.mesh, {d: o[0] for d, o in ops.items()}, {d: o[1] for d, o in ops.items()},
-            {d: _ray_tables(em) for d, (_, em) in packs.items()},
-            {d: _emission_geometry(em) for d, (_, em) in packs.items()}, cp, n_surf,
-            n_once, accel={d: sp.accel for d, (sp, _) in packs.items()},
-            code_bounds=ops[self.device][2], **flags)
-        ready = None
-        if on_card:
-            # copy now, behind this chunk's work only: waiting on the event
-            # leaves later emitters' chunks running on the card
-            out = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
+        with slot.streams():
+            # what a dispatch builds at first use (operands, packs and their
+            # tables, the counters' buffer) comes before the fence: chunks on
+            # other slots wait for it, and not for this chunk's sweep
+            ops = {d: self.operands(want_any, d) for d in devices}
+            packs = {d: self._packs_on(d) for d in devices}
+            tables = {d: _ray_tables(em) for d, (_, em) in packs.items()}
+            geom = {d: _emission_geometry(em) for d, (_, em) in packs.items()}
+            if _tracing.on():
+                for d in devices:
+                    if d.type == "cuda":
+                        _tracing.device_work(d)
+            slot.fence()
+            out = _sharding.trace_chunk_sharded(
+                self.mesh, {d: o[0] for d, o in ops.items()},
+                {d: o[1] for d, o in ops.items()}, tables, geom, cp, n_surf, n_once,
+                accel={d: sp.accel for d, (sp, _) in packs.items()},
+                code_bounds=ops[self.device][2], **flags)
+            ready = None
+            if on_card:
+                # copy now, behind this chunk's work only: waiting on the event
+                # leaves the other slots' chunks running on the card
+                out = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+        held = [ops, packs]  # read on the card until the harvest
 
         def harvest() -> Dict[str, np.ndarray]:
             with _tracing.span("raystrack.chunk.wait"):
                 if ready is not None:
                     ready.synchronize()
+            held.clear()
             return {k: v.numpy() for k, v in out.items()}
 
         return harvest
@@ -563,13 +690,21 @@ def _emitter_run(prepared_solver: PreparedSolver, p: Dict, idx_emit: int,
                        idx_emit, device, mesh=mesh, replica=replica)
 
 
+def _drive_slots(entries, depth: int) -> _Slots:
+    """The in-flight slots of a per-emitter drive over ``entries``, with
+    streams on every card of their runs' meshes."""
+    return _Slots([d for e in entries for d in e["run"].mesh.distinct], depth)
+
+
 def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bool,
                      consume, depth: int = 3) -> None:
     """Round-robin single-output per-emitter solves with pipelined dispatch.
 
     Up to ``depth`` emitters have a chunk queued on the device at once, so
     the host-side float64 replay and RNG generation of one emitter overlap
-    device work of the others. Results are identical to a sequential driver.
+    device work of the others; each chunk holds one of ``depth`` slots
+    (:class:`_Slots`), and on a card the slots' streams run the chunks side
+    by side. Results are identical to a sequential driver.
 
     ``entries`` is a list of dicts with keys ``run`` (_EmitterRun) and
     ``monitor``; ``consume(monitor, host, k)`` folds iteration ``k`` of a
@@ -579,43 +714,49 @@ def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bo
     """
     queue = deque(e for e in entries if not e["monitor"].done)
     inflight: deque = deque()
-
-    while queue or inflight:
-        while queue and len(inflight) < depth:
-            entry = queue.popleft()
-            mon = entry["monitor"]
-            chunk = plan_chunk(
-                mon.iters_done,
-                min_iters=mon.min_iters,
-                interval=mon.interval,
-                max_iters=mon.max_iters,
-                rays_per_iter=entry["run"].em_pack.n_rays_pad,
-                projected_total=mon.projected_total(),
-            )
-            if chunk <= 0:
-                mon.done = True
-                _entry_done(entry)
-                continue
-            harvest = entry["run"].dispatch_chunk(
-                chunk, want_matrix=want_matrix, want_any=want_any, discrete=discrete)
-            inflight.append((entry, harvest, chunk))
-        if not inflight:
-            break
-        entry, harvest, chunk = inflight.popleft()
-        host = harvest()
-        with _tracing.span("raystrack.chunk.consume"):
-            mon = entry["monitor"]
-            for k in range(chunk):
+    slots = _drive_slots(entries, depth)
+    try:
+        while queue or inflight:
+            while queue and len(inflight) < depth:
+                entry = queue.popleft()
+                mon = entry["monitor"]
+                chunk = plan_chunk(
+                    mon.iters_done,
+                    min_iters=mon.min_iters,
+                    interval=mon.interval,
+                    max_iters=mon.max_iters,
+                    rays_per_iter=entry["run"].em_pack.n_rays_pad,
+                    projected_total=mon.projected_total(),
+                )
+                if chunk <= 0:
+                    mon.done = True
+                    _entry_done(entry)
+                    continue
+                slot = slots.take()
+                harvest = entry["run"].dispatch_chunk(
+                    chunk, want_matrix=want_matrix, want_any=want_any, discrete=discrete,
+                    slot=slot)
+                inflight.append((entry, harvest, chunk, slot))
+            if not inflight:
+                break
+            entry, harvest, chunk, slot = inflight.popleft()
+            host = harvest()
+            slots.give(slot)
+            with _tracing.span("raystrack.chunk.consume"):
+                mon = entry["monitor"]
+                for k in range(chunk):
+                    if mon.done:
+                        break
+                    consume(mon, host, k)
+                # rewind past discarded speculative iterations
+                entry["run"].itr_next = mon.iters_done
                 if mon.done:
-                    break
-                consume(mon, host, k)
-            # rewind past discarded speculative iterations
-            entry["run"].itr_next = mon.iters_done
-            if mon.done:
-                _entry_done(entry)
-            else:
-                _entry_progress(entry)
-                queue.append(entry)
+                    _entry_done(entry)
+                else:
+                    _entry_progress(entry)
+                    queue.append(entry)
+    finally:
+        slots.join()
 
 
 def _consume_sky(mon: SkyMonitor, host, rows, discrete: bool) -> None:
@@ -671,7 +812,8 @@ def _drive_combined_pipelined(entries, *, discrete: bool, depth: int = 3) -> Non
     The shared-ray workflow's counterpart of :func:`_drive_pipelined`: each
     emitter's dispatch kind follows its own state machine (matrix + any
     while both outputs are pending, then only the pending one), and up to
-    ``depth`` emitters keep a chunk in flight. The replay rewinds the RNG
+    ``depth`` emitters keep a chunk in flight, each on a slot of its own.
+    The replay rewinds the RNG
     stream both outputs share to ``trace_iters``, past the iterations that
     neither monitor used.
 
@@ -680,46 +822,52 @@ def _drive_combined_pipelined(entries, *, discrete: bool, depth: int = 3) -> Non
     """
     queue = deque(e for e in entries if any(not m.done for m in _entry_monitors(e)))
     inflight: deque = deque()
-
-    while queue or inflight:
-        while queue and len(inflight) < depth:
-            entry = queue.popleft()
-            m, s = entry["matrix_mon"], entry["sky_mon"]
-            m_pending = m is not None and not m.done
-            s_pending = not s.done
-            chunk = 0
-            for mon in _entry_monitors(entry):
-                if mon.done:
-                    continue
-                chunk = max(chunk, plan_chunk(
-                    mon.iters_done,
-                    min_iters=mon.min_iters,
-                    interval=mon.interval,
-                    max_iters=mon.max_iters,
-                    rays_per_iter=entry["run"].em_pack.n_rays_pad,
-                    projected_total=mon.projected_total(),
-                ))
-            if chunk <= 0:
+    slots = _drive_slots(entries, depth)
+    try:
+        while queue or inflight:
+            while queue and len(inflight) < depth:
+                entry = queue.popleft()
+                m, s = entry["matrix_mon"], entry["sky_mon"]
+                m_pending = m is not None and not m.done
+                s_pending = not s.done
+                chunk = 0
                 for mon in _entry_monitors(entry):
-                    mon.done = True
-                _entry_done(entry)
-                continue
-            harvest = entry["run"].dispatch_chunk(
-                chunk, want_matrix=m_pending, want_any=s_pending, discrete=discrete)
-            inflight.append((entry, harvest, chunk, m_pending, s_pending))
-        if not inflight:
-            break
-        entry, harvest, chunk, m_pending, s_pending = inflight.popleft()
-        host = harvest()
-        with _tracing.span("raystrack.chunk.consume"):
-            for k in range(chunk):
-                _consume_both(entry, host, slice(k, k + 1), discrete, m_pending, s_pending)
-            entry["run"].itr_next = entry["trace_iters"]
-            if all(m.done for m in _entry_monitors(entry)):
-                _entry_done(entry)
-            else:
-                _entry_progress(entry)
-                queue.append(entry)
+                    if mon.done:
+                        continue
+                    chunk = max(chunk, plan_chunk(
+                        mon.iters_done,
+                        min_iters=mon.min_iters,
+                        interval=mon.interval,
+                        max_iters=mon.max_iters,
+                        rays_per_iter=entry["run"].em_pack.n_rays_pad,
+                        projected_total=mon.projected_total(),
+                    ))
+                if chunk <= 0:
+                    for mon in _entry_monitors(entry):
+                        mon.done = True
+                    _entry_done(entry)
+                    continue
+                slot = slots.take()
+                harvest = entry["run"].dispatch_chunk(
+                    chunk, want_matrix=m_pending, want_any=s_pending, discrete=discrete,
+                    slot=slot)
+                inflight.append((entry, harvest, chunk, m_pending, s_pending, slot))
+            if not inflight:
+                break
+            entry, harvest, chunk, m_pending, s_pending, slot = inflight.popleft()
+            host = harvest()
+            slots.give(slot)
+            with _tracing.span("raystrack.chunk.consume"):
+                for k in range(chunk):
+                    _consume_both(entry, host, slice(k, k + 1), discrete, m_pending, s_pending)
+                entry["run"].itr_next = entry["trace_iters"]
+                if all(m.done for m in _entry_monitors(entry)):
+                    _entry_done(entry)
+                else:
+                    _entry_progress(entry)
+                    queue.append(entry)
+    finally:
+        slots.join()
 
 
 @dataclass

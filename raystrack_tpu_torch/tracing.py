@@ -50,12 +50,19 @@ thread; a solve's spans all lie under its public span:
   list, the boxes on its gate block's list (the gate's ``counts``);
 - ``boxes_walked``: over the same CTAs, the list positions each walked
   before the list ended or an early-exit window stopped it (the two-level
-  gate has no window, so there it walks every listed box).
+  gate has no window, so there it walks every listed box);
+- ``chunks_dispatched``: the per-emitter driver's chunks (the host's
+  count, on the CPU as on the card);
+- ``chunks_overlapped``: those of them dispatched while another slot's
+  chunk was still unharvested (``solver._Slots``: on a card such a chunk
+  can run beside the others on a stream of its own).
 
-The last four are counted on the card by kernels #1 and #2 (one atomic add
-of each a CTA, into an int64 buffer a device, made at its first use) and on
-the CPU by their plain versions from the same walk; they are read only by
-:func:`counts`, which synchronises the devices.
+``tiles_swept`` to ``boxes_walked`` are counted on the card by kernels #1
+and #2 (one atomic add of each a CTA, into an int64 buffer a device, made
+at its first use; a per-emitter chunk makes it before its slot's fence,
+as the other slots' kernels add to it too) and on the CPU by their plain
+versions from the same walk; they are read only by :func:`counts`, which
+synchronises the devices.
 """
 from __future__ import annotations
 
@@ -71,9 +78,10 @@ from typing import Dict, Optional
 
 import torch
 
-COUNTERS = ("rays_real", "rays_padded", "tiles_offered", "tiles_swept", "pairs_tested",
-            "boxes_listed", "boxes_walked")
-_DEVICE_COUNTERS = COUNTERS[3:]  # the kernels' buffer, in its order
+# the kernels' buffer, in its order
+_DEVICE_COUNTERS = ("tiles_swept", "pairs_tested", "boxes_listed", "boxes_walked")
+COUNTERS = ("rays_real", "rays_padded", "tiles_offered", *_DEVICE_COUNTERS,
+            "chunks_dispatched", "chunks_overlapped")
 
 on = torch._C._autograd._profiler_enabled  # the switch: a profiler records this thread
 _Span = torch._C._profiler._RecordFunctionFast

@@ -23,8 +23,9 @@ CPU with its launches, ``head_to_head_torch.materialize_rays`` == the rays
 the card traced, ``bench_torch.main`` exiting 1 when a stage raises, and
 the mask rows kernel of a scheduled round against its plain version on
 synthetic cases and on the benchmark's canyon and ten-building city rounds,
-and the gate's walk counters of gated kernel #1 in code mode and gated
-kernel #2 against their plain versions'.
+the gate's walk counters of gated kernel #1 in code mode and gated
+kernel #2 against their plain versions', and the per-emitter driver's slot
+streams on a slim city of four emitters against every chunk on one stream.
 
 They need one CUDA card and skip without one. On such a machine:
 
@@ -1932,3 +1933,124 @@ def test_mask_rows_kernel_equals_plain_version(card, case):
     if case == "canyon_matrix":
         for args, got in calls:
             assert np.array_equal(got.cpu().numpy(), spec_rows(*args))
+
+
+# ---------------------------------------------------------------------------
+# The per-emitter driver's slots: chunks of several emitters side by side
+# ---------------------------------------------------------------------------
+
+
+SLOT_ANCHORS = [(-10.0, -5.0), (0.0, -5.0), (10.0, -5.0), (0.0, 5.0)]
+SLOT_CHUNKS = 3 * len(SLOT_ANCHORS)  # 6 iterations a building: chunks of 4, 1 and 1
+
+
+@pytest.fixture(scope="module")
+def slot_city():
+    """The 2M-triangle city split as the benchmark's ``slim_city_buildings``
+    splits the 3e7 one (``vfbench``'s scene builder): four buildings of the
+    16 boxes nearest each anchor emit, and the ground with every other box
+    is the one receiver, ``city``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vfbench.scenes.occluded_city import build
+
+    return build({"triangles": MID_CITY_TRIS, "extent": 100.0}, 5, buildings=SLOT_ANCHORS,
+                 boxes_per_building=16)
+
+
+def _slot_solve(meshes, seed, monkeypatch):
+    """The slim cell's matrix solve of ``meshes`` from a fresh
+    ``PreparedSolver``: packed slim (threshold 1), the two-level gate in
+    groups of 3, exactly 6 iterations an emitter; (dict, the counters'
+    change under a profiler, the current stream of each chunk's sweep)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raystrack_tpu_torch import tracing
+    from raystrack_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(tconfig, "SLIM_PACK_MIN_TRIS", 1)
+    monkeypatch.setattr(tconfig, "GATE_MAX_TILES", MID_MAX_TILES)
+    streams = []
+    real = sharding.trace_chunk_sharded
+
+    def seen(*args, **kwargs):
+        streams.append(torch.cuda.current_stream())
+        return real(*args, **kwargs)
+
+    params = raystrack_tpu_torch.MatrixParams(
+        samples=0, rays=256, seed=seed, device="gpu", bvh="auto", tol=1e-4, min_iters=6,
+        max_iters=6, convergence_interval=1, reciprocity=True)
+    ps = raystrack_tpu_torch.PreparedSolver(meshes)
+    with monkeypatch.context() as m:
+        m.setattr(sharding, "trace_chunk_sharded", seen)
+        m.setattr(tracing, "_device_work", {})  # the counters' buffer: made inside the drive
+        with profile(activities=[ProfilerActivity.CPU]):
+            before = tracing.counts()
+            got = raystrack_tpu_torch.view_factor_matrix(meshes, params, prepared=ps)
+            moved = tracing.since(before)
+    assert ps.get_scene_pack(use_accel=True, device=streams[0].device).slim
+    return got, moved, streams
+
+
+def _one_stream(monkeypatch):
+    """Every slot on the caller's current stream."""
+    import raystrack_tpu_torch.solver as solver
+
+    monkeypatch.setattr(solver, "_side_stream",
+                        lambda device, slot: torch.cuda.current_stream(device))
+
+
+@pytest.mark.parametrize("seed", [3, 1956475827, 2**31 + 5])
+def test_slot_streams_give_the_one_stream_dicts_on_a_slim_city(card, slot_city, monkeypatch,
+                                                               seed):
+    """Four buildings of the 2M slim city, swept in code mode behind the
+    two-level gate: the dicts and every work counter with the slots'
+    streams == with every chunk on the current stream, bit for bit. The
+    chunks rotate over slots 0, 1, 2, slot 0 the caller's current stream
+    and 1 and 2 a side stream each; all but the first overlap."""
+    caller = torch.cuda.current_stream(card)
+    before = (sweep_rays.code_launches, sweep_rays.gated_launches)
+    got, moved, streams = _slot_solve(slot_city, seed, monkeypatch)
+    assert (sweep_rays.code_launches - before[0], sweep_rays.gated_launches - before[1]) == (
+        SLOT_CHUNKS, SLOT_CHUNKS)
+    assert len(streams) == SLOT_CHUNKS and len(set(streams)) == 3
+    assert [s == caller for s in streams] == [i % 3 == 0 for i in range(SLOT_CHUNKS)]
+    assert streams[1] == streams[4] != streams[2] == streams[5]
+    assert (moved["chunks_dispatched"], moved["chunks_overlapped"]) == (SLOT_CHUNKS,
+                                                                       SLOT_CHUNKS - 1)
+    _one_stream(monkeypatch)
+    want, moved_one, streams_one = _slot_solve(slot_city, seed, monkeypatch)
+    assert set(streams_one) == {caller}
+    assert got == want and moved == moved_one
+    assert sum(len(row) for row in got.values()) >= len(SLOT_ANCHORS)
+
+
+def test_slot_streams_with_tables_built_inside_the_drive(card, slot_city, halton_clean,
+                                                         monkeypatch):
+    """Each emitter's pack left lazy and the Halton tables' caches empty, so
+    the first chunk builds the buildings' shared Halton tables on the card
+    inside the drive (on slot 0) and the chunks on slots 1 and 2 read them,
+    as they add to a counters' buffer the drive made: the dicts and the
+    counters == with every chunk on the current stream, and == the solve
+    whose packs were built before the drive."""
+    import raystrack_tpu_torch.solver as solver
+
+    seed = 2200000020
+    eager, moved_eager, _ = _slot_solve(slot_city, seed, monkeypatch)
+    monkeypatch.setenv(tconfig.DEVICE_HALTON_ENV, "1")
+    real_run = solver._emitter_run
+    monkeypatch.setattr(solver, "_emitter_run",
+                        lambda *a, **k: real_run(*a, **{**k, "lazy": True}))
+    builds = []
+    real_dims = halton_clean._halton_dim_device
+    monkeypatch.setattr(halton_clean, "_halton_dim_device",
+                        lambda *a: builds.append(a[:2]) or real_dims(*a))
+    got, moved, streams = _slot_solve(slot_city, seed, monkeypatch)
+    assert builds and len(set(streams)) == 3  # built in the drive, read on three streams
+    halton_clean.cached_halton_dims.cache_clear()
+    halton_clean.cached_halton.cache_clear()
+    del builds[:]
+    _one_stream(monkeypatch)
+    want, moved_one, _ = _slot_solve(slot_city, seed, monkeypatch)
+    assert builds
+    assert got == want == eager and moved == moved_one == moved_eager
