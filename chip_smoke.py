@@ -2047,7 +2047,7 @@ def stop_after_emitter_0(fn) -> list:
         if 0 in finished:
             raise RuntimeError("killed mid-solve")
         real_done(entry)
-        finished.append(entry["idx"])
+        finished.append(entry.idx)
 
     config.CHECKPOINT_PROGRESS_S = 0.0
     solver_mod._entry_done = done_then_stop

@@ -9,7 +9,7 @@ own emitter subset (its rays still split over its devices with ``mesh=``,
 the mesh splits rays inside one process, the partitions split emitters
 across processes (``parallel.multihost``) or across any other workers.
 
-Each emitter runs on the per-emitter route (``solver._drive_monitors``),
+Each emitter runs on the per-emitter route (``solver._drive_pipelined``),
 so a worker needs nothing but its own emitters' packs; the rows equal the
 full solves' exactly.
 
@@ -172,37 +172,6 @@ def view_factor_workflow_partition(
     return vf_rows, sky_rows
 
 
-def _emitter_context(meshes, idx_emit, p, prepared, mesh, *, flip_faces):
-    """Shared per-emitter setup for the single-emitter partition solvers:
-    ``(surf_active, make_run, interval)``. ``make_run(emit_sid, min_sid)``
-    builds the emitter's run; ``interval(n)`` is the convergence interval
-    the full solves use on this device for a requested ``n`` (every
-    iteration on the CPU), so a partition's rows equal theirs."""
-    from ..solver import (
-        _build_emitter_surface_mask,
-        _emitter_run,
-        _placements,
-        _select_bvh,
-    )
-
-    device, mesh = _placements(mesh, p["device"])
-    use_bvh = _select_bvh(p["bvh"], prepared.total_faces)
-    scene_pack = prepared.get_scene_pack(use_accel=use_bvh, device=device)
-    emitters = prepared.get_emitters(samples=p["samples"], rays=p["rays"], flip_faces=flip_faces)
-    centers, extents = prepared.get_mesh_bounds()
-    surf_active = _build_emitter_surface_mask(idx_emit, emitters[idx_emit], centers, extents)
-
-    def make_run(emit_sid: int, min_sid: int):
-        return _emitter_run(prepared, p, idx_emit, surf_active, emit_sid, min_sid,
-                            flip_faces=flip_faces, scene_pack=scene_pack, device=device,
-                            mesh=mesh, lazy=False)
-
-    def interval(n: int) -> int:
-        return 1 if device.type == "cpu" else n
-
-    return surf_active, make_run, interval
-
-
 def _solve_single_emitter(
     meshes: List[Mesh],
     idx_emit: int,
@@ -213,56 +182,36 @@ def _solve_single_emitter(
     half_matrix: bool = False,
 ) -> VFDict:
     """One emitter's row against the full scene."""
-    from ..convergence import MatrixMonitor
-    from ..solver import _drive_monitors, _matrix_active_receivers, _matrix_row, _matrix_skip
+    from ..solver import _build_entry, _drive_pipelined, _matrix_row, _setup
 
     p = params.as_dict()
-    n_surf = len(meshes)
     name_e = meshes[idx_emit][0]
-    surf_active, make_run, interval = _emitter_context(
-        meshes, idx_emit, p, prepared, mesh, flip_faces=p["flip_faces"])
-    receivers, recv_idx = _matrix_active_receivers(idx_emit, n_surf, half_matrix, surf_active)
-    if not receivers:
+    setup = _setup(meshes, prepared, p, mesh, flip_faces=p["flip_faces"])
+    entry = _build_entry(setup, idx_emit, name_e, matrix=p, sky=None,
+                         reciprocity=half_matrix, lazy=False)
+    if entry is None:
         return {name_e: {}}
-
-    run = make_run(*_matrix_skip(idx_emit, half_matrix))
-    monitor = MatrixMonitor(
-        n_surf, recv_idx,
-        n_rays_once=run.em_pack.n_rays_once,
-        tol=p["tol"], tol_mode=p["tol_mode"],
-        min_iters=p["min_iters"], interval=interval(p["convergence_interval"]),
-        max_iters=p["max_iters"],
-    )
-    _drive_monitors(run, monitor, None, discrete=False)
-    return {name_e: _matrix_row(monitor, receivers, meshes, idx_emit, False, None)[0]}
+    _drive_pipelined([entry])
+    return {name_e: _matrix_row(entry.matrix, entry.receivers, meshes, idx_emit, False, None)[0]}
 
 
 def _solve_single_sky(meshes, idx_emit, params, prepared, mesh) -> VFDict:
     """One emitter's sky row; matches the full sky solver per emitter."""
-    from ..convergence import SkyMonitor
-    from ..solver import _drive_monitors, _sky_keys, _sky_row
+    from ..solver import _build_entry, _drive_pipelined, _setup, _sky_keys, _sky_row
 
     p = params.as_dict()
     discrete = bool(p["discrete"])
     name_e = meshes[idx_emit][0]
-    sky_keys = _sky_keys(discrete)
+    row = {k: 0.0 for k in _sky_keys(discrete)}
     if len(meshes) <= 1:
         # parity with the full solver: single-mesh scenes report zero rows
-        return {name_e: {k: 0.0 for k in sky_keys}}
+        return {name_e: row}
 
-    _, make_run, interval = _emitter_context(meshes, idx_emit, p, prepared, mesh,
-                                             flip_faces=False)
-    run = make_run(idx_emit, 0)
-    monitor = SkyMonitor(
-        discrete=discrete,
-        n_rays_once=run.em_pack.n_rays_once,
-        tol=p["tol"], tol_mode=p["tol_mode"],
-        min_iters=p["min_iters"], interval=interval(p["convergence_interval"]),
-        max_iters=p["max_iters"],
-    )
-    _drive_monitors(run, None, monitor, discrete=discrete)
-    row = {k: 0.0 for k in sky_keys}
-    row.update(_sky_row(monitor, discrete)[0])
+    setup = _setup(meshes, prepared, p, mesh, flip_faces=False)
+    entry = _build_entry(setup, idx_emit, name_e, matrix=None, sky=p, reciprocity=False,
+                         lazy=False)
+    _drive_pipelined([entry])
+    row.update(_sky_row(entry.sky, discrete)[0])
     return {name_e: row}
 
 
@@ -270,46 +219,22 @@ def _solve_single_combined(
     meshes, idx_emit, matrix_params, sky_params, prepared, mesh, *, half_matrix: bool,
 ) -> Tuple[VFDict, VFDict]:
     """One emitter through the shared-ray state machine (matrix + sky)."""
-    from ..convergence import MatrixMonitor, SkyMonitor
-    from ..solver import (
-        _drive_monitors, _matrix_active_receivers, _matrix_row, _matrix_skip, _sky_keys, _sky_row,
-    )
+    from ..solver import _build_entry, _drive_pipelined, _matrix_row, _setup, _sky_keys, _sky_row
 
     mp = matrix_params.as_dict()
     sp = sky_params.as_dict()
     discrete = bool(sp["discrete"])
     name_e = meshes[idx_emit][0]
-    n_surf = len(meshes)
 
-    surf_active, make_run, interval = _emitter_context(
-        meshes, idx_emit, mp, prepared, mesh, flip_faces=False)
-    receivers, recv_idx = _matrix_active_receivers(idx_emit, n_surf, half_matrix, surf_active)
-    run = make_run(*_matrix_skip(idx_emit, half_matrix))
-    matrix_mon = (
-        MatrixMonitor(
-            n_surf, recv_idx,
-            n_rays_once=run.em_pack.n_rays_once,
-            tol=mp["tol"], tol_mode=mp["tol_mode"],
-            min_iters=mp["min_iters"], interval=interval(mp["convergence_interval"]),
-            max_iters=mp["max_iters"],
-        )
-        if receivers
-        else None
-    )
-    sky_mon = SkyMonitor(
-        discrete=discrete,
-        n_rays_once=run.em_pack.n_rays_once,
-        tol=sp["tol"], tol_mode=sp["tol_mode"],
-        min_iters=sp["min_iters"],
-        interval=interval(sp["convergence_interval"]),
-        max_iters=sp["max_iters"],
-    )
-    _drive_monitors(run, matrix_mon, sky_mon, discrete=discrete)
+    setup = _setup(meshes, prepared, mp, mesh, flip_faces=False)
+    entry = _build_entry(setup, idx_emit, name_e, matrix=mp, sky=sp, reciprocity=half_matrix,
+                         lazy=False)
+    _drive_pipelined([entry])
 
     sky_row = {k: 0.0 for k in _sky_keys(discrete)}
-    if sky_mon.total_rays > 0:
-        sky_row.update(_sky_row(sky_mon, discrete)[0])
-    row = _matrix_row(matrix_mon, receivers, meshes, idx_emit, False, None)[0]
+    if entry.sky.total_rays > 0:
+        sky_row.update(_sky_row(entry.sky, discrete)[0])
+    row = _matrix_row(entry.matrix, entry.receivers, meshes, idx_emit, False, None)[0]
     return {name_e: row}, {name_e: sky_row}
 
 

@@ -4,16 +4,20 @@ Counterpart of ``raystrack_tpu/solver.py``'s ``view_factor_matrix``,
 ``view_factor_to_tregenza_sky`` and ``view_factor_matrix_and_sky`` (the
 shared-ray workflow), and of their two routes on an accelerator:
 
-- the whole-scene scheduled driver (``_drive_scheduled`` under
-  ``_drive_matrix_scheduled``, ``_drive_sky_scheduled`` and
-  ``_drive_combined_scheduled`` -> ``ops.trace.scheduled_trace`` -> sweep
-  kernel #2): every pending emitter's next iterations go into one dispatch
-  per convergence round; a CUDA solve of more than one emitter takes it;
-- the per-emitter pipelined driver (``_drive_pipelined`` under the matrix
-  and sky drivers, and ``_drive_combined_pipelined`` -> ``_EmitterRun`` ->
-  ``ops.trace.chunk_body`` -> sweep kernel #1): single emitters, emitters
-  too big for a round, CPU solves by default, and
+- the whole-scene scheduled driver (``_drive_scheduled`` ->
+  ``ops.trace.scheduled_trace`` -> sweep kernel #2): every pending
+  emitter's next iterations go into one dispatch per convergence round; a
+  CUDA solve of more than one emitter takes it;
+- the per-emitter pipelined driver (``_drive_pipelined`` -> ``_EmitterRun``
+  -> ``ops.trace.chunk_body`` -> sweep kernel #1): single emitters,
+  emitters too big for a round, CPU solves by default, and
   ``RAYSTRACK_TPU_SCHEDULER=grouped``.
+
+The three are one solve (``_solve``) of one or both sides, the matrix and
+the sky: it builds an ``_Entry`` per emitter (``_build_entry``: its run and
+a monitor for each side) and drives them through the scheduled driver, then
+the per-emitter one. The emitter partitions of ``parallel/distribute.py``
+build and drive their entries the same way.
 
 The JAX package's third route, its grouped vmap driver (``_drive_grouped``,
 ``_batched_step``) and its XLA sweep (``_resolve_kernel`` picks it below
@@ -69,7 +73,7 @@ import json
 import os
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -604,43 +608,109 @@ def _emission_geometry(em) -> Tuple[torch.Tensor, ...]:
     return (em.cdf, em.tri_a, em.tri_e1, em.tri_e2, em.tri_u, em.tri_v, em.tri_n, em.tri_eps)
 
 
-def _entry_monitors(entry) -> List:
-    """All live monitors of an entry: its ``monitor`` (a matrix or sky
-    solve), or the workflow's ``matrix_mon`` (None for an emitter with no
-    receivers) and ``sky_mon``."""
-    if "monitor" in entry:
-        return [entry["monitor"]]
-    return [m for m in (entry.get("matrix_mon"), entry.get("sky_mon")) if m is not None]
+@dataclass(frozen=True)
+class _Setup:
+    """What the emitters of one solve share: the prepared scene, the ray
+    stream's parameters ``p`` (samples, rays, seed, bvh), the side the rays
+    leave from, the device the packs live on and the ray mesh (see
+    :func:`_placements`), whether the sweeps are gated, and the scene pack,
+    the emitters and the meshes' bounds."""
+
+    prepared: PreparedSolver
+    p: Dict
+    flip_faces: bool
+    device: torch.device
+    mesh: _sharding.RayMesh
+    use_bvh: bool
+    scene_pack: ScenePack
+    emitters: List[PreparedEmitter]
+    bounds: Tuple[np.ndarray, np.ndarray]
 
 
-def _entry_progress(entry) -> None:
+def _setup(meshes: List[Mesh], prepared: Optional[PreparedSolver], p: Dict, mesh, *,
+           flip_faces: bool) -> _Setup:
+    """The setup of a solve of ``meshes`` whose rays ``p`` draws."""
+    device, mesh = _placements(mesh, p["device"])
+    prepared_solver = _ensure_prepared(meshes, prepared)
+    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+    emitters = prepared_solver.get_emitters(
+        samples=p["samples"], rays=p["rays"], flip_faces=flip_faces)
+    bounds = prepared_solver.get_mesh_bounds()
+    scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
+    return _Setup(prepared_solver, p, flip_faces, device, mesh, use_bvh, scene_pack,
+                  emitters, bounds)
+
+
+@dataclass(eq=False)
+class _Entry:
+    """One emitter's work in a solve: its run, receivers and sweep masks, a
+    monitor for each side the solve has (``matrix``, ``sky``; None for a
+    side it lacks, and for the matrix of a workflow emitter with no
+    receivers), ``trace_iters``, the iterations of its ray stream that a
+    monitor used, and the solve's hooks and the rows they assemble."""
+
+    run: _EmitterRun
+    idx: int
+    name: str
+    receivers: List[int]
+    surf_active: np.ndarray
+    emit_sid: int
+    min_sid: int
+    matrix: Optional[MatrixMonitor] = None
+    sky: Optional[SkyMonitor] = None
+    trace_iters: int = 0
+    on_done: Optional[Callable[["_Entry"], None]] = None
+    on_progress: Optional[Callable[["_Entry"], None]] = None
+    started: Optional[float] = None
+    elapsed: Optional[float] = None
+    finished: bool = False
+    progress_ts: float = 0.0
+    row: Dict[str, float] = field(default_factory=dict)
+    backfill: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    sky_row: Dict[str, float] = field(default_factory=dict)
+    stats: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def monitors(self) -> List:
+        """The monitors that are not None."""
+        return [m for m in (self.matrix, self.sky) if m is not None]
+
+    @property
+    def pending(self) -> bool:
+        return any(not m.done for m in self.monitors)
+
+    def used(self) -> int:
+        """``trace_iters`` advanced past every iteration a monitor consumed."""
+        self.trace_iters = max(self.trace_iters, *(m.iters_done for m in self.monitors))
+        return self.trace_iters
+
+
+def _entry_progress(entry: _Entry) -> None:
     """Rate-limited mid-emitter snapshot hook, fired by every driver after an
     entry's chunk or round replay while it stays pending. No-op unless the
     solve attached ``on_progress``, and never after :func:`_entry_done`."""
-    callback = entry.get("on_progress")
-    if callback is None or entry.get("_finished"):
+    if entry.on_progress is None or entry.finished:
         return
     if _cfg.CHECKPOINT_PROGRESS_S < 0:
         return
     now = time.time()
-    if now - entry.get("_progress_ts", 0.0) < _cfg.CHECKPOINT_PROGRESS_S:
+    if now - entry.progress_ts < _cfg.CHECKPOINT_PROGRESS_S:
         return
-    entry["_progress_ts"] = now
-    callback(entry)
+    entry.progress_ts = now
+    entry.on_progress(entry)
 
 
-def _entry_done(entry) -> None:
+def _entry_done(entry: _Entry) -> None:
     """Completion hook, once per entry: drop the run's operands, stamp the
     emitter's wall time and fire the entry's ``on_done`` callback."""
-    if entry.get("_finished"):
+    if entry.finished:
         return
-    entry["_finished"] = True
-    entry["run"].release()
-    if "started" in entry:
-        entry["elapsed"] = time.time() - entry["started"]
-    callback = entry.get("on_done")
-    if callback is not None:
-        callback(entry)
+    entry.finished = True
+    entry.run.release()
+    if entry.started is not None:
+        entry.elapsed = time.time() - entry.started
+    if entry.on_done is not None:
+        entry.on_done(entry)
 
 
 def _make_emitter_pack(prepared_solver: PreparedSolver, idx_emit: int, p: Dict,
@@ -666,39 +736,96 @@ def _make_emitter_pack(prepared_solver: PreparedSolver, idx_emit: int, p: Dict,
     )
 
 
-def _emitter_run(prepared_solver: PreparedSolver, p: Dict, idx_emit: int,
-                 surf_active: np.ndarray, emit_sid: int, min_sid: int, *, flip_faces: bool,
-                 scene_pack: ScenePack, device: torch.device, mesh: _sharding.RayMesh,
-                 lazy: bool) -> _EmitterRun:
-    """One emitter's run on ``device`` (``mesh.devices[0]``), its rays
-    padded to :func:`_ray_align`; its emitter pack lazy when the scheduled
-    driver will read rays from the flat tables instead. The packs on the
-    mesh's other devices come from the ``PreparedSolver``'s per-device
-    caches, one copy a distinct device, at the first chunk that needs
-    them."""
-    align = _ray_align(mesh)
-    em_pack = _make_emitter_pack(prepared_solver, idx_emit, p, flip_faces, align, device,
+def _emitter_run(setup: _Setup, idx_emit: int, surf_active: np.ndarray, emit_sid: int,
+                 min_sid: int, *, lazy: bool) -> _EmitterRun:
+    """One emitter's run on the solve's device (``mesh.devices[0]``), its
+    rays padded to :func:`_ray_align`; its emitter pack lazy when the
+    scheduled driver will read rays from the flat tables instead. The packs
+    on the mesh's other devices come from the ``PreparedSolver``'s
+    per-device caches, one copy a distinct device, at the first chunk that
+    needs them."""
+    prepared_solver, p, flip_faces = setup.prepared, setup.p, setup.flip_faces
+    align = _ray_align(setup.mesh)
+    em_pack = _make_emitter_pack(prepared_solver, idx_emit, p, flip_faces, align, setup.device,
                                  lazy=lazy)
-    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
 
     def replica(dev: torch.device) -> Tuple[ScenePack, EmitterPack]:
-        return (prepared_solver.get_scene_pack(use_accel=use_bvh, device=dev),
+        return (prepared_solver.get_scene_pack(use_accel=setup.use_bvh, device=dev),
                 _make_emitter_pack(prepared_solver, idx_emit, p, flip_faces, align, dev,
                                    lazy=False))
 
-    return _EmitterRun(scene_pack, em_pack, surf_active, emit_sid, min_sid, p["seed"],
-                       idx_emit, device, mesh=mesh, replica=replica)
+    return _EmitterRun(setup.scene_pack, em_pack, surf_active, emit_sid, min_sid, p["seed"],
+                       idx_emit, setup.device, mesh=setup.mesh, replica=replica)
 
 
-def _drive_slots(entries, depth: int) -> _Slots:
+def _build_entry(setup: _Setup, idx_emit: int, name: str, *, matrix: Optional[Dict],
+                 sky: Optional[Dict], reciprocity: bool, lazy: bool) -> Optional[_Entry]:
+    """Emitter ``idx_emit``'s entry in a solve of the sides whose parameters
+    ``matrix`` and ``sky`` hold (None for a side the solve lacks): its
+    surface mask and receivers, the sid skip (the matrix's when the solve
+    has one), its run (``lazy`` as in :func:`_emitter_run`) and a monitor
+    for each side. None for a matrix-only emitter with no receivers, which
+    traces nothing."""
+    n_surf = len(setup.emitters)
+    surf_active = _build_emitter_surface_mask(idx_emit, setup.emitters[idx_emit], *setup.bounds)
+    receivers: List[int] = []
+    emit_sid, min_sid = idx_emit, 0
+    if matrix is not None:
+        receivers, recv_idx = _matrix_active_receivers(idx_emit, n_surf, reciprocity,
+                                                       surf_active)
+        if not receivers and sky is None:
+            return None
+        emit_sid, min_sid = _matrix_skip(idx_emit, reciprocity)
+    run = _emitter_run(setup, idx_emit, surf_active, emit_sid, min_sid, lazy=lazy)
+
+    def limits(q: Dict) -> Dict:
+        # CPU solves check convergence every iteration; the interval only
+        # batches checks on the card
+        return dict(n_rays_once=run.em_pack.n_rays_once, tol=q["tol"], tol_mode=q["tol_mode"],
+                    min_iters=q["min_iters"], max_iters=q["max_iters"],
+                    interval=1 if setup.device.type == "cpu" else q["convergence_interval"])
+
+    return _Entry(
+        run=run, idx=idx_emit, name=name, receivers=receivers, surf_active=surf_active,
+        emit_sid=emit_sid, min_sid=min_sid,
+        matrix=MatrixMonitor(n_surf, recv_idx, **limits(matrix)) if receivers else None,
+        sky=SkyMonitor(discrete=bool(sky["discrete"]), **limits(sky)) if sky is not None else None,
+    )
+
+
+def _iteration(counts: np.ndarray, rows) -> np.ndarray:
+    """One iteration's counts: row ``rows`` of a chunk's (an int), or the
+    sum of a scheduled round's rows ``rows`` (a slice)."""
+    return counts[rows] if isinstance(rows, int) else counts[rows].sum(axis=0)
+
+
+def _consume(entry: _Entry, host, rows, want_matrix: bool, want_any: bool) -> bool:
+    """Fold one iteration of a dispatch's host counts (``rows``, as in
+    :func:`_iteration`) into each of the entry's monitors that the dispatch
+    served and that is still pending; False when there was none."""
+    used = False
+    m, s = entry.matrix, entry.sky
+    if want_matrix and m is not None and not m.done:
+        m.consume_iteration(_iteration(host["counts_f"], rows),
+                            _iteration(host["counts_b"], rows))
+        used = True
+    if want_any and s is not None and not s.done:
+        if s.discrete:
+            s.consume_iteration(_iteration(host["sky_bins"], rows))
+        else:
+            s.consume_iteration(int(_iteration(host["upward"], rows)))
+        used = True
+    return used
+
+
+def _drive_slots(entries: List[_Entry], depth: int) -> _Slots:
     """The in-flight slots of a per-emitter drive over ``entries``, with
     streams on every card of their runs' meshes."""
-    return _Slots([d for e in entries for d in e["run"].mesh.distinct], depth)
+    return _Slots([d for e in entries for d in e.run.mesh.distinct], depth)
 
 
-def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bool,
-                     consume, depth: int = 3) -> None:
-    """Round-robin single-output per-emitter solves with pipelined dispatch.
+def _drive_pipelined(entries: List[_Entry], *, depth: int = 3) -> None:
+    """Round-robin per-emitter solves with pipelined dispatch.
 
     Up to ``depth`` emitters have a chunk queued on the device at once, so
     the host-side float64 replay and RNG generation of one emitter overlap
@@ -706,166 +833,60 @@ def _drive_pipelined(entries, *, want_matrix: bool, want_any: bool, discrete: bo
     (:class:`_Slots`), and on a card the slots' streams run the chunks side
     by side. Results are identical to a sequential driver.
 
-    ``entries`` is a list of dicts with keys ``run`` (_EmitterRun) and
-    ``monitor``; ``consume(monitor, host, k)`` folds iteration ``k`` of a
-    chunk's host counts into the monitor. Monitors still pending are driven
-    to completion in place and :func:`_entry_done` runs once per entry as it
-    finishes.
+    An entry's chunk traces the outputs of its pending monitors (the
+    workflow's matrix + any while both are pending, then the pending one
+    alone), as many iterations as the longest of their plans. The replay
+    folds each iteration into the monitors the chunk served and rewinds the
+    ray stream to ``trace_iters``, past the iterations no monitor used.
+    Monitors still pending are driven to completion in place and
+    :func:`_entry_done` runs once per entry as it finishes.
     """
-    queue = deque(e for e in entries if not e["monitor"].done)
+    queue = deque(e for e in entries if e.pending)
     inflight: deque = deque()
     slots = _drive_slots(entries, depth)
     try:
         while queue or inflight:
             while queue and len(inflight) < depth:
                 entry = queue.popleft()
-                mon = entry["monitor"]
-                chunk = plan_chunk(
-                    mon.iters_done,
-                    min_iters=mon.min_iters,
-                    interval=mon.interval,
-                    max_iters=mon.max_iters,
-                    rays_per_iter=entry["run"].em_pack.n_rays_pad,
-                    projected_total=mon.projected_total(),
-                )
-                if chunk <= 0:
-                    mon.done = True
-                    _entry_done(entry)
-                    continue
-                slot = slots.take()
-                harvest = entry["run"].dispatch_chunk(
-                    chunk, want_matrix=want_matrix, want_any=want_any, discrete=discrete,
-                    slot=slot)
-                inflight.append((entry, harvest, chunk, slot))
-            if not inflight:
-                break
-            entry, harvest, chunk, slot = inflight.popleft()
-            host = harvest()
-            slots.give(slot)
-            with _tracing.span("raystrack.chunk.consume"):
-                mon = entry["monitor"]
-                for k in range(chunk):
-                    if mon.done:
-                        break
-                    consume(mon, host, k)
-                # rewind past discarded speculative iterations
-                entry["run"].itr_next = mon.iters_done
-                if mon.done:
-                    _entry_done(entry)
-                else:
-                    _entry_progress(entry)
-                    queue.append(entry)
-    finally:
-        slots.join()
-
-
-def _consume_sky(mon: SkyMonitor, host, rows, discrete: bool) -> None:
-    """Fold one iteration's sky counts (the sum of ``host``'s rows
-    ``rows``: one row per-emitter, an iteration's schedule rows on the
-    scheduled route) into ``mon``."""
-    if discrete:
-        mon.consume_iteration(host["sky_bins"][rows].sum(axis=0))
-    else:
-        mon.consume_iteration(int(host["upward"][rows].sum()))
-
-
-def _drive_matrix_pipelined(entries, *, depth: int = 3) -> None:
-    _drive_pipelined(
-        entries, want_matrix=True, want_any=False, discrete=False,
-        consume=lambda mon, host, k: mon.consume_iteration(
-            host["counts_f"][k], host["counts_b"][k]),
-        depth=depth,
-    )
-
-
-def _drive_sky_pipelined(entries, *, discrete: bool, depth: int = 3) -> None:
-    _drive_pipelined(
-        entries, want_matrix=False, want_any=True, discrete=discrete,
-        consume=lambda mon, host, k: _consume_sky(mon, host, slice(k, k + 1), discrete),
-        depth=depth,
-    )
-
-
-def _consume_both(entry, host, rows, discrete: bool, m_pending: bool = True,
-                  s_pending: bool = True) -> None:
-    """Fold one iteration of a shared-ray dispatch (``host``'s rows
-    ``rows``) into each of the entry's monitors that the dispatch served
-    and that is still pending, and advance ``trace_iters``, the iterations
-    the emitter's RNG stream has consumed."""
-    m, s = entry["matrix_mon"], entry["sky_mon"]
-    used = False
-    if m_pending and m is not None and not m.done:
-        m.consume_iteration(host["counts_f"][rows].sum(axis=0),
-                            host["counts_b"][rows].sum(axis=0))
-        used = True
-    if s_pending and not s.done:
-        _consume_sky(s, host, rows, discrete)
-        used = True
-    if used:
-        entry["trace_iters"] = max(entry["trace_iters"],
-                                   m.iters_done if m is not None else 0, s.iters_done)
-
-
-def _drive_combined_pipelined(entries, *, discrete: bool, depth: int = 3) -> None:
-    """Pipelined round-robin over emitters with dual (matrix, sky) monitors.
-
-    The shared-ray workflow's counterpart of :func:`_drive_pipelined`: each
-    emitter's dispatch kind follows its own state machine (matrix + any
-    while both outputs are pending, then only the pending one), and up to
-    ``depth`` emitters keep a chunk in flight, each on a slot of its own.
-    The replay rewinds the RNG
-    stream both outputs share to ``trace_iters``, past the iterations that
-    neither monitor used.
-
-    ``entries`` carry ``run``, ``matrix_mon`` (None without receivers),
-    ``sky_mon`` and ``trace_iters``, which the replay advances.
-    """
-    queue = deque(e for e in entries if any(not m.done for m in _entry_monitors(e)))
-    inflight: deque = deque()
-    slots = _drive_slots(entries, depth)
-    try:
-        while queue or inflight:
-            while queue and len(inflight) < depth:
-                entry = queue.popleft()
-                m, s = entry["matrix_mon"], entry["sky_mon"]
-                m_pending = m is not None and not m.done
-                s_pending = not s.done
-                chunk = 0
-                for mon in _entry_monitors(entry):
-                    if mon.done:
-                        continue
-                    chunk = max(chunk, plan_chunk(
+                chunk = max(
+                    plan_chunk(
                         mon.iters_done,
                         min_iters=mon.min_iters,
                         interval=mon.interval,
                         max_iters=mon.max_iters,
-                        rays_per_iter=entry["run"].em_pack.n_rays_pad,
+                        rays_per_iter=entry.run.em_pack.n_rays_pad,
                         projected_total=mon.projected_total(),
-                    ))
+                    )
+                    for mon in entry.monitors
+                    if not mon.done
+                )
                 if chunk <= 0:
-                    for mon in _entry_monitors(entry):
+                    for mon in entry.monitors:
                         mon.done = True
                     _entry_done(entry)
                     continue
+                want_matrix = entry.matrix is not None and not entry.matrix.done
+                want_any = entry.sky is not None and not entry.sky.done
                 slot = slots.take()
-                harvest = entry["run"].dispatch_chunk(
-                    chunk, want_matrix=m_pending, want_any=s_pending, discrete=discrete,
-                    slot=slot)
-                inflight.append((entry, harvest, chunk, m_pending, s_pending, slot))
+                harvest = entry.run.dispatch_chunk(
+                    chunk, want_matrix=want_matrix, want_any=want_any,
+                    discrete=entry.sky is not None and entry.sky.discrete, slot=slot)
+                inflight.append((entry, harvest, chunk, want_matrix, want_any, slot))
             if not inflight:
                 break
-            entry, harvest, chunk, m_pending, s_pending, slot = inflight.popleft()
+            entry, harvest, chunk, want_matrix, want_any, slot = inflight.popleft()
             host = harvest()
             slots.give(slot)
             with _tracing.span("raystrack.chunk.consume"):
                 for k in range(chunk):
-                    _consume_both(entry, host, slice(k, k + 1), discrete, m_pending, s_pending)
-                entry["run"].itr_next = entry["trace_iters"]
-                if all(m.done for m in _entry_monitors(entry)):
-                    _entry_done(entry)
-                else:
+                    if not _consume(entry, host, k, want_matrix, want_any):
+                        break
+                entry.run.itr_next = entry.used()
+                if entry.pending:
                     _entry_progress(entry)
                     queue.append(entry)
+                else:
+                    _entry_done(entry)
     finally:
         slots.join()
 
@@ -894,18 +915,19 @@ def _upload(arrays: List[np.ndarray], dtype, device: torch.device) -> List[torch
     return out
 
 
-def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
-                     flip_faces: bool, align: int, scene_pack: ScenePack,
-                     device: torch.device, n_surf: int, *, want_matrix: bool,
-                     want_any: bool, discrete: bool, consume,
-                     mesh: _sharding.RayMesh) -> None:
+def _drive_scheduled(entries: List[_Entry], setup: _Setup, *, want_matrix: bool,
+                     want_any: bool, discrete: bool) -> None:
     """Whole-scene scheduled solves: one dispatch per convergence round.
 
     Builds a block schedule spanning every pending emitter's next chunk and
     runs it as one :func:`ops.trace.scheduled_trace` of the outputs the
-    three flags pick (one launch of sweep kernel #2), then replays
-    per-(emitter, iteration) sums of the rows' counts through the monitors. The dispatch count becomes the number of
-    convergence rounds of the slowest emitter instead of emitters x rounds.
+    three flags pick (one launch of sweep kernel #2; the solve's sides, for
+    every round), then replays per-(emitter, iteration) sums of the rows'
+    counts through each monitor that is still pending. The dispatch count
+    becomes the number of convergence rounds of the slowest emitter instead
+    of emitters x rounds. The replay never rewinds an entry's
+    ``run.itr_next``: under round pipelining it may already cover a
+    dispatched-but-unconsumed round.
 
     A round holds at most ``max(SCHED_MIN_BLOCKS, TARGET_CHUNK_RAYS //
     RAY_BLOCK)`` schedule rows of ``RAY_BLOCK`` rays (the rays are
@@ -915,40 +937,30 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     package's size buckets, padding rows and background precompiles have no
     counterpart.
 
-    ``consume(entry, host, start_row, bpi, chunk)`` replays one entry's
-    iterations through its monitor(s) and must advance
-    ``entry['run'].itr_next`` monotonically (``max`` with the monitors'
-    consumed count, never a smaller value: under round pipelining itr_next
-    already covers the next dispatched-but-unconsumed round).
-
     With ``SCHED_PIPELINE`` (default on) round k+1 is planned and dispatched
     before round k's counts are fetched; a round whose emitters all
     converged while it was in flight is dropped without the fetch.
 
-    Each round's rows are split over the shards of the ray ``mesh``
+    Each round's rows are split over the shards of the setup's ray mesh
     (``parallel.sharding.scheduled_trace_sharded``; ``mesh.devices[0]`` is
-    ``device``): the scene pack, the flat tables and the geometry stack are
-    held once a distinct device of the mesh, and the round's CP and emitter
-    rows copied to each once.
+    the setup's device): the scene pack, the flat tables and the geometry
+    stack are held once a distinct device of the mesh, and the round's CP
+    and emitter rows copied to each once.
     """
-    # Every flat-table offset must be a RAY_BLOCK multiple: scheduled_trace
-    # takes the tables as (-1, RAY_BLOCK) rows. Offsets are align-multiples.
-    if align % RAY_BLOCK:
-        raise ValueError(
-            f"scheduled driver requires align ({align}) to be a multiple of "
-            f"RAY_BLOCK ({RAY_BLOCK})"
-        )
-    use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
+    prepared_solver, p, device = setup.prepared, setup.p, setup.device
+    n_surf = len(setup.emitters)
     # device -> (scene operands, tri_pack, flat tables, geometry stack, accel)
     replicas: Dict[torch.device, Tuple] = {}
     with _tracing.span("raystrack.round.setup"):
-        for dev in mesh.distinct:
-            sp = (scene_pack if dev == device
-                  else prepared_solver.get_scene_pack(use_accel=use_bvh, device=dev))
-            # offsets and n_pad: host arrays, the same on every device
+        for dev in setup.mesh.distinct:
+            sp = (setup.scene_pack if dev == device
+                  else prepared_solver.get_scene_pack(use_accel=setup.use_bvh, device=dev))
+            # offsets and n_pad: host arrays, the same on every device. Every
+            # offset is a RAY_BLOCK multiple: scheduled_trace takes the tables
+            # as (-1, RAY_BLOCK) rows
             tables_flat, geom_stacked, offsets, n_pad = prepared_solver.get_flat_tables(
-                samples=p["samples"], rays=p["rays"], flip_faces=flip_faces,
-                align=align, device=dev,
+                samples=p["samples"], rays=p["rays"], flip_faces=setup.flip_faces,
+                align=RAY_BLOCK, device=dev,
             )
             scene_t = (sp.v0, sp.e1, sp.e2, sp.cross_e, sp.w_u, sp.w_v, sp.d0, sp.sid)
             # one pack with zero mask rows serves every emitter of every round:
@@ -958,19 +970,15 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                              geom_stacked, sp.accel)
         # each emitter's faces: a round searches its rows' CDFs in the stack's
         # first columns only (ops.trace.scheduled_rays)
-        n_faces = np.array([em.cdf.shape[0] for em in prepared_solver.get_emitters(
-            samples=p["samples"], rays=p["rays"], flip_faces=flip_faces)])
+        n_faces = np.array([em.cdf.shape[0] for em in setup.emitters])
 
-    def entry_pending(entry) -> bool:
-        return any(not m.done for m in _entry_monitors(entry))
-
-    def entry_plan(entry, rays_per_iter: int) -> int:
+    def entry_plan(entry: _Entry, rays_per_iter: int) -> int:
         # exact chunks: a round reaches each checkpoint at once. Under round
         # pipelining itr_next runs one dispatched-but-unconsumed round ahead
         # of iters_done; planning then measures from the hypothetical
         # position "in-flight round consumed, nothing converged, projections
         # unmoved". With nothing in flight this is the sequential plan.
-        itr_next = entry["run"].itr_next
+        itr_next = entry.run.itr_next
         return max(
             plan_chunk(
                 max(m.iters_done, itr_next),
@@ -981,7 +989,7 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                 projected_total=m.projected_total(),
                 pow4=False,
             )
-            for m in _entry_monitors(entry)
+            for m in entry.monitors
             if not m.done
         )
 
@@ -991,12 +999,12 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
     # bounds rays per dispatch
     pending = [
         e for e in entries
-        if entry_pending(e) and int(n_pad[e["idx"]]) // RAY_BLOCK <= max_blocks
+        if e.pending and int(n_pad[e.idx]) // RAY_BLOCK <= max_blocks
     ]
     fuse_rounds = _cfg.SCHED_FUSE_ROUNDS or 1
 
     @_tracing.spanned("raystrack.round.build")
-    def build_round(pending) -> Optional[_Round]:
+    def build_round(pending: List[_Entry]) -> Optional[_Round]:
         """Plan the next convergence round(s) over ``pending`` and dispatch
         them without waiting. Returns None when no entry has plannable
         work. Advances each planned entry's ``run.itr_next``."""
@@ -1012,8 +1020,8 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         for _ in range(fuse_rounds):
             progressed = False
             for entry in pending:
-                run = entry["run"]
-                e = entry["idx"]
+                run = entry.run
+                e = entry.idx
                 bpi = int(n_pad[e]) // RAY_BLOCK
                 if n_rows and n_rows + bpi > max_blocks:
                     # not even one iteration fits this round; the entry
@@ -1045,11 +1053,11 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         if not plan:
             return None
         if _tracing.on():
-            _tracing.add(rays_real=sum(chunk * entry["run"].em_pack.n_rays_once
+            _tracing.add(rays_real=sum(chunk * entry.run.em_pack.n_rays_once
                                        for entry, _, _, chunk in plan))
 
         # the round's emitter rows: only the emitters it references
-        by_entry = {entry["idx"]: entry for entry, *_ in plan}
+        by_entry = {entry.idx: entry for entry, *_ in plan}
         n_round = len(round_rows)
         surf_b = np.zeros((n_round, n_surf + 1), dtype=np.int32)
         emit_b = np.zeros(n_round, dtype=np.int32)
@@ -1060,11 +1068,11 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         for e, local_e in round_rows.items():
             entry = by_entry[e]
             sel[local_e] = e
-            surf_b[local_e, :-1] = entry["surf_active"]
-            emit_b[local_e] = entry["emit_sid"]
-            min_b[local_e] = entry["min_sid"]
-            once_b[local_e] = entry["run"].em_pack.n_rays_once
-            plane_b[local_e] = entry["run"].em_pack.plane_host
+            surf_b[local_e, :-1] = entry.surf_active
+            emit_b[local_e] = entry.emit_sid
+            min_b[local_e] = entry.min_sid
+            once_b[local_e] = entry.run.em_pack.n_rays_once
+            plane_b[local_e] = entry.run.em_pack.plane_host
 
         schedule, surf_t, emit_t, min_t, once_t, sel_t = _upload(
             [np.concatenate(row_chunks), surf_b, emit_b, min_b, once_b, sel],
@@ -1077,7 +1085,7 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
         per_dev = [{d: r[i] for d, r in replicas.items()} for i in range(5)]
         faces = int(n_faces[sel].max())  # the CDF columns the round's emitters fill
         per_dev[3] = {d: (g[0][:, :faces],) + tuple(g[1:]) for d, g in per_dev[3].items()}
-        flat = _sharding.scheduled_trace_sharded(mesh, *per_dev[:4], *round_rows,
+        flat = _sharding.scheduled_trace_sharded(setup.mesh, *per_dev[:4], *round_rows,
                                                  accel=per_dev[4], **flags)
         if device.type != "cuda":
             return _Round(flat, None, plan, n_rows)
@@ -1096,11 +1104,15 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                                          want_matrix=want_matrix, want_any=want_any,
                                          discrete=discrete)
             for entry, start_row, bpi, chunk in round_.plan:
-                consume(entry, host, start_row, bpi, chunk)
-                if not entry_pending(entry):
-                    _entry_done(entry)
-                else:
+                for c in range(chunk):
+                    r0 = start_row + c * bpi
+                    if not _consume(entry, host, slice(r0, r0 + bpi), want_matrix, want_any):
+                        break
+                entry.run.itr_next = max(entry.run.itr_next, entry.used())
+                if entry.pending:
                     _entry_progress(entry)
+                else:
+                    _entry_done(entry)
 
     pipeline = _cfg.SCHED_PIPELINE > 0
     inflight: Optional[_Round] = None
@@ -1112,104 +1124,22 @@ def _drive_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
                 # never finish (monitors at max_iters whose replay never
                 # ran); close them out as the sequential driver would
                 for entry in pending:
-                    for m in _entry_monitors(entry):
+                    for m in entry.monitors:
                         m.done = True
                     _entry_done(entry)
             break
         if not pipeline and nxt is not None:
             consume_round(nxt)  # sequential: fetch before planning the next
-            pending = [e for e in pending if entry_pending(e)]
+            pending = [e for e in pending if e.pending]
             continue
         if inflight is not None:
-            if any(entry_pending(e) for e, *_ in inflight.plan):
+            if any(e.pending for e, *_ in inflight.plan):
                 consume_round(inflight)
-                pending = [e for e in pending if entry_pending(e)]
+                pending = [e for e in pending if e.pending]
             # else: every emitter of the round converged while it was in
             # flight; its iterations would all be discarded, so it is
             # dropped without the fetch
         inflight = nxt
-
-
-def _drive_matrix_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
-                            flip_faces: bool, align: int, scene_pack: ScenePack,
-                            device: torch.device, n_surf: int, *,
-                            mesh: _sharding.RayMesh) -> None:
-    def consume(entry, host, start_row, bpi, chunk):
-        mon = entry["monitor"]
-        for c in range(chunk):
-            if mon.done:
-                break
-            r0 = start_row + c * bpi
-            mon.consume_iteration(
-                host["counts_f"][r0 : r0 + bpi].sum(axis=0),
-                host["counts_b"][r0 : r0 + bpi].sum(axis=0),
-            )
-        # never rewind: under round pipelining itr_next may already cover a
-        # dispatched-but-unconsumed round
-        entry["run"].itr_next = max(entry["run"].itr_next, mon.iters_done)
-
-    _drive_scheduled(
-        entries, prepared_solver, p, flip_faces, align, scene_pack, device,
-        n_surf, want_matrix=True, want_any=False, discrete=False, consume=consume,
-        mesh=mesh,
-    )
-
-
-def _drive_sky_scheduled(entries, prepared_solver: PreparedSolver, p: Dict, align: int,
-                         scene_pack: ScenePack, device: torch.device, n_surf: int, *,
-                         discrete: bool, mesh: _sharding.RayMesh) -> None:
-    def consume(entry, host, start_row, bpi, chunk):
-        mon = entry["monitor"]
-        for c in range(chunk):
-            if mon.done:
-                break
-            r0 = start_row + c * bpi
-            _consume_sky(mon, host, slice(r0, r0 + bpi), discrete)
-        # never rewind (see _drive_matrix_scheduled.consume)
-        entry["run"].itr_next = max(entry["run"].itr_next, mon.iters_done)
-
-    _drive_scheduled(
-        entries, prepared_solver, p, False, align, scene_pack, device, n_surf,
-        want_matrix=False, want_any=True, discrete=discrete, consume=consume, mesh=mesh,
-    )
-
-
-def _drive_combined_scheduled(entries, prepared_solver: PreparedSolver, p: Dict,
-                              align: int, scene_pack: ScenePack, device: torch.device,
-                              n_surf: int, *, discrete: bool,
-                              mesh: _sharding.RayMesh) -> None:
-    """Scheduled shared-ray workflow: both outputs for every block of every
-    round; each monitor consumes only while pending, the dual-monitor
-    replay of :func:`_drive_combined_pipelined`."""
-
-    def consume(entry, host, start_row, bpi, chunk):
-        for c in range(chunk):
-            r0 = start_row + c * bpi
-            _consume_both(entry, host, slice(r0, r0 + bpi), discrete)
-        # never rewind (see _drive_matrix_scheduled.consume)
-        entry["run"].itr_next = max(entry["run"].itr_next, entry["trace_iters"])
-
-    _drive_scheduled(
-        entries, prepared_solver, p, False, align, scene_pack, device, n_surf,
-        want_matrix=True, want_any=True, discrete=discrete, consume=consume, mesh=mesh,
-    )
-
-
-def _drive_monitors(run: _EmitterRun, matrix_mon: Optional[MatrixMonitor],
-                    sky_mon: Optional[SkyMonitor], *, discrete: bool) -> int:
-    """Drive one emitter's monitors to the end on the per-emitter route;
-    returns the iterations traced. The single-emitter state machine of
-    ``parallel/distribute.py``: without a sky monitor the matrix alone
-    (:func:`_drive_matrix_pipelined`), else the shared-ray one of
-    :func:`_drive_combined_pipelined` (matrix + any while both are pending,
-    then the pending side alone; sky only when ``matrix_mon`` is None), so
-    each monitor ends where the full solves' would."""
-    if sky_mon is None:
-        _drive_matrix_pipelined([dict(run=run, monitor=matrix_mon)])
-        return matrix_mon.iters_done
-    entry = dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon, trace_iters=run.itr_next)
-    _drive_combined_pipelined([entry], discrete=discrete)
-    return entry["trace_iters"]
 
 
 class _CheckpointStore:
@@ -1305,59 +1235,48 @@ class _CheckpointStore:
     def clear_progress(self, idx: int) -> None:
         self._progress_path(idx).unlink(missing_ok=True)
 
-    def resume(self, entry: Dict, n_surf: int, load: Callable[[Dict, Dict], None],
-               state: Callable[[Dict], Dict]) -> None:
+    def resume(self, entry: "_Entry", n_surf: int, both: bool) -> None:
         """Resume ``entry`` from its emitter's progress snapshot, if there is
-        one, and snapshot it from now on.
-
-        ``load(entry, snapshot)`` restores its monitors. A snapshot holds
-        only consumed iterations, so the ray stream resumes at the first one
-        no monitor has seen. ``state(entry)`` is the snapshot to save."""
-        idx = entry["idx"]
-        progress = self.load_progress(idx)
+        one, and snapshot it from now on (:func:`_snapshot`; ``both`` for the
+        workflow's). A snapshot holds only consumed iterations, so the ray
+        stream resumes at the first one no monitor has seen."""
+        progress = self.load_progress(entry.idx)
         if progress is not None:
-            load(entry, progress)
-            run = entry["run"]
-            run.itr_next = max(m.iters_done for m in _entry_monitors(entry))
-            _log(f"({idx + 1}/{n_surf}) [{entry['name']}] resuming from "
-                 f"iteration {run.itr_next}")
-        entry["on_progress"] = lambda e: self.save_progress(e["idx"], state(e))
+            _load_snapshot(entry, progress, both)
+            entry.run.itr_next = entry.trace_iters = max(m.iters_done for m in entry.monitors)
+            _log(f"({entry.idx + 1}/{n_surf}) [{entry.name}] resuming from "
+                 f"iteration {entry.run.itr_next}")
+        entry.on_progress = lambda e: self.save_progress(e.idx, _snapshot(e, both))
 
 
-def _monitor_state(entry: Dict) -> Dict:
-    """Progress snapshot of a matrix or sky entry."""
-    return {"monitor": entry["monitor"].state_dict()}
+def _snapshot(entry: _Entry, both: bool) -> Dict:
+    """Progress snapshot of an entry: its one monitor, or both of a
+    workflow entry (``matrix`` None for an emitter with no receivers)."""
+    if not both:
+        return {"monitor": entry.monitors[0].state_dict()}
+    return {"matrix": None if entry.matrix is None else entry.matrix.state_dict(),
+            "sky": entry.sky.state_dict()}
 
 
-def _load_monitor_state(entry: Dict, snapshot: Dict) -> None:
-    entry["monitor"].load_state(snapshot["monitor"])
+def _load_snapshot(entry: _Entry, snapshot: Dict, both: bool) -> None:
+    if not both:
+        entry.monitors[0].load_state(snapshot["monitor"])
+        return
+    if entry.matrix is not None and snapshot.get("matrix") is not None:
+        entry.matrix.load_state(snapshot["matrix"])
+    entry.sky.load_state(snapshot["sky"])
 
 
-def _combined_state(entry: Dict) -> Dict:
-    """Progress snapshot of a shared-ray workflow entry: both monitors
-    (``matrix`` None for an emitter with no receivers)."""
-    m = entry["matrix_mon"]
-    return {"matrix": None if m is None else m.state_dict(),
-            "sky": entry["sky_mon"].state_dict()}
-
-
-def _load_combined_state(entry: Dict, snapshot: Dict) -> None:
-    if entry["matrix_mon"] is not None and snapshot.get("matrix") is not None:
-        entry["matrix_mon"].load_state(snapshot["matrix"])
-    entry["sky_mon"].load_state(snapshot["sky"])
-
-
-def _start_entries(entries: List[Dict], on_done: Callable[[Dict], None]) -> float:
+def _start_entries(entries: List[_Entry], on_done: Callable[[_Entry], None]) -> None:
     """Stamp each entry's start and attach its ``on_done``. An entry that a
     snapshot restored converged (its full checkpoint not yet written) is
-    assembled now and traces nothing. Returns the start time."""
+    assembled now and traces nothing."""
     t_solve = time.time()
     for entry in entries:
-        entry["started"] = t_solve
-        entry["on_done"] = on_done
-        if all(m.done for m in _entry_monitors(entry)):
+        entry.started = t_solve
+        entry.on_done = on_done
+        if not entry.pending:
             _entry_done(entry)
-    return t_solve
 
 
 def _matrix_row(monitor: Optional[MatrixMonitor], receivers: List[int], meshes: List[Mesh],
@@ -1406,6 +1325,168 @@ def _sky_row(monitor: SkyMonitor, discrete: bool) -> Tuple[Dict, Dict]:
                 {k: float(se[i]) for i, k in enumerate(keys)})
     return ({"Sky": float(monitor.upward_total / total)},
             {"Sky": float(monitor.sky_w.stderr())})
+
+
+
+
+def _solve(meshes: List[Mesh], *, matrix: Optional[Dict], sky: Optional[Dict],
+           prepared: Optional[PreparedSolver], mesh, checkpoint_dir: Optional[str],
+           row_sink=None) -> Tuple[Optional[VFDict], Optional[VFDict], VFDict]:
+    """The solve behind the three public ones, of the sides whose parameter
+    dicts ``matrix`` and ``sky`` hold: None for a side it lacks, and with
+    both the shared-ray workflow, its rays drawn by ``matrix``'s settings.
+    Returns ``(vf_scene, sky_vf, stats)``, None for a side it lacks."""
+    both = matrix is not None and sky is not None
+    p = matrix if matrix is not None else sky
+    with _tracing.span("raystrack.solve.entries"):
+        # the sky emits outward, and the workflow's matrix with it
+        setup = _setup(meshes, prepared, p, mesh,
+                       flip_faces=matrix is not None and bool(matrix["flip_faces"]))
+        device, use_bvh = setup.device, setup.use_bvh
+        reciprocity = matrix is not None and bool(matrix["reciprocity"])
+        discrete = sky is not None and bool(sky["discrete"])
+        store = None
+        if checkpoint_dir:
+            keyed = p if not both else {**{f"m.{k}": v for k, v in matrix.items()},
+                                        **{f"s.{k}": v for k, v in sky.items()}}
+            store = _CheckpointStore(checkpoint_dir, keyed, meshes)
+        areas = [e.total_area for e in setup.emitters] if reciprocity else None
+        # a slim (pack-resident) scene goes emitter by emitter: that driver
+        # sweeps the resident pack as it is, where the scheduled one would
+        # assemble a second pack from per-triangle fields a slim scene does
+        # not hold
+        use_scheduler = not setup.scene_pack.slim and _use_scheduler(
+            device, setup.emitters, p["rays"], RAY_BLOCK)
+
+        names = [name for name, _, _ in meshes]
+        n_surf = len(names)
+        vf_scene: Optional[VFDict] = {name: {} for name in names} if matrix is not None else None
+        sky_vf: Optional[VFDict] = ({name: {k: 0.0 for k in _sky_keys(discrete)} for name in names}
+                                    if sky is not None else None)
+        stats_result: VFDict = {}
+        # Reciprocity lands back-fill in other emitters' rows; the ordered
+        # coordinator defers each sink until its row's back-fill is complete.
+        ordered_sink = (
+            _OrderedRowSink(row_sink, names)
+            if (row_sink is not None and reciprocity)
+            else None
+        )
+        n_restored = 0
+        entries: List[_Entry] = []
+        # restore checkpoints, skip emitters that trace nothing, build the
+        # work list; a single mesh has nothing to block its sky
+        for idx_emit, name_e in enumerate(names if matrix is not None or n_surf > 1 else []):
+            saved = store.load(idx_emit) if store is not None else None
+            if saved is not None:
+                n_restored += 1
+                stats = saved.get("stats", {})
+                if matrix is None:
+                    sky_vf[name_e].update(saved["row"])
+                else:
+                    vf_scene[name_e].update(saved["row"])
+                    for other, back_entries in saved.get("backfill", {}).items():
+                        vf_scene[other].update(back_entries)
+                if both and "sky" in saved:
+                    sky_vf[name_e].update(saved["sky"])
+                    # the stats slot carries a duplicate of the sky row under
+                    # "sky" for readers of the older layout; strip it
+                    stats = {k: v for k, v in stats.items() if k != "sky"}
+                elif both:
+                    # the older layout parked the sky row in the stats slot
+                    sky_vf[name_e].update(stats.get("sky", {}))
+                    stats = {}
+                stats_result[name_e] = stats
+                if sky is None:
+                    # re-sunk: the stream of the stopped solve did not outlive it
+                    if ordered_sink is not None:
+                        ordered_sink.finish(idx_emit, saved["row"], saved.get("backfill", {}))
+                    elif row_sink is not None:
+                        row_sink(name_e, saved["row"])
+                    _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from "
+                         f"checkpoint ({len(saved['row'])} receivers)")
+                else:
+                    _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
+                continue
+            entry = _build_entry(setup, idx_emit, name_e, matrix=matrix, sky=sky,
+                                 reciprocity=reciprocity, lazy=use_scheduler)
+            if entry is None:  # a matrix-only emitter with no receivers
+                _log(_progress_line(idx_emit, n_surf, name_e, 0, 0, 0.0, use_bvh, device))
+                stats_result[name_e] = {}
+                if store is not None:
+                    store.save(idx_emit, name_e, {}, {}, {})
+                if ordered_sink is not None:
+                    # traces nothing itself, but its row still collects earlier
+                    # emitters' back-fill (e.g. the LAST emitter under
+                    # reciprocity, whose whole row is back-fill)
+                    ordered_sink.finish(idx_emit, {}, {})
+                continue
+            if store is not None:
+                store.resume(entry, n_surf, both)
+            entries.append(entry)
+
+        def assemble(entry: _Entry) -> None:
+            """Build the emitter's rows and stats as it converges (one stats
+            row over both sides' keys), checkpoint them and sink the matrix
+            row, so a solve stopped later keeps every finished emitter."""
+            row, stats, backfill = _matrix_row(
+                entry.matrix, entry.receivers, meshes, entry.idx, reciprocity, areas)
+            sky_row: Dict[str, float] = {}
+            # the workflow leaves the sky row of an untraced sky empty
+            if sky is not None and (not both or entry.sky.total_rays > 0):
+                sky_row, sky_stats = _sky_row(entry.sky, discrete)
+                stats.update(sky_stats)
+            entry.row, entry.stats, entry.backfill, entry.sky_row = row, stats, backfill, sky_row
+            if store is not None and both:
+                # the top-level "sky" is the layout; the duplicate inside stats
+                # keeps the file readable by readers of the older layout
+                store.save(entry.idx, entry.name, row, backfill, {**stats, "sky": sky_row},
+                           sky=sky_row)
+            elif store is not None:
+                store.save(entry.idx, entry.name, row if sky is None else sky_row, backfill,
+                           stats)
+            if ordered_sink is not None:
+                ordered_sink.finish(entry.idx, row, backfill)
+            elif row_sink is not None:
+                row_sink(entry.name, row)
+
+        _start_entries(entries, assemble)
+
+    # whole-scene scheduled dispatches when possible, then the pipelined
+    # per-emitter driver for whatever is left (single emitters, emitters too
+    # big for a round)
+    if len(entries) > 1 and use_scheduler:
+        _drive_scheduled(entries, setup, want_matrix=matrix is not None,
+                         want_any=sky is not None, discrete=discrete)
+    _drive_pipelined(entries)
+
+    with _tracing.span("raystrack.solve.rows"):
+        # merge rows into the result in emitter order
+        for entry in entries:
+            if matrix is not None:
+                vf_scene[entry.name].update(entry.row)
+                for name_r, back_entries in entry.backfill.items():
+                    vf_scene[name_r].update(back_entries)
+            if sky is not None:
+                sky_vf[entry.name].update(entry.sky_row)
+            stats_result[entry.name] = entry.stats
+            if both:
+                matrix_iters = entry.matrix.iters_done if entry.matrix is not None else 0
+                _log(
+                    f"({entry.idx + 1}/{n_surf}) [{entry.name}] traced {entry.trace_iters} iter, "
+                    f"{entry.trace_iters * entry.run.em_pack.n_rays_once:,} rays -> "
+                    f"{entry.elapsed:0.3f}s  "
+                    f"(scene={matrix_iters} iter, sky={entry.sky.iters_done} iter, "
+                    f"BVH={'builtin' if use_bvh else 'off'}, device={_device_label(device)})"
+                )
+            else:
+                (monitor,) = entry.monitors
+                _log(_progress_line(entry.idx, n_surf, entry.name, monitor.iters_done,
+                                    monitor.total_rays, entry.elapsed, use_bvh, device))
+        if n_restored:
+            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
+        if sky is None and matrix["enforce_reciprocity_rowsum"]:
+            _enforce_reciprocity_and_rowsum(vf_scene, meshes, areas)
+    return vf_scene, sky_vf, stats_result
 
 
 @_tracing.solve("matrix")
@@ -1471,151 +1552,12 @@ def view_factor_matrix(
     """
     if not isinstance(params, MatrixParams):
         raise TypeError("params must be a MatrixParams instance")
-    p = params.as_dict()
-    with _tracing.span("raystrack.solve.entries"):
-        device, mesh = _placements(mesh, p["device"])
-        # CPU solves check convergence every iteration; the interval only
-        # batches checks on the card
-        interval = 1 if device.type == "cpu" else p["convergence_interval"]
-        prepared_solver = _ensure_prepared(meshes, prepared)
-        use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
-        reciprocity = bool(p["reciprocity"])
-        flip_faces = bool(p["flip_faces"])
-
-        result: VFDict = {name: {} for name, _, _ in meshes}
-        stats_result: VFDict = {}
-        store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
-        emitters = prepared_solver.get_emitters(
-            samples=p["samples"], rays=p["rays"], flip_faces=flip_faces
-        )
-        areas = [e.total_area for e in emitters] if reciprocity else None
-        bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-        align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
-        scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
-        # a slim (pack-resident) scene goes emitter by emitter: that driver
-        # sweeps the resident pack as it is, where the scheduled one would
-        # assemble a second pack from per-triangle fields a slim scene does
-        # not hold
-        use_scheduler = not scene_pack.slim and _use_scheduler(
-            device, emitters, p["rays"], align)
-
-        n_surf = len(meshes)
-        n_restored = 0
-        # Reciprocity lands back-fill in other emitters' rows; the ordered
-        # coordinator defers each sink until its row's back-fill is complete.
-        ordered_sink = (
-            _OrderedRowSink(row_sink, [name for name, _, _ in meshes])
-            if (row_sink is not None and reciprocity)
-            else None
-        )
-        # Phase 1: restore checkpoints, skip emitters with no receivers, build
-        # the work list
-        entries: List[Dict] = []
-        for idx_emit, (name_e, _, _) in enumerate(meshes):
-            saved = store.load(idx_emit) if store is not None else None
-            if saved is not None:
-                result[name_e].update(saved["row"])
-                for other, back_entries in saved.get("backfill", {}).items():
-                    result[other].update(back_entries)
-                stats_result[name_e] = saved.get("stats", {})
-                n_restored += 1
-                # re-sunk: the stream of the stopped solve did not outlive it
-                if ordered_sink is not None:
-                    ordered_sink.finish(idx_emit, saved["row"], saved.get("backfill", {}))
-                elif row_sink is not None:
-                    row_sink(name_e, saved["row"])
-                _log(
-                    f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from "
-                    f"checkpoint ({len(saved['row'])} receivers)"
-                )
-                continue
-            emitter = emitters[idx_emit]
-            surf_active = _build_emitter_surface_mask(
-                idx_emit, emitter, bounds_center, bounds_extent
-            )
-            receivers, recv_idx = _matrix_active_receivers(
-                idx_emit, n_surf, reciprocity, surf_active
-            )
-            if not receivers:
-                _log(_progress_line(idx_emit, n_surf, name_e, 0, 0, 0.0, use_bvh, device))
-                stats_result[name_e] = {}
-                if store is not None:
-                    store.save(idx_emit, name_e, {}, {}, {})
-                if ordered_sink is not None:
-                    # traces nothing itself, but its row still collects earlier
-                    # emitters' back-fill (e.g. the LAST emitter under
-                    # reciprocity, whose whole row is back-fill)
-                    ordered_sink.finish(idx_emit, {}, {})
-                continue
-
-            emit_sid, min_sid = _matrix_skip(idx_emit, reciprocity)
-            run = _emitter_run(prepared_solver, p, idx_emit, surf_active, emit_sid, min_sid,
-                               flip_faces=flip_faces, scene_pack=scene_pack, device=device,
-                               mesh=mesh, lazy=use_scheduler)
-            monitor = MatrixMonitor(
-                n_surf, recv_idx,
-                n_rays_once=run.em_pack.n_rays_once,
-                tol=p["tol"], tol_mode=p["tol_mode"],
-                min_iters=p["min_iters"], interval=interval,
-                max_iters=p["max_iters"],
-            )
-            entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
-                         receivers=receivers, surf_active=surf_active,
-                         emit_sid=emit_sid, min_sid=min_sid)
-            if store is not None:
-                store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
-            entries.append(entry)
-
-        def _assemble(entry) -> None:
-            """Build the emitter's row, back-fill and stats as it converges,
-            checkpoint it and sink its row, so a solve stopped later keeps every
-            finished emitter."""
-            idx_emit, name_e = entry["idx"], entry["name"]
-            row, stats_row, backfill = _matrix_row(
-                entry["monitor"], entry["receivers"], meshes, idx_emit, reciprocity, areas)
-            entry.update(row=row, stats=stats_row, backfill=backfill)
-            if store is not None:
-                store.save(idx_emit, name_e, row, backfill, stats_row)
-            if ordered_sink is not None:
-                ordered_sink.finish(idx_emit, row, backfill)
-            elif row_sink is not None:
-                row_sink(name_e, row)
-
-        t_solve = _start_entries(entries, _assemble)
-
-    # Phase 2: whole-scene scheduled dispatches when possible, then the
-    # pipelined per-emitter driver for whatever is left (single emitters,
-    # emitters too big for a round)
-    if len(entries) > 1 and use_scheduler:
-        _drive_matrix_scheduled(
-            entries, prepared_solver, p, flip_faces, align, scene_pack, device, n_surf,
-            mesh=mesh,
-        )
-    _drive_matrix_pipelined(entries)
-    solve_s = time.time() - t_solve
-
-    with _tracing.span("raystrack.solve.rows"):
-        # Phase 3: merge rows into the result in emitter order
-        for entry in entries:
-            idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
-            result[name_e].update(entry["row"])
-            for name_r, back_entries in entry["backfill"].items():
-                result[name_r].update(back_entries)
-            stats_result[name_e] = entry["stats"]
-            _log(
-                _progress_line(
-                    idx_emit, n_surf, name_e, monitor.iters_done,
-                    monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
-                )
-            )
-        if n_restored:
-            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
-
-        if p["enforce_reciprocity_rowsum"]:
-            _enforce_reciprocity_and_rowsum(result, meshes, areas)
-        if return_stats:
-            return result, stats_result
-        return result
+    result, _, stats_result = _solve(meshes, matrix=params.as_dict(), sky=None,
+                                     prepared=prepared, mesh=mesh,
+                                     checkpoint_dir=checkpoint_dir, row_sink=row_sink)
+    if return_stats:
+        return result, stats_result
+    return result
 
 
 def view_factor(
@@ -1630,6 +1572,7 @@ def view_factor(
     receivers = [receiver] if isinstance(receiver, tuple) else list(receiver)
     vf_all = view_factor_matrix(senders + receivers, params=params, prepared=prepared)
     return {name: vf_all.get(name, {}) for name in (s[0] for s in senders)}
+
 
 
 @_tracing.solve("sky")
@@ -1666,88 +1609,12 @@ def view_factor_to_tregenza_sky(
         raise TypeError("params must be a SkyParams instance")
     if len(meshes) == 0:
         raise ValueError("meshes must not be empty")
-
-    with _tracing.span("raystrack.solve.entries"):
-        p = params.as_dict()
-        discrete = bool(p["discrete"])
-        device, mesh = _placements(mesh, p["device"])
-        interval = 1 if device.type == "cpu" else p["convergence_interval"]
-        prepared_solver = _ensure_prepared(meshes, prepared)
-        use_bvh = _select_bvh(p["bvh"], prepared_solver.total_faces)
-        emitters = prepared_solver.get_emitters(
-            samples=p["samples"], rays=p["rays"], flip_faces=False
-        )
-        bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-        align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
-        scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
-        # slim (pack-resident) scenes take the per-emitter driver only
-        use_scheduler = not scene_pack.slim and _use_scheduler(
-            device, emitters, p["rays"], align)
-
-        result: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
-        stats_result: VFDict = {}
-        store = _CheckpointStore(checkpoint_dir, p, meshes) if checkpoint_dir else None
-        n_surf = len(meshes)
-        n_restored = 0
-        entries: List[Dict] = []
-        if n_surf > 1:
-            for idx_emit, (name_e, _, _) in enumerate(meshes):
-                saved = store.load(idx_emit) if store is not None else None
-                if saved is not None:
-                    result[name_e].update(saved["row"])
-                    stats_result[name_e] = saved.get("stats", {})
-                    n_restored += 1
-                    _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
-                    continue
-                surf_active = _build_emitter_surface_mask(
-                    idx_emit, emitters[idx_emit], bounds_center, bounds_extent
-                )
-                run = _emitter_run(prepared_solver, p, idx_emit, surf_active, idx_emit, 0,
-                                   flip_faces=False, scene_pack=scene_pack, device=device,
-                                   mesh=mesh, lazy=use_scheduler)
-                monitor = SkyMonitor(
-                    discrete=discrete,
-                    n_rays_once=run.em_pack.n_rays_once,
-                    tol=p["tol"], tol_mode=p["tol_mode"],
-                    min_iters=p["min_iters"], interval=interval,
-                    max_iters=p["max_iters"],
-                )
-                entry = dict(run=run, monitor=monitor, idx=idx_emit, name=name_e,
-                             surf_active=surf_active, emit_sid=idx_emit, min_sid=0)
-                if store is not None:
-                    store.resume(entry, n_surf, _load_monitor_state, _monitor_state)
-                entries.append(entry)
-
-        def _assemble(entry) -> None:
-            entry["row"], entry["stats"] = _sky_row(entry["monitor"], discrete)
-            if store is not None:
-                store.save(entry["idx"], entry["name"], entry["row"], {}, entry["stats"])
-
-        t_solve = _start_entries(entries, _assemble)
-    if len(entries) > 1 and use_scheduler:
-        _drive_sky_scheduled(
-            entries, prepared_solver, p, align, scene_pack, device, n_surf,
-            discrete=discrete, mesh=mesh,
-        )
-    _drive_sky_pipelined(entries, discrete=discrete)
-    solve_s = time.time() - t_solve
-    with _tracing.span("raystrack.solve.rows"):
-
-        for entry in entries:
-            idx_emit, name_e, monitor = entry["idx"], entry["name"], entry["monitor"]
-            result[name_e].update(entry["row"])
-            stats_result[name_e] = entry["stats"]
-            _log(
-                _progress_line(
-                    idx_emit, n_surf, name_e, monitor.iters_done,
-                    monitor.total_rays, entry.get("elapsed", solve_s), use_bvh, device,
-                )
-            )
-        if n_restored:
-            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
-        if return_stats:
-            return result, stats_result
-        return result
+    _, result, stats_result = _solve(meshes, matrix=None, sky=params.as_dict(),
+                                     prepared=prepared, mesh=mesh,
+                                     checkpoint_dir=checkpoint_dir)
+    if return_stats:
+        return result, stats_result
+    return result
 
 
 def outside_workflow_shareable(matrix_params: MatrixParams, sky_params: SkyParams) -> bool:
@@ -1761,6 +1628,7 @@ def outside_workflow_shareable(matrix_params: MatrixParams, sky_params: SkyParam
         return False
     shared = ("samples", "rays", "seed", "bvh", "device", "cuda_async", "gpu_raygen")
     return all(getattr(matrix_params, k) == getattr(sky_params, k) for k in shared)
+
 
 
 @_tracing.solve("workflow")
@@ -1802,151 +1670,12 @@ def view_factor_matrix_and_sky(
         raise TypeError("sky_params must be a SkyParams instance")
     if not outside_workflow_shareable(matrix_params, sky_params):
         raise ValueError("matrix_params and sky_params are not compatible for shared tracing")
-
-    with _tracing.span("raystrack.solve.entries"):
-        mp = matrix_params.as_dict()
-        sp = sky_params.as_dict()
-        store = (
-            _CheckpointStore(
-                checkpoint_dir,
-                {**{f"m.{k}": v for k, v in mp.items()},
-                 **{f"s.{k}": v for k, v in sp.items()}},
-                meshes,
-            )
-            if checkpoint_dir
-            else None
-        )
-        discrete = bool(sp["discrete"])
-        reciprocity = bool(mp["reciprocity"])
-        device, mesh = _placements(mesh, mp["device"])
-        on_cpu = device.type == "cpu"
-        prepared_solver = _ensure_prepared(meshes, prepared)
-        use_bvh = _select_bvh(mp["bvh"], prepared_solver.total_faces)
-        emitters = prepared_solver.get_emitters(
-            samples=mp["samples"], rays=mp["rays"], flip_faces=False
-        )
-        areas = [e.total_area for e in emitters] if reciprocity else None
-        bounds_center, bounds_extent = prepared_solver.get_mesh_bounds()
-        align = RAY_BLOCK  # the flat tables' (a chunk's own tables pad to _ray_align(mesh))
-        scene_pack = prepared_solver.get_scene_pack(use_accel=use_bvh, device=device)
-        use_scheduler = not scene_pack.slim and _use_scheduler(
-            device, emitters, mp["rays"], align)
-
-        vf_scene: VFDict = {name: {} for name, _, _ in meshes}
-        sky_vf: VFDict = {name: {k: 0.0 for k in _sky_keys(discrete)} for name, _, _ in meshes}
-        stats_result: VFDict = {}
-        n_surf = len(meshes)
-        n_restored = 0
-        entries: List[Dict] = []
-        for idx_emit, (name_e, _, _) in enumerate(meshes):
-            saved = store.load(idx_emit) if store is not None else None
-            if saved is not None:
-                vf_scene[name_e].update(saved["row"])
-                for other, back_entries in saved.get("backfill", {}).items():
-                    vf_scene[other].update(back_entries)
-                if "sky" in saved:
-                    sky_vf[name_e].update(saved["sky"])
-                    # the stats slot carries a duplicate of the sky row under
-                    # "sky" for readers of the older layout; strip it
-                    stats_result[name_e] = {
-                        k: v for k, v in saved.get("stats", {}).items() if k != "sky"
-                    }
-                else:
-                    # the older layout parked the sky row in the stats slot
-                    sky_vf[name_e].update(saved.get("stats", {}).get("sky", {}))
-                    stats_result[name_e] = {}
-                n_restored += 1
-                _log(f"({idx_emit + 1}/{n_surf}) [{name_e}] restored from checkpoint")
-                continue
-            surf_active = _build_emitter_surface_mask(
-                idx_emit, emitters[idx_emit], bounds_center, bounds_extent
-            )
-            receivers, recv_idx = _matrix_active_receivers(
-                idx_emit, n_surf, reciprocity, surf_active
-            )
-            emit_sid, matrix_min_sid = _matrix_skip(idx_emit, reciprocity)
-            run = _emitter_run(prepared_solver, mp, idx_emit, surf_active, emit_sid,
-                               matrix_min_sid, flip_faces=False, scene_pack=scene_pack,
-                               device=device, mesh=mesh, lazy=use_scheduler)
-            em_pack = run.em_pack
-            matrix_mon = (
-                MatrixMonitor(
-                    n_surf, recv_idx,
-                    n_rays_once=em_pack.n_rays_once,
-                    tol=mp["tol"], tol_mode=mp["tol_mode"],
-                    min_iters=mp["min_iters"],
-                    interval=1 if on_cpu else mp["convergence_interval"],
-                    max_iters=mp["max_iters"],
-                )
-                if receivers
-                else None
-            )
-            sky_mon = SkyMonitor(
-                discrete=discrete,
-                n_rays_once=em_pack.n_rays_once,
-                tol=sp["tol"], tol_mode=sp["tol_mode"],
-                min_iters=sp["min_iters"],
-                interval=1 if on_cpu else sp["convergence_interval"],
-                max_iters=sp["max_iters"],
-            )
-            entry = dict(run=run, matrix_mon=matrix_mon, sky_mon=sky_mon,
-                         idx=idx_emit, name=name_e, receivers=receivers,
-                         surf_active=surf_active, emit_sid=emit_sid, min_sid=matrix_min_sid)
-            if store is not None:
-                store.resume(entry, n_surf, _load_combined_state, _combined_state)
-            # the shared stream resumes past the iterations either monitor used
-            entry["trace_iters"] = run.itr_next
-            entries.append(entry)
-
-        def _assemble(entry) -> None:
-            """The emitter's matrix row, back-fill and sky row, and one stats
-            row over both outputs' keys."""
-            row, stats_row, backfill = _matrix_row(
-                entry["matrix_mon"], entry["receivers"], meshes, entry["idx"], reciprocity, areas)
-            sky_row: Dict[str, float] = {}
-            if entry["sky_mon"].total_rays > 0:
-                sky_row, sky_stats = _sky_row(entry["sky_mon"], discrete)
-                stats_row.update(sky_stats)
-            entry.update(row=row, stats=stats_row, backfill=backfill, sky_row=sky_row)
-            if store is not None:
-                # the top-level "sky" is the layout; the duplicate inside stats
-                # keeps the file readable by readers of the older layout
-                store.save(entry["idx"], entry["name"], row, backfill,
-                           {**stats_row, "sky": sky_row}, sky=sky_row)
-
-        t_solve = _start_entries(entries, _assemble)
-    if len(entries) > 1 and use_scheduler:
-        _drive_combined_scheduled(
-            entries, prepared_solver, mp, align, scene_pack, device, n_surf,
-            discrete=discrete, mesh=mesh,
-        )
-    _drive_combined_pipelined(entries, discrete=discrete)
-    solve_s = time.time() - t_solve
-    with _tracing.span("raystrack.solve.rows"):
-
-        for entry in entries:
-            idx_emit, name_e = entry["idx"], entry["name"]
-            matrix_mon, sky_mon = entry["matrix_mon"], entry["sky_mon"]
-            trace_iters = entry["trace_iters"]
-            vf_scene[name_e].update(entry["row"])
-            for name_r, back_entries in entry["backfill"].items():
-                vf_scene[name_r].update(back_entries)
-            sky_vf[name_e].update(entry["sky_row"])
-            stats_result[name_e] = entry["stats"]
-            matrix_iters = matrix_mon.iters_done if matrix_mon is not None else 0
-            _log(
-                f"({idx_emit + 1}/{n_surf}) [{name_e}] traced {trace_iters} iter, "
-                f"{trace_iters * entry['run'].em_pack.n_rays_once:,} rays -> "
-                f"{entry.get('elapsed', solve_s):0.3f}s  "
-                f"(scene={matrix_iters} iter, sky={sky_mon.iters_done} iter, "
-                f"BVH={'builtin' if use_bvh else 'off'}, device={_device_label(device)})"
-            )
-        if n_restored:
-            _log(f"{n_restored}/{n_surf} emitters restored from checkpoint (not re-traced)")
-
-        if return_stats:
-            return vf_scene, sky_vf, stats_result
-        return vf_scene, sky_vf
+    vf_scene, sky_vf, stats_result = _solve(
+        meshes, matrix=matrix_params.as_dict(), sky=sky_params.as_dict(), prepared=prepared,
+        mesh=mesh, checkpoint_dir=checkpoint_dir)
+    if return_stats:
+        return vf_scene, sky_vf, stats_result
+    return vf_scene, sky_vf
 
 
 def _progress_line(

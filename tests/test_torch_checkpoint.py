@@ -422,18 +422,24 @@ def test_progress_hook_writes_nothing_without_a_store(tmp_path, monkeypatch):
     monkeypatch.setattr(config, "CHECKPOINT_PROGRESS_S", 0.0)
     assert view_factor_matrix(MESHES, params=PARAMS) == plain
     assert not list(tmp_path.iterdir())
-    entry = {"_finished": False}
+    entry = _bare_entry()
     solver_mod._entry_progress(entry)  # no on_progress: a no-op
-    assert entry == {"_finished": False}
+    assert (entry.finished, entry.progress_ts) == (False, 0.0)
+
+
+def _bare_entry(**hooks):
+    """An entry with no run, for the hooks alone."""
+    return solver_mod._Entry(run=None, idx=0, name="e", receivers=[], surf_active=None,
+                             emit_sid=0, min_sid=0, **hooks)
 
 
 def test_progress_hook_never_fires_after_completion(monkeypatch):
     monkeypatch.setattr(config, "CHECKPOINT_PROGRESS_S", 0.0)
     calls = []
-    entry = {"on_progress": calls.append, "_finished": True}
+    entry = _bare_entry(on_progress=calls.append, finished=True)
     solver_mod._entry_progress(entry)
     assert calls == []
-    entry["_finished"] = False
+    entry.finished = False
     solver_mod._entry_progress(entry)
     assert calls == [entry]
     monkeypatch.setattr(config, "CHECKPOINT_PROGRESS_S", -1.0)
@@ -520,7 +526,7 @@ def test_row_sink_resume_after_finished_emitters(tmp_path, monkeypatch, route, r
         if 0 in finished:
             raise RuntimeError("killed mid-solve")
         real_done(entry)
-        finished.append(entry["idx"])
+        finished.append(entry.idx)
 
     monkeypatch.setattr(solver_mod, "_entry_done", stop_after_emitter_0)
     with pytest.raises(RuntimeError):
@@ -572,8 +578,8 @@ def test_profile_hook(tmp_path, monkeypatch):
 
     monkeypatch.delenv("RAYSTRACK_TPU_PROFILE", raising=False)
     seen = []
-    monkeypatch.setattr(solver_mod, "_drive_matrix_pipelined",
-                        lambda *a, real=solver_mod._drive_matrix_pipelined, **k: (
+    monkeypatch.setattr(solver_mod, "_drive_pipelined",
+                        lambda *a, real=solver_mod._drive_pipelined, **k: (
                             seen.append(tracing.on()), real(*a, **k))[1])
     plain = view_factor_matrix(MESHES, params=PARAMS)
     assert seen == [False]

@@ -238,7 +238,7 @@ def test_cli_stream_out_resumes_after_finished_emitters(tmp_path, monkeypatch, s
         if 0 in finished:
             raise RuntimeError("killed mid-solve")
         real_done(entry)
-        finished.append(entry["idx"])
+        finished.append(entry.idx)
 
     monkeypatch.setattr(tsolver, "_entry_done", stop_after_emitter_0)
     with pytest.raises(RuntimeError):

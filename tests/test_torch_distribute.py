@@ -134,7 +134,7 @@ def test_sky_partitions_equal_full_solve(discrete, n_shards):
 def test_workflow_partitions_equal_full_solve(discrete, n_shards):
     """Merged shared-ray partitions (half-matrix kept on, post-merge
     back-fill) reproduce the single-process workflow exactly; each emitter
-    runs the shared state machine of solver._drive_monitors."""
+    runs the shared state machine of solver._drive_pipelined."""
     mp = MatrixParams(**{**BASE, "min_iters": 2}, max_iters=6, reciprocity=True)
     sp = SkyParams(**{**BASE, "min_iters": 2}, max_iters=5, discrete=discrete)
     vf_full, sky_full = view_factor_matrix_and_sky(MESHES, matrix_params=mp, sky_params=sp)
@@ -160,29 +160,27 @@ def test_drive_monitors_returns_the_iterations_traced():
 
     ps = PreparedSolver(MESHES)
     p = MatrixParams(**BASE, max_iters=7).as_dict()
-    sp_ = ps.get_scene_pack(device=torch.device("cpu"))
-    surf = tsolver._build_emitter_surface_mask(
-        0, ps.get_emitter(0, samples=8, rays=64, flip_faces=False), *ps.get_mesh_bounds())
+    setup = tsolver._setup(MESHES, ps, p, ray_mesh([torch.device("cpu")]), flip_faces=False)
+    surf = tsolver._build_emitter_surface_mask(0, setup.emitters[0], *setup.bounds)
 
-    def run():
-        return tsolver._emitter_run(ps, p, 0, surf, 0, 0, flip_faces=False, scene_pack=sp_,
-                                    device=torch.device("cpu"),
-                                    mesh=ray_mesh([torch.device("cpu")]), lazy=False)
-
-    def monitors(m_iters, s_iters):
-        r = run()
+    def entry(m_iters, s_iters):
+        r = tsolver._emitter_run(setup, 0, surf, 0, 0, lazy=False)
         kw = dict(n_rays_once=r.em_pack.n_rays_once, tol=1e-12, tol_mode="stderr",
                   interval=1)
         m = MatrixMonitor(len(MESHES), np.array([1, 2, 3], np.int32), min_iters=m_iters,
                           max_iters=m_iters, **kw)
         s = SkyMonitor(discrete=False, min_iters=s_iters, max_iters=s_iters, **kw)
-        return r, m, s
+        return tsolver._Entry(run=r, idx=0, name=MESHES[0][0], receivers=[1, 2, 3],
+                              surf_active=surf, emit_sid=0, min_sid=0, matrix=m,
+                              sky=s if s_iters else None)
 
-    r, m, s = monitors(3, 7)
-    assert tsolver._drive_monitors(r, m, s, discrete=False) == 7
-    assert (m.iters_done, s.iters_done, r.packs) == (3, 7, {})
-    r, m, _ = monitors(5, 1)
-    assert tsolver._drive_monitors(r, m, None, discrete=False) == 5
+    e = entry(3, 7)
+    tsolver._drive_pipelined([e])
+    assert e.trace_iters == 7
+    assert (e.matrix.iters_done, e.sky.iters_done, e.run.packs) == (3, 7, {})
+    e = entry(5, 0)
+    tsolver._drive_pipelined([e])
+    assert e.trace_iters == 5
 
 
 def test_workflow_partition_rejects_incompatible_params():

@@ -1,7 +1,7 @@
 """Port parity of the scheduled route, and the repairs that came with it.
 
 The scheduled route traces one convergence round of many emitters per
-dispatch (``solver._drive_matrix_scheduled`` -> ``ops.trace.scheduled_trace``
+dispatch (``solver._drive_scheduled`` -> ``ops.trace.scheduled_trace``
 -> sweep kernel #2). On the CPU the port runs the kernels' plain versions;
 the JAX package runs as its own tests run it (the Pallas kernels in
 interpret mode). Inputs come from NumPy seeds.

@@ -351,7 +351,7 @@ def test_checkpoint_with_mesh_resumes_at_another_shard_count(monkeypatch, tmp_pa
 
     def stop_after_first(entry):
         real_done(entry)
-        finished.append(entry["idx"])
+        finished.append(entry.idx)
         raise Stop
 
     monkeypatch.setattr(tsolver, "_entry_done", stop_after_first)

@@ -83,12 +83,10 @@ def _slot_log(monkeypatch):
 
 
 def _one_in_flight(monkeypatch):
-    """Both per-emitter drives with ``depth`` 1: one chunk in flight, slot 0."""
-    pipelined, combined = solver_mod._drive_pipelined, solver_mod._drive_combined_pipelined
+    """The per-emitter driver with ``depth`` 1: one chunk in flight, slot 0."""
+    pipelined = solver_mod._drive_pipelined
     monkeypatch.setattr(solver_mod, "_drive_pipelined",
                         lambda *a, **k: pipelined(*a, **{**k, "depth": 1}))
-    monkeypatch.setattr(solver_mod, "_drive_combined_pipelined",
-                        lambda *a, **k: combined(*a, **{**k, "depth": 1}))
 
 
 @pytest.mark.parametrize("kind", ["matrix", "sky", "workflow"])
